@@ -1,0 +1,278 @@
+"""Model assembly: body/joint/dof topology, collision pair table, simple dofs.
+
+Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
+Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
+port parses; integer columns become static tuples.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_ros_pkgs_tpu_torch.core import types
+from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, JointType
+from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import PAIR_NCON
+
+
+def collision_pair_table(geom_type, geom_contype, geom_conaffinity,
+                         geom_bodyid, body_weldid, body_parentid,
+                         filterparent, excludes, explicit_pairs,
+                         collision_mode="all"):
+    """Static collision pair list + total contact capacity (mj_collision's
+    weld/parent/exclude body filter and the contype/conaffinity rule)."""
+    ngeom = len(geom_type)
+    pairs = []
+    if collision_mode != "predefined":
+        for g1 in range(ngeom):
+            for g2 in range(g1 + 1, ngeom):
+                b1, b2 = geom_bodyid[g1], geom_bodyid[g2]
+                w1, w2 = body_weldid[b1], body_weldid[b2]
+                if w1 == w2:
+                    continue
+                if (b1, b2) in excludes or (b2, b1) in excludes:
+                    continue
+                if filterparent and w1 != 0 and w2 != 0:
+                    wp1 = body_weldid[body_parentid[w1]]
+                    wp2 = body_weldid[body_parentid[w2]]
+                    if w1 == wp2 or w2 == wp1:
+                        continue
+                if not ((geom_contype[g1] & geom_conaffinity[g2])
+                        or (geom_contype[g2] & geom_conaffinity[g1])):
+                    continue
+                pairs.append((g1, g2))
+    for (g1, g2) in explicit_pairs:
+        if (g1, g2) not in pairs and (g2, g1) not in pairs:
+            pairs.append((g1, g2))
+
+    ordered, ncon_max = [], 0
+    for (g1, g2) in pairs:
+        t1, t2 = geom_type[g1], geom_type[g2]
+        if t1 > t2:
+            g1, g2, t1, t2 = g2, g1, t2, t1
+        cap = PAIR_NCON.get((GeomType(t1), GeomType(t2)))
+        if cap is None:
+            continue
+        ordered.append((g1, g2))
+        ncon_max += cap
+    return tuple(ordered), ncon_max
+
+
+def compute_simple_dofs(body_parentid, body_dofnum, body_dofadr, jnt_bodyid,
+                        jnt_type, body_ipos, body_iquat):
+    """Dofs with structurally-diagonal qM rows (libmujoco's dof_simplenum>0):
+    dofs of an isolated single-joint body with identity inertia orientation
+    and, for free/ball joints, the com at the joint frame."""
+    nbody = len(body_parentid)
+    ipos = np.asarray(body_ipos, dtype=np.float64)
+    iquat = np.asarray(body_iquat, dtype=np.float64)
+    has_desc_dofs = np.zeros(nbody, dtype=bool)
+    for b in range(nbody - 1, 0, -1):
+        if body_dofnum[b] or has_desc_dofs[b]:
+            has_desc_dofs[body_parentid[b]] = True
+    simple = []
+    for b in range(1, nbody):
+        if not body_dofnum[b] or has_desc_dofs[b]:
+            continue
+        p = body_parentid[b]
+        anc = False
+        while p != 0:
+            if body_dofnum[p]:
+                anc = True
+                break
+            p = body_parentid[p]
+        if anc:
+            continue
+        jids = [j for j in range(len(jnt_bodyid)) if jnt_bodyid[j] == b]
+        if len(jids) != 1:
+            continue
+        jt = jnt_type[jids[0]]
+        if (abs(iquat[b][0] - 1.0) > 1e-12
+                or np.any(np.abs(iquat[b][1:]) > 1e-12)):
+            continue
+        if jt in (int(JointType.FREE), int(JointType.BALL)) and np.any(
+                np.abs(ipos[b]) > 1e-12):
+            continue
+        simple.extend(range(body_dofadr[b], body_dofadr[b] + body_dofnum[b]))
+    return tuple(simple)
+
+
+def _t(x, width=None) -> torch.Tensor:
+    arr = np.asarray(x, dtype=np.float64)
+    if width is not None and arr.size == 0:
+        arr = arr.reshape(0, width)
+    return torch.as_tensor(arr, dtype=torch.float64)
+
+
+def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
+    nbody, njnt, ngeom = len(bodies), len(jnts), len(geoms)
+
+    # ---------------- body topology ----------------
+    body_parentid = [b.parentid for b in bodies]
+    body_rootid = [0] * nbody
+    for i in range(1, nbody):
+        j = i
+        while body_parentid[j] != 0:
+            j = body_parentid[j]
+        body_rootid[i] = j
+    body_weldid = [0] * nbody
+    for i in range(1, nbody):
+        body_weldid[i] = i if bodies[i].joints else body_weldid[body_parentid[i]]
+
+    # ---------------- joint / dof layout ----------------
+    jnt_qposadr, jnt_dofadr = [], []
+    nq = nv = 0
+    for j in jnts:
+        jt = JointType(j.type)
+        jnt_qposadr.append(nq)
+        jnt_dofadr.append(nv)
+        nq += jt.nq()
+        nv += jt.nv()
+
+    body_jntnum = [len(b.joints) for b in bodies]
+    body_jntadr = [(b.joints[0] if b.joints else -1) for b in bodies]
+    body_dofnum = [sum(JointType(jnts[ji].type).nv() for ji in b.joints)
+                   for b in bodies]
+    body_dofadr = [(jnt_dofadr[b.joints[0]] if b.joints else -1) for b in bodies]
+
+    dof_bodyid, dof_jntid = [], []
+    for ji, j in enumerate(jnts):
+        for _ in range(JointType(j.type).nv()):
+            dof_bodyid.append(j.bodyid)
+            dof_jntid.append(ji)
+
+    # previous dof in the body's joint chain, else the last dof of the
+    # nearest ancestor body with dofs, else -1
+    dof_parentid = [-1] * nv
+    last_body_dof = [-1] * nbody
+    for bi in range(1, nbody):
+        anc = body_parentid[bi]
+        while anc != 0 and last_body_dof[anc] < 0:
+            anc = body_parentid[anc]
+        prev = last_body_dof[anc] if anc != 0 else -1
+        for ji in bodies[bi].joints:
+            adr = jnt_dofadr[ji]
+            for k in range(JointType(jnts[ji].type).nv()):
+                dof_parentid[adr + k] = prev
+                prev = adr + k
+        last_body_dof[bi] = prev if bodies[bi].joints else -1
+
+    # ---------------- qpos0 / qpos_spring ----------------
+    qpos0 = np.zeros(nq)
+    qpos_spring = np.zeros(nq)
+    for ji, j in enumerate(jnts):
+        adr = jnt_qposadr[ji]
+        t = JointType(j.type)
+        if t == JointType.FREE:
+            if body_parentid[j.bodyid] != 0:
+                raise ValueError("free joint must be on a child of world")
+            qpos0[adr:adr + 3] = bodies[j.bodyid].pos
+            qpos0[adr + 3:adr + 7] = bodies[j.bodyid].quat
+            qpos_spring[adr:adr + 7] = qpos0[adr:adr + 7]
+        elif t == JointType.BALL:
+            qpos0[adr] = 1.0
+            qpos_spring[adr] = 1.0
+        else:
+            qpos0[adr] = j.ref
+            qpos_spring[adr] = j.springref
+
+    body_subtreemass = np.array([b.mass for b in bodies], dtype=np.float64)
+    for i in range(nbody - 1, 0, -1):
+        body_subtreemass[body_parentid[i]] += body_subtreemass[i]
+
+    filterparent = not bool(opt["disableflags"] & types.DisableBit.FILTERPARENT)
+    ordered, ncon_max = collision_pair_table(
+        geom_type=tuple(g.type for g in geoms),
+        geom_contype=tuple(g.contype for g in geoms),
+        geom_conaffinity=tuple(g.conaffinity for g in geoms),
+        geom_bodyid=tuple(g.bodyid for g in geoms),
+        body_weldid=tuple(body_weldid),
+        body_parentid=tuple(body_parentid),
+        filterparent=filterparent, excludes=(), explicit_pairs=(),
+        collision_mode=opt["collision_mode"])
+
+    option = types.Option(
+        timestep=_t(opt["timestep"]), gravity=_t(opt["gravity"]),
+        wind=_t(opt["wind"]), magnetic=_t(opt["magnetic"]),
+        density=_t(opt["density"]), viscosity=_t(opt["viscosity"]),
+        impratio=_t(opt["impratio"]), o_margin=_t(opt["o_margin"]),
+        o_solref=_t(opt["o_solref"]), o_solimp=_t(opt["o_solimp"]),
+        tolerance=_t(opt["tolerance"]), ls_tolerance=_t(opt["ls_tolerance"]),
+        integrator=opt["integrator"], cone=opt["cone"], solver=opt["solver"],
+        iterations=opt["iterations"], ls_iterations=opt["ls_iterations"],
+        disableflags=opt["disableflags"])
+
+    m = types.Model(
+        nq=nq, nv=nv, nbody=nbody, njnt=njnt, ngeom=ngeom, opt=option,
+        qpos0=_t(qpos0), qpos_spring=_t(qpos_spring),
+        body_parentid=tuple(body_parentid), body_rootid=tuple(body_rootid),
+        body_weldid=tuple(body_weldid),
+        body_jntnum=tuple(body_jntnum), body_jntadr=tuple(body_jntadr),
+        body_dofnum=tuple(body_dofnum), body_dofadr=tuple(body_dofadr),
+        body_geomnum=tuple(len(b.geoms) for b in bodies),
+        body_geomadr=tuple((b.geoms[0] if b.geoms else -1) for b in bodies),
+        body_mocapid=(-1,) * nbody,
+        body_pos=_t([b.pos for b in bodies]),
+        body_quat=_t([b.quat for b in bodies]),
+        body_ipos=_t([b.ipos for b in bodies]),
+        body_iquat=_t([b.iquat for b in bodies]),
+        body_mass=_t([b.mass for b in bodies]),
+        body_subtreemass=_t(body_subtreemass),
+        body_inertia=_t([b.inertia for b in bodies]),
+        body_invweight0=_t(np.zeros((nbody, 2))),
+        jnt_type=tuple(j.type for j in jnts),
+        jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_dofadr),
+        jnt_bodyid=tuple(j.bodyid for j in jnts),
+        jnt_limited=tuple(j.limited for j in jnts),
+        jnt_pos=_t([j.pos for j in jnts], 3),
+        jnt_axis=_t([j.axis for j in jnts], 3),
+        jnt_stiffness=_t([j.stiffness for j in jnts]),
+        jnt_range=_t([j.range for j in jnts], 2),
+        jnt_solref=_t([j.solref for j in jnts], 2),
+        jnt_solimp=_t([j.solimp for j in jnts], 5),
+        jnt_margin=_t([j.margin for j in jnts]),
+        dof_bodyid=tuple(dof_bodyid), dof_jntid=tuple(dof_jntid),
+        dof_parentid=tuple(dof_parentid),
+        dof_armature=_t([jnts[j].armature for j in dof_jntid]),
+        dof_damping=_t([jnts[j].damping for j in dof_jntid]),
+        dof_invweight0=_t(np.zeros(nv)),
+        dof_frictionloss=_t([jnts[j].frictionloss for j in dof_jntid]),
+        dof_solref=_t([jnts[j].solref_fri for j in dof_jntid], 2),
+        dof_solimp=_t([jnts[j].solimp_fri for j in dof_jntid], 5),
+        geom_type=tuple(g.type for g in geoms),
+        geom_bodyid=tuple(g.bodyid for g in geoms),
+        geom_contype=tuple(g.contype for g in geoms),
+        geom_conaffinity=tuple(g.conaffinity for g in geoms),
+        geom_condim=tuple(g.condim for g in geoms),
+        geom_priority=tuple(g.priority for g in geoms),
+        geom_dataid=(-1,) * ngeom,
+        geom_size=_t([g.size for g in geoms], 3),
+        geom_rbound=_t([g.rbound for g in geoms]),
+        geom_pos=_t([g.pos for g in geoms], 3),
+        geom_quat=_t([g.quat for g in geoms], 4),
+        geom_friction=_t([g.friction for g in geoms], 3),
+        geom_solmix=_t([g.solmix for g in geoms]),
+        geom_solref=_t([g.solref for g in geoms], 2),
+        geom_solimp=_t([g.solimp for g in geoms], 5),
+        geom_margin=_t([g.margin for g in geoms]),
+        geom_gap=_t([g.gap for g in geoms]),
+        name=name,
+        body_names=tuple(b.name for b in bodies),
+        jnt_names=tuple(j.name for j in jnts),
+        geom_names=tuple(g.name for g in geoms),
+        dof_floss_adr=tuple(v for v in range(nv)
+                            if jnts[dof_jntid[v]].frictionloss > 0),
+        has_damping=bool(any(jnts[j].damping > 0 for j in dof_jntid)),
+        has_fluid=bool(opt["density"] > 0 or opt["viscosity"] > 0
+                       or np.any(np.asarray(opt["wind"]) != 0)),
+        dof_simple=compute_simple_dofs(
+            tuple(body_parentid), tuple(body_dofnum), tuple(body_dofadr),
+            tuple(j.bodyid for j in jnts), tuple(j.type for j in jnts),
+            np.stack([b.ipos for b in bodies]),
+            np.stack([b.iquat for b in bodies])),
+        collision_pairs=ordered, ncon_max=ncon_max,
+        collision_mode=opt["collision_mode"],
+    )
+
+    from mujoco_ros_pkgs_tpu_torch.core import constants
+    return constants.set_constants(m)

@@ -1,0 +1,51 @@
+"""Derived model constants needing dynamics at qpos0 (mj_setConst analogue).
+
+Counterpart of mujoco_ros_pkgs_tpu/core/constants.py: dof_invweight0 and
+body_invweight0 from the port's own kinematics/com_pos/crb at qpos0, in the
+model's (float64, load-time) precision.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mujoco_ros_pkgs_tpu_torch.core.types import JointType, Model
+
+
+def set_constants(m: Model) -> Model:
+    from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+    from mujoco_ros_pkgs_tpu_torch.ops import smooth
+
+    if m.nv == 0:
+        return m
+    kin = smooth.kinematics(m, m.qpos0[None])
+    subtree_com, cinert, cdof = smooth.com_pos(m, kin)
+    qM = smooth.crb(m, cinert, cdof)[0]
+    cdof, xipos, subtree_com = cdof[0], kin.xipos[0], subtree_com[0]
+
+    Minv = torch.linalg.inv(qM)
+    dof_invweight0 = torch.diagonal(Minv).clone()
+    # libmujoco averages invweight0 within ball / free-joint dof groups
+    for j in range(m.njnt):
+        adr = m.jnt_dofadr[j]
+        if m.jnt_type[j] == int(JointType.BALL):
+            dof_invweight0[adr:adr + 3] = dof_invweight0[adr:adr + 3].mean()
+        elif m.jnt_type[j] == int(JointType.FREE):
+            dof_invweight0[adr:adr + 3] = dof_invweight0[adr:adr + 3].mean()
+            dof_invweight0[adr + 3:adr + 6] = dof_invweight0[adr + 3:adr + 6].mean()
+
+    # body_invweight0: mean diagonal of J M^-1 J^T for the body-com jacobian
+    bmask = torch.as_tensor(smooth.body_dof_mask(m), dtype=qM.dtype)
+    ref = subtree_com[torch.as_tensor(m.body_rootid, dtype=torch.int64)]
+    inv = []
+    for b in range(m.nbody):
+        mask = bmask[:, b:b + 1]
+        offset = xipos[b] - ref[b]
+        jacp = (cdof[:, 3:] + mmath.cross(cdof[:, :3], offset[None, :])) * mask
+        jacr = cdof[:, :3] * mask
+        inv.append(torch.stack([torch.trace(jacp.T @ Minv @ jacp) / 3.0,
+                                torch.trace(jacr.T @ Minv @ jacr) / 3.0]))
+    return dataclasses.replace(m, dof_invweight0=dof_invweight0,
+                               body_invweight0=torch.stack(inv))

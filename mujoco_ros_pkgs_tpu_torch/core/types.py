@@ -1,0 +1,271 @@
+"""Core types: enums, Option, Model (static physics constants), Data (batched state).
+
+PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
+port runs today (world + free/ball/hinge/slide joint trees, primitive geoms).
+Static topology stays plain Python ints and tuples; arrays are tensors.
+`Data` is batch-first: every field carries a leading env axis, and the step
+functions take the whole batch at once.
+
+Integer enum values match mjtJoint/mjtGeom/... of MuJoCo 2.3.7, exactly as in
+the JAX package, so the two compile the same model to the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import torch
+
+
+class DisableBit(enum.IntFlag):
+    """mjtDisableBit (mjmodel.h)."""
+    CONSTRAINT = 1 << 0
+    EQUALITY = 1 << 1
+    FRICTIONLOSS = 1 << 2
+    LIMIT = 1 << 3
+    CONTACT = 1 << 4
+    PASSIVE = 1 << 5
+    GRAVITY = 1 << 6
+    CLAMPCTRL = 1 << 7
+    WARMSTART = 1 << 8
+    FILTERPARENT = 1 << 9
+    ACTUATION = 1 << 10
+    REFSAFE = 1 << 11
+    SENSOR = 1 << 12
+
+
+class JointType(enum.IntEnum):
+    FREE = 0
+    BALL = 1
+    SLIDE = 2
+    HINGE = 3
+
+    def nq(self) -> int:
+        return {0: 7, 1: 4, 2: 1, 3: 1}[int(self)]
+
+    def nv(self) -> int:
+        return {0: 6, 1: 3, 2: 1, 3: 1}[int(self)]
+
+
+class GeomType(enum.IntEnum):
+    PLANE = 0
+    HFIELD = 1
+    SPHERE = 2
+    CAPSULE = 3
+    ELLIPSOID = 4
+    CYLINDER = 5
+    BOX = 6
+    MESH = 7
+
+
+class IntegratorType(enum.IntEnum):
+    EULER = 0
+    RK4 = 1
+    IMPLICIT = 2
+    IMPLICITFAST = 3
+
+
+class ConeType(enum.IntEnum):
+    PYRAMIDAL = 0
+    ELLIPTIC = 1
+
+
+class SolverType(enum.IntEnum):
+    PGS = 0
+    CG = 1
+    NEWTON = 2
+
+
+def _array():
+    """A tensor field (moved and cast by `.to`, carried by `model_from_numpy`)."""
+    return field(default=None, metadata={"array": True})
+
+
+def array_fields(cls) -> Tuple[str, ...]:
+    return tuple(f.name for f in dataclasses.fields(cls) if f.metadata.get("array"))
+
+
+def static_fields(cls) -> Tuple[str, ...]:
+    return tuple(f.name for f in dataclasses.fields(cls)
+                 if not f.metadata.get("array") and f.name != "opt")
+
+
+def _to(obj, device, dtype):
+    upd = {}
+    for name in array_fields(type(obj)):
+        t = getattr(obj, name)
+        upd[name] = t.to(device=device,
+                         dtype=dtype if (dtype is not None and t.is_floating_point())
+                         else t.dtype)
+    return dataclasses.replace(obj, **upd)
+
+
+@dataclass
+class Option:
+    """mjOption analogue (MJCF <option>)."""
+    timestep: torch.Tensor = _array()
+    gravity: torch.Tensor = _array()       # (3,)
+    wind: torch.Tensor = _array()          # (3,)
+    magnetic: torch.Tensor = _array()      # (3,)
+    density: torch.Tensor = _array()
+    viscosity: torch.Tensor = _array()
+    impratio: torch.Tensor = _array()
+    o_margin: torch.Tensor = _array()
+    o_solref: torch.Tensor = _array()      # (2,)
+    o_solimp: torch.Tensor = _array()      # (5,)
+    tolerance: torch.Tensor = _array()
+    ls_tolerance: torch.Tensor = _array()
+    integrator: int = int(IntegratorType.EULER)
+    cone: int = int(ConeType.PYRAMIDAL)
+    solver: int = int(SolverType.NEWTON)
+    iterations: int = 100
+    ls_iterations: int = 50
+    disableflags: int = 0
+
+    def to(self, device=None, dtype=None) -> "Option":
+        return _to(self, device, dtype)
+
+
+@dataclass
+class Model:
+    """mjModel analogue: compiled physics constants of one MJCF model.
+
+    Tensors are float64 after compile; `to(device, dtype)` moves and casts
+    them. Tuple and int fields are static structure.
+    """
+    # ---- sizes ----
+    nq: int = 0
+    nv: int = 0
+    nu: int = 0
+    na: int = 0
+    nbody: int = 0
+    njnt: int = 0
+    ngeom: int = 0
+    neq: int = 0
+    ntendon: int = 0
+    nsensor: int = 0
+    nsensordata: int = 0
+
+    opt: Option = None
+
+    qpos0: torch.Tensor = _array()            # (nq,)
+    qpos_spring: torch.Tensor = _array()      # (nq,)
+
+    # ---- bodies ----
+    body_parentid: Tuple[int, ...] = ()
+    body_rootid: Tuple[int, ...] = ()
+    body_weldid: Tuple[int, ...] = ()
+    body_jntnum: Tuple[int, ...] = ()
+    body_jntadr: Tuple[int, ...] = ()
+    body_dofnum: Tuple[int, ...] = ()
+    body_dofadr: Tuple[int, ...] = ()
+    body_geomnum: Tuple[int, ...] = ()
+    body_geomadr: Tuple[int, ...] = ()
+    body_mocapid: Tuple[int, ...] = ()
+    body_pos: torch.Tensor = _array()         # (nbody, 3)
+    body_quat: torch.Tensor = _array()        # (nbody, 4)
+    body_ipos: torch.Tensor = _array()        # (nbody, 3)
+    body_iquat: torch.Tensor = _array()       # (nbody, 4)
+    body_mass: torch.Tensor = _array()        # (nbody,)
+    body_subtreemass: torch.Tensor = _array()
+    body_inertia: torch.Tensor = _array()     # (nbody, 3)
+    body_invweight0: torch.Tensor = _array()  # (nbody, 2)
+
+    # ---- joints ----
+    jnt_type: Tuple[int, ...] = ()
+    jnt_qposadr: Tuple[int, ...] = ()
+    jnt_dofadr: Tuple[int, ...] = ()
+    jnt_bodyid: Tuple[int, ...] = ()
+    jnt_limited: Tuple[int, ...] = ()
+    jnt_pos: torch.Tensor = _array()          # (njnt, 3)
+    jnt_axis: torch.Tensor = _array()         # (njnt, 3)
+    jnt_stiffness: torch.Tensor = _array()    # (njnt,)
+    jnt_range: torch.Tensor = _array()        # (njnt, 2)
+    jnt_solref: torch.Tensor = _array()       # (njnt, 2)
+    jnt_solimp: torch.Tensor = _array()       # (njnt, 5)
+    jnt_margin: torch.Tensor = _array()       # (njnt,)
+
+    # ---- dofs ----
+    dof_bodyid: Tuple[int, ...] = ()
+    dof_jntid: Tuple[int, ...] = ()
+    dof_parentid: Tuple[int, ...] = ()        # -1 for root dofs
+    dof_armature: torch.Tensor = _array()     # (nv,)
+    dof_damping: torch.Tensor = _array()      # (nv,)
+    dof_invweight0: torch.Tensor = _array()   # (nv,)
+    dof_frictionloss: torch.Tensor = _array()
+    dof_solref: torch.Tensor = _array()       # (nv, 2)
+    dof_solimp: torch.Tensor = _array()       # (nv, 5)
+
+    # ---- geoms ----
+    geom_type: Tuple[int, ...] = ()
+    geom_bodyid: Tuple[int, ...] = ()
+    geom_contype: Tuple[int, ...] = ()
+    geom_conaffinity: Tuple[int, ...] = ()
+    geom_condim: Tuple[int, ...] = ()
+    geom_priority: Tuple[int, ...] = ()
+    geom_dataid: Tuple[int, ...] = ()
+    geom_size: torch.Tensor = _array()        # (ngeom, 3)
+    geom_rbound: torch.Tensor = _array()      # (ngeom,)
+    geom_pos: torch.Tensor = _array()         # (ngeom, 3)
+    geom_quat: torch.Tensor = _array()        # (ngeom, 4)
+    geom_friction: torch.Tensor = _array()    # (ngeom, 3)
+    geom_solmix: torch.Tensor = _array()      # (ngeom,)
+    geom_solref: torch.Tensor = _array()      # (ngeom, 2)
+    geom_solimp: torch.Tensor = _array()      # (ngeom, 5)
+    geom_margin: torch.Tensor = _array()      # (ngeom,)
+    geom_gap: torch.Tensor = _array()         # (ngeom,)
+
+    # ---- names ----
+    name: str = ""
+    body_names: Tuple[str, ...] = ()
+    jnt_names: Tuple[str, ...] = ()
+    geom_names: Tuple[str, ...] = ()
+
+    # ---- static structure flags (decided at compile) ----
+    dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
+    has_damping: bool = False
+    has_fluid: bool = False
+    dof_simple: Tuple[int, ...] = ()
+
+    # ---- collision pair table ----
+    collision_pairs: Tuple[Tuple[int, int], ...] = ()
+    ncon_max: int = 0
+    pair_exclude: Tuple[Tuple[int, int], ...] = ()
+    pair_explicit: Tuple[Tuple[int, int], ...] = ()
+    collision_mode: str = "all"
+    pair_topk: int = 0
+
+    def to(self, device=None, dtype=None) -> "Model":
+        """Copy with every tensor on `device`, floating tensors cast to `dtype`."""
+        m = _to(self, device, dtype)
+        return dataclasses.replace(m, opt=self.opt.to(device, dtype))
+
+    @property
+    def device(self) -> torch.device:
+        return self.qpos0.device
+
+    def body(self, name: str) -> int:
+        """Body id by name (mj_name2id)."""
+        return self.body_names.index(name)
+
+
+@dataclass
+class Data:
+    """mjData analogue for a batch of envs: every field has a leading env axis.
+
+    Only the integrated state and the inputs the fused step reads are kept;
+    derived quantities (xpos, contacts, ...) are recomputed where needed."""
+    time: torch.Tensor           # (B,)
+    qpos: torch.Tensor           # (B, nq)
+    qvel: torch.Tensor           # (B, nv)
+    qacc: torch.Tensor           # (B, nv)
+    qacc_warmstart: torch.Tensor  # (B, nv)
+    ctrl: torch.Tensor           # (B, nu)
+    qfrc_applied: torch.Tensor   # (B, nv)
+    xfrc_applied: torch.Tensor   # (B, nbody, 6)
+
+    def replace(self, **kw) -> "Data":
+        return dataclasses.replace(self, **kw)

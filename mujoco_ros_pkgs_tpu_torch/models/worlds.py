@@ -1,0 +1,82 @@
+"""Built-in worlds (MJCF strings, no external assets), copied from
+mujoco_ros_pkgs_tpu/models/worlds.py, which the port cannot import (that
+package imports JAX):
+
+  PENDULUM — ball + 2-hinge arm, free ball, static ground
+  BOXES    — one free box over a ground plane (the fused-step world)
+  PILE     — 12 free bodies in a walled bin (contact-rich)
+"""
+
+PENDULUM = """
+<mujoco model="pendulum_bench">
+  <option timestep="0.001" gravity="0 0 -9.81" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="5 5 10"/>
+    <body name="base_link">
+      <geom type="capsule" fromto="0 0 1 0 0 0.6" size="0.06"/>
+      <joint name="balljoint" type="ball" pos="0 0 1"/>
+      <body name="middle_link">
+        <geom type="capsule" fromto="0 0 0.6 0 0 0.3" size="0.04"/>
+        <joint name="joint1" type="hinge" pos="0 0 0.6" axis="0 1 0"/>
+        <body name="end_link">
+          <geom name="EE" type="capsule" fromto="0 0 0.3 0 0 0.1" size="0.02"/>
+          <joint name="joint2" type="hinge" pos="0 0 0.3" axis="0 1 0"/>
+        </body>
+      </body>
+    </body>
+    <body name="ball" pos="1 0 0.06">
+      <freejoint/>
+      <geom type="sphere" size="0.05" mass="0.1"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+BOXES = """
+<mujoco model="boxes_bench">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="10 10 1"/>
+    <body name="box" pos="0 0 0.2">
+      <freejoint/>
+      <geom name="box" type="box" size="0.1 0.1 0.1" mass="0.5"
+            friction="1 0.005 0.0001"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+# contact-rich manipulation arena: 12 free bodies (boxes/spheres/capsules) in
+# a walled bin — BASELINE config 5's scene shape (dozens of simultaneous
+# contacts, ~90 collision pairs/env). Used by the contact-rich benchmark and
+# the broadphase tests.
+_PILE_BODIES = "\n".join(
+    f"""    <body name="pb{i}" pos="{0.22*(i%4)-0.33:.2f} {0.22*(i//4)-0.22:.2f} {0.12+0.11*i:.2f}">
+      <freejoint/>
+      <geom name="pg{i}" type="{t}" size="{s}" mass="0.3"
+            friction="0.8 0.005 0.0001"/>
+    </body>"""
+    for i, (t, s) in enumerate(
+        [("box", "0.05 0.045 0.04"), ("sphere", "0.05"),
+         ("capsule", "0.04 0.05"), ("box", "0.055 0.05 0.035"),
+         ("sphere", "0.045"), ("capsule", "0.035 0.06"),
+         ("box", "0.05 0.04 0.05"), ("sphere", "0.055"),
+         ("box", "0.045 0.05 0.045"), ("capsule", "0.045 0.045"),
+         ("sphere", "0.04"), ("box", "0.04 0.055 0.05")]))
+
+PILE = f"""
+<mujoco model="pile_bench">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="elliptic" iterations="12"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="2 2 1"/>
+    <geom name="wall_xp" type="box" pos="0.55 0 0.15" size="0.02 0.6 0.15"/>
+    <geom name="wall_xm" type="box" pos="-0.55 0 0.15" size="0.02 0.6 0.15"/>
+    <geom name="wall_yp" type="box" pos="0 0.55 0.15" size="0.6 0.02 0.15"/>
+    <geom name="wall_ym" type="box" pos="0 -0.55 0.15" size="0.6 0.02 0.15"/>
+{_PILE_BODIES}
+  </worldbody>
+</mujoco>
+"""

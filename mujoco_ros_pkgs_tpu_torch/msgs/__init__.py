@@ -1,0 +1,55 @@
+"""Typed control-plane messages the port's server answers with.
+
+Copies of the dataclasses in mujoco_ros_pkgs_tpu/msgs (one type per
+mujoco_ros_msgs payload); the port cannot import that package, whose
+__init__ imports JAX.
+"""
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class Pose:
+    position: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    orientation: np.ndarray = field(
+        default_factory=lambda: np.array([1.0, 0, 0, 0]))  # (w,x,y,z)
+    # the TF frame the pose is expressed in ("" / "world" = world frame)
+    frame_id: str = ""
+
+
+@dataclass
+class Twist:
+    linear: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    angular: np.ndarray = field(default_factory=lambda: np.zeros(3))
+
+
+@dataclass
+class BodyState:
+    """mujoco_ros_msgs/BodyState (name, pose, twist, mass)."""
+    name: str = ""
+    pose: Pose = field(default_factory=Pose)
+    twist: Twist = field(default_factory=Twist)
+    mass: float = 0.0
+    env_id: Optional[int] = None   # batched extension: which env (None = all)
+
+
+@dataclass
+class StateUint:
+    """mujoco_ros_msgs/StateUint (loading request state)."""
+    value: int = 0
+    description: str = ""
+
+
+@dataclass
+class ServiceResult:
+    """Common .srv response payload (success + status message)."""
+    success: bool = True
+    status_message: str = ""
+
+
+@dataclass
+class StepResult:
+    success: bool = True

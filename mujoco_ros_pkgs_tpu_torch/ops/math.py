@@ -1,0 +1,102 @@
+"""Quaternion and 6D spatial algebra in MuJoCo conventions, on batched tensors.
+
+Counterpart of mujoco_ros_pkgs_tpu/ops/math.py. Every function broadcasts
+over leading dims: a quaternion is (..., 4) as (w, x, y, z), a vector is
+(..., 3), a spatial vector is (..., 6) with the rotation first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# mjMINVAL
+MINVAL = 1e-15
+
+
+def norm_safe(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp((x * x).sum(-1), min=MINVAL * MINVAL))
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / norm_safe(x)[..., None]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Hamilton product u*v (mju_mulQuat)."""
+    u0, u1, u2, u3 = u.unbind(-1)
+    v0, v1, v2, v3 = v.unbind(-1)
+    return torch.stack([
+        u0 * v0 - u1 * v1 - u2 * v2 - u3 * v3,
+        u0 * v1 + u1 * v0 + u2 * v3 - u3 * v2,
+        u0 * v2 - u1 * v3 + u2 * v0 + u3 * v1,
+        u0 * v3 + u1 * v2 - u2 * v1 + u3 * v0,
+    ], -1)
+
+
+def rot_vec_quat(vec: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate vec by quaternion q (mju_rotVecQuat): world = R(q) @ local."""
+    u = q[..., 1:4]
+    w = q[..., 0:1]
+    c = cross(u, vec)
+    return vec + 2.0 * (w * c + cross(u, c))
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion to 3x3 rotation matrix (mju_quat2Mat)."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ]
+    return torch.stack(rows, -2)
+
+
+def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """(unit axis (..., 3), angle (...)) -> quaternion (mju_axisAngle2Quat)."""
+    s = torch.sin(angle * 0.5)
+    return torch.cat([torch.cos(angle * 0.5)[..., None], axis * s[..., None]], -1)
+
+
+def quat_integrate(q: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate a quaternion by body-local angular velocity
+    (mju_quatIntegrate): q' = q * exp(dt/2 * vel)."""
+    angle = norm_safe(vel) * dt
+    axis = normalize(vel)
+    return quat_mul(q, axis_angle_to_quat(axis, angle))
+
+
+def inert_vec_mul(inert: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Spatial inertia (..., 10) times motion vector (..., 6) (mju_mulInertVec);
+    inert = [Ixx Iyy Izz Ixy Ixz Iyz, hx hy hz, m]."""
+    Ixx, Iyy, Izz, Ixy, Ixz, Iyz = inert[..., :6].unbind(-1)
+    h = inert[..., 6:9]
+    m = inert[..., 9:10]
+    w, l = v[..., :3], v[..., 3:]
+    w0, w1, w2 = w.unbind(-1)
+    Iw = torch.stack([Ixx * w0 + Ixy * w1 + Ixz * w2,
+                      Ixy * w0 + Iyy * w1 + Iyz * w2,
+                      Ixz * w0 + Iyz * w1 + Izz * w2], -1)
+    return torch.cat([Iw + cross(h, l), m * l - cross(h, w)], -1)
+
+
+def inert_from_mass_com_fullinertia(mass, inertia_at_com, com):
+    """10-vector spatial inertia about a reference point from mass (...),
+    a 3x3 inertia about the com (..., 3, 3) and the com offset from the
+    reference point (..., 3). Parallel axis: I + m (c.c 1 - c c^T)."""
+    eye = torch.eye(3, dtype=com.dtype, device=com.device)
+    cc = com[..., :, None] * com[..., None, :]
+    shift = mass[..., None, None] * ((com * com).sum(-1)[..., None, None] * eye - cc)
+    full = inertia_at_com + shift
+    return torch.cat([
+        torch.stack([full[..., 0, 0], full[..., 1, 1], full[..., 2, 2],
+                     full[..., 0, 1], full[..., 0, 2], full[..., 1, 2]], -1),
+        mass[..., None] * com,
+        mass[..., None],
+    ], -1)

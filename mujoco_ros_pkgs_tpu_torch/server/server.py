@@ -1,0 +1,209 @@
+"""MujocoServer for the torch port: a batch of envs behind the service surface.
+
+Counterpart of mujoco_ros_pkgs_tpu/server/server.py for the requests the
+port serves today: stepping (the Step action), pause, reset, reload with
+rollback, gravity, body and batch state, loading state. The batch lives on
+one device; each step runs the whole batch through ops/forward.step, which
+on a CUDA device is one launch of the fused step kernel.
+
+Not ported yet: the real-time physics-loop thread, plugins, rendering, the
+distributed plane and the remaining services. The CLI (server/launch.py)
+drives the loop with `tick`.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mujoco_ros_pkgs_tpu_torch.core import mjcf
+from mujoco_ros_pkgs_tpu_torch.core.types import DisableBit, JointType, Model
+from mujoco_ros_pkgs_tpu_torch.msgs import (
+    BodyState, Pose, ServiceResult, StateUint, StepResult, Twist,
+)
+from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
+from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+
+# operational status (get_loading_request_state, callbacks.cpp:72-87)
+STATUS_RUNNING = 0
+STATUS_LOADING = 1
+
+CHUNK = 64     # substeps per batch of work between service requests
+
+
+class MujocoServer:
+    """Batched simulation server.
+
+    Args:
+      model: MJCF path or XML string.
+      nenv: number of lockstep env instances.
+      device: where the batch lives and steps ("cpu", "cuda", ...).
+      unpause: start running (the CLI's loop advances a running server).
+      num_steps: stop after this many steps of the loop (-1 = never).
+    """
+
+    def __init__(self, model: str, nenv: int = 1, *, device="cpu",
+                 unpause: bool = False, num_steps: int = -1):
+        self.nenv = int(nenv)
+        if self.nenv < 1:
+            raise ValueError(f"nenv must be >= 1, got {nenv}")
+        self.device = torch.device(device)
+        self.paused = not unpause
+        self.num_steps_until_exit = int(num_steps)
+        self._lock = threading.RLock()
+        self._status = STATUS_LOADING
+        self._load_error = ""
+        self._install(*self._compile(model), model)
+
+    # ------------------------------------------------------------------
+    # loading
+    # ------------------------------------------------------------------
+
+    def _compile(self, source: str):
+        """Compile a model and its step plan; raises on a bad or unsupported
+        model without touching the served state."""
+        if "<" in source:
+            m = mjcf.load_model_from_string(source)
+        else:
+            m = mjcf.load_model(source)
+        m = m.to(self.device, torch.float32)
+        return m, fwd.make_plan(m)
+
+    def _install(self, m: Model, plan, source: str):
+        self.m = m
+        self._plan = plan
+        self._model_source = source
+        self.d = fwd.make_data(m, self.nenv)
+        self._status = STATUS_RUNNING
+        self._load_error = ""
+
+    def reload(self, model: str = "") -> ServiceResult:
+        """Reload the current or a new model; on failure the old model keeps
+        serving (initModelFromQueue, mujoco_env.cpp:851-869)."""
+        source = model or self._model_source
+        with self._lock:
+            self._status = STATUS_LOADING
+            try:
+                m, plan = self._compile(source)
+            except (ValueError, NotImplementedError, SyntaxError, OSError) as exc:
+                # ET.ParseError is a SyntaxError
+                self._load_error = f"{type(exc).__name__}: {exc}"
+                self._status = STATUS_RUNNING
+                return ServiceResult(False, self._load_error)
+            self._install(m, plan, source)
+        return ServiceResult(True, "")
+
+    def get_loading_request_state(self) -> StateUint:
+        desc = {STATUS_RUNNING: "simulation ready",
+                STATUS_LOADING: "loading in progress"}[self._status]
+        return StateUint(self._status, desc)
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+
+    def _run(self, nsteps: int):
+        with self._lock:
+            m, plan, d = self.m, self._plan, self.d
+            for _ in range(nsteps):
+                d = fwd.step(m, d, plan)
+            self.d = d
+
+    def step(self, nsteps: int = 1) -> StepResult:
+        """The Step action (callbacks.cpp:94-129): rejected while running
+        and for nsteps <= 0; advances in chunks of CHUNK substeps."""
+        if not self.paused or nsteps <= 0:
+            return StepResult(success=False)
+        left = nsteps
+        while left > 0:
+            chunk = min(left, CHUNK)
+            self._run(chunk)
+            left -= chunk
+        return StepResult(success=True)
+
+    def tick(self) -> int:
+        """One pass of the physics loop: a running server advances one chunk
+        (bounded by num_steps); returns the substeps taken."""
+        if self.paused or self.num_steps_until_exit == 0:
+            return 0
+        chunk = CHUNK
+        if self.num_steps_until_exit > 0:
+            chunk = min(chunk, self.num_steps_until_exit)
+            self.num_steps_until_exit -= chunk
+        self._run(chunk)
+        return chunk
+
+    @property
+    def sim_time(self) -> float:
+        with self._lock:
+            return float(self.d.time[0])
+
+    # ------------------------------------------------------------------
+    # services
+    # ------------------------------------------------------------------
+
+    def set_pause(self, paused: bool) -> ServiceResult:
+        with self._lock:
+            self.paused = bool(paused)
+        return ServiceResult(True, "")
+
+    def reset(self) -> ServiceResult:
+        """mj_resetData of every env (resetSim, mujoco_env.cpp:246-264)."""
+        with self._lock:
+            self.d = fwd.make_data(self.m, self.nenv)
+        return ServiceResult(True, "")
+
+    def get_gravity(self) -> np.ndarray:
+        return self.m.opt.gravity.cpu().numpy()
+
+    def set_gravity(self, gravity) -> ServiceResult:
+        """Edits the model's gravity and the packed params the step reads in
+        place: no recompile, no rebuild of the plan."""
+        g = torch.as_tensor(np.asarray(gravity, dtype=np.float64).reshape(3),
+                            dtype=torch.float32, device=self.device)
+        with self._lock:
+            self.m.opt.gravity = g.clone()
+            off = self._plan.idx["gravity"][0]
+            enabled = not self.m.opt.disableflags & DisableBit.GRAVITY
+            self._plan.params[off:off + 3] = g if enabled else 0.0
+        return ServiceResult(True, "")
+
+    def get_batch_state(self) -> dict:
+        """numpy snapshot of the batch (qpos, qvel, time)."""
+        with self._lock:
+            return dict(qpos=self.d.qpos.cpu().numpy(),
+                        qvel=self.d.qvel.cpu().numpy(),
+                        time=self.d.time.cpu().numpy())
+
+    def _free_jnt_of_body(self, b: int) -> Optional[int]:
+        if self.m.body_jntnum[b] == 1:
+            j = self.m.body_jntadr[b]
+            if self.m.jnt_type[j] == int(JointType.FREE):
+                return j
+        return None
+
+    def get_body_state(self, name: str, env_id: int = 0) -> BodyState:
+        """Pose and world-frame twist of a free body in one env, read from
+        qpos and qvel (no forward pass needed)."""
+        m = self.m
+        b = m.body(name)
+        if not 0 <= env_id < self.nenv:
+            raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
+        st = BodyState(name=name, env_id=env_id)
+        st.mass = float(m.body_mass[b])
+        j = self._free_jnt_of_body(b)
+        if j is not None:
+            qadr, vadr = m.jnt_qposadr[j], m.jnt_dofadr[j]
+            with self._lock:
+                qpos = self.d.qpos[env_id].double().cpu()
+                qvel = self.d.qvel[env_id].double().cpu()
+            st.pose = Pose(qpos[qadr:qadr + 3].numpy().copy(),
+                           qpos[qadr + 3:qadr + 7].numpy().copy())
+            # free-joint angular velocity is body-local; report it in world
+            w_world = mmath.rot_vec_quat(qvel[vadr + 3:vadr + 6],
+                                         qpos[qadr + 3:qadr + 7])
+            st.twist = Twist(qvel[vadr:vadr + 3].numpy().copy(), w_world.numpy())
+        return st

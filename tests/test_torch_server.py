@@ -1,0 +1,93 @@
+"""The torch port's MujocoServer on the CPU at a small batch.
+
+Step action semantics (rejected while running, chunked), pause, reset,
+gravity edits that reach the step with no rebuild, reload with rollback,
+body state. Plus: the port and its server import no JAX.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
+from mujoco_ros_pkgs_tpu_torch.server import launch
+
+NENV = 4
+
+
+@pytest.fixture()
+def srv():
+    return MujocoServer(worlds.BOXES, nenv=NENV, device="cpu", unpause=False)
+
+
+def test_step_is_rejected_while_running(srv):
+    assert srv.step(3).success
+    assert srv.sim_time == pytest.approx(0.006, abs=1e-6)
+    srv.set_pause(False)
+    assert not srv.step(1).success
+    srv.set_pause(True)
+    assert not srv.step(0).success
+    assert srv.step(70).success                    # two chunks: 64 + 6
+    assert srv.sim_time == pytest.approx(0.146, abs=1e-5)   # 73 steps
+
+
+def test_box_falls_and_reset_restores(srv):
+    srv.step(60)
+    st = srv.get_body_state("box", env_id=NENV - 1)
+    assert st.pose.position[2] < 0.2
+    assert st.twist.linear[2] < 0.0
+    assert st.mass == pytest.approx(0.5)
+    assert srv.reset().success
+    st = srv.get_body_state("box", env_id=0)
+    np.testing.assert_allclose(st.pose.position, [0.0, 0.0, 0.2], atol=1e-7)
+    np.testing.assert_allclose(st.pose.orientation, [1.0, 0, 0, 0], atol=1e-7)
+    assert srv.sim_time == 0.0
+
+
+def test_set_gravity_reaches_the_step(srv):
+    assert srv.set_gravity((0.0, 0.0, 0.0)).success
+    np.testing.assert_allclose(srv.get_gravity(), [0.0, 0.0, 0.0])
+    srv.step(10)
+    state = srv.get_batch_state()
+    np.testing.assert_allclose(state["qpos"][:, 2], 0.2, atol=1e-7)
+    np.testing.assert_allclose(state["qvel"], 0.0, atol=1e-7)
+    assert state["time"].shape == (NENV,)
+
+
+def test_reload_bad_model_keeps_serving(srv):
+    srv.step(5)
+    res = srv.reload("<mujoco><bad")
+    assert not res.success and res.status_message
+    assert srv.get_loading_request_state().value == 0
+    assert srv.get_body_state("box").pose.position[2] < 0.2
+    # a model the port cannot step yet fails cleanly as well
+    res = srv.reload(worlds.PENDULUM)
+    assert not res.success and "not yet ported" in res.status_message
+    assert srv.step(1).success
+    # and a good one replaces the old
+    assert srv.reload(worlds.BOXES.replace('pos="0 0 0.2"', 'pos="0 0 0.5"')).success
+    assert srv.get_body_state("box").pose.position[2] == pytest.approx(0.5)
+
+
+def test_launch_runs_num_steps(tmp_path, capsys):
+    path = tmp_path / "boxes.xml"
+    path.write_text(worlds.BOXES)
+    assert launch.main(["--modelfile", str(path), "--nenv", "2",
+                        "--num-steps", "70", "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "sim_time=0.140s" in err and "steps=70" in err
+
+
+def test_port_imports_no_jax():
+    code = ("import sys; import mujoco_ros_pkgs_tpu_torch, "
+            "mujoco_ros_pkgs_tpu_torch.server, mujoco_ros_pkgs_tpu_torch.kernels, "
+            "mujoco_ros_pkgs_tpu_torch.core.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'mujoco_ros_pkgs_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
