@@ -1,27 +1,50 @@
-"""Smoke run of the torch port's main path on one CUDA card.
+"""Smoke run of the torch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then not 0):
   1. card: a CUDA device is required; prints the card's name and power limit
-     (nvidia-smi) and turns TF32 off for the plain reference's matmuls;
-  2. build: compiles the fused step kernel from mujoco_ros_pkgs_tpu_torch/csrc
-     with nvcc for sm_90a;
-  3. kernel vs plain: BOXES and BOXES with a damped free joint at 4096 envs
-     from seeded numpy states, 1 step (qpos rtol 1e-5 / atol 1e-6, qvel and
-     qacc rtol 1e-4 / atol 1e-4) and 5 steps (qpos atol 1e-4);
-  4. main path: MujocoServer(BOXES, nenv=4096, device="cuda") steps 1000
-     times (timed: the server's env-steps/s), the boxes settle on the
+     (nvidia-smi) and turns TF32 off for the plain references' matmuls;
+  2. build: compiles every kernel in mujoco_ros_pkgs_tpu_torch/csrc with
+     nvcc for sm_90a, one nvcc per source, all started together; prints
+     each kernel's registers, stack and spills;
+  3. fused step (K3) vs plain: BOXES and BOXES with a damped free joint at
+     4096 envs from seeded numpy states, 1 step (qpos rtol 1e-5 / atol 1e-6,
+     qvel and qacc rtol 1e-4 / atol 1e-4) and 5 steps (qpos atol 1e-4);
+  4. BOXES main path: MujocoServer(BOXES, nenv=4096, device="cuda") steps
+     1000 times (timed: the server's env-steps/s), the boxes settle on the
      ground (z within 5e-4 of 0.1, speed below 1e-4), set_gravity + reset +
      step keep them floating, a bad reload fails and the server keeps
-     answering; the kernel's launch counter, zeroed before, must count
-     these steps;
-  5. timing: env-steps/s of the kernel and of the plain path at 4096 and
-     65536 envs, 200 steps after warm-up, CUDA events.
+     answering; the launch counts, zeroed before, must count these steps;
+  5. fused step timing: env-steps/s of the kernel and of the plain path at
+     4096 and 65536 envs, 200 steps after warm-up, CUDA events;
+  6. Cholesky solve (K1) vs plain: seeded SPD batches (4096, n, n), n in
+     {11, 27, 72, 96} (rtol 1e-4, atol 1e-5); K1, the plain version and
+     torch.linalg.cholesky + torch.cholesky_solve (the yardstick, never
+     called by the port) timed at 4096 envs, n = 11;
+  7. Newton solve (K2) vs plain: PENDULUM's own rows at 4096 envs from
+     seeded states (qacc, qfrc, row forces at rtol/atol 1e-3) and synthetic
+     rows of every kind (eq, fri, lim, condim 1/3/4/6) at nv 6, 11, 16 with
+     up to 64 rows (rtol/atol 2e-3: both float32, and the solve stops at
+     improved_est < tol * scale, where float32 and float64 already differ by
+     up to 4e-4); at MuJoCo's default friction (nv 16, 64 rows) the final
+     costs on the envs that converged within 32 trips (1e-3 of max(cost,
+     1)); K2 and the plain version timed on PENDULUM's rows;
+  8. general path vs plain: 5 steps of PENDULUM at 4096 seeded envs through
+     ops/forward.step with the kernels and with their plain versions (qpos
+     rtol 1e-5 / atol 1e-6, qvel rtol/atol 1e-4, qacc rtol/atol 1e-3 after
+     1 step; qpos atol 1e-4 after 5);
+  9. PENDULUM main path: MujocoServer(PENDULUM, nenv=4096) on the default
+     device steps 1000 times (timed), everything stays finite, the free ball
+     settles on the ground, K1 and K2 each launch once per step; a damped
+     PENDULUM steps 10 times (K1 twice per step: the mass matrix and Euler's
+     damping solve); the general step's ms/step from CUDA events, with the
+     kernels and with their plain versions.
 Prints a JSON line of kernel results, then the card line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -30,19 +53,35 @@ import time
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    sys.exit("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required")
-
-from mujoco_ros_pkgs_tpu_torch import kernels  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.core import mjcf  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.models import worlds  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.ops import step_tpu  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch import kernels
+from mujoco_ros_pkgs_tpu_torch.core import mjcf
+from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.ops import collision, efc
+from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
+from tests.torch_problems import (DEFAULT_FRICTION, MIXED_BASE, MIXED_KINDS,
+                                  random_problem, solve_cost)
 
 BOXES_DAMPED = worlds.BOXES.replace(
     "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
+PENDULUM_DAMPED = (worlds.PENDULUM
+                   .replace('type="ball" pos="0 0 1"/>',
+                            'type="ball" pos="0 0 1" damping="0.2" stiffness="1.5"/>')
+                   .replace('pos="0 0 0.6" axis="0 1 0"/>',
+                            'pos="0 0 0.6" axis="0 1 0" damping="0.1" stiffness="2"/>')
+                   .replace('<freejoint/>', '<joint type="free" damping="0.01"/>'))
 NENV = 4096
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+KERNELS = (kernels.step_fused, kernels.psd_solve, kernels.newton_solve)
+# 64 rows at nv 16: the same, then 11 condim-3 cones, a condim-6, a condim-4
+# and a condim-1 contact
+FULL_KINDS = MIXED_KINDS + ("con",) * 44
+FULL_BASE = (MIXED_BASE + tuple((20 + 3 * i, 3) for i in range(11))
+             + ((53, 6), (59, 4), (63, 1)))
 
 
 def card_line() -> str:
@@ -52,8 +91,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def zero_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
 def states(nenv, seed):
-    """Seeded states near the ground: heights, tilts and velocities."""
+    """Seeded BOXES states near the ground: heights, tilts and velocities."""
     rng = np.random.default_rng(seed)
     qpos = np.zeros((nenv, 7), np.float32)
     qpos[:, 2] = 0.2 + 0.25 * rng.uniform(size=nenv) - 0.05
@@ -96,7 +140,7 @@ def kernel_vs_plain(xml, label):
 
 
 def main_path():
-    kernels.step_fused.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     srv = MujocoServer(worlds.BOXES, nenv=NENV, device="cuda", unpause=False)
     torch.cuda.synchronize()
@@ -166,16 +210,344 @@ def timing(card):
         return step_tpu.step_batched_plain(m, q, v, w, plan.params, plan.idx)
 
     out = {}
-    for nenv in (4096, 65536):
+    for nenv in (NENV, 65536):
         for name, fn, warm in (("kernel", kernel, 20), ("plain", plain, 3)):
             ms = time_steps(fn, *states(nenv, seed=1), nsteps=200, warmup=warm)
             out[(name, nenv)] = ms
             print(f"[timing] {name} nenv={nenv}: {ms:.4f} ms/step, "
                   f"{nenv / ms * 1e3:.4g} env-steps/s ({card})", flush=True)
+    qpos, qvel, _ = states(NENV, seed=1)
+    pr = step_tpu._problem(m, qpos, qvel, plan.params, plan.idx)
+    trips = []
+    niter, nls = solver_tpu.trip_counts(m)
+    solver_tpu.newton_tiles(6, ("con",) * pr.J.shape[-2], pr.con_base, niter, nls,
+                            True, plan.params[plan.idx["tol"][0]], pr.J, pr.aref, pr.D,
+                            torch.zeros_like(pr.D), pr.act, pr.mu, pr.M, pr.a_s,
+                            torch.zeros_like(qvel), trips=trips)
+    dims = [dim for _, dim in pr.con_base]
+    flops = float(sum(newton_flops(6, pr.J.shape[-2], dims, nls, int(t))
+                      for t in trips[0].tolist())) + NENV * 3000.0
+    out["bound"] = bound(NENV * 38 * 4, flops)
     return out
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    float32 operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def newton_flops(nv, nefc, cone_dims, nls, trips):
+    """Operations (a multiply-add counts 2) of one env's Newton solve, counted
+    from the code of newton_tiles / csrc/solver.cuh for `trips` Newton trips:
+    the warmstart's two cost evaluations and the scale, per trip the row
+    forces with Hessian blocks, the gradient, W J, H = M + J^T W J, the
+    Cholesky solve, J dx and M dx, 7 grid and nls polish evaluations of
+    phi', then the final row forces."""
+    cones = [d for d in cone_dims if d > 1]
+    forces = 12 * nefc + sum(40 for _ in cones)
+    forces_w = forces + sum(4 * d * d for d in cones)
+    cost = 2 * nv * nv + 2 * nefc * nv + forces
+    trip = (2 * nefc * nv + forces_w + 2 * nv * nv + 2 * nefc * nv
+            + 2 * nefc * nv + sum(2 * d * d * nv for d in cones)
+            + nv * (nv + 1) * nefc + nv ** 3 / 3 + 2 * nv * nv
+            + 2 * nefc * nv + 2 * nv * nv + 8 * nv
+            + 7 * (4 * nefc + forces)
+            + nls * (6 * nefc + forces_w + sum(2 * d * d for d in cones)))
+    return 2 * cost + 2 * nv * nv + trips * trip + 2 * nefc * nv + forces
+
+
+def time_ms(fn, iters, warmup=3):
+    """Mean ms of fn() over iters calls after warmup calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+# ---------------------------------------------------------------------------
+# K1: the batched Cholesky solve
+# ---------------------------------------------------------------------------
+
+def spd_batch(nenv, n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(nenv, n, n)).astype(np.float32)
+    H = A @ A.transpose(0, 2, 1) / n + np.eye(n, dtype=np.float32)
+    g = rng.normal(size=(nenv, n)).astype(np.float32)
+    return torch.from_numpy(H).cuda(), torch.from_numpy(g).cuda()
+
+
+def library_solve(H, g):
+    """One PyTorch call chain computing the same function (the yardstick)."""
+    return torch.cholesky_solve(g[..., None], torch.linalg.cholesky(H))[..., 0]
+
+
+def k1_phase(card):
+    err = 0.0
+    for n in (11, 27, 72, 96):
+        H, g = spd_batch(NENV, n, seed=n)
+        x = linalg_tpu.psd_solve(H, g)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        torch.cuda.synchronize()
+        e = close(f"K1 n={n}", x, ref, 1e-4, 1e-5)
+        rel = float(((x - ref).abs() / ref.abs().clamp(min=1e-3)).max())
+        lib = close(f"K1 n={n} vs library", x, library_solve(H, g), 1e-3, 1e-4)
+        print(f"[K1 vs plain] n={n} nenv={NENV}: max abs {e:.3e}, max rel {rel:.3e}; "
+              f"vs cholesky+cholesky_solve max abs {lib:.3e}", flush=True)
+        err = max(err, e)
+    H, g = spd_batch(NENV, 11, seed=0)
+    t = {"ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
+         "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 20),
+         "library_ms": time_ms(lambda: library_solve(H, g), 200)}
+    n = 11
+    t["bound"] = bound(NENV * (n * n + 2 * n) * 4, NENV * (n ** 3 / 3 + 2 * n * n))
+    print(f"[K1 timing] nenv={NENV} n=11: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, cholesky+cholesky_solve {t['library_ms']:.4f} ms, "
+          f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) ({card})", flush=True)
+    return err, t
+
+
+# ---------------------------------------------------------------------------
+# K2: the Newton solve
+# ---------------------------------------------------------------------------
+
+def pendulum_states(nenv, seed):
+    """Seeded PENDULUM states (qpos 13, qvel 11): a tilted ball joint, bent
+    hinges, the free ball around its resting place, some in penetration."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 13))
+    q = rng.normal(size=(nenv, 4)) * 0.3
+    q[:, 0] += 1.0
+    qpos[:, :4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qpos[:, 4:6] = 0.6 * rng.normal(size=(nenv, 2))
+    qpos[:, 6] = 1.0 + 0.05 * rng.normal(size=nenv)
+    qpos[:, 7] = 0.05 * rng.normal(size=nenv)
+    qpos[:, 8] = 0.01 + 0.06 * rng.uniform(size=nenv)
+    q = rng.normal(size=(nenv, 4)) * 0.5
+    q[:, 0] += 1.0
+    qpos[:, 9:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qvel = 0.5 * rng.normal(size=(nenv, 11))
+    return (torch.from_numpy(qpos.astype(np.float32)).cuda(),
+            torch.from_numpy(qvel.astype(np.float32)).cuda())
+
+
+def pendulum_problem(m, nenv, seed):
+    """PENDULUM's constraint problem at seeded states, built by the port's
+    general path up to the solve: (static args, tensor args)."""
+    qpos, qvel = pendulum_states(nenv, seed)
+    d = fwd.make_data(m, nenv).replace(qpos=qpos, qvel=qvel)
+    d = smooth.fwd_position_smooth(m, d)
+    d = collision.collide(m, d)
+    d = smooth.fwd_acceleration_smooth(m, smooth.fwd_velocity_smooth(m, d))
+    e = efc.make_efc(m, d)
+    niter, nls = solver_tpu.trip_counts(m)
+    static = (e.kinds, tuple(zip(e.con_base, e.con_dim)), m.nv, niter, nls,
+              m.opt.tolerance, True)
+    ws = torch.from_numpy((0.1 * np.random.default_rng(seed).normal(
+        size=(nenv, m.nv))).astype(np.float32)).cuda()
+    args = dict(J=e.J, aref=e.aref, D=e.D, floss=e.frictionloss, active=e.active,
+                mu=e.con_mu, M=d.qM, a_s=d.qacc_smooth, ws=ws)
+    return static, args
+
+
+def k2_compare(label, static, args, tol):
+    got = solver_tpu.solve_batched(*static, **args)
+    want = solver_tpu.solve_batched_plain(*static, **args)
+    torch.cuda.synchronize()
+    errs = {name: close(f"K2 {label} {name}", a, b, tol, tol)
+            for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want)}
+    assert all(torch.isfinite(t).all() for t in got)
+    print(f"[K2 vs plain] {label} nenv={args['J'].shape[0]}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    return max(errs.values())
+
+
+def k2_default_friction():
+    """K2 at MuJoCo's default friction, nv 16, 64 rows. Its stiff cones leave
+    flat directions where float32 rounding moves qacc by up to 2e-2, so the
+    check is on the objective: on the envs whose plain solve converged
+    within 32 trips, the kernel's and the plain version's final costs agree
+    to 1e-3 of max(cost, 1) (float32 against float64 solves of such problems
+    differ by up to 2e-4 relative)."""
+    p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(17), NENV, 16, FULL_KINDS, FULL_BASE,
+        friction=DEFAULT_FRICTION).items()}
+    x, _, _ = solver_tpu.solve_batched(FULL_KINDS, FULL_BASE, 16, 32, 8, 1e-8, True, **p)
+    trips = []
+    xp, _ = solver_tpu.newton_tiles(16, FULL_KINDS, FULL_BASE, 32, 8, True, 1e-8,
+                                    *p.values(), trips=trips)
+    torch.cuda.synchronize()
+    done = trips[0] < 32
+    assert int(done.sum()) >= NENV // 20, f"{int(done.sum())} envs converged"
+    got = solve_cost(FULL_KINDS, FULL_BASE, p, x)[done]
+    want = solve_cost(FULL_KINDS, FULL_BASE, p, xp)[done]
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    print(f"[K2 vs plain] default friction nv=16 rows={len(FULL_KINDS)} nenv={NENV}: "
+          f"{int(done.sum())} envs converged within 32 trips; on those, cost max rel "
+          f"err {rel:.3e}, qacc max abs err {float((x - xp).abs()[done].max()):.3e}",
+          flush=True)
+    assert rel < 1e-3, f"K2 at default friction: cost rel err {rel}"
+
+
+def k2_phase(card):
+    m = mjcf.load_model_from_string(worlds.PENDULUM, dtype=torch.float32).to("cuda")
+    static, args = pendulum_problem(m, NENV, seed=0)
+    print(f"[K2] PENDULUM: nv={m.nv}, {len(static[0])} rows, cones "
+          f"{static[1]}, active contacts per env mean "
+          f"{float(args['active'][:, [b for b, _ in static[1]]].float().sum(1).mean()):.3f}",
+          flush=True)
+    err = k2_compare("PENDULUM rows", static, args, 1e-3)
+    for nv, kinds, base in ((6, MIXED_KINDS, MIXED_BASE), (11, MIXED_KINDS, MIXED_BASE),
+                            (16, MIXED_KINDS, MIXED_BASE), (16, FULL_KINDS, FULL_BASE)):
+        p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+            np.random.default_rng(nv), NENV, nv, kinds, base).items()}
+        k2_compare(f"synthetic nv={nv} rows={len(kinds)}",
+                   (kinds, base, nv, 32, 8, 1e-8, True), p, 2e-3)
+    k2_default_friction()
+    t = {"ms": time_ms(lambda: solver_tpu.solve_batched(*static, **args), 100),
+         "plain_ms": time_ms(lambda: solver_tpu.solve_batched_plain(*static, **args), 5)}
+    trips = []
+    kinds, con_base, nv, niter, nls, tol, ws = static
+    solver_tpu.newton_tiles(nv, kinds, con_base, niter, nls, ws, tol, args["J"],
+                            args["aref"], args["D"], args["floss"], args["active"],
+                            args["mu"], args["M"], args["a_s"], args["ws"], trips=trips)
+    nefc, ncon = len(kinds), len(con_base)
+    flops = float(sum(newton_flops(nv, nefc, [d for _, d in con_base], nls, int(k))
+                      for k in trips[0].tolist()))
+    nbytes = NENV * (4 * (nefc * nv + 3 * nefc + 5 * ncon + nv * nv + 2 * nv) + nefc
+                     + 4 * (2 * nv + nefc))
+    t["bound"] = bound(nbytes, flops)
+    t["trips"] = trips[0].float()
+    print(f"[K2 timing] PENDULUM rows nenv={NENV}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+          f"Newton trips mean {float(t['trips'].mean()):.3f} max "
+          f"{int(t['trips'].max())} ({card})", flush=True)
+    return err, t
+
+
+# ---------------------------------------------------------------------------
+# the general path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the general path's kernel calls to their plain versions (the
+    reference and its timing; the port itself never does this)."""
+    saved = linalg_tpu.psd_solve, solver_tpu.solve_batched
+    linalg_tpu.psd_solve = linalg_tpu.psd_solve_plain
+    solver_tpu.solve_batched = solver_tpu.solve_batched_plain
+    try:
+        yield
+    finally:
+        linalg_tpu.psd_solve, solver_tpu.solve_batched = saved
+
+
+def general_vs_plain():
+    m = mjcf.load_model_from_string(worlds.PENDULUM, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan()
+    qpos, qvel = pendulum_states(NENV, seed=1)
+    dk = fwd.make_data(m, NENV).replace(qpos=qpos, qvel=qvel)
+    dp = dk
+    errs = {}
+    for k in range(5):
+        dk = fwd.step(m, dk, plan)
+        with plain_versions():
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            errs["qpos_1"] = close("general qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close("general qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            errs["qacc_1"] = close("general qacc 1 step", dk.qacc, dp.qacc, 1e-3, 1e-3)
+    errs["qpos_5"] = close("general qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert torch.isfinite(dk.qpos).all() and torch.isfinite(dk.qvel).all()
+    print(f"[general vs plain] PENDULUM nenv={NENV}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    return m, plan, dk
+
+
+def general_main_path():
+    zero_counts()
+    t0 = time.perf_counter()
+    srv = MujocoServer(worlds.PENDULUM, nenv=NENV, unpause=False)
+    assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(1000).success
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches}
+    assert launches == {"psd_solve": 1000, "newton_solve": 1000}, launches
+    assert kernels.step_fused.launches == 0
+    st = srv.get_batch_state()
+    assert st["qpos"].shape == (NENV, 13) and np.isfinite(st["qpos"]).all()
+    assert np.isfinite(st["qvel"]).all()
+    assert all(torch.isfinite(t).all() for t in (srv.d.qacc, srv.d.qfrc_constraint,
+                                                 srv.d.efc_force_contact))
+    b = srv.get_body_state("ball", env_id=NENV - 1)
+    z, speed = float(b.pose.position[2]), float(np.linalg.norm(b.twist.linear))
+    zs = st["qpos"][:, 8]
+    print(f"[general main path] server step(1000) of PENDULUM x {NENV}: "
+          f"{t_step:.3f}s wall, {NENV * 1000 / t_step:.4g} env-steps/s; ball z "
+          f"env{NENV - 1}={z:.6f} speed={speed:.3e}, z over envs "
+          f"min={zs.min():.6f} max={zs.max():.6f}; max |qvel|="
+          f"{np.abs(st['qvel']).max():.3e}; launches {launches}", flush=True)
+    # measured on an H100: z = 0.049633 (soft-contact penetration 3.7e-4)
+    # and speed 5.4e-7; bounds keep a 4x and 100x margin
+    assert abs(z - 0.05) < 1.5e-3, f"ball z={z} not settled near its radius 0.05"
+    assert speed < 1e-4, f"ball speed {speed} after 1000 steps"
+
+    zero_counts()
+    srv_d = MujocoServer(PENDULUM_DAMPED, nenv=NENV, unpause=False)
+    assert srv_d.step(10).success
+    torch.cuda.synchronize()
+    assert np.isfinite(srv_d.get_batch_state()["qpos"]).all()
+    damped = (kernels.psd_solve.launches, kernels.newton_solve.launches)
+    assert damped == (20, 10), f"damped PENDULUM launches (K1, K2) = {damped}"
+    print(f"[general main path] damped PENDULUM 10 steps: K1 launches {damped[0]}, "
+          f"K2 launches {damped[1]}; phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, t_step
+
+
+def general_timing(card, m, plan, d):
+    def run(nsteps):
+        nonlocal d
+        for _ in range(nsteps):
+            d = fwd.step(m, d, plan)
+
+    out = {"kernel": time_ms(lambda: run(50), 1, warmup=1) / 50}
+    with plain_versions():
+        out["plain"] = time_ms(lambda: run(3), 1, warmup=1) / 3
+    print(f"[general timing] PENDULUM nenv={NENV}: {out['kernel']:.4f} ms/step with "
+          f"the kernels, {out['plain']:.4f} ms/step with their plain versions ({card})",
+          flush=True)
+    return out
+
+
+def entry(name, source, replaces, launches, err, t, library_ms=None):
+    return {"name": name, "route": "cuda",
+            "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": library_ms}
+
+
 def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required")
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -183,23 +555,32 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    path = kernels.build()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f}s", flush=True)
+    paths = kernels.build()
+    print(f"[build] {', '.join(p.name for p in paths.values())} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
+        if line.startswith("---") or any(w in line for w in ("registers", "spill",
+                                                              "stack frame")):
             print("[build] " + line.strip(), flush=True)
 
-    err = max(kernel_vs_plain(worlds.BOXES, "boxes"),
-              kernel_vs_plain(BOXES_DAMPED, "boxes_damped"))
-    launches = main_path()
-    t = timing(card)
+    err3 = max(kernel_vs_plain(worlds.BOXES, "boxes"),
+               kernel_vs_plain(BOXES_DAMPED, "boxes_damped"))
+    launches3 = main_path()
+    t3 = timing(card)
+    err1, t1 = k1_phase(card)
+    err2, t2 = k2_phase(card)
+    m, plan, d = general_vs_plain()
+    launches12, _ = general_main_path()
+    general_timing(card, m, plan, d)
 
-    print(json.dumps({"kernels": [{
-        "name": "step_fused", "route": "cuda",
-        "source": "mujoco_ros_pkgs_tpu_torch/csrc/step_fused.cu",
-        "replaces": "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
-        "launches": launches, "max_abs_err": err,
-        "ms": t[("kernel", NENV)], "plain_ms": t[("plain", NENV)]}]}))
+    print(json.dumps({"kernels": [
+        entry("step_fused", "step_fused.cu", "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
+              launches3, err3, {"ms": t3[("kernel", NENV)],
+                                "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]}),
+        entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
+              launches12["psd_solve"], err1, t1, t1["library_ms"]),
+        entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
+              launches12["newton_solve"], err2, t2)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Carry a compiled model across from numpy arrays and static metadata.
+"""Carry a compiled model, or a batch of state, across from numpy arrays.
 
 `model_from_numpy` builds the port's `Model` from a model compiled elsewhere
 (for instance by the JAX package) and handed over as plain data: `fields`
@@ -6,6 +6,11 @@ maps every array field name to a numpy array, `meta` maps every static field
 name to its int / tuple / str value. Option fields use an `opt.` prefix in
 both dicts (`fields["opt.gravity"]`, `meta["opt.iterations"]`). Arrays land
 on the CPU as float64 (integers keep their dtype); `Model.to` moves them.
+
+`data_from_numpy` builds the port's batch-first `Data` the same way: every
+array field (B, ...) by name, the contact arrays as `contact.<name>` and the
+contact slots' static geom ids and condims in `meta`. Arrays keep their
+dtype, so a float32 batch stays float32.
 """
 
 from __future__ import annotations
@@ -55,3 +60,22 @@ def model_from_numpy(fields: dict, meta: dict) -> types.Model:
     opt = _build(types.Option, fields, meta, "opt.")
     m = _build(types.Model, fields, meta, "")
     return dataclasses.replace(m, opt=opt)
+
+
+def data_from_numpy(fields: dict, meta: dict) -> types.Data:
+    def arr(key):
+        if key not in fields:
+            raise ValueError(f"data_from_numpy: missing array field '{key}'")
+        a = np.asarray(fields[key])
+        if a.dtype.kind not in "fiub":
+            raise ValueError(f"field '{key}': unsupported dtype {a.dtype}")
+        return torch.as_tensor(a.copy())
+
+    static = ("geom1", "geom2", "dim")
+    ckw = {f.name: arr("contact." + f.name)
+           for f in dataclasses.fields(types.Contact) if f.name not in static}
+    for name in static:
+        ckw[name] = _static(meta["contact." + name])
+    kw = {f.name: arr(f.name) for f in dataclasses.fields(types.Data)
+          if f.name != "contact"}
+    return types.Data(contact=types.Contact(**ckw), **kw)

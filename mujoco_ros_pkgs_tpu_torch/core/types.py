@@ -1,7 +1,8 @@
 """Core types: enums, Option, Model (static physics constants), Data (batched state).
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
-port runs today (world + free/ball/hinge/slide joint trees, primitive geoms).
+port runs today (world + free/ball/hinge/slide joint trees, primitive geoms,
+contacts).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -253,11 +254,33 @@ class Model:
 
 
 @dataclass
+class Contact:
+    """Fixed-capacity contact set of a batch (mjContact analogue, masked):
+    one slot per potential contact in the canonical slot order
+    (ops/narrowphase.slot_meta); a slot is active where dist < includemargin.
+    Slot metadata (geom ids, condim) is static and shared by the batch."""
+    dist: torch.Tensor           # (B, ncon)
+    pos: torch.Tensor            # (B, ncon, 3)
+    frame: torch.Tensor          # (B, ncon, 3, 3) rows: normal, tangent1, tangent2
+    includemargin: torch.Tensor  # (B, ncon)
+    friction: torch.Tensor       # (B, ncon, 5)
+    solref: torch.Tensor         # (B, ncon, 2)
+    solimp: torch.Tensor         # (B, ncon, 5)
+    geom1: Tuple[int, ...] = ()
+    geom2: Tuple[int, ...] = ()
+    dim: Tuple[int, ...] = ()
+
+    def replace(self, **kw) -> "Contact":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
 class Data:
     """mjData analogue for a batch of envs: every field has a leading env axis.
 
-    Only the integrated state and the inputs the fused step reads are kept;
-    derived quantities (xpos, contacts, ...) are recomputed where needed."""
+    The fused step (ops/step_tpu.py) reads and writes only the integrated
+    state; the general path (ops/forward.py) fills the derived fields as
+    mj_forward does, and they stay as the last forward left them."""
     time: torch.Tensor           # (B,)
     qpos: torch.Tensor           # (B, nq)
     qvel: torch.Tensor           # (B, nv)
@@ -266,6 +289,33 @@ class Data:
     ctrl: torch.Tensor           # (B, nu)
     qfrc_applied: torch.Tensor   # (B, nv)
     xfrc_applied: torch.Tensor   # (B, nbody, 6)
+    # kinematics
+    xpos: torch.Tensor           # (B, nbody, 3)
+    xquat: torch.Tensor          # (B, nbody, 4)
+    xmat: torch.Tensor           # (B, nbody, 3, 3)
+    xipos: torch.Tensor          # (B, nbody, 3)
+    ximat: torch.Tensor          # (B, nbody, 3, 3)
+    xanchor: torch.Tensor        # (B, njnt, 3)
+    xaxis: torch.Tensor          # (B, njnt, 3)
+    geom_xpos: torch.Tensor      # (B, ngeom, 3)
+    geom_xmat: torch.Tensor      # (B, ngeom, 3, 3)
+    subtree_com: torch.Tensor    # (B, nbody, 3)
+    # com-based quantities and the dense mass matrix
+    cinert: torch.Tensor         # (B, nbody, 10)
+    cdof: torch.Tensor           # (B, nv, 6)
+    cvel: torch.Tensor           # (B, nbody, 6)
+    cdof_dot: torch.Tensor       # (B, nv, 6)
+    qM: torch.Tensor             # (B, nv, nv)
+    # forces
+    qfrc_bias: torch.Tensor      # (B, nv)
+    qfrc_passive: torch.Tensor   # (B, nv)
+    qfrc_actuator: torch.Tensor  # (B, nv)
+    qfrc_smooth: torch.Tensor    # (B, nv)
+    qacc_smooth: torch.Tensor    # (B, nv)
+    qfrc_constraint: torch.Tensor  # (B, nv)
+    # contacts and the solver's row forces
+    contact: Contact
+    efc_force_contact: torch.Tensor  # (B, nefc), nefc >= 1
 
     def replace(self, **kw) -> "Data":
         return dataclasses.replace(self, **kw)

@@ -1,14 +1,15 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in csrc/ are compiled at first use with nvcc for sm_90a into a
-shared library with a plain C interface, cached under _build/ by a hash of
-the sources and flags, and loaded with ctypes. Nothing is built or imported
-from CUDA when this module is imported, so the CPU tests can import it.
+Each source in csrc/ is compiled at first use with nvcc for sm_90a into a
+shared library of its own with a plain C interface, cached under _build/ by
+a hash of all the sources and flags, and loaded with ctypes; the nvcc runs
+start together. Nothing is built or imported from CUDA when this module is
+imported, so the CPU tests can import it.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch.empty, launches on the current CUDA stream, raises if the
 launch failed, and counts its launches in a plain integer attribute
-(`step_fused.launches`).
+(`step_fused.launches`, `psd_solve.launches`, `newton_solve.launches`).
 """
 
 from __future__ import annotations
@@ -28,11 +29,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_SOURCES = ("step_fused.cu",)
+# library name -> (source, C entry point, its argument types)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIBS = {
+    "step_fused": ("step_fused.cu", "step_fused_launch", [_P] * 8 + [_I, _P]),
+    "linalg": ("linalg.cu", "psd_solve_launch", [_P] * 3 + [_I, _I, _P]),
+    "solver": ("solver.cu", "newton_solve_launch", [_P] * 14 + [_I] * 4 + [_P]),
+}
 
 _lock = threading.Lock()
-_lib = None
-build_log = ""          # nvcc's output of the build this process ran (ptxas -v)
+_fns: dict = {}
+build_log = ""          # nvcc's output of the builds this process ran (ptxas -v)
 
 
 def _nvcc() -> str:
@@ -54,40 +61,53 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libmrp_kernels_{_source_hash()}.so"
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"libmrp_{name}_{_source_hash()}.so"
 
 
-def build() -> Path:
-    """Compile csrc/ into the cached shared library unless it exists."""
+def build() -> dict:
+    """Compile every csrc/ library that is not cached, one nvcc per source,
+    all started together. Returns {name: path}."""
     global build_log
-    out = library_path()
-    if out.exists():
-        return out
+    paths = {name: library_path(name) for name in _LIBS}
+    todo = [name for name, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / _LIBS[name][0])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log += f"--- {_LIBS[name][0]}\n{out}"
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{_LIBS[name][0]} ({proc.returncode})")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    return paths
 
 
-def load():
-    """The ctypes handle of the kernel library, building it if needed."""
-    global _lib
+def _fn(name: str):
+    """The ctypes entry point of library `name`, building the libraries if
+    needed."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.step_fused_launch
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _fns:
+            paths = build()
+            for lib_name, (_, sym, argtypes) in _LIBS.items():
+                fn = getattr(ctypes.CDLL(str(paths[lib_name])), sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[lib_name] = fn
+        return _fns[name]
 
 
 def _check(name, t, dtype, shape, device):
@@ -101,6 +121,12 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name, fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
 def step_fused(meta, params, qpos, qvel, ws):
@@ -122,20 +148,89 @@ def step_fused(meta, params, qpos, qvel, ws):
     _check("meta", meta, torch.int32, None, dev)
     if params.dim() != 1 or meta.dim() != 1:
         raise ValueError("step_fused: params and meta must be 1-D")
-    lib = load()
+    fn = _fn("step_fused")
     qpos_out = torch.empty_like(qpos)
     qvel_out = torch.empty_like(qvel)
     x_out = torch.empty_like(qvel)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.step_fused_launch(
-            meta.data_ptr(), params.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
-            ws.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
-            x_out.data_ptr(), B, stream)
-    if err != 0:
-        raise RuntimeError(f"step_fused: kernel launch failed with CUDA error {err}")
+        _launch("step_fused", fn, meta.data_ptr(), params.data_ptr(), qpos.data_ptr(),
+                qvel.data_ptr(), ws.data_ptr(), qpos_out.data_ptr(),
+                qvel_out.data_ptr(), x_out.data_ptr(), B, stream)
     step_fused.launches += 1
     return qpos_out, qvel_out, x_out
 
 
 step_fused.launches = 0
+
+
+def psd_solve(H, g):
+    """x = H^-1 g (csrc/linalg.cu, K1) for H (B, n, n) SPD (lower triangle
+    read) and g (B, n), float32 on the card, n <= 96. Returns x (B, n)."""
+    if H.device.type != "cuda":
+        raise ValueError(f"psd_solve: H is on {H.device}, not a CUDA device")
+    dev = H.device
+    if H.dim() != 3 or H.shape[1] != H.shape[2] or not 1 <= H.shape[1] <= 96 \
+            or H.shape[0] < 1:
+        raise ValueError(f"psd_solve: H shape {tuple(H.shape)}, expected (B, n, n), "
+                         "1 <= n <= 96")
+    B, n = H.shape[0], H.shape[1]
+    _check("H", H, torch.float32, (B, n, n), dev)
+    _check("g", g, torch.float32, (B, n), dev)
+    fn = _fn("linalg")
+    x = torch.empty_like(g)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("psd_solve", fn, H.data_ptr(), g.data_ptr(), x.data_ptr(), B, n, stream)
+    psd_solve.launches += 1
+    return x
+
+
+psd_solve.launches = 0
+
+
+def newton_solve(meta, tol, J, aref, D, floss, active, mu, M, a_s, ws):
+    """The whole Newton solve (csrc/solver.cu, K2) of a (B,) env batch.
+
+    meta: int32 from ops/solver_tpu.kernel_meta for these shapes; tol:
+    float32 (1,); J (B, nefc, nv); aref, D, floss (B, nefc) float32; active
+    (B, nefc) bool; mu (B, max(ncon, 1), 5); M (B, nv, nv); a_s, ws (B, nv).
+    Returns (qacc (B, nv), qfrc (B, nv), f_rows (B, nefc))."""
+    if J.device.type != "cuda":
+        raise ValueError(f"newton_solve: J is on {J.device}, not a CUDA device")
+    dev = J.device
+    if J.dim() != 3 or J.shape[0] < 1 or not 1 <= J.shape[1] <= 64 \
+            or not 1 <= J.shape[2] <= 16:
+        raise ValueError(f"newton_solve: J shape {tuple(J.shape)}; the kernel takes "
+                         "(B, nefc, nv) with 1..64 rows and nv <= 16")
+    B, nefc, nv = J.shape
+    _check("meta", meta, torch.int32, None, dev)
+    ncon = (meta.numel() - 6 - nefc) // 2
+    if meta.dim() != 1 or ncon < 0 or meta.numel() != 6 + nefc + 2 * ncon:
+        raise ValueError(f"newton_solve: meta of {meta.numel()} values does not "
+                         f"describe {nefc} rows (ops/solver_tpu.kernel_meta)")
+    f32 = torch.float32
+    _check("tol", tol, f32, (1,), dev)
+    _check("J", J, f32, (B, nefc, nv), dev)
+    for name, t in (("aref", aref), ("D", D), ("floss", floss)):
+        _check(name, t, f32, (B, nefc), dev)
+    _check("active", active, torch.bool, (B, nefc), dev)
+    _check("mu", mu, f32, (B, max(ncon, 1), 5), dev)
+    _check("M", M, f32, (B, nv, nv), dev)
+    _check("a_s", a_s, f32, (B, nv), dev)
+    _check("ws", ws, f32, (B, nv), dev)
+    fn = _fn("solver")
+    x = torch.empty_like(a_s)
+    qfrc = torch.empty_like(a_s)
+    f = torch.empty_like(aref)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("newton_solve", fn, meta.data_ptr(), tol.data_ptr(), J.data_ptr(),
+                aref.data_ptr(), D.data_ptr(), floss.data_ptr(), active.data_ptr(),
+                mu.data_ptr(), M.data_ptr(), a_s.data_ptr(), ws.data_ptr(),
+                x.data_ptr(), qfrc.data_ptr(), f.data_ptr(), B, nv, nefc, ncon, stream)
+    newton_solve.launches += 1
+    return x, qfrc, f
+
+
+newton_solve.launches = 0

@@ -1,45 +1,208 @@
-"""Forward entry points: batched Data construction and the step.
+"""Forward entry points: batched Data construction, forward and the step.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/forward.py for what the port runs
-today: `step` takes the fused path (ops/step_tpu.py) for models it
-supports and raises for every other model; the general pipeline is not
-ported yet, and there is no fallback to anything else.
+Counterpart of mujoco_ros_pkgs_tpu/ops/forward.py. `step` takes one of two
+routes, chosen once per model by `make_plan`:
+
+- the fused route (ops/step_tpu.py) for single-free-body models it
+  supports, one launch of the K3 kernel per step on CUDA;
+- the general route: `forward` (smooth dynamics, collision, contact rows,
+  the Newton solve) then `euler`, with the K1 kernel for the mass-matrix
+  and damping solves and the K2 kernel for the Newton solve on CUDA.
+
+What neither route covers raises NotImplementedError from make_plan.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import Data, Model
-from mujoco_ros_pkgs_tpu_torch.ops import step_tpu
+from mujoco_ros_pkgs_tpu_torch.core.types import (
+    Data, DisableBit, IntegratorType, JointType, Model, SolverType,
+)
+from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase, solver_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
+from mujoco_ros_pkgs_tpu_torch.ops import smooth, step_tpu
 
 
 def make_data(m: Model, nenv: int) -> Data:
-    """A float32 batch of `nenv` envs at qpos0 (mj_makeData + mj_resetData),
-    on the model's device."""
+    """A batch of `nenv` envs at qpos0 (mj_makeData + mj_resetData), on the
+    model's device, in the model's float dtype."""
+    dev = m.device
+    dtype = m.qpos0.dtype
+
     def z(*shape):
-        return torch.zeros((nenv,) + shape, dtype=torch.float32, device=m.device)
+        return torch.zeros((nenv,) + shape, dtype=dtype, device=dev)
 
-    qpos = m.qpos0.to(torch.float32).expand(nenv, m.nq).clone()
-    return Data(time=z(), qpos=qpos, qvel=z(m.nv), qacc=z(m.nv),
-                qacc_warmstart=z(m.nv), ctrl=z(m.nu), qfrc_applied=z(m.nv),
-                xfrc_applied=z(m.nbody, 6))
+    def eye(n, k):
+        return torch.eye(k, dtype=dtype, device=dev).expand(nenv, n, k, k).clone()
+    xquat = z(m.nbody, 4)
+    xquat[..., 0] = 1.0
+    nefc = max(efc.row_layout(m)["nrow"], 1)
+    return Data(
+        time=z(), qpos=m.qpos0.expand(nenv, m.nq).clone(),
+        qvel=z(m.nv), qacc=z(m.nv), qacc_warmstart=z(m.nv), ctrl=z(m.nu),
+        qfrc_applied=z(m.nv), xfrc_applied=z(m.nbody, 6),
+        xpos=z(m.nbody, 3), xquat=xquat, xmat=eye(m.nbody, 3),
+        xipos=z(m.nbody, 3), ximat=eye(m.nbody, 3), xanchor=z(m.njnt, 3),
+        xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3), geom_xmat=eye(m.ngeom, 3),
+        subtree_com=z(m.nbody, 3), cinert=z(m.nbody, 10), cdof=z(m.nv, 6),
+        cvel=z(m.nbody, 6), cdof_dot=z(m.nv, 6), qM=z(m.nv, m.nv),
+        qfrc_bias=z(m.nv), qfrc_passive=z(m.nv), qfrc_actuator=z(m.nv),
+        qfrc_smooth=z(m.nv), qacc_smooth=z(m.nv), qfrc_constraint=z(m.nv),
+        contact=narrowphase.empty_contact(m, nenv, dtype, dev),
+        efc_force_contact=z(nefc))
 
 
-def make_plan(m: Model) -> step_tpu.Plan:
-    """What `step` needs besides the state (packed params, kernel metadata);
-    raises NotImplementedError for a model the port cannot step yet."""
-    if not step_tpu.supports(m):
-        raise NotImplementedError(
-            "general step not yet ported: the torch port steps only "
-            "single-free-body models over static plane geoms "
-            "(ops/step_tpu.supports)")
-    return step_tpu.make_plan(m)
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward(m: Model, d: Data) -> Data:
+    """mj_forward: the whole dynamics computation, no integration (the
+    sensor stages of the JAX package are not ported: nsensor > 0 raises)."""
+    if m.nsensor:
+        raise NotImplementedError("forward: sensors are not ported to the torch "
+                                  "package")
+    d = smooth.fwd_position_smooth(m, d)
+    d = collision.collide(m, d)
+    d = smooth.fwd_velocity_smooth(m, d)
+    d = smooth.actuation(m, d)
+    d = smooth.fwd_acceleration_smooth(m, d)
+    return constraint.fwd_constraint(m, d)
 
 
-def step(m: Model, d: Data, plan: Optional[step_tpu.Plan] = None) -> Data:
+# ---------------------------------------------------------------------------
+# position integration (mj_integratePos) and Euler
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=128)
+def _intpos_meta(jnt_type, jnt_qposadr, jnt_dofadr):
+    """Static index groups: 1-dof joints and free translations (one batched
+    update), quaternion blocks of ball and free joints (qpos (k, 4), qvel
+    (k, 3))."""
+    lin_q, lin_v, quat_q, quat_v = [], [], [], []
+    for jt, qadr, vadr in zip(jnt_type, jnt_qposadr, jnt_dofadr):
+        if jt == int(JointType.FREE):
+            lin_q += [qadr, qadr + 1, qadr + 2]
+            lin_v += [vadr, vadr + 1, vadr + 2]
+            quat_q.append(qadr + 3)
+            quat_v.append(vadr + 3)
+        elif jt == int(JointType.BALL):
+            quat_q.append(qadr)
+            quat_v.append(vadr)
+        else:
+            lin_q.append(qadr)
+            lin_v.append(vadr)
+    qq = np.array(quat_q, dtype=np.int64)
+    return (np.array(lin_q, dtype=np.int64), np.array(lin_v, dtype=np.int64),
+            qq[:, None] + np.arange(4), np.array(quat_v, dtype=np.int64)[:, None]
+            + np.arange(3))
+
+
+def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:
+    lin_q, lin_v, quat_q, quat_v = _intpos_meta(m.jnt_type, m.jnt_qposadr,
+                                                m.jnt_dofadr)
+    dev = qpos.device
+    out = qpos.clone()
+    if lin_q.size:
+        lq = mmath.static_tensor(lin_q, dev)
+        out[:, lq] = qpos[:, lq] + dt * qvel[:, mmath.static_tensor(lin_v, dev)]
+    if quat_q.size:
+        qq = mmath.static_tensor(quat_q, dev)
+        out[:, qq] = mmath.quat_integrate(
+            qpos[:, qq], qvel[:, mmath.static_tensor(quat_v, dev)], dt)
+    return out
+
+
+def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
+    h = m.opt.timestep.to(d.qpos.dtype)
+    qvel = d.qvel + h * qacc
+    return d.replace(qpos=integrate_pos(m, d.qpos, qvel, h), qvel=qvel,
+                     time=d.time + h)
+
+
+def euler(m: Model, d: Data) -> Data:
+    """mj_Euler: semi-implicit, implicit in joint damping when present (a K1
+    solve of M + h diag(damping))."""
+    qacc = d.qacc
+    if m.has_damping:
+        h = m.opt.timestep.to(d.qpos.dtype)
+        MhB = d.qM + torch.diag_embed(h * m.dof_damping.to(d.qpos.dtype))
+        qacc = linalg_tpu.psd_solve(MhB, d.qfrc_smooth + d.qfrc_constraint)
+    return _advance(m, d, qacc)
+
+
+# ---------------------------------------------------------------------------
+# routes and the step
+# ---------------------------------------------------------------------------
+
+class GeneralPlan(NamedTuple):
+    """The general route: it needs nothing beyond the model and the state."""
+
+
+Plan = Union[step_tpu.Plan, GeneralPlan]
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to the torch package")
+
+
+def check_general(m: Model) -> None:
+    """Raise NotImplementedError for what the general route cannot step."""
+    if m.opt.integrator != int(IntegratorType.EULER):
+        _not_ported(f"integrator {IntegratorType(m.opt.integrator).name}")
+    if m.nsensor or m.nsensordata:
+        _not_ported("sensors")
+    if m.nu or m.na:
+        _not_ported("actuation")
+    if m.ntendon:
+        _not_ported("tendons")
+    if m.has_fluid:
+        _not_ported("fluid")
+    if any(mc >= 0 for mc in m.body_mocapid):
+        _not_ported("mocap")
+    layout = efc.row_layout(m)
+    if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
+        for grp in narrowphase.pair_groups(m):
+            name = narrowphase._DISPATCH[grp["key"][1:3]].name
+            if name not in soa.GENERAL_FNS:
+                _not_ported(f"narrowphase routine {name}")
+    if constraint._has_constraints(m):
+        efc._check_rows(m)
+        if m.opt.solver != int(SolverType.NEWTON):
+            _not_ported("the CG and PGS solvers")
+        dims = narrowphase.slot_meta(m)[2]
+        if (m.nv > solver_tpu.MAX_NV or layout["nrow"] > solver_tpu.MAX_ROWS
+                or any(dim not in (1, 3, 4, 6) for dim in dims)):
+            _not_ported(f"the general Newton solve (nv={m.nv}, "
+                        f"{layout['nrow']} rows; the fused Newton kernel takes "
+                        f"nv <= {solver_tpu.MAX_NV} and <= {solver_tpu.MAX_ROWS} "
+                        "rows)")
+    elif m.nv > linalg_tpu.MAX_N:
+        _not_ported(f"a mass-matrix solve of nv={m.nv} > {linalg_tpu.MAX_N}")
+
+
+def make_plan(m: Model) -> Plan:
+    """The route `step` takes for this model and what it needs: the fused
+    route's packed params and kernel metadata, or the general route.
+    Raises NotImplementedError for a model the port cannot step."""
+    if step_tpu.supports(m):
+        return step_tpu.make_plan(m)
+    check_general(m)
+    return GeneralPlan()
+
+
+def step(m: Model, d: Data, plan: Optional[Plan] = None) -> Data:
     """mj_step of the whole batch. A `plan` from make_plan(m) may be made
     once and reused across steps."""
-    return step_tpu.step(m, d, plan if plan is not None else make_plan(m))
+    plan = plan if plan is not None else make_plan(m)
+    if isinstance(plan, step_tpu.Plan):
+        return step_tpu.step(m, d, plan)
+    d = forward(m, d)
+    return euler(m, d.replace(qacc_warmstart=d.qacc))

@@ -7,10 +7,27 @@ over leading dims: a quaternion is (..., 4) as (w, x, y, z), a vector is
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # mjMINVAL
 MINVAL = 1e-15
+
+_STATIC: dict = {}
+
+
+def static_tensor(a, device, dtype=None) -> torch.Tensor:
+    """`a` (a model's index or mask data: numpy array, tuple or list) as a
+    tensor on `device`, made once per content, dtype and device and then
+    reused, so that a step makes no host-to-device copy of it (on CUDA each
+    such copy is a pageable copy that waits for the stream). The result is
+    shared: never write to it."""
+    a = np.asarray(a)
+    key = (a.tobytes(), a.dtype.str, a.shape, str(device), dtype)
+    t = _STATIC.get(key)
+    if t is None:
+        t = _STATIC[key] = torch.tensor(a, dtype=dtype, device=device)
+    return t
 
 
 def norm_safe(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +64,21 @@ def rot_vec_quat(vec: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return vec + 2.0 * (w * c + cross(u, c))
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (= inverse for unit quaternions; mju_negQuat)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """Velocity-space difference: the 3D rotation taking qb to qa
+    (mju_subQuat)."""
+    qdif = quat_mul(quat_conj(qb), qa)
+    qdif = torch.where(qdif[..., :1] < 0, -qdif, qdif)
+    sin_half = norm_safe(qdif[..., 1:])
+    angle = 2.0 * torch.atan2(sin_half, qdif[..., 0])
+    return qdif[..., 1:] / sin_half[..., None] * angle[..., None]
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """Quaternion to 3x3 rotation matrix (mju_quat2Mat)."""
     w, x, y, z = q.unbind(-1)
@@ -70,6 +102,27 @@ def quat_integrate(q: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
     angle = norm_safe(vel) * dt
     axis = normalize(vel)
     return quat_mul(q, axis_angle_to_quat(axis, angle))
+
+
+def motion_cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Motion-vector cross product u x_m v (mju_crossMotion)."""
+    return torch.cat([cross(u[..., :3], v[..., :3]),
+                      cross(u[..., :3], v[..., 3:]) + cross(u[..., 3:], v[..., :3])],
+                     -1)
+
+
+def force_cross(u: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Force-vector cross product u x_f f, u a motion (mju_crossForce)."""
+    return torch.cat([cross(u[..., :3], f[..., :3]) + cross(u[..., 3:], f[..., 3:]),
+                      cross(u[..., :3], f[..., 3:])], -1)
+
+
+def transform_force(vec: torch.Tensor, newpos: torch.Tensor,
+                    oldpos: torch.Tensor) -> torch.Tensor:
+    """Move a force vector's reference point (mju_transformSpatial, no
+    rotation)."""
+    return torch.cat([vec[..., :3] - cross(newpos - oldpos, vec[..., 3:]),
+                      vec[..., 3:]], -1)
 
 
 def inert_vec_mul(inert: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Narrowphase static metadata: dispatch table, pair groups, contact slots.
+"""Narrowphase: dispatch table, pair groups, contact slots and `collide`.
 
-Counterpart of the static half of mujoco_ros_pkgs_tpu/ops/narrowphase.py.
-The slot layout (which contact of which geom pair lands in which slot) must
-be identical to the JAX package's, because contact rows are compared with it
-row by row. The dispatch table names every routine the JAX package has, so
-the pair table and capacities agree for any model; the routines the port
-implements live in ops/narrowphase_soa.py (SOA_FNS).
+Counterpart of mujoco_ros_pkgs_tpu/ops/narrowphase.py. The slot layout
+(which contact of which geom pair lands in which slot) must be identical to
+the JAX package's, because contact rows are compared with it row by row.
+The dispatch table names every routine the JAX package has, so the pair
+table and capacities agree for any model; the routines the port implements
+live in ops/narrowphase_soa.py (GENERAL_FNS), and `collide` raises for a
+pair group whose routine is not there.
 
 Per-pair parameter mixing mirrors mj_contactParam (priority, solmix,
 solref/solimp blending, elementwise-max friction).
@@ -18,8 +19,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, Model
-from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL
+from mujoco_ros_pkgs_tpu_torch.core.types import Contact, Data, GeomType, Model
+from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
+from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL, static_tensor
 
 
 class Routine(NamedTuple):
@@ -129,10 +131,10 @@ def _contact_params_vec(m: Model, g1s: np.ndarray, g2s: np.ndarray, dtype):
     margin, gap), one row per pair."""
     pr = np.array(m.geom_priority)
     p1, p2 = pr[g1s], pr[g2s]
-    hi = torch.as_tensor(np.where(p1 > p2, g1s, g2s))
-    neq = torch.as_tensor(p1 != p2, device=m.device)
-    g1s = torch.as_tensor(g1s)
-    g2s = torch.as_tensor(g2s)
+    hi = static_tensor(np.where(p1 > p2, g1s, g2s), m.device)
+    neq = static_tensor(p1 != p2, m.device)
+    g1s = static_tensor(g1s, m.device)
+    g2s = static_tensor(g2s, m.device)
 
     fri_eq = torch.maximum(m.geom_friction[g1s], m.geom_friction[g2s])
     s1, s2 = m.geom_solmix[g1s], m.geom_solmix[g2s]
@@ -158,3 +160,81 @@ def _contact_params_vec(m: Model, g1s: np.ndarray, g2s: np.ndarray, dtype):
                              fri[:, 2], fri[:, 2]], dim=1)
     return (friction5.to(dtype), solref.to(dtype), solimp.to(dtype),
             margin.to(dtype), gap.to(dtype))
+
+
+def empty_contact(m: Model, nenv: int, dtype, device) -> Contact:
+    """The contact set of `nenv` envs with every slot inactive (dist 1e10)."""
+    g1, g2, dims = slot_meta(m)
+    n = max(len(g1), 1)
+    if not g1:
+        g1, g2, dims = (-1,) * n, (-1,) * n, (3,) * n
+
+    def z(*shape):
+        return torch.zeros((nenv, n) + shape, dtype=dtype, device=device)
+    return Contact(
+        dist=torch.full((nenv, n), 1e10, dtype=dtype, device=device),
+        pos=z(3),
+        frame=torch.eye(3, dtype=dtype, device=device).expand(nenv, n, 3, 3).clone(),
+        includemargin=z(), friction=z(5), solref=z(2), solimp=z(5),
+        geom1=g1, geom2=g2, dim=dims)
+
+
+def _vec(t):
+    """(B, P, 3) -> vec3 of (B, P)."""
+    return tuple(t[..., k] for k in range(3))
+
+
+def _mat(t):
+    """(B, P, 3, 3) -> mat3 of (B, P)."""
+    return tuple(tuple(t[..., i, j] for j in range(3)) for i in range(3))
+
+
+def _stack_mat(rows):
+    """mat3 rows of (B, P) -> (B, P, 3, 3)."""
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def collide(m: Model, d: Data) -> Data:
+    """Every pair of the static pair table through its primitive; the
+    contacts land in the canonical slot order (slot_meta). Each pair group
+    runs its primitive once over (envs, pairs) component tensors."""
+    dtype = d.qpos.dtype
+    B = d.qpos.shape[0]
+    dists, poss, frames, incms, fris, srefs, simps, dest = ([] for _ in range(8))
+    for grp in pair_groups(m):
+        cap, P = grp["cap"], len(grp["pairs"])
+        name = _DISPATCH[grp["key"][1:3]].name
+        if name not in soa.GENERAL_FNS:
+            raise NotImplementedError(f"collide: narrowphase routine {name} is not "
+                                      "ported to the torch package")
+        g1s, g2s = grp["g1s"], grp["g2s"]
+        dest.append(np.concatenate([np.arange(b, b + cap) for b in grp["bases"]]))
+        friction5, solref, solimp, margin, gap = _contact_params_vec(m, g1s, g2s, dtype)
+        i1 = static_tensor(g1s, d.qpos.device)
+        i2 = static_tensor(g2s, d.qpos.device)
+        di, po, fr = soa.GENERAL_FNS[name](
+            _vec(d.geom_xpos[:, i1]), _mat(d.geom_xmat[:, i1]),
+            tuple(m.geom_size[i1].to(dtype).unbind(-1)),
+            _vec(d.geom_xpos[:, i2]), _mat(d.geom_xmat[:, i2]),
+            tuple(m.geom_size[i2].to(dtype).unbind(-1)))
+        # (B, P, cap) pair-major, as the JAX package's (P, cap) reshape
+        dists.append(torch.stack(di, -1).reshape(B, P * cap))
+        poss.append(torch.stack([torch.stack(p, -1) for p in po], -2)
+                    .reshape(B, P * cap, 3))
+        frames.append(torch.stack([_stack_mat(f) for f in fr], -3)
+                      .reshape(B, P * cap, 3, 3))
+        incms.append(torch.repeat_interleave(margin - gap, cap))
+        fris.append(torch.repeat_interleave(friction5, cap, dim=0))
+        srefs.append(torch.repeat_interleave(solref, cap, dim=0))
+        simps.append(torch.repeat_interleave(solimp, cap, dim=0))
+    perm = static_tensor(np.argsort(np.concatenate(dest)), d.qpos.device)
+    geom1, geom2, dims = slot_meta(m)
+
+    def per_env(parts):
+        return torch.cat(parts)[perm].expand((B,) + (-1,) * parts[0].dim())
+    contact = Contact(
+        dist=torch.cat(dists, 1)[:, perm], pos=torch.cat(poss, 1)[:, perm],
+        frame=torch.cat(frames, 1)[:, perm], includemargin=per_env(incms),
+        friction=per_env(fris), solref=per_env(srefs), solimp=per_env(simps),
+        geom1=geom1, geom2=geom2, dim=dims)
+    return d.replace(contact=contact)

@@ -4,8 +4,11 @@ Counterpart of mujoco_ros_pkgs_tpu/ops/narrowphase_soa.py. A vec3 is a tuple
 of three (B,) tensors, a mat3 a 3x3 nested tuple (M[i][j] row i column j).
 The primitives mirror the JAX package op for op, with the same guards, tie
 breaking and contact order, and are the plain versions of the device
-functions in csrc/narrowphase.cuh. Only the plane primitives the fused step
-of the port supports are here; ops/step_tpu.supports() gates on SOA_FNS.
+functions in csrc/narrowphase.cuh. The plane primitives are the ones the
+fused step kernel has (SOA_FNS, which ops/step_tpu.supports() gates on);
+the sphere-capsule and capsule-capsule primitives run on the general path
+only (GENERAL_FNS, ops/narrowphase.collide), as plain torch, as they are
+plain jnp in the JAX package.
 """
 
 from __future__ import annotations
@@ -141,6 +144,50 @@ def _plane_box(P1, M1, S1, P2, M2, S2):
     return dists, poss, [frame] * 4
 
 
+def _seg_seg_closest(p1, d1, h1, p2, d2, h2):
+    """Closest points between the segments p1 +- h1 d1 and p2 +- h2 d2."""
+    r = v_sub(p1, p2)
+    a = v_dot(d1, d1)
+    e = v_dot(d2, d2)
+    b = v_dot(d1, d2)
+    c = v_dot(d1, r)
+    f = v_dot(d2, r)
+    denom = a * e - b * b
+    ok = torch.abs(denom) > 1e-12
+    s = torch.where(ok, (b * f - c * e) / torch.where(ok, denom, 1.0), 0.0)
+    s = torch.clamp(s, -h1, h1)
+    t = (b * s + f) / torch.clamp(e, min=MINVAL)
+    t = torch.clamp(t, -h2, h2)
+    s2 = torch.clamp((b * t - c) / torch.clamp(a, min=MINVAL), -h1, h1)
+    return v_add(p1, v_scale(d1, s2)), v_add(p2, v_scale(d2, t))
+
+
+def _sphere_capsule(P1, M1, S1, P2, M2, S2):
+    c1, r1 = P1, S1[0]
+    c2, axis = P2, m_col(M2, 2)
+    r2, hl = S2[0], S2[1]
+    t = torch.clamp(v_dot(v_sub(c1, c2), axis), -hl, hl)
+    p = v_add(c2, v_scale(axis, t))
+    dvec = v_sub(p, c1)
+    n = v_normalize(dvec)
+    dist = v_norm_safe(dvec) - r1 - r2
+    pos = v_add(c1, v_scale(n, r1 + 0.5 * dist))
+    return [dist], [pos], [make_frame(n)]
+
+
+def _capsule_capsule(P1, M1, S1, P2, M2, S2):
+    c1, a1 = P1, m_col(M1, 2)
+    r1, h1 = S1[0], S1[1]
+    c2, a2 = P2, m_col(M2, 2)
+    r2, h2 = S2[0], S2[1]
+    p1, p2 = _seg_seg_closest(c1, a1, h1, c2, a2, h2)
+    dvec = v_sub(p2, p1)
+    n = v_normalize(dvec)
+    dist = v_norm_safe(dvec) - r1 - r2
+    pos = v_add(p1, v_scale(n, r1 + 0.5 * dist))
+    return [dist], [pos], [make_frame(n)]
+
+
 # keyed by the JAX package's routine names (ops/narrowphase._DISPATCH); the
 # index is the primitive id the fused CUDA kernel dispatches on
 SOA_FNS = {
@@ -149,3 +196,7 @@ SOA_FNS = {
     "_plane_box": _plane_box,
 }
 PRIM_ID = {name: i for i, name in enumerate(SOA_FNS)}
+
+# every primitive the port has, for the general path's collide
+GENERAL_FNS = dict(SOA_FNS, _sphere_capsule=_sphere_capsule,
+                   _capsule_capsule=_capsule_capsule)

@@ -1,10 +1,14 @@
-"""Smooth dynamics subset: kinematics, com_pos and crb, as level-order batch ops.
+"""Smooth (unconstrained) dynamics as level-order batch ops.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/smooth.py (`kinematics`, `com_pos`,
-`crb`). Tree recursions are level-order sweeps: bodies grouped by tree depth
-(static), each level one gather/compute/scatter over all its bodies. All
-tensors are batch-first; the port uses these at model load time
-(core/constants.py), where the fused step does not reach.
+Counterpart of mujoco_ros_pkgs_tpu/ops/smooth.py: kinematics, com_pos, crb,
+com_vel, rne, passive (joint damping and springs), xfrc_accumulate,
+solve_m / mul_m and the fwd_*_smooth stages of the general step. Tree
+recursions are level-order sweeps: bodies grouped by tree depth (static),
+each level one gather/compute/scatter over all its bodies. All tensors are
+batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
+compile side uses them at load time, core/constants.py); the stages take
+and return `Data`. Tendons, actuators and fluid forces raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import JointType, Model
+from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, JointType, Model
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 
 
@@ -143,27 +148,25 @@ def kinematics(m: Model, qpos: torch.Tensor) -> Kinematics:
     SLIDE, HINGE = int(JointType.SLIDE), int(JointType.HINGE)
 
     for lv in _model_levels(m):
-        par = torch.as_tensor(lv.par, device=dev)
-        ids = torch.as_tensor(lv.ids, device=dev)
+        par = mmath.static_tensor(lv.par, dev)
+        ids = mmath.static_tensor(lv.ids, dev)
         pq, pp = xquat[:, par], xpos[:, par]
         quat = mmath.quat_mul(pq, m.body_quat[ids])
         pos = pp + mmath.rot_vec_quat(m.body_pos[ids], pq)
 
         for jid_np, jmask_np, jt in lv.joints:
             qa = qposadr[jid_np]
-            qi = torch.as_tensor(np.minimum(qa[:, None] + np.arange(7), top),
-                                 device=dev)
+            qi = mmath.static_tensor(np.minimum(qa[:, None] + np.arange(7), top), dev)
             qblk = qpos[:, qi]                                  # (B, W, 7)
-            jid = torch.as_tensor(jid_np, device=dev)
+            jid = mmath.static_tensor(jid_np, dev)
             jp, ja = m.jnt_pos[jid], m.jnt_axis[jid]
-            dq = qblk[..., 0] - m.qpos0[torch.as_tensor(np.minimum(qa, top),
-                                                        device=dev)]
+            dq = qblk[..., 0] - m.qpos0[mmath.static_tensor(np.minimum(qa, top), dev)]
 
             anchor_c = pos + mmath.rot_vec_quat(jp, quat)
             axis_c = mmath.rot_vec_quat(ja, quat)
 
             def flag(t):
-                return torch.as_tensor(jt == t, device=dev)[:, None]
+                return mmath.static_tensor(jt == t, dev)[:, None]
             is_free, is_ball = flag(FREE), flag(BALL)
             is_slide, is_hinge = flag(SLIDE), flag(HINGE)
 
@@ -187,12 +190,14 @@ def kinematics(m: Model, qpos: torch.Tensor) -> Kinematics:
                                torch.where(is_slide, anchor_s, anchor_c))
             axv = torch.where(is_free, ja.expand_as(axis_c), axis_c)
 
-            jmask = torch.as_tensor(jmask_np, device=dev)
+            jmask = mmath.static_tensor(jmask_np, dev)
             quat = torch.where(jmask[:, None], new_quat, quat)
             pos = torch.where(jmask[:, None], new_pos, pos)
             lanes = np.nonzero(jmask_np)[0]
-            xanchor[:, jid_np[lanes]] = anch[:, lanes]
-            xaxis[:, jid_np[lanes]] = axv[:, lanes]
+            lanes_t = mmath.static_tensor(lanes, dev)
+            jl = mmath.static_tensor(jid_np[lanes], dev)
+            xanchor[:, jl] = anch[:, lanes_t]
+            xaxis[:, jl] = axv[:, lanes_t]
             # renormalized quaternions go back into qpos (free at +3, ball at +0)
             for w in lanes:
                 if jt[w] == FREE:
@@ -206,7 +211,7 @@ def kinematics(m: Model, qpos: torch.Tensor) -> Kinematics:
     xmat = mmath.quat_to_mat(xquat)
     xipos = xpos + mmath.rot_vec_quat(m.body_ipos, xquat)
     ximat = xmat @ mmath.quat_to_mat(m.body_iquat)
-    gb = torch.as_tensor(m.geom_bodyid, dtype=torch.int64, device=dev)
+    gb = mmath.static_tensor(m.geom_bodyid, dev, torch.int64)
     geom_xpos = xpos[:, gb] + torch.einsum("bgij,gj->bgi", xmat[:, gb], m.geom_pos)
     geom_xmat = xmat[:, gb] @ mmath.quat_to_mat(m.geom_quat)
     return Kinematics(qpos_out, xpos, xquat, xmat, xipos, ximat, xanchor,
@@ -223,26 +228,28 @@ def com_pos(m: Model, kin: Kinematics):
     levels = _model_levels(m)
     wsum = m.body_mass[:, None] * kin.xipos
     for lv in reversed(levels):
-        wsum = wsum.index_add(1, torch.as_tensor(lv.par, device=dev),
-                              wsum[:, torch.as_tensor(lv.ids, device=dev)])
+        wsum = wsum.index_add(1, mmath.static_tensor(lv.par, dev),
+                              wsum[:, mmath.static_tensor(lv.ids, dev)])
     subtree_com = wsum / torch.clamp(m.body_subtreemass, min=mmath.MINVAL)[:, None]
-    if not m.body_subtreemass[0] > mmath.MINVAL:
-        subtree_com[:, 0] = 0.0
+    # a massless world's subtree com is 0 (a select, not a host branch on a
+    # device value, so the step does not wait for the card here)
+    subtree_com[:, 0] = torch.where(m.body_subtreemass[0] > mmath.MINVAL,
+                                    subtree_com[:, 0], 0.0)
 
-    rootid = torch.as_tensor(m.body_rootid, dtype=torch.int64, device=dev)
+    rootid = mmath.static_tensor(m.body_rootid, dev, torch.int64)
     ref = subtree_com[:, rootid]
     I_world = (kin.ximat * m.body_inertia[:, None, :]) @ kin.ximat.transpose(-1, -2)
     cinert = mmath.inert_from_mass_com_fullinertia(
         m.body_mass.expand(kin.xipos.shape[:-1]), I_world, kin.xipos - ref)
 
     kind, onehot = _dof_meta(m.jnt_type, m.jnt_dofadr, m.dof_jntid)
-    db = torch.as_tensor(m.dof_bodyid, dtype=torch.int64, device=dev)
-    dj = torch.as_tensor(m.dof_jntid, dtype=torch.int64, device=dev)
-    oh = torch.as_tensor(onehot, dtype=kin.xpos.dtype, device=dev)
+    db = mmath.static_tensor(m.dof_bodyid, dev, torch.int64)
+    dj = mmath.static_tensor(m.dof_jntid, dev, torch.int64)
+    oh = mmath.static_tensor(onehot, dev, kin.xpos.dtype)
     offset = ref[:, db] - kin.xanchor[:, dj]
     rot_axis = torch.einsum("bvij,vj->bvi", kin.xmat[:, db], oh)
     jaxis = kin.xaxis[:, dj]
-    k = torch.as_tensor(kind, device=dev)[:, None]
+    k = mmath.static_tensor(kind, dev)[:, None]
     ang = torch.where(k == 1, rot_axis, torch.where(k == 3, jaxis, 0.0))
     lin = torch.where(k == 0, oh, torch.where(k == 2, jaxis,
                                               mmath.cross(ang, offset)))
@@ -255,14 +262,209 @@ def crb(m: Model, cinert: torch.Tensor, cdof: torch.Tensor) -> torch.Tensor:
     crb_inert = cinert
     for lv in reversed(_model_levels(m)):
         crb_inert = crb_inert.index_add(
-            1, torch.as_tensor(lv.par, device=dev),
-            crb_inert[:, torch.as_tensor(lv.ids, device=dev)])
-    dof_bodyid = torch.as_tensor(m.dof_bodyid, dtype=torch.int64, device=dev)
+            1, mmath.static_tensor(lv.par, dev),
+            crb_inert[:, mmath.static_tensor(lv.ids, dev)])
+    dof_bodyid = mmath.static_tensor(m.dof_bodyid, dev, torch.int64)
     F = mmath.inert_vec_mul(crb_inert[:, dof_bodyid], cdof)
     G = F @ cdof.transpose(-1, -2)
     amask = _dof_ancestor_mask(m.dof_parentid, m.nv)
-    lower = torch.as_tensor(amask, dtype=G.dtype, device=dev)
-    strict = torch.as_tensor(amask & ~np.eye(m.nv, dtype=bool), dtype=G.dtype,
-                             device=dev)
+    lower = mmath.static_tensor(amask, dev, G.dtype)
+    strict = mmath.static_tensor(amask & ~np.eye(m.nv, dtype=bool), dev, G.dtype)
     qM = G * lower + (G * strict).transpose(-1, -2)
     return qM + torch.diag(m.dof_armature)
+
+
+# ---------------------------------------------------------------------------
+# mj_comVel
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=128)
+def _joint_dof_masks(jt: tuple):
+    """Per joint slot of a level: (translation mask, rotation mask) over the
+    six dofs read from the joint's dof address (free: 3 + 3, ball: 3, hinge
+    and slide: 1)."""
+    jt = np.asarray(jt)
+    FREE, BALL = int(JointType.FREE), int(JointType.BALL)
+    jnv = np.select([jt == FREE, jt == BALL], [6, 3], 1)
+    trans = (jt == FREE)[:, None] & (np.arange(6)[None, :] < 3)
+    rot = (np.arange(6)[None, :] < jnv[:, None]) & ~trans
+    return trans, rot
+
+
+def com_vel(m: Model, d: Data) -> Data:
+    """cvel and cdof_dot by a level-order sweep; each body's joints are folded
+    in joint order (engine_core_smooth.c mj_comVel)."""
+    B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
+    cvel = torch.zeros(B, m.nbody, 6, dtype=dtype, device=dev)
+    cdof_dot = torch.zeros(B, m.nv, 6, dtype=dtype, device=dev)
+    dofadr = np.asarray(m.jnt_dofadr, dtype=np.int64)
+    top = max(m.nv - 1, 0)
+    for lv in _model_levels(m):
+        v = cvel[:, mmath.static_tensor(lv.par, dev)]
+        for jid_np, jmask_np, jt in lv.joints:
+            adr = dofadr[jid_np]
+            didx = mmath.static_tensor(np.minimum(adr[:, None] + np.arange(6), top), dev)
+            blk = d.cdof[:, didx]                              # (B, W, 6, 6)
+            qv = d.qvel[:, didx]                               # (B, W, 6)
+            trans, rot = _joint_dof_masks(tuple(int(t) for t in jt))
+            tm = mmath.static_tensor(trans, dev, dtype)
+            rm = mmath.static_tensor(rot, dev, dtype)
+            # free joints: the rotation rows see the translation part (vmid)
+            vmid = v + torch.einsum("bwi,bwij->bwj", qv * tm, blk)
+            dots = mmath.motion_cross(vmid[:, :, None, :], blk)
+            w_i, k_i = np.nonzero(rot & jmask_np[:, None])
+            cdof_dot[:, mmath.static_tensor(adr[w_i] + k_i, dev)] = \
+                dots[:, mmath.static_tensor(w_i, dev), mmath.static_tensor(k_i, dev)]
+            vout = vmid + torch.einsum("bwi,bwij->bwj", qv * rm, blk)
+            v = torch.where(mmath.static_tensor(jmask_np, dev)[:, None], vout, v)
+        cvel[:, mmath.static_tensor(lv.ids, dev)] = v
+    return d.replace(cvel=cvel, cdof_dot=cdof_dot)
+
+
+# ---------------------------------------------------------------------------
+# mj_rne (flg_acc = 0): qfrc_bias
+# ---------------------------------------------------------------------------
+
+def rne(m: Model, d: Data) -> Data:
+    B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
+    gravity = (0.0 if m.opt.disableflags & DisableBit.GRAVITY else 1.0) * m.opt.gravity
+    cacc = torch.zeros(B, m.nbody, 6, dtype=dtype, device=dev)
+    cacc[:, 0, 3:] = -gravity.to(dtype)
+    maxdof = max(list(m.body_dofnum) + [1])
+    dofadr = np.asarray(m.body_dofadr, dtype=np.int64)
+    dofnum = np.asarray(m.body_dofnum, dtype=np.int64)
+    levels = _model_levels(m)
+    for lv in levels:
+        a = cacc[:, mmath.static_tensor(lv.par, dev)]
+        didx = mmath.static_tensor(np.minimum(dofadr[lv.ids][:, None] + np.arange(maxdof),
+                                              max(m.nv - 1, 0)), dev)
+        mask = mmath.static_tensor(np.arange(maxdof)[None, :] < dofnum[lv.ids][:, None],
+                                   dev, dtype)
+        a = a + torch.einsum("bwi,bwij->bwj", d.qvel[:, didx] * mask, d.cdof_dot[:, didx])
+        cacc[:, mmath.static_tensor(lv.ids, dev)] = a
+    cfrc = (mmath.inert_vec_mul(d.cinert, cacc)
+            + mmath.force_cross(d.cvel, mmath.inert_vec_mul(d.cinert, d.cvel)))
+    for lv in reversed(levels):
+        cfrc = cfrc.index_add(1, mmath.static_tensor(lv.par, dev),
+                              cfrc[:, mmath.static_tensor(lv.ids, dev)])
+    dof_bodyid = mmath.static_tensor(m.dof_bodyid, dev, torch.int64)
+    return d.replace(qfrc_bias=(d.cdof * cfrc[:, dof_bodyid]).sum(-1))
+
+
+# ---------------------------------------------------------------------------
+# passive forces, applied forces, tendons and actuation
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=128)
+def _spring_meta(jnt_type, jnt_qposadr, jnt_dofadr):
+    """(joint, qpos address, dof address) rows of the 1-dof, ball and free
+    joints."""
+    g1, gb, gf = [], [], []
+    for j, t in enumerate(jnt_type):
+        row = (j, jnt_qposadr[j], jnt_dofadr[j])
+        if t in (int(JointType.SLIDE), int(JointType.HINGE)):
+            g1.append(row)
+        elif t == int(JointType.BALL):
+            gb.append(row)
+        else:
+            gf.append(row)
+    return tuple(np.asarray(x, dtype=np.int64).reshape(-1, 3) for x in (g1, gb, gf))
+
+
+def passive(m: Model, d: Data) -> Data:
+    """Joint damping and joint springs (mj_passive without tendons or
+    fluid, which raise)."""
+    if m.ntendon:
+        raise NotImplementedError("passive: tendon springs and damping are not "
+                                  "ported to the torch package")
+    if m.has_fluid:
+        raise NotImplementedError("passive: fluid forces are not ported to the "
+                                  "torch package")
+    if m.nv == 0:
+        return d
+    if m.opt.disableflags & DisableBit.PASSIVE:
+        return d.replace(qfrc_passive=torch.zeros_like(d.qvel))
+    qfrc = -m.dof_damping * d.qvel
+    g1, gb, gf = _spring_meta(m.jnt_type, m.jnt_qposadr, m.jnt_dofadr)
+    dev = d.qpos.device
+    ar3, ar4 = np.arange(3), np.arange(4)
+
+    def t(a):
+        return mmath.static_tensor(a, dev)
+    if len(g1):
+        j, qa, va = g1.T
+        qfrc[:, t(va)] += -m.jnt_stiffness[t(j)] * (d.qpos[:, t(qa)] - m.qpos_spring[t(qa)])
+    if len(gb):
+        j, qa, va = gb.T
+        qi = t(qa[:, None] + ar4)
+        dif = mmath.quat_sub(d.qpos[:, qi], m.qpos_spring[qi])
+        qfrc[:, t(va[:, None] + ar3)] += -m.jnt_stiffness[t(j)][:, None] * dif
+    if len(gf):
+        j, qa, va = gf.T
+        stiff = m.jnt_stiffness[t(j)][:, None]
+        qi = t(qa[:, None] + ar3)
+        qfrc[:, t(va[:, None] + ar3)] += -stiff * (d.qpos[:, qi] - m.qpos_spring[qi])
+        qi = t(qa[:, None] + 3 + ar4)
+        dif = mmath.quat_sub(d.qpos[:, qi], m.qpos_spring[qi])
+        qfrc[:, t(va[:, None] + 3 + ar3)] += -stiff * dif
+    return d.replace(qfrc_passive=qfrc)
+
+
+def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
+    """xfrc_applied ([force, torque] at each body's com, world frame) mapped
+    to joint space (mj_applyFT at xipos for every body): (B, nv)."""
+    dev = d.qpos.device
+    rootid = mmath.static_tensor(m.body_rootid, dev, torch.int64)
+    xf = d.xfrc_applied
+    vec = torch.cat([xf[..., 3:], xf[..., :3]], -1)
+    fs = mmath.transform_force(vec, d.subtree_com[:, rootid], d.xipos)
+    mask = mmath.static_tensor(body_dof_mask(m), dev, d.qpos.dtype)
+    return ((d.cdof @ fs.transpose(-1, -2)) * mask).sum(-1)
+
+
+def tendon(m: Model, d: Data) -> Data:
+    if m.ntendon:
+        raise NotImplementedError("tendons are not ported to the torch package")
+    return d
+
+
+def actuation(m: Model, d: Data) -> Data:
+    """Actuator forces: models with actuators raise (not ported yet)."""
+    if m.nu or m.na:
+        raise NotImplementedError("actuators are not ported to the torch package")
+    return d
+
+
+def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
+    """M^-1 x (mj_solveM) on the K1 kernel (ops/linalg_tpu.psd_solve)."""
+    return linalg_tpu.psd_solve(d.qM, x)
+
+
+def mul_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
+    return (d.qM @ x[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages
+# ---------------------------------------------------------------------------
+
+def fwd_position_smooth(m: Model, d: Data) -> Data:
+    kin = kinematics(m, d.qpos)
+    subtree_com, cinert, cdof = com_pos(m, kin)
+    d = d.replace(qpos=kin.qpos, xpos=kin.xpos, xquat=kin.xquat, xmat=kin.xmat,
+                  xipos=kin.xipos, ximat=kin.ximat, xanchor=kin.xanchor,
+                  xaxis=kin.xaxis, geom_xpos=kin.geom_xpos,
+                  geom_xmat=kin.geom_xmat, subtree_com=subtree_com,
+                  cinert=cinert, cdof=cdof, qM=crb(m, cinert, cdof))
+    return tendon(m, d)
+
+
+def fwd_velocity_smooth(m: Model, d: Data) -> Data:
+    return rne(m, passive(m, com_vel(m, d)))
+
+
+def fwd_acceleration_smooth(m: Model, d: Data) -> Data:
+    qfrc_smooth = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
+                   + d.qfrc_applied + xfrc_accumulate(m, d))
+    return d.replace(qfrc_smooth=qfrc_smooth,
+                     qacc_smooth=solve_m(m, d, qfrc_smooth))

@@ -1,12 +1,18 @@
-"""Plain-torch body of the fused Newton constraint solve.
+"""The fused Newton constraint solve (K2) and its plain-torch body.
 
-Counterpart of `_row_forces`, `_chol_solve` and `newton_tiles` in
-mujoco_ros_pkgs_tpu/ops/solver_tpu.py, written batch-first: the (8, 128)
-env tiles of the JAX kernel become the leading env axis, and the per-row /
-per-dof Python lists become stacked tensor axes. This is the plain version
-of the device functions in csrc/newton.cuh, which the fused step kernel
-(ops/step_tpu.py, csrc/step_fused.cu) runs; the CPU tests hold it against
-the JAX kernel in interpret mode.
+Counterpart of mujoco_ros_pkgs_tpu/ops/solver_tpu.py: `_row_forces` and
+`newton_tiles` written batch-first (the (8, 128) env tiles of the JAX
+kernel become the leading env axis, the per-row / per-dof Python lists
+stacked tensor axes), `supports` and `solve_batched`. On a CUDA
+tensor `solve_batched` launches the hand-written kernel csrc/solver.cu
+(kernels.newton_solve, the general path's solver); on a CPU tensor it runs
+`newton_tiles`. `newton_tiles` is also the plain version of the device
+functions in csrc/newton.cuh that the fused step kernel (ops/step_tpu.py,
+csrc/step_fused.cu) runs. The CPU tests hold it against the JAX kernel in
+interpret mode. Its Cholesky solve is linalg_tpu.psd_solve_plain, the
+right-looking factorisation that csrc/solver.cu runs; the JAX kernel and
+csrc/newton.cuh factor left-looking, which differs from it only in the
+rounding of an SPD system.
 
 Shapes: J (B, nefc, nv); aref, D, floss, act (B, nefc); mu (B, ncon, 5) in
 MuJoCo order [mu_t1, mu_t2, mu_tor, mu_roll1, mu_roll2]; M (B, nv, nv)
@@ -16,15 +22,33 @@ symmetric; a_s, ws (B, nv). Row kinds: 'eq', 'fri', 'lim' or 'con';
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Dict, Tuple
 
 import torch
 
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
 from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL
 
 _GRID_ALPHAS = (0.0625, 0.25, 0.5, 1.0, 2.0, 4.0, 16.0)
 # tangential sigma per cone component: [mu0, mu0, mu_tor, mu_roll1, mu_roll2]
 _SIGMA_COL = (0, 0, 2, 3, 4)
+# how a row is solved (row_codes; csrc/solver.cu reads the same codes):
+# always on, Huber friction loss, one-sided, part of an elliptic cone
+ROW_CODE = {"eq": 0, "fri": 1, "lim": 2, "con": 3}
+
+
+def row_codes(kinds, con_base) -> list:
+    """How each row is solved, as the JAX kernel decides it: a row of a
+    contact of condim > 1 is a cone row (3); the row of a condim-1 contact
+    is one-sided (2); any other row goes by its kind, 'eq' (0), 'fri' (1),
+    and every other kind one-sided (2)."""
+    codes = [ROW_CODE[k] if k in ("eq", "fri") else ROW_CODE["lim"] for k in kinds]
+    for base, dim in con_base:
+        for r in range(base, base + dim):
+            codes[r] = ROW_CODE["con"] if dim > 1 else ROW_CODE["lim"]
+    return codes
 
 
 def _cone_groups(con_base) -> Dict[int, Tuple[list, list]]:
@@ -56,12 +80,10 @@ def _row_forces(kinds, con_base, mu, D, floss, act, jar, want_w):
 
     D, floss, act = lift(D), lift(floss), lift(act)
     dev = jar.device
-    single = [k == "con" and any(b == r and d == 1 for b, d in con_base)
-              for r, k in enumerate(kinds)]
-    is_eq = torch.tensor([k == "eq" for k in kinds], device=dev)
-    is_fri = torch.tensor([k == "fri" for k in kinds], device=dev)
-    is_lim = torch.tensor([k == "lim" or s for k, s in zip(kinds, single)],
-                          device=dev)
+    codes = row_codes(kinds, con_base)
+    is_eq = torch.tensor([c == ROW_CODE["eq"] for c in codes], device=dev)
+    is_fri = torch.tensor([c == ROW_CODE["fri"] for c in codes], device=dev)
+    is_lim = torch.tensor([c == ROW_CODE["lim"] for c in codes], device=dev)
 
     # eq: always on; fri: Huber; lim / condim-1 contact: one-sided quadratic
     quad_c = 0.5 * D * jar * jar
@@ -135,32 +157,12 @@ def _scatter(f, idx, vals):
     return out
 
 
-def _chol_solve(H, g):
-    """Cholesky solve of (B, n, n) H (lower triangle read) against g (B, n),
-    with the pivot clamp of the JAX kernel (sqrt(max(s, 1e-30)))."""
-    n = H.shape[-1]
-    L = torch.zeros_like(H)
-    for i in range(n):
-        s = H[..., i, i] - (L[..., i, :i] * L[..., i, :i]).sum(-1)
-        Lii = torch.sqrt(torch.clamp(s, min=1e-30))
-        L[..., i, i] = Lii
-        if i + 1 < n:
-            s = H[..., i + 1:, i] - (L[..., i + 1:, :i] * L[..., i:i + 1, :i]).sum(-1)
-            L[..., i + 1:, i] = s * (1.0 / Lii)[..., None]
-    y = torch.zeros_like(g)
-    for i in range(n):
-        y[..., i] = (g[..., i] - (L[..., i, :i] * y[..., :i]).sum(-1)) / L[..., i, i]
-    x = torch.zeros_like(g)
-    for i in reversed(range(n)):
-        x[..., i] = (y[..., i] - (L[..., i + 1:, i] * x[..., i + 1:]).sum(-1)) / L[..., i, i]
-    return x
-
-
 def newton_tiles(nv, kinds, con_base, niter, nls, warmstart, tol, J, aref, D,
-                 floss, act, mu, M, a_s, ws):
+                 floss, act, mu, M, a_s, ws, trips=None):
     """The whole Newton constraint solve on a batch. Returns (x (B, nv),
     f (B, nefc)). Up to `niter` Newton steps; an env's x freezes once it
-    converges, and the loop stops when every env has."""
+    converges, and the loop stops when every env has. If `trips` is a list,
+    the Newton trips each env took ((B,) int64) are appended to it."""
     def Mmul(v):
         return (M @ v[..., None])[..., 0]
 
@@ -180,6 +182,7 @@ def newton_tiles(nv, kinds, con_base, niter, nls, warmstart, tol, J, aref, D,
         x = torch.where(better[:, None], ws, a_s)
     scale = torch.clamp(torch.abs(Mmul(a_s)).sum(-1), min=MINVAL)
     done = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    taken = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
     alphas = torch.tensor(_GRID_ALPHAS, dtype=x.dtype, device=x.device)
     eye = torch.eye(nv, dtype=x.dtype, device=x.device)
 
@@ -200,7 +203,7 @@ def newton_tiles(nv, kinds, con_base, niter, nls, warmstart, tol, J, aref, D,
         for idx, Wm in Wc.values():
             Jc = J[:, idx]                                   # (B, n, dim, nv)
             H = H + torch.einsum("bcki,bckl,bclj->bij", Jc, Wm, Jc)
-        dx = _chol_solve(H, -grad)
+        dx = linalg_tpu.psd_solve_plain(H, -grad)
         v_ls = (J @ dx[..., None])[..., 0]
         Mdx = Mmul(dx)
         gMd = (Mdx * xs).sum(-1)
@@ -237,9 +240,95 @@ def newton_tiles(nv, kinds, con_base, niter, nls, warmstart, tol, J, aref, D,
         gradsq = (grad * grad).sum(-1)
         new_done = done | (improved_est < tol * scale) | (gradsq < tol * tol)
         x = torch.where(done[:, None], x, x + alpha[:, None] * dx)
+        taken = taken + (~done).long()
         done = new_done
         if bool(done.all()):
             break
 
+    if trips is not None:
+        trips.append(taken)
     f, _, _, _ = forces(jar_at(x), False)
     return x, f
+
+
+# ---------------------------------------------------------------------------
+# the batched solve (K2)
+# ---------------------------------------------------------------------------
+
+MAX_NV = 16              # the largest system csrc/solver.cu takes
+MAX_ROWS = 64
+
+
+def supports(efc, nv: int) -> bool:
+    """The JAX package's gate: condim 1/3/4/6 cones, 1..64 rows, nv <= 16."""
+    return (all(dim in (1, 3, 4, 6) for dim in efc.con_dim)
+            and 1 <= len(efc.kinds) <= MAX_ROWS and nv <= MAX_NV)
+
+
+def trip_counts(m):
+    """(Newton trips, line-search polish steps) of the fused solve of model
+    `m`; warns when opt.iterations is truncated to 32, as the JAX package
+    does."""
+    if m.opt.iterations > 32:
+        warnings.warn(
+            f"solver_tpu: m.opt.iterations={m.opt.iterations} truncated to 32 "
+            "in the fused Newton kernel (fixed-trip Newton)", stacklevel=2)
+    return (min(int(m.opt.iterations), 32),
+            max(2, min(int(m.opt.ls_iterations), 24) // 3))
+
+
+def kernel_meta(kinds, con_base, nv, niter, nls, warmstart) -> list:
+    """The solve's static structure for csrc/solver.cu as int32 values:
+    [nv, nefc, ncon, niter, nls, warmstart], one row code per row
+    (row_codes), then (first row, condim) per contact."""
+    meta = [nv, len(kinds), len(con_base), niter, nls, int(bool(warmstart))]
+    meta += row_codes(kinds, con_base)
+    for base, dim in con_base:
+        meta += [base, dim]
+    return meta
+
+
+@functools.lru_cache(maxsize=64)
+def _meta_tensor(kinds, con_base, nv, niter, nls, warmstart, device):
+    return torch.tensor(kernel_meta(kinds, con_base, nv, niter, nls, warmstart),
+                        dtype=torch.int32, device=device)
+
+
+def solve_batched(kinds: Tuple[str, ...], con_base: Tuple[Tuple[int, int], ...],
+                  nv: int, niter: int, nls: int, tol, warmstart: bool,
+                  J, aref, D, floss, active, mu, M, a_s, ws):
+    """The whole Newton solve of a (B, ...) batch: J (B, nefc, nv); aref, D,
+    floss (B, nefc); active (B, nefc) bool; mu (B, ncon, 5); M (B, nv, nv);
+    a_s, ws (B, nv); tol a scalar (a 0-d tensor on the batch's device on
+    CUDA). Returns (qacc (B, nv), qfrc = J^T f (B, nv), f_rows (B, nefc)).
+
+    CUDA: the K2 kernel (float32, nv <= 16, nefc <= 64), else ValueError.
+    CPU: newton_tiles."""
+    if J.device.type == "cuda":
+        nefc = len(kinds)
+        if nv > MAX_NV or not 1 <= nefc <= MAX_ROWS:
+            raise ValueError(f"solve_batched: the CUDA kernel takes nv <= {MAX_NV} "
+                             f"and 1..{MAX_ROWS} rows, got nv {nv}, {nefc} rows")
+        from mujoco_ros_pkgs_tpu_torch import kernels
+        meta = _meta_tensor(tuple(kinds), tuple(tuple(c) for c in con_base), nv,
+                            niter, nls, bool(warmstart), J.device)
+        tol_t = torch.as_tensor(tol, dtype=torch.float32, device=J.device).reshape(1)
+        if mu.shape[1] == 0:
+            mu = torch.zeros(J.shape[0], 1, 5, dtype=J.dtype, device=J.device)
+        return kernels.newton_solve(
+            meta, tol_t, J.contiguous(), aref.contiguous(), D.contiguous(),
+            floss.contiguous(), active.to(torch.bool).contiguous(), mu.contiguous(),
+            M.contiguous(), a_s.contiguous(), ws.contiguous())
+    if J.device.type == "cpu":
+        return solve_batched_plain(kinds, con_base, nv, niter, nls, tol, warmstart,
+                                   J, aref, D, floss, active, mu, M, a_s, ws)
+    raise ValueError(f"solve_batched: unsupported device {J.device}")
+
+
+def solve_batched_plain(kinds, con_base, nv, niter, nls, tol, warmstart,
+                        J, aref, D, floss, active, mu, M, a_s, ws):
+    """solve_batched's plain version on any device: newton_tiles, then
+    qfrc = J^T f."""
+    x, f = newton_tiles(nv, tuple(kinds), tuple(con_base), niter, nls, warmstart,
+                        tol, J, aref, D, floss, active, mu, M, a_s, ws)
+    return x, (J * f[..., None]).sum(-2), f

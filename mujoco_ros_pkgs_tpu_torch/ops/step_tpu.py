@@ -31,6 +31,7 @@ import torch
 from mujoco_ros_pkgs_tpu_torch.core.types import (
     Data, DisableBit, IntegratorType, JointType, Model,
 )
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase as nphase
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
 from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu
@@ -146,12 +147,6 @@ _PAIR_STRIDE = 8     # prim, pi, g1 param offset, g1 on body, g2 offset,
                      # g2 on body, sign (+1 body is g2, -1 otherwise), dim
 
 
-def _trip_counts(m: Model):
-    """Newton trips and line-search polish steps of the fused solve."""
-    return (min(int(m.opt.iterations), 32),
-            max(2, min(int(m.opt.ls_iterations), 24) // 3))
-
-
 def kernel_meta(m: Model, idx: dict) -> list:
     """Static structure of the model for the CUDA kernel, as int32 values:
     the header, the param offsets, then one record per pair in slot order
@@ -161,7 +156,7 @@ def kernel_meta(m: Model, idx: dict) -> list:
     if nrows > MAX_ROWS:
         raise ValueError(f"fused step: {nrows} constraint rows exceed the "
                          f"kernel maximum of {MAX_ROWS}")
-    niter, nls = _trip_counts(m)
+    niter, nls = solver_tpu.trip_counts(m)
     flags = m.opt.disableflags
     meta = [len(pairs), nrows, niter, nls,
             int(not flags & DisableBit.WARMSTART),
@@ -294,7 +289,8 @@ class _Problem(NamedTuple):
 
 def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
     """Kinematics, CRB, RNE, narrowphase and contact rows of the fused step,
-    op for op the JAX kernel's computation."""
+    op for op the JAX kernel's computation (the mass-matrix solve factors
+    right-looking, as linalg_tpu.psd_solve_plain does)."""
     pairs, slots = _slot_table(m)
     refsafe = not m.opt.disableflags & DisableBit.REFSAFE
     nv = 6
@@ -361,7 +357,7 @@ def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
     damping = Pv("damping")
     qfrc_smooth = torch.stack([-damping[v] * qv[v] - _sv_dot(cdof[v], cfrc)
                                for v in range(nv)], -1)
-    a_s = solver_tpu._chol_solve(M, qfrc_smooth)
+    a_s = linalg_tpu.psd_solve_plain(M, qfrc_smooth)
 
     # ---- narrowphase ----
     def geom_frame(g):
@@ -434,9 +430,10 @@ def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
 
 def step_batched_plain(m: Model, qpos, qvel, ws, params, idx):
     """(B, 7), (B, 6), (B, 6) float32 + params -> (qpos', qvel', x_solver),
-    in plain torch, op for op the computation of the JAX kernel."""
+    in plain torch, op for op the computation of the JAX kernel but for the
+    order of the Cholesky factorisations (linalg_tpu.psd_solve_plain)."""
     flags = m.opt.disableflags
-    niter, nls = _trip_counts(m)
+    niter, nls = solver_tpu.trip_counts(m)
     pr = _problem(m, qpos, qvel, params, idx)
     dt = params[idx["dt"][0]]
     x, f = solver_tpu.newton_tiles(
@@ -450,7 +447,7 @@ def step_batched_plain(m: Model, qpos, qvel, ws, params, idx):
         qfrc_con = (pr.J * f[..., None]).sum(-2)
         damping = params[idx["damping"][0]:idx["damping"][0] + 6]
         MhB = pr.M + torch.diag_embed(dt * damping)
-        qacc = solver_tpu._chol_solve(MhB, pr.qfrc_smooth + qfrc_con)
+        qacc = linalg_tpu.psd_solve_plain(MhB, pr.qfrc_smooth + qfrc_con)
     pos, quat = pr.pos, pr.quat
     qvel_new = qvel + dt * qacc
     qv = qvel_new.unbind(-1)

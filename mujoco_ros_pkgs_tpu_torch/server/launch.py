@@ -2,7 +2,7 @@
 
 Usage:
     python -m mujoco_ros_pkgs_tpu_torch.server.launch --modelfile world.xml \
-        --nenv 4096 --num-steps 1000 --device cuda
+        --nenv 4096 --num-steps 1000 [--device cpu]
 
 Loads the model, runs the batch unpaused until --num-steps steps are done
 (or forever with -1, until SIGINT), and prints `sim_time=` lines to stderr
@@ -26,8 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="lockstep env instances (batch size)")
     ap.add_argument("--num-steps", type=int, default=-1,
                     help="terminate after N steps (-1 = run until SIGINT)")
-    ap.add_argument("--device", default="cpu",
-                    help="torch device of the batch, e.g. cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the batch: cuda (the default) or cpu")
     return ap
 
 

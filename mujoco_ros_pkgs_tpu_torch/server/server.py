@@ -3,8 +3,10 @@
 Counterpart of mujoco_ros_pkgs_tpu/server/server.py for the requests the
 port serves today: stepping (the Step action), pause, reset, reload with
 rollback, gravity, body and batch state, loading state. The batch lives on
-one device; each step runs the whole batch through ops/forward.step, which
-on a CUDA device is one launch of the fused step kernel.
+one device, the card unless the caller asks for another; each step runs the
+whole batch through ops/forward.step: one launch of the fused step kernel
+for a single free body, or the general path (with the Cholesky and Newton
+kernels) for other models.
 
 Not ported yet: the real-time physics-loop thread, plugins, rendering, the
 distributed plane and the remaining services. The CLI (server/launch.py)
@@ -26,6 +28,7 @@ from mujoco_ros_pkgs_tpu_torch.msgs import (
 )
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+from mujoco_ros_pkgs_tpu_torch.ops import step_tpu
 
 # operational status (get_loading_request_state, callbacks.cpp:72-87)
 STATUS_RUNNING = 0
@@ -40,12 +43,13 @@ class MujocoServer:
     Args:
       model: MJCF path or XML string.
       nenv: number of lockstep env instances.
-      device: where the batch lives and steps ("cpu", "cuda", ...).
+      device: where the batch lives and steps ("cuda" by default; "cpu"
+        runs the plain torch versions of the kernels).
       unpause: start running (the CLI's loop advances a running server).
       num_steps: stop after this many steps of the loop (-1 = never).
     """
 
-    def __init__(self, model: str, nenv: int = 1, *, device="cpu",
+    def __init__(self, model: str, nenv: int = 1, *, device="cuda",
                  unpause: bool = False, num_steps: int = -1):
         self.nenv = int(nenv)
         if self.nenv < 1:
@@ -160,15 +164,17 @@ class MujocoServer:
         return self.m.opt.gravity.cpu().numpy()
 
     def set_gravity(self, gravity) -> ServiceResult:
-        """Edits the model's gravity and the packed params the step reads in
-        place: no recompile, no rebuild of the plan."""
+        """Edits the model's gravity, which the general path reads, and on
+        the fused route the packed params its kernel reads, in place: no
+        recompile, no rebuild of the plan."""
         g = torch.as_tensor(np.asarray(gravity, dtype=np.float64).reshape(3),
                             dtype=torch.float32, device=self.device)
         with self._lock:
             self.m.opt.gravity = g.clone()
-            off = self._plan.idx["gravity"][0]
-            enabled = not self.m.opt.disableflags & DisableBit.GRAVITY
-            self._plan.params[off:off + 3] = g if enabled else 0.0
+            if isinstance(self._plan, step_tpu.Plan):
+                off = self._plan.idx["gravity"][0]
+                enabled = not self.m.opt.disableflags & DisableBit.GRAVITY
+                self._plan.params[off:off + 3] = g if enabled else 0.0
         return ServiceResult(True, "")
 
     def get_batch_state(self) -> dict:

@@ -1,0 +1,158 @@
+"""Where the torch port's step time goes on the card.
+
+    python scripts/profile_torch_step.py [--world PENDULUM] [--nenv 4096]
+        [--steps 32]
+
+Steps `MujocoServer(world, nenv)` (on the card) through WARMUP steps,
+times `steps` more without the profiler (wall clock to a synchronize), then
+the same number under torch.profiler, and prints:
+
+- wall ms/step, with and without the profiler;
+- the device's busy share of the profiled window (union of kernel and copy
+  intervals over the window's wall time);
+- device time per step by kernel name (top 12), and the port's kernels;
+- host time per step of each stage of the general path (smooth position,
+  collision, smooth velocity, smooth acceleration, efc rows, solve, Euler;
+  record_function ranges wrapped around the stage functions by this script,
+  not by the port);
+- CUDA runtime calls per step (kernel launches, copies, synchronizations).
+
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from mujoco_ros_pkgs_tpu_torch.models import worlds  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth, solver  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
+
+WARMUP = 64
+STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
+          (smooth, "fwd_velocity_smooth"), (smooth, "fwd_acceleration_smooth"),
+          (efc, "make_efc"), (solver, "solve"), (fwd, "euler"))
+
+
+def _labelled(fn, label):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return run
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _on_device(evt) -> bool:
+    """A kernel or copy on the card (not a record_function range)."""
+    return evt.device_type == DeviceType.CUDA and not evt.is_user_annotation
+
+
+def _busy_share(events, t0_us, t1_us) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if _on_device(e))
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        s, e = max(s, t0_us), min(e, t1_us)
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / max(t1_us - t0_us, 1e-9)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--world", default="PENDULUM", help="a name in models/worlds.py")
+    ap.add_argument("--nenv", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=32)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_step: a CUDA card is required")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    for mod, name in STAGES:
+        setattr(mod, name, _labelled(getattr(mod, name), f"stage:{name}"))
+
+    srv = MujocoServer(getattr(worlds, args.world), nenv=args.nenv, unpause=False)
+    srv.step(WARMUP)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    srv.step(args.steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("window"):
+            t = time.perf_counter()
+            srv.step(args.steps)
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t) * 1e3 / args.steps
+    events = prof.events()
+    window = [e for e in events if e.name == "window"][0]
+    share = _busy_share(events, window.time_range.start, window.time_range.end)
+    n = args.steps
+
+    kernels, host, runtime = {}, {}, {}
+    for evt in events:
+        if evt.name.startswith("stage:") and evt.device_type == DeviceType.CPU:
+            host[evt.name[6:]] = host.get(evt.name[6:], 0.0) + (
+                evt.time_range.end - evt.time_range.start) / 1e3 / n
+    for evt in prof.key_averages():
+        dev = _device_us(evt)
+        if evt.key.startswith("cuda") and evt.count:
+            runtime[evt.key] = evt.count / n
+        if dev > 0 and _on_device(evt):
+            kernels[evt.key] = (dev / 1e3 / n, evt.count / n)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    dev_total = sum(v[0] for v in kernels.values())
+
+    print(f"[profile] {args.world} nenv={args.nenv} ({card}): wall {wall:.4f} ms/step "
+          f"without the profiler, {wall_prof:.4f} ms/step under it; device busy "
+          f"share {share:.4f}; device time {dev_total:.4f} ms/step in "
+          f"{sum(v[1] for v in kernels.values()):.1f} kernels and copies per step")
+    for name, (ms, cnt) in top[:12]:
+        print(f"[profile]   device {ms:.5f} ms/step x{cnt:.1f}  {name[:90]}")
+    for name, (ms, cnt) in kernels.items():
+        if "psd_solve" in name or "newton_solve" in name or "step_fused" in name:
+            print(f"[profile]   port kernel {name[:60]}: {ms:.5f} ms/step x{cnt:.1f}")
+    for _, name in STAGES:
+        if name in host:
+            print(f"[profile]   host stage {name}: {host[name]:.4f} ms/step")
+    for name, cnt in sorted(runtime.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[profile]   runtime {name}: {cnt:.1f} calls/step")
+    print(json.dumps({"world": args.world, "nenv": args.nenv, "card": card,
+                      "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
+                      "device_busy_share": share, "device_ms_per_step": dev_total,
+                      "host_stage_ms_per_step": host}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,7 +16,9 @@ from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
-from mujoco_ros_pkgs_tpu_torch.ops import step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
+from tests.torch_problems import (DEFAULT_FRICTION, MIXED_BASE, MIXED_KINDS,
+                                  random_problem, solve_cost)
 
 BOXES_DAMPED = worlds.BOXES.replace(
     "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
@@ -35,6 +37,12 @@ CAPSULE_CONDIM6 = """
 """
 
 
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def test_kernel_wrapper_rejects_cpu_tensors():
     """On a CPU tensor the kernel wrapper raises instead of falling back."""
     z = torch.zeros(2, 7)
@@ -43,9 +51,85 @@ def test_kernel_wrapper_rejects_cpu_tensors():
                            z[:, :6], z[:, :6])
 
 
+def test_solve_wrappers_reject_cpu_tensors():
+    """The K1 and K2 wrappers raise on CPU tensors as well (the modules'
+    entry points take the plain version for those, never the wrappers)."""
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        kernels.psd_solve(torch.eye(3)[None], torch.zeros(1, 3))
+    p = {k: torch.from_numpy(v) for k, v in random_problem(
+        np.random.default_rng(0), 2, 6, MIXED_KINDS, MIXED_BASE).items()}
+    meta = torch.tensor(solver_tpu.kernel_meta(MIXED_KINDS, MIXED_BASE, 6, 4, 2, True),
+                        dtype=torch.int32)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        kernels.newton_solve(meta, torch.ones(1), p["J"], p["aref"], p["D"], p["floss"],
+                             p["active"], p["mu"], p["M"], p["a_s"], p["ws"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 11, 27, 96])
+def test_psd_solve_kernel_matches_plain_on_card(n):
+    """K1 against psd_solve_plain on seeded SPD batches (rtol 1e-4, atol
+    1e-5: float32, the same algorithm, rsqrt and sums in another order)."""
+    _card()
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(300, n, n))
+    H = torch.from_numpy((A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(300, n)).astype(np.float32))
+    H, g = H.cuda(), g.cuda()
+    before = kernels.psd_solve.launches
+    x = linalg_tpu.psd_solve(H, g)
+    torch.cuda.synchronize()
+    assert kernels.psd_solve.launches == before + 1
+    torch.testing.assert_close(x, linalg_tpu.psd_solve_plain(H, g), rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError):
+        linalg_tpu.psd_solve(H.double(), g.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nv", [6, 11, 16])
+def test_newton_solve_kernel_matches_plain_on_card(nv):
+    """K2 against solve_batched_plain on mixed rows at the general path's
+    trip counts (rtol/atol 2e-3: both float32, sums in another order; the
+    solve stops at improved_est < tol * scale, where on such problems the
+    plain version in float32 and in float64 already differ by up to 4e-4)."""
+    _card()
+    p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(nv), 300, nv, MIXED_KINDS, MIXED_BASE).items()}
+    args = (MIXED_KINDS, MIXED_BASE, nv, 32, 8, 1e-8, True)
+    before = kernels.newton_solve.launches
+    got = solver_tpu.solve_batched(*args, **p)
+    torch.cuda.synchronize()
+    assert kernels.newton_solve.launches == before + 1
+    want = solver_tpu.solve_batched_plain(*args, **p)
+    for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+def test_newton_solve_kernel_at_default_friction_on_card():
+    """K2 at MuJoCo's default friction, nv 16: on the envs whose plain solve
+    converged within 32 trips, the final costs agree to 1e-3 relative (the
+    stiff cones leave flat directions where qacc itself is not determined
+    to float32 rounding)."""
+    _card()
+    p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(7), 300, 16, MIXED_KINDS, MIXED_BASE,
+        friction=DEFAULT_FRICTION).items()}
+    x, _, _ = solver_tpu.solve_batched(MIXED_KINDS, MIXED_BASE, 16, 32, 8, 1e-8, True, **p)
+    trips = []
+    xp, _ = solver_tpu.newton_tiles(16, MIXED_KINDS, MIXED_BASE, 32, 8, True, 1e-8,
+                                    *p.values(), trips=trips)
+    done = trips[0] < 32
+    assert int(done.sum()) >= 30
+    torch.testing.assert_close(solve_cost(MIXED_KINDS, MIXED_BASE, p, x)[done],
+                               solve_cost(MIXED_KINDS, MIXED_BASE, p, xp)[done],
+                               rtol=1e-3, atol=0.0)
+
+
 def test_kernel_sources_hash_into_library_name():
-    assert kernels.library_path().name.startswith("libmrp_kernels_")
-    assert kernels.library_path() == kernels.library_path()
+    for name in ("step_fused", "linalg", "solver"):
+        assert kernels.library_path(name).name.startswith(f"libmrp_{name}_")
+        assert kernels.library_path(name) == kernels.library_path(name)
 
 
 @pytest.mark.gpu

@@ -2,9 +2,11 @@
 
 Step action semantics (rejected while running, chunked), pause, reset,
 gravity edits that reach the step with no rebuild, reload with rollback,
-body state. Plus: the port and its server import no JAX.
+body state, the general path (PENDULUM) behind the server. Plus: the port
+and its server import no JAX, and the entry points default to the card.
 """
 
+import inspect
 import subprocess
 import sys
 
@@ -64,8 +66,8 @@ def test_reload_bad_model_keeps_serving(srv):
     assert srv.get_loading_request_state().value == 0
     assert srv.get_body_state("box").pose.position[2] < 0.2
     # a model the port cannot step yet fails cleanly as well
-    res = srv.reload(worlds.PENDULUM)
-    assert not res.success and "not yet ported" in res.status_message
+    res = srv.reload(worlds.PILE)
+    assert not res.success and "not ported" in res.status_message
     assert srv.step(1).success
     # and a good one replaces the old
     assert srv.reload(worlds.BOXES.replace('pos="0 0 0.2"', 'pos="0 0 0.5"')).success
@@ -81,10 +83,37 @@ def test_launch_runs_num_steps(tmp_path, capsys):
     assert "sim_time=0.140s" in err and "steps=70" in err
 
 
+def test_general_path_behind_the_server():
+    """PENDULUM takes the general path; gravity edits reach it; the free
+    ball's state reads as on the fused route."""
+    srv = MujocoServer(worlds.PENDULUM, nenv=2, device="cpu", unpause=False)
+    assert srv.step(3).success
+    assert srv.sim_time == pytest.approx(0.003, abs=1e-7)
+    ball = srv.get_body_state("ball", env_id=1)
+    assert ball.mass == pytest.approx(0.1)
+    assert ball.twist.linear[2] < 0.0 and ball.pose.position[2] < 0.06
+    assert srv.reset().success and srv.set_gravity((0.0, 0.0, 0.0)).success
+    assert srv.step(3).success
+    np.testing.assert_allclose(srv.get_batch_state()["qvel"], 0.0, atol=1e-6)
+
+
+def test_entry_points_default_to_the_card():
+    """MujocoServer and the CLI run on the card unless asked for the CPU
+    (read from their defaults; nothing is built here)."""
+    assert inspect.signature(MujocoServer).parameters["device"].default == "cuda"
+    args = launch.build_parser().parse_args(["--modelfile", "w.xml"])
+    assert args.device == "cuda"
+
+
 def test_port_imports_no_jax():
     code = ("import sys; import mujoco_ros_pkgs_tpu_torch, "
             "mujoco_ros_pkgs_tpu_torch.server, mujoco_ros_pkgs_tpu_torch.kernels, "
-            "mujoco_ros_pkgs_tpu_torch.core.convert; "
+            "mujoco_ros_pkgs_tpu_torch.core.convert, "
+            "mujoco_ros_pkgs_tpu_torch.ops.linalg_tpu, "
+            "mujoco_ros_pkgs_tpu_torch.ops.solver, mujoco_ros_pkgs_tpu_torch.ops.efc, "
+            "mujoco_ros_pkgs_tpu_torch.ops.narrowphase, "
+            "mujoco_ros_pkgs_tpu_torch.ops.collision, "
+            "mujoco_ros_pkgs_tpu_torch.ops.constraint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mujoco_ros_pkgs_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

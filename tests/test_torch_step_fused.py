@@ -25,7 +25,7 @@ from mujoco_ros_pkgs_tpu.ops import step_tpu as jstep_tpu
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
-from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
 
 BOXES_DAMPED = worlds.BOXES.replace(
     "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
@@ -201,7 +201,7 @@ def test_chol_solve_matches_numpy():
     A = rng.normal(size=(5, 6, 6))
     H = A @ A.transpose(0, 2, 1) + np.eye(6)
     g = rng.normal(size=(5, 6))
-    x = solver_tpu._chol_solve(torch.from_numpy(H), torch.from_numpy(g))
+    x = linalg_tpu.psd_solve_plain(torch.from_numpy(H), torch.from_numpy(g))
     np.testing.assert_allclose(x.numpy(), np.linalg.solve(H, g[..., None])[..., 0],
                                rtol=1e-10, atol=1e-10)
 
@@ -219,8 +219,14 @@ def test_supports_gate(name, ok):
         name) or getattr(worlds, name)
     m = mjcf.load_model_from_string(xml)
     assert step_tpu.supports(m) is ok
-    if not ok:
-        with pytest.raises(NotImplementedError, match="general step not yet ported"):
+    if name == "PENDULUM":
+        # outside the fused gate, the general route steps it
+        assert fwd.make_plan(m) == fwd.GeneralPlan()
+        d = fwd.step(m, fwd.make_data(m, 2))
+        assert torch.isfinite(d.qpos).all() and float(d.time[0]) == pytest.approx(0.001)
+    elif not ok:
+        # box-box pairs and nv = 72 are beyond both routes
+        with pytest.raises(NotImplementedError, match="not ported"):
             fwd.step(m, fwd.make_data(m, 2))
 
 

@@ -1,0 +1,56 @@
+"""Seeded float32 Newton problems for holding the port's K2 kernel, its plain
+version and the JAX kernel against each other (the tests and chip_smoke.py).
+Imports no JAX."""
+
+import numpy as np
+import torch
+
+from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu
+
+# rows of every kind the solve takes: 'eq', 'fri', 'lim', a condim-1
+# contact and elliptic cones of condim 3, 4 and 6 (20 rows)
+MIXED_KINDS = ("eq", "eq", "fri", "fri", "lim", "lim") + ("con",) * 14
+MIXED_BASE = ((6, 1), (7, 3), (10, 4), (14, 6))
+
+# per contact [sliding, sliding, torsional, rolling, rolling]: soft cones,
+# where most envs converge in 4 to 15 Newton trips
+SOFT_FRICTION = (0.9, 0.9, 0.5, 0.5, 0.5)
+# MuJoCo's default friction (1, 0.005, 0.0001): cones so stiff that about
+# half of the envs do not converge in 32 trips, and float32 rounding then
+# decides where an unconverged solve stops
+DEFAULT_FRICTION = (1.0, 1.0, 0.005, 0.0001, 0.0001)
+
+
+def random_problem(rng, nenv: int, nv: int, kinds, con_base,
+                   friction=SOFT_FRICTION) -> dict:
+    """A seeded, well-conditioned float32 problem with the given rows, as
+    numpy arrays: SPD M, J of scale 0.3, friction loss 0.3 on 'fri' rows,
+    `friction` per contact times U(0.5, 1.5), 85% of rows active."""
+    nefc, ncon = len(kinds), len(con_base)
+    A = rng.normal(size=(nenv, nv, nv))
+    mu = np.tile(friction, (nenv, max(ncon, 1), 1))
+    arrays = dict(
+        J=0.3 * rng.normal(size=(nenv, nefc, nv)),
+        aref=rng.normal(size=(nenv, nefc)),
+        D=np.abs(rng.normal(size=(nenv, nefc))) + 0.5,
+        floss=np.where(np.array(kinds) == "fri", 0.3, 0.0) * np.ones((nenv, 1)),
+        active=rng.uniform(size=(nenv, nefc)) < 0.85,
+        mu=(mu * rng.uniform(0.5, 1.5, size=(nenv, max(ncon, 1), 1)))[:, :ncon],
+        M=A @ A.transpose(0, 2, 1) / nv + np.eye(nv),
+        a_s=rng.normal(size=(nenv, nv)), ws=rng.normal(size=(nenv, nv)))
+    return {k: (v.astype(np.float32) if v.dtype.kind == "f" else v)
+            for k, v in arrays.items()}
+
+
+def solve_cost(kinds, con_base, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The Newton solve's objective at x, in float64: 0.5 (x - a_s)^T M
+    (x - a_s) plus the rows' cost. At a converged solve it is well
+    conditioned where x is not (stiff cones leave flat directions)."""
+    p = {k: torch.as_tensor(v).to(torch.float64) if torch.as_tensor(v).is_floating_point()
+         else torch.as_tensor(v) for k, v in p.items()}
+    x = torch.as_tensor(x).to(torch.float64)
+    dx = x - p["a_s"]
+    jar = (p["J"] @ x[..., None])[..., 0] - p["aref"]
+    rows = solver_tpu._row_forces(kinds, con_base, p["mu"], p["D"], p["floss"],
+                                  p["active"], jar, False)[2]
+    return 0.5 * ((p["M"] @ dx[..., None])[..., 0] * dx).sum(-1) + rows
