@@ -7,7 +7,8 @@ Phases (any failure raises; the exit code is then not 0):
      (nvidia-smi) and turns TF32 off for the plain references' matmuls;
   2. build: compiles every kernel in mujoco_ros_pkgs_tpu_torch/csrc with
      nvcc for sm_90a, one nvcc per source, all started together; prints
-     each kernel's registers, stack and spills;
+     each kernel's registers, stack and spills (K2 and K3 once per group
+     width G, a template parameter);
   3. fused step (K3) vs plain: BOXES and BOXES with a damped free joint at
      4096 envs from seeded numpy states, 1 step (qpos rtol 1e-5 / atol 1e-6,
      qvel and qacc rtol 1e-4 / atol 1e-4) and 5 steps (qpos atol 1e-4);
@@ -17,11 +18,16 @@ Phases (any failure raises; the exit code is then not 0):
      step keep them floating, a bad reload fails and the server keeps
      answering; the launch counts, zeroed before, must count these steps;
   5. fused step timing: env-steps/s of the kernel and of the plain path at
-     4096 and 65536 envs, 200 steps after warm-up, CUDA events;
+     4096 and 65536 envs, 200 steps after warm-up, CUDA events; the Newton
+     trips of those states (mean, max); K3's device time per call from
+     CUDA-graph replay; K3 at every group width on BOXES and on one body
+     with 3 and 5 boxes at 4096 and 65536 envs, each held against the plain
+     step first;
   6. Cholesky solve (K1) vs plain: seeded SPD batches (4096, n, n), n in
      {11, 27, 72, 96} (rtol 1e-4, atol 1e-5); K1, the plain version and
      torch.linalg.cholesky + torch.cholesky_solve (the yardstick, never
-     called by the port) timed at 4096 envs, n = 11;
+     called by the port) timed at 4096 envs, n = 11: one call at a time and
+     by CUDA-graph replay;
   7. Newton solve (K2) vs plain: PENDULUM's own rows at 4096 envs from
      seeded states (qacc, qfrc, row forces at rtol/atol 1e-3) and synthetic
      rows of every kind (eq, fri, lim, condim 1/3/4/6) at nv 6, 11, 16 with
@@ -29,7 +35,8 @@ Phases (any failure raises; the exit code is then not 0):
      improved_est < tol * scale, where float32 and float64 already differ by
      up to 4e-4); at MuJoCo's default friction (nv 16, 64 rows) the final
      costs on the envs that converged within 32 trips (1e-3 of max(cost,
-     1)); K2 and the plain version timed on PENDULUM's rows;
+     1)); K2 and the plain version timed on PENDULUM's rows (K2 one call at
+     a time and by CUDA-graph replay), K2 at every group width;
   8. general path vs plain: 5 steps of PENDULUM at 4096 seeded envs through
      ops/forward.step with the kernels and with their plain versions (qpos
      rtol 1e-5 / atol 1e-6, qvel rtol/atol 1e-4, qacc rtol/atol 1e-3 after
@@ -40,12 +47,16 @@ Phases (any failure raises; the exit code is then not 0):
      PENDULUM steps 10 times (K1 twice per step: the mass matrix and Euler's
      damping solve); the general step's ms/step from CUDA events, with the
      kernels and with their plain versions.
-Prints a JSON line of kernel results, then the card line, then
-{"ok": true, "device": {...}} as the last line.
+Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
+events over back-to-back calls; `graph_ms`: CUDA-graph replay of one call,
+the device time alone; `group`: the width the main path runs), then the
+card line, then {"ok": true, "device": {...}} as the last line. The width
+sweeps launch through the kernels' own wrappers with group_width forced.
 """
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,11 +71,10 @@ from mujoco_ros_pkgs_tpu_torch.ops import collision, efc
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
-from tests.torch_problems import (DEFAULT_FRICTION, MIXED_BASE, MIXED_KINDS,
-                                  random_problem, solve_cost)
+from tests.torch_problems import (BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE, FULL_KINDS,
+                                  MIXED_BASE, MIXED_KINDS, box_cluster, random_problem,
+                                  solve_cost)
 
-BOXES_DAMPED = worlds.BOXES.replace(
-    "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
 PENDULUM_DAMPED = (worlds.PENDULUM
                    .replace('type="ball" pos="0 0 1"/>',
                             'type="ball" pos="0 0 1" damping="0.2" stiffness="1.5"/>')
@@ -77,11 +87,6 @@ NENV = 4096
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 KERNELS = (kernels.step_fused, kernels.psd_solve, kernels.newton_solve)
-# 64 rows at nv 16: the same, then 11 condim-3 cones, a condim-6, a condim-4
-# and a condim-1 contact
-FULL_KINDS = MIXED_KINDS + ("con",) * 44
-FULL_BASE = (MIXED_BASE + tuple((20 + 3 * i, 3) for i in range(11))
-             + ((53, 6), (59, 4), (63, 1)))
 
 
 def card_line() -> str:
@@ -94,6 +99,18 @@ def card_line() -> str:
 def zero_counts():
     for k in KERNELS:
         k.launches = 0
+
+
+@contextlib.contextmanager
+def forced_width(group):
+    """Make kernels.group_width answer `group` (the width sweeps; the port
+    never does this)."""
+    saved = kernels.group_width
+    kernels.group_width = lambda *args, **kw: group
+    try:
+        yield
+    finally:
+        kernels.group_width = saved
 
 
 def states(nenv, seed):
@@ -228,6 +245,68 @@ def timing(card):
     flops = float(sum(newton_flops(6, pr.J.shape[-2], dims, nls, int(t))
                       for t in trips[0].tolist())) + NENV * 3000.0
     out["bound"] = bound(NENV * 38 * 4, flops)
+    out["group"] = kernels.group_width(6, *plan.rows, NENV)
+    q, v, w = states(NENV, seed=1)
+    out["graph_ms"] = graph_ms(
+        lambda: kernels.step_fused(plan.meta, plan.params, q, v, w, plan.rows), 100)
+    print(f"[timing] K3 nenv={NENV}: {out['graph_ms']:.4f} ms per call by graph replay "
+          f"(the first step of these states) ({card})", flush=True)
+    t = trips[0].float()
+    print(f"[timing] K3 states nenv={NENV}: Newton trips mean {float(t.mean()):.3f} max "
+          f"{int(t.max())} (first step, plain version)", flush=True)
+
+    out["widths"] = {}
+    for xml, label in ((worlds.BOXES, "BOXES"), (box_cluster(3), "3 boxes"),
+                       (box_cluster(5), "5 boxes")):
+        for nenv in (NENV, 65536):
+            out["widths"][(label, nenv)] = k3_widths(card, xml, label, nenv)
+    return out
+
+
+def k3_widths(card, xml, label, nenv):
+    """K3 at every group width on the timing states of one world (ms/step
+    over 200 steps), each width held against the plain step first: qpos and
+    qvel at the tolerances of kernel_vs_plain, and the solver's x on BOXES
+    too. On more rows x reaches hundreds and the plain version's own float32
+    rounding of its small components nears that budget, so there x gets
+    1e-4 + 1e-4 |x| plus twice the plain version's float32-vs-float64 gap,
+    element by element (as tests/test_torch_kernels_gpu.py); the gap's
+    share of the plain budget is printed. At 65536 envs of more rows the
+    plain version in float32 misses float64 by up to 2.9 times the plain
+    budget (measured on an H100), and x is printed there, not held: those
+    shapes are timed for the width rule, and x is held on them at 4096."""
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    rule = kernels.group_width(6, *plan.rows, nenv)
+    hold_x = xml == worlds.BOXES or nenv == NENV
+    q, v, w = states(nenv, seed=1)
+    want = step_tpu.step_batched_plain(m, q, v, w, plan.params, plan.idx)
+    budget = 1e-4 + 1e-4 * want[2].abs()
+    if xml != worlds.BOXES:
+        m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
+        plan64 = fwd.make_plan(m64)
+        gap = (step_tpu.step_batched_plain(m64, q.double(), v.double(), w.double(),
+                                           plan64.params, plan64.idx)[2]
+               - want[2].double()).abs().float()
+        print(f"[timing] K3 {label}: plain float32 vs float64 x, max share of the "
+              f"1e-4 + 1e-4 |x| budget {float((gap / budget).max()):.3f}", flush=True)
+        budget = budget + 2 * gap
+    out = {}
+    def step(q, v, w):
+        return kernels.step_fused(plan.meta, plan.params, q, v, w, plan.rows)
+
+    for g in kernels.GROUP_WIDTHS:
+        with forced_width(g):
+            got = step(q, v, w)
+            close(f"K3 {label} G={g} qpos", got[0], want[0], 1e-5, 1e-6)
+            close(f"K3 {label} G={g} qvel", got[1], want[1], 1e-4, 1e-4)
+            share = float(((got[2] - want[2]).abs() / budget).max())
+            assert share <= 1.0 or not hold_x, f"K3 {label} G={g} x: {share:.3f} of its budget"
+            out[g] = time_steps(step, q, v, w, nsteps=200, warmup=20)
+        print(f"[timing] K3 {label} rows={plan.rows[0]} G={g}{' (rule)' if g == rule else ''} "
+              f"nenv={nenv}: {out[g]:.4f} ms/step; x at {share:.3f} of its budget"
+              f"{'' if hold_x else ' (printed, not held)'} "
+              f"({card})", flush=True)
     return out
 
 
@@ -260,6 +339,31 @@ def newton_flops(nv, nefc, cone_dims, nls, trips):
             + 7 * (4 * nefc + forces)
             + nls * (6 * nefc + forces_w + sum(2 * d * d for d in cones)))
     return 2 * cost + 2 * nv * nv + trips * trip + 2 * nefc * nv + forces
+
+
+def graph_ms(fn, iters):
+    """Mean device ms of fn() over iters replays of a CUDA graph that holds
+    one call (after warm-up calls), CUDA events: the kernel's own time, with
+    no host launch overhead in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
 
 
 def time_ms(fn, iters, warmup=3):
@@ -309,11 +413,13 @@ def k1_phase(card):
         err = max(err, e)
     H, g = spd_batch(NENV, 11, seed=0)
     t = {"ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
+         "graph_ms": graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
          "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 20),
          "library_ms": time_ms(lambda: library_solve(H, g), 200)}
     n = 11
     t["bound"] = bound(NENV * (n * n + 2 * n) * 4, NENV * (n ** 3 / 3 + 2 * n * n))
-    print(f"[K1 timing] nenv={NENV} n=11: kernel {t['ms']:.4f} ms, plain "
+    print(f"[K1 timing] nenv={NENV} n=11: kernel {t['ms']:.4f} ms one call at a time "
+          f"({t['graph_ms']:.4f} ms by graph replay), plain "
           f"{t['plain_ms']:.4f} ms, cholesky+cholesky_solve {t['library_ms']:.4f} ms, "
           f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) ({card})", flush=True)
     return err, t
@@ -416,7 +522,9 @@ def k2_phase(card):
         k2_compare(f"synthetic nv={nv} rows={len(kinds)}",
                    (kinds, base, nv, 32, 8, 1e-8, True), p, 2e-3)
     k2_default_friction()
+    prepared = k2_args(static, args)
     t = {"ms": time_ms(lambda: solver_tpu.solve_batched(*static, **args), 100),
+         "graph_ms": graph_ms(lambda: kernels.newton_solve(*prepared), 100),
          "plain_ms": time_ms(lambda: solver_tpu.solve_batched_plain(*static, **args), 5)}
     trips = []
     kinds, con_base, nv, niter, nls, tol, ws = static
@@ -430,11 +538,56 @@ def k2_phase(card):
                      + 4 * (2 * nv + nefc))
     t["bound"] = bound(nbytes, flops)
     t["trips"] = trips[0].float()
-    print(f"[K2 timing] PENDULUM rows nenv={NENV}: kernel {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+    t["group"] = kernels.group_width(nv, nefc, ncon, NENV)
+    print(f"[K2 timing] PENDULUM rows nenv={NENV}: kernel {t['ms']:.4f} ms (G={t['group']}, "
+          f"solve_batched one call at a time; {t['graph_ms']:.4f} ms by graph replay), "
+          f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
           f"Newton trips mean {float(t['trips'].mean()):.3f} max "
           f"{int(t['trips'].max())} ({card})", flush=True)
+
+    # every group width: PENDULUM's rows (each held against the plain
+    # version first) and the 64 synthetic rows at nv 16
+    want = solver_tpu.solve_batched_plain(*static, **args)
+    full = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(16), NENV, 16, FULL_KINDS, FULL_BASE).items()}
+    full_args = k2_args((FULL_KINDS, FULL_BASE, 16, 32, 8, 1e-8, True), full)
+    small = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(6), NENV, 6, MIXED_KINDS, MIXED_BASE).items()}
+    small_args = k2_args((MIXED_KINDS, MIXED_BASE, 6, 32, 8, 1e-8, True), small)
+    big_static, big = pendulum_problem(m, 65536, seed=2)
+    big_args = k2_args(big_static, big)
+    cases = (("PENDULUM rows", prepared, t["group"], 100),
+             ("nv=16 rows=64", full_args, kernels.group_width(16, 64, len(FULL_BASE), NENV),
+              20),
+             ("nv=6 rows=20", small_args,
+              kernels.group_width(6, len(MIXED_KINDS), len(MIXED_BASE), NENV), 100),
+             ("PENDULUM rows nenv=65536", big_args,
+              kernels.group_width(nv, nefc, ncon, 65536), 20))
+    t["widths"] = {}
+    for g in kernels.GROUP_WIDTHS:          # the widths of at least nv lanes
+        with forced_width(g):
+            if g >= nv:
+                got = kernels.newton_solve(*prepared)
+                for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+                    close(f"K2 G={g} PENDULUM {name}", a, b, 1e-3, 1e-3)
+            t["widths"][g] = {label: graph_ms(lambda a=a: kernels.newton_solve(*a), n)
+                              for label, a, _, n in cases if g >= a[2].shape[-1]}
+        print(f"[K2 timing] G={g} nenv={NENV}: " + "; ".join(
+            f"{label} {t['widths'][g][label]:.4f} ms{' (rule)' if g == rule else ''}"
+            for label, _, rule, _ in cases if label in t["widths"][g]) + f" ({card})",
+              flush=True)
     return err, t
+
+
+def k2_args(static, args):
+    """The K2 wrapper's arguments (kernels.newton_solve) for solve_batched's,
+    made once so that a timing holds the launch alone."""
+    kinds, con_base, nv, niter, nls, tol, ws = static
+    meta = solver_tpu._meta_tensor(tuple(kinds), tuple(con_base), nv, niter, nls,
+                                   bool(ws), args["J"].device)
+    tol_t = torch.full((1,), tol, dtype=torch.float32, device=args["J"].device)
+    return (meta, tol_t) + tuple(args[k].contiguous() for k in (
+        "J", "aref", "D", "floss", "active", "mu", "M", "a_s", "ws"))
 
 
 # ---------------------------------------------------------------------------
@@ -537,12 +690,13 @@ def general_timing(card, m, plan, d):
     return out
 
 
-def entry(name, source, replaces, launches, err, t, library_ms=None):
+def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": library_ms}
+            "ms": t["ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": library_ms, "group": group}
 
 
 def main():
@@ -559,8 +713,13 @@ def main():
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for line in kernels.build_log.splitlines():
-        if line.startswith("---") or any(w in line for w in ("registers", "spill",
-                                                              "stack frame")):
+        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:ILi(\d+)E)?",
+                          line)
+        if found:
+            print(f"[build] {found.group(1)}"
+                  + (f" G={found.group(2)}" if found.group(2) else ""), flush=True)
+        elif line.startswith("---") or any(w in line for w in ("registers", "spill",
+                                                                "stack frame")):
             print("[build] " + line.strip(), flush=True)
 
     err3 = max(kernel_vs_plain(worlds.BOXES, "boxes"),
@@ -575,12 +734,13 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("step_fused", "step_fused.cu", "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
-              launches3, err3, {"ms": t3[("kernel", NENV)],
-                                "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]}),
+              launches3, err3, {"ms": t3[("kernel", NENV)], "graph_ms": t3["graph_ms"],
+                                "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]},
+              t3["group"]),
         entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
-              launches12["psd_solve"], err1, t1, t1["library_ms"]),
+              launches12["psd_solve"], err1, t1, 32, t1["library_ms"]),
         entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
-              launches12["newton_solve"], err2, t2)]}))
+              launches12["newton_solve"], err2, t2, t2["group"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

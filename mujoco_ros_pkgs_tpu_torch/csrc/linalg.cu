@@ -12,7 +12,8 @@
 // triangle of H (n x n, n <= 96, any n at run time) goes to shared memory
 // (n (n + 1) + n floats per env, 36 KB at n = 96, 0.6 KB at n = 11), the
 // column loop is sequential, and the 32 lanes share the rows of each rank-1
-// update and of the substitutions (csrc/warp.cuh). Four envs per block.
+// update and of the substitutions (csrc/warp.cuh's group Cholesky at
+// G = 32). Four envs per block.
 //
 // Cost: each env reads n^2 + n floats and writes n, and does about n^3 / 3
 // multiply-adds, so at the sizes of the general path (n = 11) the bound is the
@@ -32,7 +33,8 @@ __global__ void psd_solve_kernel(const float* __restrict__ H,
                                  const float* __restrict__ g,
                                  float* __restrict__ x, int B, int n) {
   extern __shared__ float smem[];
-  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const Group<kLanes> grp = Group<kLanes>::of(threadIdx.x);
+  const int warp = threadIdx.x / kLanes, lane = grp.lane;
   const int env = blockIdx.x * kLinalgWarps + warp;
   if (env >= B) return;            // the whole warp leaves together
   const int ld = n + 1;            // odd row stride: fewer bank conflicts
@@ -44,8 +46,8 @@ __global__ void psd_solve_kernel(const float* __restrict__ H,
     if (j <= i) A[i * ld + j] = He[idx];
   }
   for (int i = lane; i < n; i += kLanes) y[i] = g[(size_t)env * n + i];
-  __syncwarp();
-  warp_chol_solve(A, ld, n, y, lane);
+  grp.sync();
+  group_chol_solve(grp, A, ld, n, y);
   for (int i = lane; i < n; i += kLanes) x[(size_t)env * n + i] = y[i];
 }
 

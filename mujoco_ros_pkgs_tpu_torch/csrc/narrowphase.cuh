@@ -3,7 +3,10 @@
 // Replace `_plane_sphere`, `_plane_capsule` and `_plane_box` of the JAX
 // package's mujoco_ros_pkgs_tpu/ops/narrowphase_soa.py, which its fused step
 // kernel embeds. Same guards, contact order and tie breaking; their
-// plain-torch twins are ops/narrowphase_soa.py of the torch port.
+// plain-torch twins are ops/narrowphase_soa.py of the torch port. Each
+// computes one contact of its pair (the fused step gives each contact slot
+// a lane of its own), with static array indices after unrolling, so nothing
+// goes to local memory.
 #pragma once
 
 #include <math.h>
@@ -15,11 +18,10 @@ struct GeomFrame {
   float R[3][3];     // world orientation, R[i][j] row i column j
 };
 
-struct Contacts {
-  int n;             // contacts written (the pair's capacity)
-  float dist[4];
-  float pos[4][3];
-  float frame[3][3]; // rows (normal, t1, t2), shared by every contact
+struct Contact {
+  float dist;
+  float pos[3];
+  float frame[3][3]; // rows (normal, t1, t2), shared by every contact of a pair
 };
 
 __device__ inline float dot3(const float* a, const float* b) {
@@ -67,78 +69,90 @@ __device__ inline void plane_normal(const GeomFrame& g, float* n) {
   n[2] = g.R[2][2];
 }
 
+// Each primitive writes contact k of its pair (k < the pair's capacity: 1
+// for a sphere, 2 for a capsule, 4 for a box), in the JAX package's order.
+
 __device__ inline void plane_sphere(const GeomFrame& g1, const GeomFrame& g2,
-                                    const float* s2, Contacts& out) {
+                                    const float* s2, int k, Contact& out) {
+  (void)k;
   float n[3], d[3];
   plane_normal(g1, n);
-  for (int k = 0; k < 3; ++k) d[k] = g2.p[k] - g1.p[k];
+  for (int i = 0; i < 3; ++i) d[i] = g2.p[i] - g1.p[i];
   const float r = s2[0];
   const float dist = dot3(n, d) - r;
-  out.n = 1;
-  out.dist[0] = dist;
-  for (int k = 0; k < 3; ++k) out.pos[0][k] = g2.p[k] - n[k] * (r + 0.5f * dist);
+  out.dist = dist;
+  for (int i = 0; i < 3; ++i) out.pos[i] = g2.p[i] - n[i] * (r + 0.5f * dist);
   make_frame(n, out.frame);
 }
 
 __device__ inline void plane_capsule(const GeomFrame& g1, const GeomFrame& g2,
-                                     const float* s2, Contacts& out) {
+                                     const float* s2, int k, Contact& out) {
   float n[3];
   plane_normal(g1, n);
   const float axis[3] = {g2.R[0][2], g2.R[1][2], g2.R[2][2]};
   const float r = s2[0], hl = s2[1];
   make_frame(n, out.frame);
-  out.n = 2;
-  for (int i = 0; i < 2; ++i) {
-    const float sgn = i == 0 ? 1.0f : -1.0f;
-    float e[3], d[3];
-    for (int k = 0; k < 3; ++k) e[k] = g2.p[k] + axis[k] * (sgn * hl);
-    for (int k = 0; k < 3; ++k) d[k] = e[k] - g1.p[k];
-    const float dist = dot3(n, d) - r;
-    out.dist[i] = dist;
-    for (int k = 0; k < 3; ++k) out.pos[i][k] = e[k] - n[k] * (r + 0.5f * dist);
+  const float sgn = k == 0 ? 1.0f : -1.0f;
+  float e[3], d[3];
+  for (int i = 0; i < 3; ++i) e[i] = g2.p[i] + axis[i] * (sgn * hl);
+  for (int i = 0; i < 3; ++i) d[i] = e[i] - g1.p[i];
+  const float dist = dot3(n, d) - r;
+  out.dist = dist;
+  for (int i = 0; i < 3; ++i) out.pos[i] = e[i] - n[i] * (r + 0.5f * dist);
+}
+
+// corner ci of box g2 (half sizes s2), ci = (ix, iy, iz) in bits
+__device__ inline void box_corner(const GeomFrame& g2, const float* s2, int ci, float* c) {
+  const float local[3] = {s2[0] * ((ci & 4) ? 1.0f : -1.0f),
+                          s2[1] * ((ci & 2) ? 1.0f : -1.0f),
+                          s2[2] * ((ci & 1) ? 1.0f : -1.0f)};
+  for (int i = 0; i < 3; ++i) {
+    c[i] = g2.p[i] + (g2.R[i][0] * local[0] + g2.R[i][1] * local[1]
+                      + g2.R[i][2] * local[2]);
   }
 }
 
 __device__ inline void plane_box(const GeomFrame& g1, const GeomFrame& g2,
-                                 const float* s2, Contacts& out) {
+                                 const float* s2, int k, Contact& out) {
   float n[3];
   plane_normal(g1, n);
   make_frame(n, out.frame);
   const float np0 = dot3(n, g1.p);
-  float corner[8][3], cd[8];
-  int ci = 0;
-  for (int ix = 0; ix < 2; ++ix) {
-    for (int iy = 0; iy < 2; ++iy) {
-      for (int iz = 0; iz < 2; ++iz, ++ci) {
-        const float local[3] = {s2[0] * (ix ? 1.0f : -1.0f),
-                                s2[1] * (iy ? 1.0f : -1.0f),
-                                s2[2] * (iz ? 1.0f : -1.0f)};
-        for (int i = 0; i < 3; ++i) {
-          corner[ci][i] = g2.p[i] + (g2.R[i][0] * local[0] + g2.R[i][1] * local[1]
-                                     + g2.R[i][2] * local[2]);
-        }
-        cd[ci] = dot3(corner[ci], n) - np0;
-      }
-    }
+  float cd[8];
+#pragma unroll
+  for (int ci = 0; ci < 8; ++ci) {
+    float c[3];
+    box_corner(g2, s2, ci, c);
+    cd[ci] = dot3(c, n) - np0;
   }
-  // the 4 most penetrating corners, lower index first on ties (lax.top_k's
-  // order in the JAX package): a strict < scan keeps the first minimum
-  bool taken[8] = {false, false, false, false, false, false, false, false};
-  out.n = 4;
+  // contact k is the k-th most penetrating corner, lower index first on
+  // ties (lax.top_k's order in the JAX package): a strict < scan keeps the
+  // first minimum. Every array index is static, so cd stays in registers.
+  unsigned taken = 0u;
+  float dist = 0.0f;
+  int pick = 0;
+#pragma unroll
   for (int s = 0; s < 4; ++s) {
-    float bestd = taken[0] ? INFINITY : cd[0];
+    float bestd = (taken & 1u) ? INFINITY : cd[0];
     int best = 0;
+#pragma unroll
     for (int i = 1; i < 8; ++i) {
-      const float di = taken[i] ? INFINITY : cd[i];
+      const float di = ((taken >> i) & 1u) ? INFINITY : cd[i];
       if (di < bestd) {
         bestd = di;
         best = i;
       }
     }
-    taken[best] = true;
-    out.dist[s] = bestd;
-    for (int k = 0; k < 3; ++k) out.pos[s][k] = corner[best][k] - n[k] * (0.5f * bestd);
+    taken |= 1u << best;
+    if (s == k) {
+      dist = bestd;
+      pick = best;
+    }
   }
+  float c[3];
+  box_corner(g2, s2, pick, c);
+  out.dist = dist;
+  for (int i = 0; i < 3; ++i) out.pos[i] = c[i] - n[i] * (0.5f * dist);
 }
 
 }  // namespace mrp

@@ -1,5 +1,6 @@
-// The Newton constraint solve of one env on one warp (the body of K2,
-// csrc/solver.cu), over rows of every kind.
+// The Newton constraint solve of one env on a group of G lanes of one warp
+// (G = 8 or 16): the one body that K2 (csrc/solver.cu, rows from device
+// memory) and K3 (csrc/step_fused.cuh, rows built in the step) both run.
 //
 // Follows mujoco_ros_pkgs_tpu/ops/solver_tpu.py::newton_tiles and
 // `_row_forces` step by step: the warmstart picked by cost, up to niter
@@ -10,11 +11,23 @@
 // improved_est < tol * scale or |grad|^2 < tol^2 (the converging step is
 // still applied). Its plain-torch twin is ops/solver_tpu.py of the port.
 //
-// All per-env state lives in shared memory (EnvLayout); lanes share the
-// rows (row forces, J x, J dx, the line search's sums), the contacts (one
-// lane per cone), the dofs and the entries of H; warp sums combine them.
-// Sums therefore run in another order than the plain version's, and the two
-// differ by rounding only.
+// Layout: each env's arrays live in its own slice of shared memory
+// (env_layout), sized from the model's nv, rows and contacts at launch.
+// Work is split by ownership, the same in every pass: lane r % G owns
+// diagonal row r, lane c % G owns contact c (all rows of its cone), and
+// lane i owns dof i (nv <= G: the launches check it). Lane i also holds row
+// i of H in registers for the Cholesky solve, whose pivots and columns go
+// by shuffles (warp.cuh group_chol_solve_rows). A lane reads back only the
+// row values it wrote itself
+// (the residual J x - aref and the search direction J dx), so the whole line
+// search runs in registers without a barrier: each owner evaluates its rows
+// at all 7 grid alphas in one pass and the group reduces the 7 sums in one
+// butterfly; each polish step reduces (phi', phi'') in one butterfly. Cone
+// Hessian blocks are built in registers (the cone kernels are instantiated
+// for condim 3, 4 and 6) and go straight into W J. A Newton trip has four
+// barriers: after the row pass, after H = M + J^T W J, after the solve's
+// dx and after the x update. Sums run in another order than the plain
+// version's, and the two differ by rounding only.
 #pragma once
 
 #include <math.h>
@@ -28,127 +41,155 @@ namespace solver {
 constexpr float kMinVal = 1e-15f;
 constexpr int kMaxNv = 16;
 constexpr int kMaxRows = 64;
+constexpr int kThreads = 128;   // threads per block of K2 and K3
+constexpr int kMinBlocks = 4;   // blocks per SM the launch bounds ask for: at
+                                // most 128 registers a thread
 // row codes (ops/solver_tpu.py ROW_CODE / row_codes)
 enum { kEq = 0, kFri = 1, kLim = 2, kCone = 3 };
 // metadata header (ops/solver_tpu.py kernel_meta), then one code per row,
 // then (first row, condim) per contact
 enum { M_NV, M_NEFC, M_NCON, M_NITER, M_NLS, M_WARMSTART, M_LEN };
 
-// Offsets (in 4-byte words) of one env's arrays in shared memory.
+// Offsets (in 4-byte words) of one env's arrays in shared memory; the
+// launches size their shared memory from `total`.
 struct EnvLayout {
-  int J, JW, M, H, Wr, aref, D, floss, act, jar, f, w, vls, jj, mu;
-  int x, a_s, ws, xs, grad, dx, tv, code, base, dim, total;
+  int J, JW, M, H, aref, D, floss, act, jar, f, vls, mu, x, a_s, ws, dx, code, con,
+      total;
 };
 
 __host__ __device__ inline EnvLayout env_layout(int nv, int nefc, int ncon) {
+  const int nc = ncon > 0 ? ncon : 1;
   EnvLayout L;
   int o = 0;
   L.J = o; o += nefc * nv;
   L.JW = o; o += nefc * nv;
   L.M = o; o += nv * nv;
   L.H = o; o += nv * (nv + 1);
-  L.Wr = o; o += nefc * 6;
   L.aref = o; o += nefc;
   L.D = o; o += nefc;
   L.floss = o; o += nefc;
   L.act = o; o += nefc;
   L.jar = o; o += nefc;
   L.f = o; o += nefc;
-  L.w = o; o += nefc;
   L.vls = o; o += nefc;
-  L.jj = o; o += nefc;
-  L.mu = o; o += 5 * (ncon > 0 ? ncon : 1);
+  L.mu = o; o += 5 * nc;
   L.x = o; o += nv;
   L.a_s = o; o += nv;
   L.ws = o; o += nv;
-  L.xs = o; o += nv;
-  L.grad = o; o += nv;
   L.dx = o; o += nv;
-  L.tv = o; o += nv;
   L.code = o; o += nefc;
-  L.base = o; o += nefc;
-  L.dim = o; o += nefc;
+  L.con = o; o += 2 * nc;
   L.total = o;
   return L;
 }
 
-// One env's view of its shared-memory block and of the model's metadata.
+// One env's view of its shared-memory block.
 struct Env {
   int nv, nefc, ncon;
-  const int* contacts;       // (first row, condim) per contact
-  float *J, *JW, *M, *H, *Wr, *aref, *D, *floss, *act, *jar, *f, *w, *vls, *jj,
-      *mu, *x, *a_s, *ws, *xs, *grad, *dx, *tv;
-  int *code, *base, *dim;
+  float *J, *JW, *M, *H, *aref, *D, *floss, *act, *jar, *f, *vls, *mu, *x, *a_s,
+      *ws, *dx;
+  int *code, *con;   // row codes; (first row, condim) per contact
 };
 
-__device__ inline Env make_env(float* blk, const int* meta, int nv, int nefc,
-                               int ncon) {
+__device__ inline Env make_env(float* blk, int nv, int nefc, int ncon) {
   const EnvLayout L = env_layout(nv, nefc, ncon);
   Env e;
   e.nv = nv;
   e.nefc = nefc;
   e.ncon = ncon;
-  e.contacts = meta + M_LEN + nefc;
   e.J = blk + L.J; e.JW = blk + L.JW; e.M = blk + L.M; e.H = blk + L.H;
-  e.Wr = blk + L.Wr; e.aref = blk + L.aref; e.D = blk + L.D;
-  e.floss = blk + L.floss; e.act = blk + L.act; e.jar = blk + L.jar;
-  e.f = blk + L.f; e.w = blk + L.w; e.vls = blk + L.vls; e.jj = blk + L.jj;
+  e.aref = blk + L.aref; e.D = blk + L.D; e.floss = blk + L.floss;
+  e.act = blk + L.act; e.jar = blk + L.jar; e.f = blk + L.f; e.vls = blk + L.vls;
   e.mu = blk + L.mu; e.x = blk + L.x; e.a_s = blk + L.a_s; e.ws = blk + L.ws;
-  e.xs = blk + L.xs; e.grad = blk + L.grad; e.dx = blk + L.dx; e.tv = blk + L.tv;
+  e.dx = blk + L.dx;
   e.code = (int*)(blk + L.code);
-  e.base = (int*)(blk + L.base);
-  e.dim = (int*)(blk + L.dim);
+  e.con = (int*)(blk + L.con);
   return e;
 }
 
-// Forces of one elliptic cone (condim 3/4/6) at u (its rows), by one lane:
-// f[0..dim), and, if W is given, its dim x dim Hessian block as rows of
-// stride 6 (W[k * 6 + l]). Returns the cone's cost.
-__device__ inline float cone_forces(int dim, const float* mu, const float* D,
-                                    const float* u, bool act, float* f, float* W) {
-  const int nt = dim - 1;
-  float sig[5], P_t[5], ph[5], dirs[5], ft[5];
-  for (int k = 0; k < nt; ++k) sig[k] = fmaxf(mu[k < 2 ? 0 : k], kMinVal);
+// Row codes and contacts from the solve's metadata block into the env.
+template <int G>
+__device__ inline void load_meta(const Env& e, const Group<G>& g, const int* meta) {
+  for (int r = g.lane; r < e.nefc; r += G) e.code[r] = meta[M_LEN + r];
+  for (int i = g.lane; i < 2 * e.ncon; i += G) e.con[i] = meta[M_LEN + e.nefc + i];
+}
+
+// ---------------------------------------------------------------------------
+// row kernels
+// ---------------------------------------------------------------------------
+
+struct RowForce {
+  float f, w, cost;
+};
+
+// Force, diagonal weight and cost of one 'eq', 'fri' or one-sided row at its
+// residual u (fl: the row's friction loss, read for 'fri' rows only).
+__device__ __forceinline__ RowForce row_force(int code, float D, float fl, bool act,
+                                              float u) {
+  RowForce o;
+  if (code == kEq) {
+    o.f = act ? -D * u : 0.0f;
+    o.w = act ? D : 0.0f;
+    o.cost = act ? 0.5f * D * u * u : 0.0f;
+  } else if (code == kFri) {
+    const float f_unc = -D * u;
+    const bool lin = fabsf(f_unc) > fl;
+    o.f = act ? fminf(fmaxf(f_unc, -fl), fl) : 0.0f;
+    o.w = (act && !lin) ? D : 0.0f;
+    o.cost = act ? (lin ? fl * fabsf(u) - 0.5f * fl * fl / fmaxf(D, kMinVal)
+                        : 0.5f * D * u * u)
+                 : 0.0f;
+  } else {                         // one-sided: limits, condim-1 contacts
+    const bool gate = act && (u < 0.0f);
+    o.f = gate ? -D * u : 0.0f;
+    o.w = gate ? D : 0.0f;
+    o.cost = gate ? 0.5f * D * u * u : 0.0f;
+  }
+  return o;
+}
+
+// Forces f of one elliptic cone of condim DIM at u (its rows' residuals),
+// with mu its contact's 5 friction values and D its rows' D; if kW, also its
+// DIM x DIM Hessian block W. Returns the cone's cost. Every index is static,
+// so u, f and W stay in registers.
+template <int DIM, bool kW>
+__device__ __forceinline__ float cone_forces(const float* mu, const float* D,
+                                             const float (&u)[DIM], bool act,
+                                             float (&f)[DIM], float (&W)[DIM][DIM]) {
+  constexpr int NT = DIM - 1;
+  float sig[NT], P_t[NT], ph[NT], dirs[NT];
+#pragma unroll
+  for (int k = 0; k < NT; ++k) sig[k] = fmaxf(mu[k < 2 ? 0 : k], kMinVal);
   const float Dn = D[0];
   const float P_n = -Dn * u[0];
-  for (int k = 0; k < nt; ++k) {
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
     P_t[k] = -D[1 + k] * u[1 + k];
     ph[k] = P_t[k] / sig[k];
   }
   float sumsq = 0.0f, sumDh = 0.0f;
-  for (int k = 0; k < nt; ++k) sumsq = sumsq + ph[k] * ph[k];
-  for (int k = 0; k < nt; ++k) sumDh = sumDh + D[1 + k] / (sig[k] * sig[k]);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) sumsq = sumsq + ph[k] * ph[k];
+#pragma unroll
+  for (int k = 0; k < NT; ++k) sumDh = sumDh + D[1 + k] / (sig[k] * sig[k]);
   const float T = sqrtf(fmaxf(sumsq, kMinVal * kMinVal));
   const bool inside = T <= P_n;
-  const float Dbar = sumDh / (float)nt;
+  const float Dbar = sumDh / (float)NT;
   const float fn_mid = (P_n / Dn + T / Dbar) / (1.0f / Dn + 1.0f / Dbar);
   const bool polar = fn_mid <= 0.0f;
-  float f_n = inside ? P_n : (polar ? 0.0f : fn_mid);
-  for (int k = 0; k < nt; ++k) {
+  f[0] = act ? (inside ? P_n : (polar ? 0.0f : fn_mid)) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
     dirs[k] = ph[k] / T;
-    ft[k] = sig[k] * (inside ? ph[k] : (polar ? 0.0f : fn_mid * dirs[k]));
+    const float ft = sig[k] * (inside ? ph[k] : (polar ? 0.0f : fn_mid * dirs[k]));
+    f[1 + k] = act ? ft : 0.0f;
   }
-  if (!act) {
-    f_n = 0.0f;
-    for (int k = 0; k < nt; ++k) ft[k] = 0.0f;
-  }
-  f[0] = f_n;
-  for (int k = 0; k < nt; ++k) f[1 + k] = ft[k];
-  // cost: 0.5 u^T D u - 0.5 (P - f)^T R (P - f), R = 1/D
-  float q1 = 0.0f, q2 = 0.0f;
-  for (int k = 0; k < dim; ++k) q1 = q1 + D[k] * u[k] * u[k];
-  {
-    const float r0 = P_n - f_n;
-    q2 = q2 + r0 * r0 / D[0];
-    for (int k = 0; k < nt; ++k) {
-      const float r = P_t[k] - ft[k];
-      q2 = q2 + r * r / D[1 + k];
-    }
-  }
-  if (W != nullptr) {
+  if (kW) {
     const float A = Dn * Dbar / (Dn + Dbar);
     const float btt = fn_mid * Dbar / T;
-    for (int i = 0; i < dim; ++i) {
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) {
+#pragma unroll
       for (int j = 0; j <= i; ++j) {
         float v;
         if (i == 0) {
@@ -156,223 +197,380 @@ __device__ inline float cone_forces(int dim, const float* mu, const float* D,
         } else if (j == 0) {
           v = A * sig[i - 1] * dirs[i - 1];
         } else {
-          const int k = i - 1, l = j - 1;
-          float wt = (A - btt) * (dirs[k] * dirs[l]);
-          if (k == l) wt = wt + btt;
-          v = sig[k] * sig[l] * wt;
+          float wt = (A - btt) * (dirs[i - 1] * dirs[j - 1]);
+          if (i == j) wt = wt + btt;
+          v = sig[i - 1] * sig[j - 1] * wt;
         }
         if (inside) v = (i == j) ? D[i] : 0.0f;
         if (polar || !act) v = 0.0f;
-        W[i * 6 + j] = v;
-        W[j * 6 + i] = v;
+        W[i][j] = v;
+        W[j][i] = v;
       }
     }
+  }
+  // cost: 0.5 u^T D u - 0.5 (P - f)^T R (P - f), R = 1/D
+  float q1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) q1 = q1 + D[k] * u[k] * u[k];
+  const float r0 = P_n - f[0];
+  float q2 = r0 * r0 / D[0];
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const float r = P_t[k] - f[1 + k];
+    q2 = q2 + r * r / D[1 + k];
   }
   return act ? (0.5f * q1 - 0.5f * q2) : 0.0f;
 }
 
-// Forces of every row at u (the row residuals J x - aref at some x) into
-// e.f; with want_w also the diagonal weights e.w (0 on cone rows) and the
-// cone rows' Hessian block rows e.Wr. Returns this lane's share of the cost
-// (warp_sum of it is the total).
-__device__ inline float row_forces(const Env& e, const float* u, bool want_w,
-                                   int lane) {
-  float cost = 0.0f;
-  for (int r = lane; r < e.nefc; r += kLanes) {
+template <int N>
+struct Dim {
+  static constexpr int value = N;
+};
+
+// Runs row(r, code) for each diagonal row and cone(c, first row, Dim<dim>)
+// for each elliptic cone this lane owns. No barrier inside.
+template <int G, class RowFn, class ConeFn>
+__device__ __forceinline__ void own_rows(const Env& e, const Group<G>& g, RowFn&& row,
+                                         ConeFn&& cone) {
+  for (int r = g.lane; r < e.nefc; r += G) {
     const int code = e.code[r];
-    if (code == kCone) {
-      if (want_w) e.w[r] = 0.0f;
-      continue;
-    }
-    const float D = e.D[r], jar = u[r];
-    const bool act = e.act[r] > 0.5f;
-    float fr, wr, cr;
-    if (code == kEq) {
-      fr = act ? -D * jar : 0.0f;
-      wr = act ? D : 0.0f;
-      cr = act ? 0.5f * D * jar * jar : 0.0f;
-    } else if (code == kFri) {
-      const float fl = e.floss[r];
-      const float f_unc = -D * jar;
-      const bool lin = fabsf(f_unc) > fl;
-      fr = act ? fminf(fmaxf(f_unc, -fl), fl) : 0.0f;
-      wr = (act && !lin) ? D : 0.0f;
-      cr = act ? (lin ? fl * fabsf(jar) - 0.5f * fl * fl / fmaxf(D, kMinVal)
-                      : 0.5f * D * jar * jar)
-               : 0.0f;
-    } else {                       // one-sided: limits, condim-1 contacts
-      const bool gate = act && (jar < 0.0f);
-      fr = gate ? -D * jar : 0.0f;
-      wr = gate ? D : 0.0f;
-      cr = gate ? 0.5f * D * jar * jar : 0.0f;
-    }
-    e.f[r] = fr;
-    if (want_w) e.w[r] = wr;
-    cost += cr;
+    if (code != kCone) row(r, code);
   }
-  for (int c = lane; c < e.ncon; c += kLanes) {
-    const int b = e.contacts[2 * c], dim = e.contacts[2 * c + 1];
-    if (dim == 1) continue;        // solved as a one-sided row above
-    cost += cone_forces(dim, e.mu + 5 * c, e.D + b, u + b, e.act[b] > 0.5f,
-                        e.f + b, want_w ? e.Wr + 6 * b : nullptr);
-  }
-  __syncwarp();
-  return cost;
-}
-
-// out = M v, lanes over dofs.
-__device__ inline void mmul(const Env& e, const float* v, float* out, int lane) {
-  for (int i = lane; i < e.nv; i += kLanes) {
-    float s = e.M[i * e.nv] * v[0];
-    for (int j = 1; j < e.nv; ++j) s = s + e.M[i * e.nv + j] * v[j];
-    out[i] = s;
-  }
-  __syncwarp();
-}
-
-// out = J v - aref, lanes over rows.
-__device__ inline void residual(const Env& e, const float* v, float* out, int lane) {
-  for (int r = lane; r < e.nefc; r += kLanes) {
-    float s = -e.aref[r];
-    for (int k = 0; k < e.nv; ++k) s = s + e.J[r * e.nv + k] * v[k];
-    out[r] = s;
-  }
-  __syncwarp();
-}
-
-// The solve's objective at xp: 0.5 (xp - a_s)^T M (xp - a_s) + row costs.
-// Uses e.xs, e.tv, e.jj and e.f as scratch.
-__device__ inline float cost_at(const Env& e, const float* xp, int lane) {
-  for (int v = lane; v < e.nv; v += kLanes) e.xs[v] = xp[v] - e.a_s[v];
-  __syncwarp();
-  mmul(e, e.xs, e.tv, lane);
-  float q = 0.0f;
-  for (int v = lane; v < e.nv; v += kLanes) q += e.tv[v] * e.xs[v];
-  residual(e, xp, e.jj, lane);
-  const float c = row_forces(e, e.jj, false, lane);
-  return 0.5f * warp_sum(q) + warp_sum(c);
-}
-
-// phi'(alpha) along v_ls from e.jar, and phi''(alpha) into *d2 if given.
-// Uses e.jj, e.f, e.w and e.Wr as scratch.
-__device__ inline float dphi(const Env& e, float alpha, float gMd, float dMd,
-                             float* d2, int lane) {
-  for (int r = lane; r < e.nefc; r += kLanes) e.jj[r] = e.jar[r] + alpha * e.vls[r];
-  __syncwarp();
-  row_forces(e, e.jj, d2 != nullptr, lane);
-  float p1 = 0.0f, p2 = 0.0f;
-  for (int r = lane; r < e.nefc; r += kLanes) {
-    const float vr = e.vls[r];
-    p1 += e.f[r] * vr;
-    if (d2 != nullptr) {
-      float s = e.w[r] * vr;
-      if (e.code[r] == kCone) {
-        const int b = e.base[r];
-        for (int l = 0; l < e.dim[r]; ++l) s += e.Wr[6 * r + l] * e.vls[b + l];
-      }
-      p2 += s * vr;
+  for (int c = g.lane; c < e.ncon; c += G) {
+    const int b = e.con[2 * c];
+    switch (e.con[2 * c + 1]) {
+      case 3: cone(c, b, Dim<3>{}); break;
+      case 4: cone(c, b, Dim<4>{}); break;
+      case 6: cone(c, b, Dim<6>{}); break;
+      default: break;              // condim 1: its row is one-sided, above
     }
   }
-  const float d1 = gMd + alpha * dMd - warp_sum(p1);
-  if (d2 != nullptr) *d2 = dMd + warp_sum(p2);
-  return d1;
 }
 
-// The whole solve of one env whose inputs are loaded into e; leaves the
-// solution in e.x and the row forces at it in e.f.
-__device__ inline void newton_env(const Env& e, int niter, int nls,
-                                  bool warmstart, float tol, int lane) {
+// J[r] . v - aref[r]
+__device__ __forceinline__ float resid(const Env& e, int r, const float* v) {
+  const float* Jr = e.J + r * e.nv;
+  float s = -e.aref[r];
+  for (int k = 0; k < e.nv; ++k) s = s + Jr[k] * v[k];
+  return s;
+}
+
+// J[r] . v
+__device__ __forceinline__ float jdot(const Env& e, int r, const float* v) {
+  const float* Jr = e.J + r * e.nv;
+  float s = Jr[0] * v[0];
+  for (int k = 1; k < e.nv; ++k) s = s + Jr[k] * v[k];
+  return s;
+}
+
+// (M v)_i
+__device__ __forceinline__ float mrow(const Env& e, int i, const float* v) {
+  const float* Mi = e.M + i * e.nv;
+  float s = Mi[0] * v[0];
+  for (int j = 1; j < e.nv; ++j) s = s + Mi[j] * v[j];
+  return s;
+}
+
+// (M (x - a_s))_i
+__device__ __forceinline__ float mrow_rel(const Env& e, int i, const float* x) {
+  const float* Mi = e.M + i * e.nv;
+  float s = Mi[0] * (x[0] - e.a_s[0]);
+  for (int j = 1; j < e.nv; ++j) s = s + Mi[j] * (x[j] - e.a_s[j]);
+  return s;
+}
+
+// Forces of every row at x into e.f (the final pass, and K3's Euler input).
+template <int G>
+__device__ inline void forces_at(const Env& e, const Group<G>& g, const float* x) {
+  own_rows(e, g,
+           [&](int r, int code) {
+             const float fl = code == kFri ? e.floss[r] : 0.0f;
+             e.f[r] = row_force(code, e.D[r], fl, e.act[r] > 0.5f, resid(e, r, x)).f;
+           },
+           [&](int c, int b, auto dim) {
+             constexpr int DIM = decltype(dim)::value;
+             float u[DIM], f[DIM], W[DIM][DIM];
+#pragma unroll
+             for (int k = 0; k < DIM; ++k) u[k] = resid(e, b + k, x);
+             cone_forces<DIM, false>(e.mu + 5 * c, e.D + b, u, e.act[b] > 0.5f, f, W);
+#pragma unroll
+             for (int k = 0; k < DIM; ++k) e.f[b + k] = f[k];
+           });
+}
+
+// ---------------------------------------------------------------------------
+// the solve
+// ---------------------------------------------------------------------------
+
+// The whole solve of one env (nv <= G) whose inputs (J, aref, D, floss,
+// act, mu, M, a_s, ws, codes, contacts) are loaded into e and visible to the
+// group; leaves the solution in e.x and the row forces at it in e.f,
+// visible to the group.
+template <int G>
+__device__ inline void newton_env(const Env& e, const Group<G>& g, int niter, int nls,
+                                  bool warmstart, float tol) {
   const float grid[7] = {0.0625f, 0.25f, 0.5f, 1.0f, 2.0f, 4.0f, 16.0f};
-  const int nv = e.nv, nefc = e.nefc;
-  bool use_ws = false;
-  if (warmstart) use_ws = cost_at(e, e.ws, lane) < cost_at(e, e.a_s, lane);
-  for (int v = lane; v < nv; v += kLanes) e.x[v] = use_ws ? e.ws[v] : e.a_s[v];
-  __syncwarp();
-  mmul(e, e.a_s, e.tv, lane);
-  float sc = 0.0f;
-  for (int v = lane; v < nv; v += kLanes) sc += fabsf(e.tv[v]);
-  const float scale = fmaxf(warp_sum(sc), kMinVal);
+  const int nv = e.nv;
+  const int i = g.lane;              // the dof this lane owns
+  const bool dof = i < nv;
+
+  // warmstart by cost, and the convergence scale sum |M a_s|:
+  // s[0] = (ws - a_s)^T M (ws - a_s), s[1] / s[2] = row costs at ws / a_s
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (dof) {
+    s[3] = fabsf(mrow(e, i, e.a_s));
+    if (warmstart) s[0] = mrow_rel(e, i, e.ws) * (e.ws[i] - e.a_s[i]);
+  }
+  if (warmstart) {
+    own_rows(e, g,
+             [&](int r, int code) {
+               const float D = e.D[r], fl = code == kFri ? e.floss[r] : 0.0f;
+               const bool act = e.act[r] > 0.5f;
+               s[1] += row_force(code, D, fl, act, resid(e, r, e.ws)).cost;
+               s[2] += row_force(code, D, fl, act, resid(e, r, e.a_s)).cost;
+             },
+             [&](int c, int b, auto dim) {
+               constexpr int DIM = decltype(dim)::value;
+               float u[DIM], f[DIM], W[DIM][DIM];
+               const bool act = e.act[b] > 0.5f;
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) u[k] = resid(e, b + k, e.ws);
+               s[1] += cone_forces<DIM, false>(e.mu + 5 * c, e.D + b, u, act, f, W);
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) u[k] = resid(e, b + k, e.a_s);
+               s[2] += cone_forces<DIM, false>(e.mu + 5 * c, e.D + b, u, act, f, W);
+             });
+  }
+  g.sum(s);
+  const bool use_ws = warmstart && (0.5f * s[0] + s[1] < s[2]);
+  const float scale = fmaxf(s[3], kMinVal);
+  if (dof) e.x[i] = use_ws ? e.ws[i] : e.a_s[i];
+  g.sync();
 
   for (int it = 0; it < niter; ++it) {
-    residual(e, e.x, e.jar, lane);
-    row_forces(e, e.jar, true, lane);
-    for (int v = lane; v < nv; v += kLanes) e.xs[v] = e.x[v] - e.a_s[v];
-    __syncwarp();
-    mmul(e, e.xs, e.tv, lane);
-    for (int v = lane; v < nv; v += kLanes) {
-      float s = e.tv[v];
-      for (int r = 0; r < nefc; ++r) s = s - e.J[r * nv + v] * e.f[r];
-      e.grad[v] = s;
-      e.dx[v] = -s;
-    }
-    // JW = W J row by row (diagonal weight, plus the cone block's row)
-    for (int idx = lane; idx < nefc * nv; idx += kLanes) {
-      const int r = idx / nv, j = idx - r * nv;
-      float s = e.w[r] * e.J[idx];
-      if (e.code[r] == kCone) {
-        const int b = e.base[r];
-        for (int l = 0; l < e.dim[r]; ++l) s += e.Wr[6 * r + l] * e.J[(b + l) * nv + j];
-      }
-      e.JW[idx] = s;
-    }
-    __syncwarp();
-    // H = M + J^T JW (+1e-12 on the diagonal), lower triangle
-    for (int idx = lane; idx < nv * nv; idx += kLanes) {
-      const int i = idx / nv, j = idx - i * nv;
-      if (j > i) continue;
-      float s = e.M[idx];
-      for (int r = 0; r < nefc; ++r) s = s + e.J[r * nv + i] * e.JW[r * nv + j];
-      if (i == j) s = s + 1e-12f;
-      e.H[i * (nv + 1) + j] = s;
-    }
-    __syncwarp();
-    warp_chol_solve(e.H, nv + 1, nv, e.dx, lane);
+    // rows at x: residual (kept by its owner for the line search), force,
+    // and W J row by row (diagonal weight, or the cone's block)
+    own_rows(e, g,
+             [&](int r, int code) {
+               const float u = resid(e, r, e.x);
+               const float fl = code == kFri ? e.floss[r] : 0.0f;
+               const RowForce rf = row_force(code, e.D[r], fl, e.act[r] > 0.5f, u);
+               e.jar[r] = u;
+               e.f[r] = rf.f;
+               const float* Jr = e.J + r * nv;
+               float* JWr = e.JW + r * nv;
+               for (int j = 0; j < nv; ++j) JWr[j] = rf.w * Jr[j];
+             },
+             [&](int c, int b, auto dim) {
+               constexpr int DIM = decltype(dim)::value;
+               float u[DIM], f[DIM], W[DIM][DIM];
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) {
+                 u[k] = resid(e, b + k, e.x);
+                 e.jar[b + k] = u[k];
+               }
+               cone_forces<DIM, true>(e.mu + 5 * c, e.D + b, u, e.act[b] > 0.5f, f, W);
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) e.f[b + k] = f[k];
+               for (int j = 0; j < nv; ++j) {
+                 float Jc[DIM];
+#pragma unroll
+                 for (int l = 0; l < DIM; ++l) Jc[l] = e.J[(b + l) * nv + j];
+#pragma unroll
+                 for (int k = 0; k < DIM; ++k) {
+                   float w = W[k][0] * Jc[0];
+#pragma unroll
+                   for (int l = 1; l < DIM; ++l) w = w + W[k][l] * Jc[l];
+                   e.JW[(b + k) * nv + j] = w;
+                 }
+               }
+             });
+    g.sync();
 
-    for (int r = lane; r < nefc; r += kLanes) {
-      float s = e.J[r * nv] * e.dx[0];
-      for (int v = 1; v < nv; ++v) s = s + e.J[r * nv + v] * e.dx[v];
-      e.vls[r] = s;
+    // gradient M (x - a_s) - J^T f (kept by the dof's owner), and
+    // H = M + J^T W J (+1e-12 on the diagonal), lower triangle, its entries
+    // spread over the lanes
+    float grad = 0.0f;
+    if (dof) {
+      grad = mrow_rel(e, i, e.x);
+      for (int r = 0; r < e.nefc; ++r) grad = grad - e.J[r * nv + i] * e.f[r];
     }
-    __syncwarp();
-    mmul(e, e.dx, e.tv, lane);
-    float pg = 0.0f, pd = 0.0f, pgd = 0.0f, pgg = 0.0f;
-    for (int v = lane; v < nv; v += kLanes) {
-      pg += e.tv[v] * e.xs[v];
-      pd += e.tv[v] * e.dx[v];
-      pgd += e.grad[v] * e.dx[v];
-      pgg += e.grad[v] * e.grad[v];
+    const int ntri = nv * (nv + 1) / 2;
+    for (int t = g.lane; t < ntri; t += G) {
+      int a = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
+      while (a * (a + 1) / 2 > t) --a;
+      while ((a + 1) * (a + 2) / 2 <= t) ++a;
+      const int b = t - a * (a + 1) / 2;
+      float h = e.M[a * nv + b];
+      for (int r = 0; r < e.nefc; ++r) h = h + e.J[r * nv + a] * e.JW[r * nv + b];
+      if (a == b) h = h + 1e-12f;
+      e.H[a * (nv + 1) + b] = h;
     }
-    const float gMd = warp_sum(pg), dMd = warp_sum(pd);
-    const float d1_0 = warp_sum(pgd), gradsq = warp_sum(pgg);
+    g.sync();
+    // dx = -H^-1 grad, lane i holding row i of H
+    float hrow[kMaxNv];
+#pragma unroll
+    for (int j = 0; j < kMaxNv; ++j) hrow[j] = (dof && j <= i) ? e.H[i * (nv + 1) + j] : 0.0f;
+    const float dxi = group_chol_solve_rows(g, hrow, -grad, nv);
+    if (dof) e.dx[i] = dxi;
+    g.sync();
 
-    // bracket phi'(alpha) over the static grid
+    // the search direction on the rows (J dx, kept by the row's owner), and
+    // gMd = (M dx) . (x - a_s), dMd = (M dx) . dx, grad . dx, grad . grad
+    own_rows(e, g, [&](int r, int) { e.vls[r] = jdot(e, r, e.dx); },
+             [&](int, int b, auto dim) {
+               constexpr int DIM = decltype(dim)::value;
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) e.vls[b + k] = jdot(e, b + k, e.dx);
+             });
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (dof) {
+      const float md = mrow(e, i, e.dx);
+      p[0] = md * (e.x[i] - e.a_s[i]);
+      p[1] = md * dxi;
+      p[2] = grad * dxi;
+      p[3] = grad * grad;
+    }
+    g.sum(p);
+    const float gMd = p[0], dMd = p[1], d1_0 = p[2], gradsq = p[3];
+
+    // bracket phi'(alpha) over the static grid: one pass, 7 sums of f . v
+    float d1[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    own_rows(e, g,
+             [&](int r, int code) {
+               const float u0 = e.jar[r], v = e.vls[r], D = e.D[r];
+               const float fl = code == kFri ? e.floss[r] : 0.0f;
+               const bool act = e.act[r] > 0.5f;
+#pragma unroll
+               for (int a = 0; a < 7; ++a)
+                 d1[a] += row_force(code, D, fl, act, u0 + grid[a] * v).f * v;
+             },
+             [&](int c, int b, auto dim) {
+               constexpr int DIM = decltype(dim)::value;
+               float u0[DIM], v[DIM], u[DIM], f[DIM], W[DIM][DIM];
+               const bool act = e.act[b] > 0.5f;
+#pragma unroll
+               for (int k = 0; k < DIM; ++k) {
+                 u0[k] = e.jar[b + k];
+                 v[k] = e.vls[b + k];
+               }
+#pragma unroll
+               for (int a = 0; a < 7; ++a) {
+#pragma unroll
+                 for (int k = 0; k < DIM; ++k) u[k] = u0[k] + grid[a] * v[k];
+                 cone_forces<DIM, false>(e.mu + 5 * c, e.D + b, u, act, f, W);
+#pragma unroll
+                 for (int k = 0; k < DIM; ++k) d1[a] += f[k] * v[k];
+               }
+             });
+    g.sum(d1);
     float lo = 0.0f, hi = grid[6];
     bool found_hi = false;
-    for (int g = 0; g < 7; ++g) {
-      const bool neg = dphi(e, grid[g], gMd, dMd, nullptr, lane) < 0.0f;
-      if (neg) lo = grid[g];
-      if (!neg && !found_hi) hi = grid[g];
+#pragma unroll
+    for (int a = 0; a < 7; ++a) {
+      const bool neg = gMd + grid[a] * dMd - d1[a] < 0.0f;
+      if (neg) lo = grid[a];
+      if (!neg && !found_hi) hi = grid[a];
       found_hi = found_hi || !neg;
     }
     hi = fmaxf(hi, lo);
+
+    // polish: phi' and phi'' at alpha in one pass and one butterfly each
     float alpha = 0.5f * (lo + hi);
     for (int k = 0; k < nls; ++k) {
-      float d2;
-      const float d1 = dphi(e, alpha, gMd, dMd, &d2, lane);
-      if (d1 < 0.0f) lo = alpha; else hi = alpha;
-      const float newton = alpha - d1 / fmaxf(d2, kMinVal);
+      float q[2] = {0.0f, 0.0f};
+      own_rows(e, g,
+               [&](int r, int code) {
+                 const float v = e.vls[r];
+                 const float fl = code == kFri ? e.floss[r] : 0.0f;
+                 const RowForce rf = row_force(code, e.D[r], fl, e.act[r] > 0.5f,
+                                               e.jar[r] + alpha * v);
+                 q[0] += rf.f * v;
+                 q[1] += rf.w * v * v;
+               },
+               [&](int c, int b, auto dim) {
+                 constexpr int DIM = decltype(dim)::value;
+                 float v[DIM], u[DIM], f[DIM], W[DIM][DIM];
+#pragma unroll
+                 for (int l = 0; l < DIM; ++l) {
+                   v[l] = e.vls[b + l];
+                   u[l] = e.jar[b + l] + alpha * v[l];
+                 }
+                 cone_forces<DIM, true>(e.mu + 5 * c, e.D + b, u, e.act[b] > 0.5f, f, W);
+#pragma unroll
+                 for (int l = 0; l < DIM; ++l) {
+                   float wv = W[l][0] * v[0];
+#pragma unroll
+                   for (int m = 1; m < DIM; ++m) wv = wv + W[l][m] * v[m];
+                   q[0] += f[l] * v[l];
+                   q[1] += wv * v[l];
+                 }
+               });
+      g.sum(q);
+      const float d1a = gMd + alpha * dMd - q[0];
+      const float d2a = dMd + q[1];
+      if (d1a < 0.0f) lo = alpha; else hi = alpha;
+      const float newton = alpha - d1a / fmaxf(d2a, kMinVal);
       alpha = (newton > lo && newton < hi) ? newton : 0.5f * (lo + hi);
     }
 
     const float improved_est = -0.5f * alpha * d1_0;
-    for (int v = lane; v < nv; v += kLanes) e.x[v] = e.x[v] + alpha * e.dx[v];
-    __syncwarp();
+    if (dof) e.x[i] = e.x[i] + alpha * dxi;
+    g.sync();
     // the step that converges is still applied; x then stays frozen, so
     // leaving the loop here gives the fixed-trip result of the TPU kernel
     if (improved_est < tol * scale || gradsq < tol * tol) break;
   }
-  residual(e, e.x, e.jar, lane);
-  row_forces(e, e.jar, false, lane);
+  forces_at(e, g, e.x);
+  g.sync();
+}
+
+// ---------------------------------------------------------------------------
+// K2's body: one thread of a block of kThreads, G lanes per env
+// ---------------------------------------------------------------------------
+
+// Inputs as newton_solve_launch (csrc/solver.cu) takes them; smem is the
+// block's shared memory, kThreads / G env slices of env_layout.
+template <int G>
+__device__ inline void solve_env(float* smem, int block, int thread, const int* meta,
+                                 const float* tol_p, const float* J, const float* aref,
+                                 const float* D, const float* floss,
+                                 const unsigned char* act, const float* mu,
+                                 const float* M, const float* a_s, const float* ws,
+                                 float* x_out, float* qfrc_out, float* f_out, int B,
+                                 int nv, int nefc, int ncon) {
+  const Group<G> g = Group<G>::of(thread);
+  const int slot = thread / G;
+  const int env = block * (kThreads / G) + slot;
+  if (env >= B) return;            // the whole group leaves together
+  const Env e = make_env(smem + slot * env_layout(nv, nefc, ncon).total, nv, nefc, ncon);
+  const size_t er = (size_t)env * nefc, ev = (size_t)env * nv;
+  const int nmu = 5 * (ncon > 0 ? ncon : 1);
+  for (int i = g.lane; i < nefc * nv; i += G) e.J[i] = J[er * nv + i];
+  for (int i = g.lane; i < nv * nv; i += G) e.M[i] = M[ev * nv + i];
+  for (int r = g.lane; r < nefc; r += G) {
+    e.aref[r] = aref[er + r];
+    e.D[r] = D[er + r];
+    e.floss[r] = floss[er + r];
+    e.act[r] = act[er + r] ? 1.0f : 0.0f;
+  }
+  for (int i = g.lane; i < nmu; i += G) e.mu[i] = mu[(size_t)env * nmu + i];
+  for (int i = g.lane; i < nv; i += G) {
+    e.a_s[i] = a_s[ev + i];
+    e.ws[i] = ws[ev + i];
+  }
+  load_meta(e, g, meta);
+  g.sync();
+
+  newton_env(e, g, meta[M_NITER], meta[M_NLS], meta[M_WARMSTART] != 0, tol_p[0]);
+
+  for (int r = g.lane; r < nefc; r += G) f_out[er + r] = e.f[r];
+  for (int i = g.lane; i < nv; i += G) {
+    x_out[ev + i] = e.x[i];
+    float s = e.J[i] * e.f[0];
+    for (int r = 1; r < nefc; ++r) s = s + e.J[r * nv + i] * e.f[r];
+    qfrc_out[ev + i] = s;
+  }
 }
 
 }  // namespace solver

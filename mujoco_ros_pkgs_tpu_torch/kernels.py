@@ -10,6 +10,10 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch.empty, launches on the current CUDA stream, raises if the
 launch failed, and counts its launches in a plain integer attribute
 (`step_fused.launches`, `psd_solve.launches`, `newton_solve.launches`).
+
+K2 and K3 run one Newton body (csrc/solver.cuh) on a group of G lanes per
+env; `group_width` picks G from the rows and the batch, and the C entry
+points take it.
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library name -> (source, C entry point, its argument types)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIBS = {
-    "step_fused": ("step_fused.cu", "step_fused_launch", [_P] * 8 + [_I, _P]),
+    "step_fused": ("step_fused.cu", "step_fused_launch", [_P] * 8 + [_I] * 4 + [_P]),
     "linalg": ("linalg.cu", "psd_solve_launch", [_P] * 3 + [_I, _I, _P]),
-    "solver": ("solver.cu", "newton_solve_launch", [_P] * 14 + [_I] * 4 + [_P]),
+    "solver": ("solver.cu", "newton_solve_launch", [_P] * 14 + [_I] * 5 + [_P]),
 }
+
+GROUP_WIDTHS = (8, 16)         # lanes per env K2 and K3 are built for
 
 _lock = threading.Lock()
 _fns: dict = {}
@@ -123,18 +129,39 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _sm_count(device) -> int:
+    """SMs of a CUDA device (132 on an H100 SXM); for any other device 132,
+    since the launch then refuses its tensors anyway."""
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(name, fn, *args):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
-def step_fused(meta, params, qpos, qvel, ws):
+def group_width(nv: int, nefc: int, ncon: int, nenv: int, sms: int = 132) -> int:
+    """Lanes per env (G) of K2 and K3 for nenv envs of nv dofs, nefc rows
+    and ncon contacts on a card of `sms` SMs, as measured on the H100
+    (PERF.md). A lane owns one dof, so G >= nv. Registers allow 4 blocks of
+    128 threads per SM, 32 envs at 16 lanes: while the batch fits that one
+    wave, the slowest env's latency sets the time and 16 lanes shorten it.
+    Past it, 8 lanes hold twice the envs per SM while an env's slice of
+    shared memory is small; beyond three rows a lane, shared memory cuts
+    their blocks (at 60 rows to as few envs as 16 lanes hold)."""
+    return 16 if nv > 8 or nefc > 3 * 8 or nenv <= 32 * sms else 8
+
+
+def step_fused(meta, params, qpos, qvel, ws, rows):
     """Fused whole step (csrc/step_fused.cu) of a (B,) env batch on the card.
 
     meta: int32 (nmeta,) from ops/step_tpu.kernel_meta; params: float32
     (NP,) from ops/step_tpu._pack_params; qpos (B, 7), qvel (B, 6), ws
-    (B, 6) float32. Returns (qpos', qvel', x_solver)."""
+    (B, 6) float32; rows: the model's (constraint rows, contacts), as the
+    solve block of meta says. Returns (qpos', qvel', x_solver)."""
     if qpos.device.type != "cuda":
         raise ValueError(f"step_fused: qpos is on {qpos.device}, not a CUDA device")
     dev = qpos.device
@@ -148,6 +175,11 @@ def step_fused(meta, params, qpos, qvel, ws):
     _check("meta", meta, torch.int32, None, dev)
     if params.dim() != 1 or meta.dim() != 1:
         raise ValueError("step_fused: params and meta must be 1-D")
+    nefc, ncon = rows
+    if not 1 <= nefc <= 64 or not 1 <= ncon <= nefc:
+        raise ValueError(f"step_fused: {nefc} rows and {ncon} contacts; the kernel "
+                         "takes 1..64 rows")
+    group = group_width(6, nefc, ncon, B, _sm_count(dev))
     fn = _fn("step_fused")
     qpos_out = torch.empty_like(qpos)
     qvel_out = torch.empty_like(qvel)
@@ -156,7 +188,7 @@ def step_fused(meta, params, qpos, qvel, ws):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch("step_fused", fn, meta.data_ptr(), params.data_ptr(), qpos.data_ptr(),
                 qvel.data_ptr(), ws.data_ptr(), qpos_out.data_ptr(),
-                qvel_out.data_ptr(), x_out.data_ptr(), B, stream)
+                qvel_out.data_ptr(), x_out.data_ptr(), B, nefc, ncon, group, stream)
     step_fused.launches += 1
     return qpos_out, qvel_out, x_out
 
@@ -219,6 +251,7 @@ def newton_solve(meta, tol, J, aref, D, floss, active, mu, M, a_s, ws):
     _check("M", M, f32, (B, nv, nv), dev)
     _check("a_s", a_s, f32, (B, nv), dev)
     _check("ws", ws, f32, (B, nv), dev)
+    group = group_width(nv, nefc, ncon, B, _sm_count(dev))
     fn = _fn("solver")
     x = torch.empty_like(a_s)
     qfrc = torch.empty_like(a_s)
@@ -228,7 +261,8 @@ def newton_solve(meta, tol, J, aref, D, floss, active, mu, M, a_s, ws):
         _launch("newton_solve", fn, meta.data_ptr(), tol.data_ptr(), J.data_ptr(),
                 aref.data_ptr(), D.data_ptr(), floss.data_ptr(), active.data_ptr(),
                 mu.data_ptr(), M.data_ptr(), a_s.data_ptr(), ws.data_ptr(),
-                x.data_ptr(), qfrc.data_ptr(), f.data_ptr(), B, nv, nefc, ncon, stream)
+                x.data_ptr(), qfrc.data_ptr(), f.data_ptr(), B, nv, nefc, ncon, group,
+                stream)
     newton_solve.launches += 1
     return x, qfrc, f
 

@@ -4,7 +4,8 @@ Counterpart of mujoco_ros_pkgs_tpu/ops/step_tpu.py. On a CUDA tensor the
 step runs as one hand-written kernel (csrc/step_fused.cu, bound in
 kernels.py): kinematics, single-body CRB and RNE, static-vs-body
 narrowphase, contact efc rows with the `_kbi` impedance, the Newton solve
-and Euler with implicit damping, one thread per env. On a CPU tensor it runs
+(the group body K2 runs too) and Euler with implicit damping, a group of
+lanes per env. On a CPU tensor it runs
 `step_batched_plain`, the same computation in plain torch, which is also the
 kernel's reference on the card.
 
@@ -18,12 +19,13 @@ Every env-invariant scalar the step needs rides in one packed float32
 params vector (`_pack_params`); the kernel reads it from device memory, so
 edits such as set_gravity take effect with no rebuild. The model's static
 structure (pairs, slots, trip counts, flags, param offsets) rides in a small
-int32 vector (`kernel_meta`).
+int32 vector (`kernel_meta`), which ends with the solve's own block
+(`solver_tpu.kernel_meta`: row codes, and first row and condim per contact).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu
 from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL
 
 MINIMP, MAXIMP = 0.0001, 0.9999
-MAX_ROWS = 64            # compile-time maximum of the CUDA kernel
+MAX_ROWS = solver_tpu.MAX_ROWS     # the Newton body's maximum
 
 
 def supports(m: Model) -> bool:
@@ -147,10 +149,21 @@ _PAIR_STRIDE = 8     # prim, pi, g1 param offset, g1 on body, g2 offset,
                      # g2 on body, sign (+1 body is g2, -1 otherwise), dim
 
 
+def contact_layout(m: Model) -> tuple:
+    """(first row, condim) per contact slot: the rows of each slot follow
+    one another in slot order."""
+    out, row = [], 0
+    for _, _, _, dim in _slot_table(m)[1]:
+        out.append((row, dim))
+        row += dim
+    return tuple(out)
+
+
 def kernel_meta(m: Model, idx: dict) -> list:
     """Static structure of the model for the CUDA kernel, as int32 values:
-    the header, the param offsets, then one record per pair in slot order
-    (each pair's `cap` contacts occupy consecutive slots)."""
+    the header, the param offsets, one record per pair in slot order (each
+    pair's `cap` contacts occupy consecutive slots), then the solve's block
+    (solver_tpu.kernel_meta of the contact rows)."""
     pairs, slots = _slot_table(m)
     nrows = sum(s[3] for s in slots)
     if nrows > MAX_ROWS:
@@ -158,8 +171,8 @@ def kernel_meta(m: Model, idx: dict) -> list:
                          f"kernel maximum of {MAX_ROWS}")
     niter, nls = solver_tpu.trip_counts(m)
     flags = m.opt.disableflags
-    meta = [len(pairs), nrows, niter, nls,
-            int(not flags & DisableBit.WARMSTART),
+    warmstart = int(not flags & DisableBit.WARMSTART)
+    meta = [len(pairs), nrows, niter, nls, warmstart,
             int(not flags & DisableBit.REFSAFE), int(bool(m.has_damping))]
     meta += [idx[name][0] for name in _META_PARAMS]
     first_slot = {}
@@ -171,15 +184,19 @@ def kernel_meta(m: Model, idx: dict) -> list:
                  idx[f"gsize{p['g1']}"][0], int(m.geom_bodyid[p["g1"]] == 1),
                  idx[f"gsize{p['g2']}"][0], int(m.geom_bodyid[p["g2"]] == 1),
                  1 if p["body_is_g2"] else -1, p["dim"]]
+    meta += solver_tpu.kernel_meta(("con",) * nrows, contact_layout(m), 6, niter, nls,
+                                   warmstart)
     return meta
 
 
 class Plan(NamedTuple):
     """What the fused step needs beyond the state: packed params, their
-    layout, and (on CUDA) the kernel's metadata vector."""
+    layout, (on CUDA) the kernel's metadata vector, and the model's
+    (constraint rows, contact slots)."""
     params: torch.Tensor
     idx: dict
     meta: Optional[torch.Tensor]
+    rows: Tuple[int, int]
 
 
 def make_plan(m: Model) -> Plan:
@@ -188,7 +205,8 @@ def make_plan(m: Model) -> Plan:
     if m.device.type == "cuda":
         meta = torch.tensor(kernel_meta(m, idx), dtype=torch.int32,
                             device=m.device)
-    return Plan(params, idx, meta)
+    base = contact_layout(m)
+    return Plan(params, idx, meta, (sum(d for _, d in base), len(base)))
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +492,7 @@ def step_batched(m: Model, qpos, qvel, ws, plan: Plan):
         if plan.meta is None:
             raise ValueError("fused step: the plan has no kernel metadata "
                              "(make the plan from a model on the CUDA device)")
-        return kernels.step_fused(plan.meta, plan.params, qpos, qvel, ws)
+        return kernels.step_fused(plan.meta, plan.params, qpos, qvel, ws, plan.rows)
     if qpos.device.type == "cpu":
         return step_batched_plain(m, qpos, qvel, ws, plan.params, plan.idx)
     raise ValueError(f"fused step: unsupported device {qpos.device}")

@@ -1,0 +1,143 @@
+"""The per-env bodies of K2 and K3, compiled for the host.
+
+g++ builds tests/csrc_host_harness.cpp, which runs K2's body `solve_env<G>`
+(csrc/solver.cuh: the group Newton body K2 and K3 share) and K3's
+`step_env<G>` (csrc/step_fused.cuh) with one std::thread per lane,
+group-masked syncs and shuffles that abort on any mask but the calling
+lane's own group, and 128 threads to a block as on the card. Their results
+are held against the port's plain versions, solve_batched_plain and
+step_batched_plain, on seeded float32 inputs. Without a card this is the
+only run of the kernels' bodies. Skips where g++ is absent.
+"""
+
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mujoco_ros_pkgs_tpu_torch import kernels
+from mujoco_ros_pkgs_tpu_torch.core import mjcf
+from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
+from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu, step_tpu
+from tests.torch_problems import (BOXES_DAMPED, CAPSULE_CONDIM6, MIXED_BASE, MIXED_KINDS,
+                                  box_cluster, fused_states, random_problem)
+
+HARNESS = Path(__file__).resolve().parent / "csrc_host_harness.cpp"
+NENV = 8
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++")
+    exe = tmp_path_factory.mktemp("csrc_host") / "csrc_host_harness"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(kernels.CSRC),
+                    "-o", str(exe), str(HARNESS)], check=True, timeout=240)
+    return exe
+
+
+def _run(exe, tmp_path, group, nv, kinds, base, p, niter=32, nls=8, tol=1e-8):
+    nefc, ncon = len(kinds), len(base)
+    meta = np.array(solver_tpu.kernel_meta(kinds, base, nv, niter, nls, True), np.int32)
+    src, dst = tmp_path / f"in{group}", tmp_path / f"out{group}"
+    with open(src, "wb") as f:
+        np.array([NENV, nv, nefc, ncon, group, meta.size], np.int32).tofile(f)
+        meta.tofile(f)
+        np.array([tol], np.float32).tofile(f)
+        for name in ("J", "aref", "D", "floss"):
+            np.ascontiguousarray(p[name], np.float32).tofile(f)
+        p["active"].astype(np.uint8).tofile(f)
+        for name in ("mu", "M", "a_s", "ws"):
+            np.ascontiguousarray(p[name], np.float32).tofile(f)
+    subprocess.run([str(exe), "solve", str(src), str(dst)], check=True, timeout=120)
+    out = np.fromfile(dst, np.float32)
+    return (out[:NENV * nv].reshape(NENV, nv),
+            out[NENV * nv:2 * NENV * nv].reshape(NENV, nv),
+            out[2 * NENV * nv:].reshape(NENV, nefc))
+
+
+@pytest.mark.parametrize("niter,nls", [(32, 8), (3, 2)])
+@pytest.mark.parametrize("group,nv", [(8, 6), (8, 8), (16, 11), (16, 16)])
+def test_group_newton_body_matches_plain(harness, tmp_path, group, nv, niter, nls):
+    """qacc, qfrc and row forces of 8 seeded envs (rows of every kind: 'eq',
+    'fri', 'lim', condim 1/3/4/6) against solve_batched_plain at rtol/atol
+    2e-3, as the card test of K2 (both float32, sums in another order; the
+    solve stops at improved_est < tol * scale, where the plain version in
+    float32 and float64 already differ by up to 4e-4). At the general path's
+    32 trips and 8 polish steps the solves converge; cut to 3 trips and 2
+    polish steps they stop midway, where every step's arithmetic shows. At
+    G = 8 and 16 a simulated warp holds 4 and 2 envs, and at 32 trips some of
+    them leave the Newton loop at other trips than their warp neighbours; at
+    nv = G every lane owns a dof."""
+    p = random_problem(np.random.default_rng(40 + nv), NENV, nv, MIXED_KINDS, MIXED_BASE)
+    got = _run(harness, tmp_path, group, nv, MIXED_KINDS, MIXED_BASE, p, niter, nls)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    trips = []
+    solver_tpu.newton_tiles(nv, MIXED_KINDS, MIXED_BASE, niter, nls, True, 1e-8,
+                            *t.values(), trips=trips)
+    want = solver_tpu.solve_batched_plain(MIXED_KINDS, MIXED_BASE, nv, niter, nls, 1e-8,
+                                          True, **t)
+    for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=2e-3, atol=2e-3,
+                                   err_msg=f"G {group} {name}")
+    per_warp = 32 // group
+    if niter == 32:
+        by_warp = trips[0].reshape(-1, per_warp)
+        assert bool((by_warp.max(1).values > by_warp.min(1).values).any()), by_warp
+
+
+# (nv, rows, contacts, envs): BOXES, PENDULUM, the maxima with cones and
+# all condim 1, 5 boxes on one body past one wave, nv 3 with one row
+@pytest.mark.parametrize("nv,nefc,ncon,nenv", [(6, 12, 4, 65536), (11, 33, 11, 4096),
+                                               (16, 64, 18, 4096), (16, 64, 64, 4096),
+                                               (6, 60, 20, 65536), (3, 1, 0, 4096)])
+def test_block_shared_memory_fits_the_card(harness, nv, nefc, ncon, nenv):
+    """One K2 / K3 block at the width kernels.group_width picks takes at most
+    the 227 KB of shared memory an H100 block may have: 128 / G env slices of
+    csrc/solver.cuh's env_layout, the size the launches ask for."""
+    out = subprocess.run([str(harness), "layout", str(nv), str(nefc), str(ncon)],
+                         check=True, capture_output=True, text=True, timeout=60)
+    group = kernels.group_width(nv, nefc, ncon, nenv)
+    assert 128 // group * int(out.stdout) * 4 <= 227 * 1024
+
+
+@pytest.mark.parametrize("name,group", [("boxes", 8), ("boxes", 16),
+                                        ("boxes_damped", 8), ("capsule_condim6", 16),
+                                        ("box_cluster5", 8)])
+def test_fused_step_body_matches_plain(harness, tmp_path, name, group):
+    """One fused step of 16 seeded envs (K3's step_env on the group body;
+    box_cluster5: five box pairs, 60 rows) against step_batched_plain, at
+    the tolerances of the card check: qpos
+    rtol 1e-5 / atol 1e-6, qvel and the solver's x rtol/atol 1e-4 (float32,
+    the same algorithm, sums in another order)."""
+    xml = {"boxes": worlds.BOXES, "boxes_damped": BOXES_DAMPED,
+           "capsule_condim6": CAPSULE_CONDIM6, "box_cluster5": box_cluster(5)}[name]
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32)
+    plan = fwd.make_plan(m)
+    meta = np.array(step_tpu.kernel_meta(m, plan.idx), np.int32)
+    params = plan.params.numpy()
+    nenv = 16
+    qpos, qvel = fused_states(nenv, seed=9)
+    ws = (0.5 * np.random.default_rng(10).normal(size=(nenv, 6))).astype(np.float32)
+    nefc, ncon = plan.rows
+    src, dst = tmp_path / "in", tmp_path / "out"
+    with open(src, "wb") as f:
+        np.array([nenv, nefc, ncon, group, meta.size, params.size], np.int32).tofile(f)
+        meta.tofile(f)
+        for a in (params, qpos, qvel, ws):
+            np.ascontiguousarray(a, np.float32).tofile(f)
+    subprocess.run([str(harness), "step", str(src), str(dst)], check=True, timeout=120)
+    out = np.fromfile(dst, np.float32)
+    got = out[:nenv * 7].reshape(nenv, 7), out[nenv * 7:nenv * 13].reshape(nenv, 6), \
+        out[nenv * 13:].reshape(nenv, 6)
+    want = step_tpu.step_batched_plain(m, *(torch.from_numpy(a) for a in (qpos, qvel, ws)),
+                                       plan.params, plan.idx)
+    for label, a, b, rtol, atol in zip(("qpos", "qvel", "x"), got, want,
+                                       (1e-5, 1e-4, 1e-4), (1e-6, 1e-4, 1e-4)):
+        np.testing.assert_allclose(a, b.numpy(), rtol=rtol, atol=atol,
+                                   err_msg=f"{name} G {group} {label}")

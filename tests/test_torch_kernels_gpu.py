@@ -17,24 +17,9 @@ from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
-from tests.torch_problems import (DEFAULT_FRICTION, MIXED_BASE, MIXED_KINDS,
-                                  random_problem, solve_cost)
-
-BOXES_DAMPED = worlds.BOXES.replace(
-    "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
-CAPSULE_CONDIM6 = """
-<mujoco>
-  <option cone="elliptic"/>
-  <worldbody>
-    <geom type="plane" size="5 5 1"/>
-    <body pos="0 0 0.12">
-      <freejoint/>
-      <geom type="capsule" fromto="-0.1 0 0 0.1 0 0" size="0.05" condim="6"/>
-      <geom type="sphere" pos="0 0.08 0" size="0.04" condim="1" priority="1"/>
-    </body>
-  </worldbody>
-</mujoco>
-"""
+from tests.torch_problems import (BOXES_DAMPED, CAPSULE_CONDIM6, DEFAULT_FRICTION,
+                                  FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS,
+                                  box_cluster, fused_states, random_problem, solve_cost)
 
 
 def _card():
@@ -48,7 +33,7 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     z = torch.zeros(2, 7)
     with pytest.raises(ValueError, match="not a CUDA device"):
         kernels.step_fused(torch.zeros(4, dtype=torch.int32), torch.zeros(4), z,
-                           z[:, :6], z[:, :6])
+                           z[:, :6], z[:, :6], (12, 4))
 
 
 def test_solve_wrappers_reject_cpu_tensors():
@@ -161,3 +146,102 @@ def test_kernel_matches_plain_on_card(xml):
     torch.testing.assert_close(kq, pq, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kv, pv, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(kx, px, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_newton_solve_groups_leaving_at_different_trips_on_card():
+    """K2 where envs that share a warp need very different trip counts:
+    alternate envs of one seeded batch at soft friction (4-15 trips) and at
+    MuJoCo's default friction (many of them all 32). At nv 6, 20 rows and
+    8192 envs (past one wave at 16 lanes) the rule packs 4 envs into a warp.
+    A group that leaves the Newton loop early
+    must neither stall nor corrupt its neighbours: the soft envs match the
+    plain version at rtol/atol 2e-3, the default envs that converged match
+    its final cost to 1e-3 relative."""
+    _card()
+    nv, n = 6, 8192
+    assert kernels.group_width(nv, len(MIXED_KINDS), len(MIXED_BASE), n) == 8
+    soft, stiff = (random_problem(np.random.default_rng(s), n, nv, MIXED_KINDS, MIXED_BASE,
+                                  **kw) for s, kw in ((11, {}),
+                                                      (12, {"friction": DEFAULT_FRICTION})))
+    p = {k: torch.from_numpy(np.where(
+        (np.arange(n) % 2 == 0).reshape((n,) + (1,) * (soft[k].ndim - 1)),
+        soft[k], stiff[k])).cuda() for k in soft}
+    args = (MIXED_KINDS, MIXED_BASE, nv, 32, 8, 1e-8, True)
+    got = solver_tpu.solve_batched(*args, **p)
+    trips = []
+    xp, _ = solver_tpu.newton_tiles(nv, MIXED_KINDS, MIXED_BASE, 32, 8, True, 1e-8,
+                                    *p.values(), trips=trips)
+    want = solver_tpu.solve_batched_plain(*args, **p)
+    t = trips[0].reshape(-1, 4)
+    assert int((t.max(1).values - t.min(1).values).max()) >= 10, t
+    even = torch.arange(n, device="cuda") % 2 == 0
+    for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+        torch.testing.assert_close(a[even], b[even], rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"{name}: {m}")
+    done = ~even & (trips[0] < 32)
+    assert int(done.sum()) >= 300
+    torch.testing.assert_close(solve_cost(MIXED_KINDS, MIXED_BASE, p, got[0])[done],
+                               solve_cost(MIXED_KINDS, MIXED_BASE, p, xp)[done],
+                               rtol=1e-3, atol=0.0)
+
+
+# (nv, rows, contacts, envs) at which the rule picks each width
+K2_CASES = [(6, MIXED_KINDS, MIXED_BASE, 8192), (11, MIXED_KINDS, MIXED_BASE, 300),
+            (16, FULL_KINDS, FULL_BASE, 300)]
+K3_CASES = [(1, 8192), (1, 512), (5, 512)]          # (boxes on the body, envs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nv,kinds,base,nenv", K2_CASES,
+                         ids=["nv6_8192envs", "nv11", "nv16_rows64"])
+def test_newton_solve_at_every_group_width_on_card(nv, kinds, base, nenv):
+    """K2 at each width the rule picks (these cases cover every width of
+    kernels.GROUP_WIDTHS between them) against solve_batched_plain at
+    rtol/atol 2e-3, as test_newton_solve_kernel_matches_plain_on_card."""
+    _card()
+    p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
+        np.random.default_rng(20 + nv), nenv, nv, kinds, base).items()}
+    args = (kinds, base, nv, 32, 8, 1e-8, True)
+    got = solver_tpu.solve_batched(*args, **p)
+    want = solver_tpu.solve_batched_plain(*args, **p)
+    for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3, msg=lambda m: f"{name}: {m}")
+
+
+def test_group_widths_are_covered_by_the_card_cases():
+    """The card cases reach every width the rule can pick, for K2 and K3."""
+    k2 = {kernels.group_width(nv, len(k), len(b), n) for nv, k, b, n in K2_CASES}
+    k3 = {kernels.group_width(
+        6, *fwd.make_plan(mjcf.load_model_from_string(box_cluster(nbox))).rows, n)
+        for nbox, n in K3_CASES}
+    assert k2 == k3 == set(kernels.GROUP_WIDTHS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbox,nenv", K3_CASES)
+def test_fused_step_at_every_group_width_on_card(nbox, nenv):
+    """K3 on BOXES at 8192 and 512 envs (8 and 16 lanes) and on one body
+    with 5 boxes (five pairs, 60 rows) against step_batched_plain, one step
+    of seeded envs: qpos and qvel at the tolerances of chip_smoke.py. The
+    solver's x gets its 1e-4 budget plus twice the plain version's own
+    float32-vs-float64 gap, element by element: at these states x reaches
+    300, and the plain version in float32 already misses its float64 result
+    by up to 1.6 times the 1e-4 budget on small components of such envs."""
+    _card()
+    xml = box_cluster(nbox)
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    qpos, qvel = (torch.from_numpy(a).cuda() for a in fused_states(nenv, seed=nbox))
+    ws = torch.zeros_like(qvel)
+    kq, kv, kx = step_tpu.step_batched(m, qpos, qvel, ws, plan)
+    pq, pv, px = step_tpu.step_batched_plain(m, qpos, qvel, ws, plan.params, plan.idx)
+    torch.testing.assert_close(kq, pq, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kv, pv, rtol=1e-4, atol=1e-4)
+    m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
+    plan64 = fwd.make_plan(m64)
+    x64 = step_tpu.step_batched_plain(m64, qpos.double(), qvel.double(), ws.double(),
+                                      plan64.params, plan64.idx)[2]
+    budget = 1e-4 + 1e-4 * px.abs() + 2 * (x64 - px.double()).abs().float()
+    worst = float(((kx - px).abs() / budget).max())
+    assert worst <= 1.0, f"x: {worst:.3f} of its budget"

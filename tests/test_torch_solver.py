@@ -126,3 +126,24 @@ def test_newton_trips_are_reported():
     assert trips[0].shape == (8,) and int(trips[0].min()) >= 1
     assert int(trips[0].max()) <= 32
     assert torch.equal(x, x0) and torch.equal(f, f0)
+
+
+@pytest.mark.parametrize("shape,nenv,width", [
+    ((11, 33, 11), 4096, 16), ((11, 33, 11), 65536, 16), ((6, 12, 4), 4096, 16),
+    ((6, 12, 4), 65536, 8), ((6, 20, 4), 4224, 16), ((6, 20, 4), 4225, 8),
+    ((16, 64, 18), 4096, 16), ((16, 64, 64), 4096, 16), ((6, 13, 3), 4096, 16),
+    ((11, 20, 4), 65536, 16), ((8, 20, 4), 65536, 8), ((6, 36, 12), 65536, 16),
+    ((6, 60, 20), 65536, 16)])
+def test_group_width_rule(shape, nenv, width):
+    """kernels.group_width picks the lanes per env of K2 and K3 from (nv,
+    rows, contacts) and the batch: PENDULUM, BOXES (at 65536 envs past one
+    wave at 16 lanes, so 8), 20 rows at nv 6 on either side of one wave
+    (32 envs per SM at 16 lanes on 132 SMs), the maxima (nv 16, 64 rows,
+    with cones or all condim 1), the capsule world, few rows past one wave
+    at nv 11 and 8 (a lane owns one dof, so G >= nv), and 3 and 5 boxes on
+    one body past one wave (more than three rows a lane at 8). That each width's
+    block fits the card's shared memory is checked against the C layout
+    itself (tests/test_torch_csrc_host.py)."""
+    from mujoco_ros_pkgs_tpu_torch import kernels
+    assert kernels.group_width(*shape, nenv) == width
+    assert width in kernels.GROUP_WIDTHS and width >= shape[0]

@@ -245,3 +245,26 @@ def test_kernel_meta_layout():
     for g in range(m.ngeom):
         assert idx[f"gpos{g}"][0] == idx[f"gsize{g}"][0] + 3
         assert idx[f"gquat{g}"][0] == idx[f"gsize{g}"][0] + 6
+
+
+@pytest.mark.parametrize("name", ["BOXES", "BOXES_DAMPED", "CAPSULE"])
+def test_kernel_meta_carries_the_solve_block(name):
+    """K3's metadata ends with the block K2 reads (solver_tpu.kernel_meta of
+    the step's contact rows: row codes by row_codes, condim-1 rows
+    one-sided, then (first row, condim) per contact, as _problem lays the
+    rows out), and the plan carries (rows, contacts)."""
+    xml = {"BOXES_DAMPED": BOXES_DAMPED, "CAPSULE": CAPSULE}.get(name) or worlds.BOXES
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32)
+    plan = fwd.make_plan(m)
+    qpos, qvel, _ = (torch.from_numpy(a) for a in _states(2, 0, float(m.qpos0[2])))
+    con_base = step_tpu._problem(m, qpos, qvel, plan.params, plan.idx).con_base
+    nrows = sum(d for _, d in con_base)
+    block = solver_tpu.kernel_meta(("con",) * nrows, con_base, 6, 32, 8, True)
+    meta = step_tpu.kernel_meta(m, plan.idx)
+    assert meta[-len(block):] == block
+    assert block[6:6 + nrows] == solver_tpu.row_codes(("con",) * nrows, con_base)
+    head = len(step_tpu._META_HEADER) + len(step_tpu._META_PARAMS)
+    assert len(meta) == head + meta[0] * step_tpu._PAIR_STRIDE + len(block)
+    assert plan.rows == (nrows, len(con_base))
+    if name == "CAPSULE":
+        assert block[6:6 + nrows] == [3] * 12 + [2]

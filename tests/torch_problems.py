@@ -1,16 +1,40 @@
-"""Seeded float32 Newton problems for holding the port's K2 kernel, its plain
-version and the JAX kernel against each other (the tests and chip_smoke.py).
-Imports no JAX."""
+"""Seeded float32 Newton problems and fused-step worlds for holding the
+port's K2 and K3 kernels, their plain versions and the JAX kernels against
+each other (the tests and chip_smoke.py). Imports no JAX."""
 
 import numpy as np
 import torch
 
+from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu
+
+# fused-step worlds beside BOXES: a damped free joint with armature, and a
+# capsule (condim 6) with a sphere (condim 1) on one body
+BOXES_DAMPED = worlds.BOXES.replace(
+    "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
+CAPSULE_CONDIM6 = """
+<mujoco>
+  <option cone="elliptic"/>
+  <worldbody>
+    <geom type="plane" size="5 5 1"/>
+    <body pos="0 0 0.12">
+      <freejoint/>
+      <geom type="capsule" fromto="-0.1 0 0 0.1 0 0" size="0.05" condim="6"/>
+      <geom type="sphere" pos="0 0.08 0" size="0.04" condim="1" priority="1"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
 
 # rows of every kind the solve takes: 'eq', 'fri', 'lim', a condim-1
 # contact and elliptic cones of condim 3, 4 and 6 (20 rows)
 MIXED_KINDS = ("eq", "eq", "fri", "fri", "lim", "lim") + ("con",) * 14
 MIXED_BASE = ((6, 1), (7, 3), (10, 4), (14, 6))
+# 64 rows at nv 16 (the kernel's maxima): the same, then 11 condim-3 cones,
+# a condim-6, a condim-4 and a condim-1 contact
+FULL_KINDS = MIXED_KINDS + ("con",) * 44
+FULL_BASE = (MIXED_BASE + tuple((20 + 3 * i, 3) for i in range(11))
+             + ((53, 6), (59, 4), (63, 1)))
 
 # per contact [sliding, sliding, torsional, rolling, rolling]: soft cones,
 # where most envs converge in 4 to 15 Newton trips
@@ -54,3 +78,25 @@ def solve_cost(kinds, con_base, p: dict, x: torch.Tensor) -> torch.Tensor:
     rows = solver_tpu._row_forces(kinds, con_base, p["mu"], p["D"], p["floss"],
                                   p["active"], jar, False)[2]
     return 0.5 * ((p["M"] @ dx[..., None])[..., 0] * dx).sum(-1) + rows
+
+
+def fused_states(nenv: int, seed: int):
+    """Seeded fused-step states (qpos (nenv, 7), qvel (nenv, 6), float32
+    numpy): heights 0.02-0.27 over the plane, tilted, random velocities."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 7), np.float32)
+    qpos[:, 2] = 0.02 + 0.25 * rng.uniform(size=nenv)
+    quat = rng.normal(size=(nenv, 4)) * 0.2
+    quat[:, 0] += 1.0
+    qpos[:, 3:] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    qvel = (0.6 * rng.normal(size=(nenv, 6))).astype(np.float32)
+    return qpos, qvel
+
+
+def box_cluster(nbox: int) -> str:
+    """BOXES with nbox box geoms on its one body (12 rows each): a fused-step
+    world with more rows, for the wider groups of K3."""
+    extra = "".join(
+        f'<geom type="box" size="0.05 0.05 0.05" pos="{0.15 * k:g} {0.05 * k:g} 0"/>'
+        for k in range(1, nbox))
+    return worlds.BOXES.replace("</body>", extra + "</body>", 1)
