@@ -7,8 +7,8 @@ Phases (any failure raises; the exit code is then not 0):
      (nvidia-smi) and turns TF32 off for the plain references' matmuls;
   2. build: compiles every kernel in mujoco_ros_pkgs_tpu_torch/csrc with
      nvcc for sm_90a, one nvcc per source, all started together; prints
-     each kernel's registers, stack and spills (K2 and K3 once per group
-     width G, a template parameter);
+     each kernel's registers, stack and spills, one line per instantiation
+     (K2 and K3 once per group width G; K1's row kernel once per G and n);
   3. fused step (K3) vs plain: BOXES and BOXES with a damped free joint at
      4096 envs from seeded numpy states, 1 step (qpos rtol 1e-5 / atol 1e-6,
      qvel and qacc rtol 1e-4 / atol 1e-4) and 5 steps (qpos atol 1e-4);
@@ -24,10 +24,15 @@ Phases (any failure raises; the exit code is then not 0):
      with 3 and 5 boxes at 4096 and 65536 envs, each held against the plain
      step first;
   6. Cholesky solve (K1) vs plain: seeded SPD batches (4096, n, n), n in
-     {11, 27, 72, 96} (rtol 1e-4, atol 1e-5); K1, the plain version and
-     torch.linalg.cholesky + torch.cholesky_solve (the yardstick, never
-     called by the port) timed at 4096 envs, n = 11: one call at a time and
-     by CUDA-graph replay;
+     {1, 6, 8, 11, 16, 17, 27, 72, 96} at the width kernels.psd_width picks
+     (rtol 1e-4, atol 1e-5), and NaN above the diagonal must leave x as it
+     was; K1, the plain version and torch.linalg.cholesky +
+     torch.cholesky_solve (the yardstick, never called by the port) timed
+     at 4096 envs, n = 11: one call at a time and by CUDA-graph replay; K1
+     by graph replay at every width that takes n (8 and 16 lanes per env,
+     and the 32-lane kernel) at n = 6, 8, 11, 16 and 4096 and 65536 envs,
+     each width held against the plain version first, and the 32-lane
+     kernel at n = 27, 72, 96;
   7. Newton solve (K2) vs plain: PENDULUM's own rows at 4096 envs from
      seeded states (qacc, qfrc, row forces at rtol/atol 1e-3) and synthetic
      rows of every kind (eq, fri, lim, condim 1/3/4/6) at nv 6, 11, 16 with
@@ -51,7 +56,8 @@ Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replay of one call,
 the device time alone; `group`: the width the main path runs), then the
 card line, then {"ok": true, "device": {...}} as the last line. The width
-sweeps launch through the kernels' own wrappers with group_width forced.
+sweeps launch through the kernels' own wrappers with the width rule
+(group_width, psd_width) forced.
 """
 
 import contextlib
@@ -96,21 +102,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def build_lines(log):
+    """One line per kernel from nvcc's -Xptxas -v output: its name, template
+    arguments (K2 and K3: G; K1's row kernel: G and n), registers, stack and
+    spill stores."""
+    out, name, stack = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                          r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
+        if found:
+            name = found.group(1) + "".join(
+                f" {k}={v}" for k, v in zip(("G", "n"), found.group(2, 3)) if v)
+        elif "stack frame" in line:
+            stack = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {stack}")
+            name, stack = None, ""
+    return out
+
+
 def zero_counts():
     for k in KERNELS:
         k.launches = 0
 
 
 @contextlib.contextmanager
-def forced_width(group):
-    """Make kernels.group_width answer `group` (the width sweeps; the port
-    never does this)."""
-    saved = kernels.group_width
-    kernels.group_width = lambda *args, **kw: group
+def forced_width(group, rule="group_width"):
+    """Make the width rule kernels.<rule> (group_width of K2 and K3,
+    psd_width of K1) answer `group` (the width sweeps; the port never does
+    this)."""
+    saved = getattr(kernels, rule)
+    setattr(kernels, rule, lambda *args, **kw: group)
     try:
         yield
     finally:
-        kernels.group_width = saved
+        setattr(kernels, rule, saved)
 
 
 def states(nenv, seed):
@@ -398,31 +425,73 @@ def library_solve(H, g):
     return torch.cholesky_solve(g[..., None], torch.linalg.cholesky(H))[..., 0]
 
 
+def k1_bound(nenv, n):
+    """K1's bound: H, g read and x written once; n^3 / 3 multiply-adds of the
+    factorisation and 2 n^2 of the substitutions per env."""
+    return bound(nenv * (n * n + 2 * n) * 4, nenv * (n ** 3 / 3 + 2 * n * n))
+
+
 def k1_phase(card):
+    """K1 at the rule's width against the plain version at every n the
+    port's kernels take a distinct path for, with NaN above the diagonal
+    leaving x as it was; timed at n = 11; then every width at n = 6, 8, 11,
+    16 (4096 and 65536 envs) and the 32-lane kernel at n = 27, 72, 96."""
     err = 0.0
-    for n in (11, 27, 72, 96):
+    for n in (1, 6, 8, 11, 16, 17, 27, 72, 96):
         H, g = spd_batch(NENV, n, seed=n)
         x = linalg_tpu.psd_solve(H, g)
+        width = kernels.psd_solve.width
         ref = linalg_tpu.psd_solve_plain(H, g)
         torch.cuda.synchronize()
         e = close(f"K1 n={n}", x, ref, 1e-4, 1e-5)
         rel = float(((x - ref).abs() / ref.abs().clamp(min=1e-3)).max())
         lib = close(f"K1 n={n} vs library", x, library_solve(H, g), 1e-3, 1e-4)
-        print(f"[K1 vs plain] n={n} nenv={NENV}: max abs {e:.3e}, max rel {rel:.3e}; "
-              f"vs cholesky+cholesky_solve max abs {lib:.3e}", flush=True)
+        upper = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
+        assert torch.equal(linalg_tpu.psd_solve(H.masked_fill(upper, float("nan")), g), x), \
+            f"K1 n={n}: the upper triangle changed x"
+        print(f"[K1 vs plain] n={n} nenv={NENV} G={width}: max abs {e:.3e}, max rel "
+              f"{rel:.3e}; vs cholesky+cholesky_solve max abs {lib:.3e}; NaN above the "
+              f"diagonal: x unchanged", flush=True)
         err = max(err, e)
-    H, g = spd_batch(NENV, 11, seed=0)
+    n = 11
+    H, g = spd_batch(NENV, n, seed=0)
     t = {"ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
          "graph_ms": graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
          "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 20),
-         "library_ms": time_ms(lambda: library_solve(H, g), 200)}
-    n = 11
-    t["bound"] = bound(NENV * (n * n + 2 * n) * 4, NENV * (n ** 3 / 3 + 2 * n * n))
-    print(f"[K1 timing] nenv={NENV} n=11: kernel {t['ms']:.4f} ms one call at a time "
-          f"({t['graph_ms']:.4f} ms by graph replay), plain "
-          f"{t['plain_ms']:.4f} ms, cholesky+cholesky_solve {t['library_ms']:.4f} ms, "
-          f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) ({card})", flush=True)
+         "library_ms": time_ms(lambda: library_solve(H, g), 200),
+         "group": kernels.psd_solve.width, "bound": k1_bound(NENV, n)}
+    print(f"[K1 timing] nenv={NENV} n={n} G={t['group']}: kernel {t['graph_ms']:.4f} ms by "
+          f"graph replay ({t['ms']:.4f} ms one call at a time, the host's launch "
+          f"interval), plain {t['plain_ms']:.4f} ms, cholesky+cholesky_solve "
+          f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) "
+          f"({card})", flush=True)
+    t["widths"] = k1_widths(card)
     return err, t
+
+
+def k1_widths(card):
+    """K1's device time (graph replay) at every width that takes n, each
+    held against the plain version first: the row kernel at 8 lanes (n <= 8)
+    and 16, the 32-lane kernel at the same n, at 4096 and 65536 envs; the
+    32-lane kernel alone above n = 16."""
+    out = {}
+    shapes = [(n, nenv) for n in (6, 8, 11, 16) for nenv in (NENV, 65536)]
+    shapes += [(n, NENV) for n in (27, 72, 96)]
+    for n, nenv in shapes:
+        H, g = spd_batch(nenv, n, seed=100 + n)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        rule = kernels.psd_width(n)
+        for width in [w for w in (8, 16) if n <= w] + [32]:
+            with forced_width(width, "psd_width"):
+                close(f"K1 n={n} nenv={nenv} G={width}", linalg_tpu.psd_solve(H, g), ref,
+                      1e-4, 1e-5)
+                out[(n, nenv, width)] = graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200)
+        b = k1_bound(nenv, n)
+        print(f"[K1 widths] n={n} nenv={nenv}: " + "; ".join(
+            f"G={w} {ms:.4f} ms{' (rule)' if w == rule else ''}"
+            for (m, e, w), ms in out.items() if (m, e) == (n, nenv))
+              + f"; bound {b[0]:.5f} ms ({b[1]}) ({card})", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +713,7 @@ def general_main_path():
     launches = {"psd_solve": kernels.psd_solve.launches,
                 "newton_solve": kernels.newton_solve.launches}
     assert launches == {"psd_solve": 1000, "newton_solve": 1000}, launches
+    assert kernels.psd_solve.width == kernels.psd_width(srv.m.nv), kernels.psd_solve.width
     assert kernels.step_fused.launches == 0
     st = srv.get_batch_state()
     assert st["qpos"].shape == (NENV, 13) and np.isfinite(st["qpos"]).all()
@@ -657,7 +727,8 @@ def general_main_path():
           f"{t_step:.3f}s wall, {NENV * 1000 / t_step:.4g} env-steps/s; ball z "
           f"env{NENV - 1}={z:.6f} speed={speed:.3e}, z over envs "
           f"min={zs.min():.6f} max={zs.max():.6f}; max |qvel|="
-          f"{np.abs(st['qvel']).max():.3e}; launches {launches}", flush=True)
+          f"{np.abs(st['qvel']).max():.3e}; launches {launches}, K1 at "
+          f"G={kernels.psd_solve.width}", flush=True)
     # measured on an H100: z = 0.049633 (soft-contact penetration 3.7e-4)
     # and speed 5.4e-7; bounds keep a 4x and 100x margin
     assert abs(z - 0.05) < 1.5e-3, f"ball z={z} not settled near its radius 0.05"
@@ -712,15 +783,12 @@ def main():
     paths = kernels.build()
     print(f"[build] {', '.join(p.name for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for line in kernels.build_log.splitlines():
-        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:ILi(\d+)E)?",
-                          line)
-        if found:
-            print(f"[build] {found.group(1)}"
-                  + (f" G={found.group(2)}" if found.group(2) else ""), flush=True)
-        elif line.startswith("---") or any(w in line for w in ("registers", "spill",
-                                                                "stack frame")):
-            print("[build] " + line.strip(), flush=True)
+    lines = build_lines(kernels.build_log)
+    for line in lines:
+        print(f"[build] {line}", flush=True)
+    stack = [line for line in lines if line.startswith("psd_rows_kernel")
+             and "; 0 bytes stack frame" not in line]
+    assert not stack, "K1's row kernel uses stack: " + "; ".join(stack)
 
     err3 = max(kernel_vs_plain(worlds.BOXES, "boxes"),
                kernel_vs_plain(BOXES_DAMPED, "boxes_damped"))
@@ -738,7 +806,7 @@ def main():
                                 "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]},
               t3["group"]),
         entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
-              launches12["psd_solve"], err1, t1, 32, t1["library_ms"]),
+              launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
         entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
               launches12["newton_solve"], err2, t2, t2["group"])]}))
     print(card)

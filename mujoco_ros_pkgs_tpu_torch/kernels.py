@@ -13,7 +13,7 @@ launch failed, and counts its launches in a plain integer attribute
 
 K2 and K3 run one Newton body (csrc/solver.cuh) on a group of G lanes per
 env; `group_width` picks G from the rows and the batch, and the C entry
-points take it.
+points take it. K1 picks its lanes per env from n alone (`psd_width`).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIBS = {
     "step_fused": ("step_fused.cu", "step_fused_launch", [_P] * 8 + [_I] * 4 + [_P]),
-    "linalg": ("linalg.cu", "psd_solve_launch", [_P] * 3 + [_I, _I, _P]),
+    "linalg": ("linalg.cu", "psd_solve_launch", [_P] * 3 + [_I] * 3 + [_P]),
     "solver": ("solver.cu", "newton_solve_launch", [_P] * 14 + [_I] * 5 + [_P]),
 }
 
@@ -196,29 +196,43 @@ def step_fused(meta, params, qpos, qvel, ws, rows):
 step_fused.launches = 0
 
 
+def psd_width(n: int) -> int:
+    """Lanes per env of K1 for n x n systems, as measured on the H100
+    (PERF.md): a lane owns a row in registers up to n = 16, at 8 lanes to
+    n = 8 and 16 above; past 16 the 32-lane shared-memory kernel."""
+    return 8 if n <= 8 else 16 if n <= 16 else 32
+
+
 def psd_solve(H, g):
     """x = H^-1 g (csrc/linalg.cu, K1) for H (B, n, n) SPD (lower triangle
-    read) and g (B, n), float32 on the card, n <= 96. Returns x (B, n)."""
-    if H.device.type != "cuda":
-        raise ValueError(f"psd_solve: H is on {H.device}, not a CUDA device")
-    dev = H.device
+    read) and g (B, n), float32 on the card, n <= 96, on `psd_width(n)`
+    lanes per env (kept in `psd_solve.width`). Returns x (B, n)."""
     if H.dim() != 3 or H.shape[1] != H.shape[2] or not 1 <= H.shape[1] <= 96 \
             or H.shape[0] < 1:
         raise ValueError(f"psd_solve: H shape {tuple(H.shape)}, expected (B, n, n), "
                          "1 <= n <= 96")
+    if H.dtype != torch.float32:
+        raise ValueError(f"psd_solve: dtype {H.dtype}, expected torch.float32")
+    if H.device.type != "cuda":
+        raise ValueError(f"psd_solve: H is on {H.device}, not a CUDA device")
+    dev = H.device
     B, n = H.shape[0], H.shape[1]
     _check("H", H, torch.float32, (B, n, n), dev)
     _check("g", g, torch.float32, (B, n), dev)
+    width = psd_width(n)
     fn = _fn("linalg")
     x = torch.empty_like(g)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("psd_solve", fn, H.data_ptr(), g.data_ptr(), x.data_ptr(), B, n, stream)
+        _launch("psd_solve", fn, H.data_ptr(), g.data_ptr(), x.data_ptr(), B, n, width,
+                stream)
     psd_solve.launches += 1
+    psd_solve.width = width
     return x
 
 
 psd_solve.launches = 0
+psd_solve.width = None
 
 
 def newton_solve(meta, tol, J, aref, D, floss, active, mu, M, a_s, ws):

@@ -140,7 +140,7 @@ def main(argv=None) -> int:
     for name, (ms, cnt) in top[:12]:
         print(f"[profile]   device {ms:.5f} ms/step x{cnt:.1f}  {name[:90]}")
     for name, (ms, cnt) in kernels.items():
-        if "psd_solve" in name or "newton_solve" in name or "step_fused" in name:
+        if "mrp::" in name:
             print(f"[profile]   port kernel {name[:60]}: {ms:.5f} ms/step x{cnt:.1f}")
     for _, name in STAGES:
         if name in host:

@@ -1,6 +1,7 @@
 // Runs the per-env bodies of K2 (csrc/solver.cuh: solve_env<G>, the group
-// Newton body that K2 and K3 share) and K3 (csrc/step_fused.cuh:
-// step_env<G>) on the host, for tests/test_torch_csrc_host.py.
+// Newton body that K2 and K3 share), K3 (csrc/step_fused.cuh: step_env<G>)
+// and K1 at n <= 16 (csrc/linalg.cuh: psd_rows_env<G, n>) on the host, for
+// tests/test_torch_csrc_host.py.
 //
 // Each block of kThreads threads runs as that many std::threads, 32 to a
 // simulated warp. __syncwarp(mask) is a barrier of the group of G lanes the
@@ -8,10 +9,13 @@
 // such barriers. Every mask is checked against the calling lane's own group:
 // a sync or shuffle naming any other lanes (the whole warp, say) aborts, as
 // would a group that leaves the Newton loop at another trip than its warp
-// neighbours and then waited on them.
+// neighbours and then waited on them. K1's row body names the whole warp
+// (Group::whole_warp), so in chol mode every mask must be the whole warp's
+// and the barrier is the warp's: a lane that left early would hang it.
 //
 //   csrc_host_harness solve IN OUT    problem in IN, (x, qfrc, f) to OUT
 //   csrc_host_harness step IN OUT     states in IN, (qpos', qvel', x) to OUT
+//   csrc_host_harness chol IN OUT     SPD systems in IN, x to OUT
 //   csrc_host_harness layout NV NEFC NCON    prints env_layout(...).total
 //
 // solve's IN holds int32 B, nv, nefc, ncon, G, nmeta, then meta (int32),
@@ -19,6 +23,8 @@
 // (float32), each C-contiguous in the shapes newton_solve_launch takes.
 // step's IN holds int32 B, nefc, ncon, G, nmeta, nparams, then meta (int32),
 // params, qpos, qvel, ws (float32), as step_fused_launch takes them.
+// chol's IN holds int32 B, n, G, then H (B, n, n) and g (B, n) (float32), as
+// psd_solve_launch takes them.
 
 #include <barrier>
 #include <cmath>
@@ -40,8 +46,10 @@ namespace {
 
 struct WarpSim {
   int G = 32;
+  bool whole = false;             // masks name the whole warp (chol mode)
   float slot[32] = {};
   std::vector<std::unique_ptr<std::barrier<>>> groups;   // one per group
+  std::barrier<> warp{32};
 };
 
 thread_local WarpSim* tl_warp = nullptr;
@@ -50,13 +58,14 @@ thread_local int tl_lane = 0;
 std::barrier<>& group_barrier(unsigned mask) {
   const int G = tl_warp->G;
   const int first = tl_lane - tl_lane % G;
-  const unsigned own = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << first;
+  const unsigned own =
+      G == 32 || tl_warp->whole ? 0xffffffffu : ((1u << G) - 1u) << first;
   if (mask != own) {
-    std::fprintf(stderr, "lane %d (G = %d) synced on mask %08x, its group is %08x\n",
+    std::fprintf(stderr, "lane %d (G = %d) synced on mask %08x, expected %08x\n",
                  tl_lane, G, mask, own);
     std::abort();
   }
-  return *tl_warp->groups[tl_lane / G];
+  return tl_warp->whole ? tl_warp->warp : *tl_warp->groups[tl_lane / G];
 }
 
 }  // namespace
@@ -81,8 +90,11 @@ float __shfl_sync(unsigned mask, float v, int src, int width) {
   return r;
 }
 
+#include "linalg.cuh"
 #include "solver.cuh"
 #include "step_fused.cuh"
+
+static_assert(mrp::kRowsThreads == mrp::solver::kThreads, "run_blocks runs kThreads");
 
 namespace {
 
@@ -98,15 +110,16 @@ std::vector<T> take(FILE* f, size_t n) {
 
 // Runs body(shared, block, thread) for every thread of `blocks` blocks of
 // kThreads threads, one block at a time, each with `smem` floats of shared
-// memory (NaN at the start).
+// memory (NaN at the start); `whole`: the masks name the whole warp.
 template <int G, class Body>
-void run_blocks(int blocks, size_t smem, Body body) {
+void run_blocks(int blocks, size_t smem, Body body, bool whole = false) {
   constexpr int kWarps = mrp::solver::kThreads / 32;
   for (int blk = 0; blk < blocks; ++blk) {
     std::vector<float> shared(smem, NAN);
     WarpSim warps[kWarps];
     for (WarpSim& w : warps) {
       w.G = G;
+      w.whole = whole;
       for (int k = 0; k < 32 / G; ++k) w.groups.push_back(std::make_unique<std::barrier<>>(G));
     }
     std::vector<std::thread> threads;
@@ -177,6 +190,25 @@ void step(FILE* in, FILE* out, const std::vector<int>& head) {
     std::fwrite(v->data(), sizeof(float), v->size(), out);
 }
 
+// K1's row body at G lanes for the n at hand (n <= G), as psd_solve_launch.
+template <int G, int N = G>
+void chol(FILE* in, FILE* out, const std::vector<int>& head) {
+  const int B = head[0], n = head[1];
+  if constexpr (N >= 1) {
+    if (n != N) return chol<G, N - 1>(in, out, head);
+    const std::vector<float> H = take<float>(in, (size_t)B * n * n);
+    const std::vector<float> g = take<float>(in, (size_t)B * n);
+    std::vector<float> x((size_t)B * n, NAN);
+    const int per_block = mrp::kRowsThreads / G;
+    run_blocks<G>((B + per_block - 1) / per_block, 0, [&](float*, int blk, int t) {
+      mrp::psd_rows_env<G, N>(blk, t, H.data(), g.data(), x.data(), B);
+    }, true);
+    std::fwrite(x.data(), sizeof(float), x.size(), out);
+  } else {
+    std::exit(2);
+  }
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -187,22 +219,20 @@ int main(int argc, char** argv) {
                                    std::atoi(argv[4])).total);
     return 0;
   }
-  if (argc != 4 || (mode != "solve" && mode != "step")) {
-    std::fprintf(stderr, "usage: %s solve|step IN OUT | layout NV NEFC NCON\n", argv[0]);
+  if (argc != 4 || (mode != "solve" && mode != "step" && mode != "chol")) {
+    std::fprintf(stderr, "usage: %s solve|step|chol IN OUT | layout NV NEFC NCON\n",
+                 argv[0]);
     return 2;
   }
   FILE* in = std::fopen(argv[2], "rb");
   FILE* out = std::fopen(argv[3], "wb");
   if (!in || !out) return 2;
-  const std::vector<int> head = take<int>(in, 6);
-  const int G = head[mode == "solve" ? 4 : 3];
-  switch (G * (mode == "solve" ? 1 : -1)) {   // the widths the kernels take
-    case 8: solve<8>(in, out, head); break;
-    case 16: solve<16>(in, out, head); break;
-    case -8: step<8>(in, out, head); break;
-    case -16: step<16>(in, out, head); break;
-    default: return 2;
-  }
+  const std::vector<int> head = take<int>(in, mode == "chol" ? 3 : 6);
+  const int G = head[mode == "solve" ? 4 : mode == "step" ? 3 : 2];
+  if (G != 8 && G != 16) return 2;            // the widths the kernels take
+  if (mode == "solve") G == 8 ? solve<8>(in, out, head) : solve<16>(in, out, head);
+  else if (mode == "step") G == 8 ? step<8>(in, out, head) : step<16>(in, out, head);
+  else G == 8 ? chol<8>(in, out, head) : chol<16>(in, out, head);
   std::fclose(in);
   std::fclose(out);
   return 0;

@@ -1,13 +1,14 @@
-"""The per-env bodies of K2 and K3, compiled for the host.
+"""The per-env bodies of K1, K2 and K3, compiled for the host.
 
 g++ builds tests/csrc_host_harness.cpp, which runs K2's body `solve_env<G>`
-(csrc/solver.cuh: the group Newton body K2 and K3 share) and K3's
-`step_env<G>` (csrc/step_fused.cuh) with one std::thread per lane,
-group-masked syncs and shuffles that abort on any mask but the calling
-lane's own group, and 128 threads to a block as on the card. Their results
-are held against the port's plain versions, solve_batched_plain and
-step_batched_plain, on seeded float32 inputs. Without a card this is the
-only run of the kernels' bodies. Skips where g++ is absent.
+(csrc/solver.cuh: the group Newton body K2 and K3 share), K3's
+`step_env<G>` (csrc/step_fused.cuh) and K1's row body `psd_rows_env<G>`
+(csrc/linalg.cuh, n <= 16) with one std::thread per lane, group-masked
+syncs and shuffles that abort on any mask but the calling lane's own group,
+and 128 threads to a block as on the card. Their results are held against
+the port's plain versions, solve_batched_plain, step_batched_plain and
+psd_solve_plain, on seeded float32 inputs. Without a card this is the only
+run of the kernels' bodies. Skips where g++ is absent.
 """
 
 import shutil
@@ -22,7 +23,7 @@ from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
-from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
 from tests.torch_problems import (BOXES_DAMPED, CAPSULE_CONDIM6, MIXED_BASE, MIXED_KINDS,
                                   box_cluster, fused_states, random_problem)
 
@@ -141,3 +142,31 @@ def test_fused_step_body_matches_plain(harness, tmp_path, name, group):
                                        (1e-5, 1e-4, 1e-4), (1e-6, 1e-4, 1e-4)):
         np.testing.assert_allclose(a, b.numpy(), rtol=rtol, atol=atol,
                                    err_msg=f"{name} G {group} {label}")
+
+
+@pytest.mark.parametrize("group,n", [(8, 1), (8, 7), (8, 8), (16, 9), (16, 11), (16, 16)])
+def test_k1_group_body_matches_plain(harness, tmp_path, group, n):
+    """K1's row body on 13 seeded SPD systems against psd_solve_plain at
+    rtol 1e-4, atol 1e-5, as the card check (float32, the same algorithm,
+    the back substitution's sums as a butterfly). 13 envs leave the last
+    block partial: a simulated warp then holds live groups beside groups
+    past the batch, which must run along (the shuffles name the whole warp,
+    and a lane that left would hang the harness) and store nothing. Above
+    the diagonal H holds NaN, which only the lower triangle's reads keep
+    out of x."""
+    rng = np.random.default_rng(60 + n)
+    nenv = 13
+    A = rng.normal(size=(nenv, n, n))
+    H = (A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
+    g = rng.normal(size=(nenv, n)).astype(np.float32)
+    junk = np.where(np.triu(np.ones((n, n), bool), 1), np.float32(np.nan), H)
+    src, dst = tmp_path / "in", tmp_path / "out"
+    with open(src, "wb") as f:
+        np.array([nenv, n, group], np.int32).tofile(f)
+        junk.tofile(f)
+        g.tofile(f)
+    subprocess.run([str(harness), "chol", str(src), str(dst)], check=True, timeout=60)
+    got = np.fromfile(dst, np.float32).reshape(nenv, n)
+    want = linalg_tpu.psd_solve_plain(torch.from_numpy(H), torch.from_numpy(g))
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-4, atol=1e-5,
+                               err_msg=f"G {group} n {n}")

@@ -51,23 +51,58 @@ def test_solve_wrappers_reject_cpu_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 11, 27, 96])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 11, 16, 17, 27, 96])
 def test_psd_solve_kernel_matches_plain_on_card(n):
-    """K1 against psd_solve_plain on seeded SPD batches (rtol 1e-4, atol
-    1e-5: float32, the same algorithm, rsqrt and sums in another order)."""
+    """K1 against psd_solve_plain on 4097 seeded SPD systems, a partial last
+    block at every width (rtol 1e-4, atol 1e-5: float32, the same
+    algorithm, rsqrt and sums in another order), one launch at the width of
+    kernels.psd_width; NaN above the diagonal leaves x as it was, bit for
+    bit."""
     _card()
     rng = np.random.default_rng(n)
-    A = rng.normal(size=(300, n, n))
+    B = 4097
+    A = rng.normal(size=(B, n, n))
     H = torch.from_numpy((A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32))
-    g = torch.from_numpy(rng.normal(size=(300, n)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32))
     H, g = H.cuda(), g.cuda()
     before = kernels.psd_solve.launches
     x = linalg_tpu.psd_solve(H, g)
     torch.cuda.synchronize()
     assert kernels.psd_solve.launches == before + 1
+    assert kernels.psd_solve.width == kernels.psd_width(n) == (8 if n <= 8 else
+                                                              16 if n <= 16 else 32)
     torch.testing.assert_close(x, linalg_tpu.psd_solve_plain(H, g), rtol=1e-4, atol=1e-5)
+    upper = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
+    junk = H.masked_fill(upper, float("nan"))
+    assert torch.equal(linalg_tpu.psd_solve(junk, g), x)
     with pytest.raises(ValueError):
         linalg_tpu.psd_solve(H.double(), g.double())
+
+
+@pytest.mark.gpu
+def test_psd_solve_refuses_n_above_96_on_card():
+    """No kernel takes n > 96 or another dtype than float32: both raise."""
+    _card()
+    with pytest.raises(ValueError, match="n <= 96"):
+        linalg_tpu.psd_solve(torch.eye(97, device="cuda")[None],
+                             torch.zeros(1, 97, device="cuda"))
+    with pytest.raises(ValueError, match="1 <= n <= 96"):
+        kernels.psd_solve(torch.eye(97, device="cuda")[None],
+                          torch.zeros(1, 97, device="cuda"))
+
+
+def test_psd_width_covers_every_n():
+    """K1's width rule: one lane per row at 8 lanes to n = 8 and 16 lanes to
+    n = 16 (as measured, PERF.md), the 32-lane kernel to n = 96; the wrapper
+    refuses n > 96 and dtypes other than float32 before it looks for a
+    card."""
+    for n in range(1, 97):
+        assert kernels.psd_width(n) == (8 if n <= 8 else 16 if n <= 16 else 32)
+    with pytest.raises(ValueError, match="1 <= n <= 96"):
+        kernels.psd_solve(torch.eye(97)[None], torch.zeros(1, 97))
+    with pytest.raises(ValueError, match="float32"):
+        kernels.psd_solve(torch.eye(11, dtype=torch.float64)[None],
+                          torch.zeros(1, 11, dtype=torch.float64))
 
 
 @pytest.mark.gpu
