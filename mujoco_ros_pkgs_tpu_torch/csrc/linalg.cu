@@ -24,8 +24,9 @@
 //   rows of each rank-1 update and of the substitutions (warp.cuh
 //   group_chol_solve at G = 32).
 //
-// Cost: each env reads n^2 + n floats and writes n, and does about n^3 / 3
-// multiply-adds, so at the sizes of the general path the bound is the bytes;
+// Cost: each env reads H's lower triangle and g, n (n + 1) / 2 + n floats,
+// writes n, and does about n^3 / 6 + n^2 multiply-adds, so at the sizes of
+// the general path the bound is the bytes;
 // both kernels are held back by the n sequential column steps (the row
 // kernel's: a shuffle and an rsqrt, then a shuffle and a multiply-add per
 // row below) and by their issue slots: a group's instruction does one

@@ -7,9 +7,15 @@ routes, chosen once per model by `make_plan`:
   supports, one launch of the K3 kernel per step on CUDA;
 - the general route: `forward` (smooth dynamics, collision, contact rows,
   the Newton solve) then `euler`, with the K1 kernel for the mass-matrix
-  and damping solves and the K2 kernel for the Newton solve on CUDA.
+  and damping solves on CUDA; the Newton solve runs the K2 kernel where it
+  takes the system (nv <= 16, at most 64 rows: PENDULUM) and otherwise the
+  general Newton of ops/solver.py, whose Hessian solves run K1 (PILE:
+  nv 72, 783 rows).
 
-What neither route covers raises NotImplementedError from make_plan.
+What neither route covers raises NotImplementedError from make_plan: other
+integrators, sensors, actuation, tendons, fluid, mocap, equality,
+friction-loss and limit rows, CG and PGS, collision routines the port lacks
+and nv > 96 (the JAX package solves those with XLA, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from mujoco_ros_pkgs_tpu_torch.core.types import (
     Data, DisableBit, IntegratorType, JointType, Model, SolverType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
-from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase, solver_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
 from mujoco_ros_pkgs_tpu_torch.ops import smooth, step_tpu
@@ -167,7 +173,8 @@ def check_general(m: Model) -> None:
         _not_ported("fluid")
     if any(mc >= 0 for mc in m.body_mocapid):
         _not_ported("mocap")
-    layout = efc.row_layout(m)
+    if m.nv > linalg_tpu.MAX_N:
+        _not_ported(f"a mass-matrix solve of nv={m.nv} > {linalg_tpu.MAX_N}")
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
         for grp in narrowphase.pair_groups(m):
             name = narrowphase._DISPATCH[grp["key"][1:3]].name
@@ -177,15 +184,6 @@ def check_general(m: Model) -> None:
         efc._check_rows(m)
         if m.opt.solver != int(SolverType.NEWTON):
             _not_ported("the CG and PGS solvers")
-        dims = narrowphase.slot_meta(m)[2]
-        if (m.nv > solver_tpu.MAX_NV or layout["nrow"] > solver_tpu.MAX_ROWS
-                or any(dim not in (1, 3, 4, 6) for dim in dims)):
-            _not_ported(f"the general Newton solve (nv={m.nv}, "
-                        f"{layout['nrow']} rows; the fused Newton kernel takes "
-                        f"nv <= {solver_tpu.MAX_NV} and <= {solver_tpu.MAX_ROWS} "
-                        "rows)")
-    elif m.nv > linalg_tpu.MAX_N:
-        _not_ported(f"a mass-matrix solve of nv={m.nv} > {linalg_tpu.MAX_N}")
 
 
 def make_plan(m: Model) -> Plan:

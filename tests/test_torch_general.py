@@ -19,6 +19,7 @@ its own tests run it.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -108,20 +109,30 @@ def _close(name, got, want, tol):
                                err_msg=name)
 
 
+@functools.lru_cache(maxsize=None)
+def _models64(name):
+    xml = _WORLDS.get(name) or worlds.PILE
+    return jmjcf.load_model_from_string(xml), mjcf.load_model_from_string(xml)
+
+
 @pytest.fixture(scope="module", params=sorted(_WORLDS))
 def world64(request):
-    xml = _WORLDS[request.param]
-    return request.param, jmjcf.load_model_from_string(xml), mjcf.load_model_from_string(xml)
+    return (request.param,) + _models64(request.param)
 
 
-def test_variants_compile_alike(world64):
-    """The test worlds' variants compile to the same model in both packages
-    (damping, springs, condim, priority, cone)."""
-    name, jm, pm = world64
+@pytest.mark.parametrize("name", sorted(_WORLDS) + ["pile"])
+def test_variants_compile_alike(name):
+    """The test worlds' variants and PILE compile to the same model in both
+    packages (damping, springs, condim, priority, cone, iterations) and take
+    the general route."""
+    jm, pm = _models64(name)
     np.testing.assert_allclose(pm.dof_damping.numpy(), np.asarray(jm.dof_damping))
     np.testing.assert_allclose(pm.jnt_stiffness.numpy(), np.asarray(jm.jnt_stiffness))
     assert pm.has_damping == jm.has_damping == (name == "damped")
     assert pm.opt.cone == jm.opt.cone
+    assert (pm.opt.iterations, pm.opt.ls_iterations) == (jm.opt.iterations,
+                                                         jm.opt.ls_iterations)
+    assert pm.nv == jm.nv and pm.collision_pairs == tuple(map(tuple, jm.collision_pairs))
     assert fwd.make_plan(pm) == fwd.GeneralPlan()
 
 

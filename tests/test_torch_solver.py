@@ -44,19 +44,35 @@ def test_solve_batched_matches_jax(nv):
                                    atol=1e-4, err_msg=f"nv {nv} {name}")
 
 
-def test_solve_batched_matches_jax_at_default_friction():
+@pytest.fixture(scope="module")
+def default_friction():
+    """The seeded problem at MuJoCo's default friction (nv 16, 32 envs) and
+    the JAX kernel's x after `niter` trips (interpret mode), each trip count
+    run once."""
+    nv, nenv = 16, 32
+    p = random_problem(np.random.default_rng(7), nenv, nv, _MIXED_KINDS, _MIXED_BASE,
+                       friction=DEFAULT_FRICTION)
+    runs = {}
+
+    def jax_x(niter):
+        if niter not in runs:
+            runs[niter] = np.array(jsolver_tpu.solve_batched(
+                _MIXED_KINDS, _MIXED_BASE, nv, niter, 8, 1e-8, True,
+                **{k: jnp.asarray(v) for k, v in p.items()})[0])
+        return runs[niter]
+    return nv, p, jax_x
+
+
+def test_solve_batched_matches_jax_at_default_friction(default_friction):
     """The same at MuJoCo's default friction, nv 16. Its stiff cones leave
     flat directions, where float32 rounding moves qacc by up to 2e-2 between
     two orders of the same sums, so the check is on the objective: on the
     envs that converged within 32 trips, the port's and the JAX kernel's
     final costs agree to 1e-3 relative (float32 against float64 solves of
     these problems differ by up to 2e-4)."""
-    nv, nenv = 16, 32
-    p = random_problem(np.random.default_rng(7), nenv, nv, _MIXED_KINDS, _MIXED_BASE,
-                       friction=DEFAULT_FRICTION)
-    jx, _, _ = jsolver_tpu.solve_batched(
-        _MIXED_KINDS, _MIXED_BASE, nv, 32, 8, 1e-8, True,
-        **{k: jnp.asarray(v) for k, v in p.items()})
+    nv, p, jax_x = default_friction
+    nenv = p["J"].shape[0]
+    jx = jax_x(32)
     pt = {k: torch.from_numpy(v) for k, v in p.items()}
     trips = []
     x, _ = solver_tpu.newton_tiles(nv, _MIXED_KINDS, _MIXED_BASE, 32, 8, True, 1e-8,
@@ -64,8 +80,25 @@ def test_solve_batched_matches_jax_at_default_friction():
     done = trips[0] < 32
     assert int(done.sum()) >= 8, f"{int(done.sum())} of {nenv} envs converged"
     got = solve_cost(_MIXED_KINDS, _MIXED_BASE, p, x)[done]
-    want = solve_cost(_MIXED_KINDS, _MIXED_BASE, p, torch.from_numpy(np.array(jx)))[done]
+    want = solve_cost(_MIXED_KINDS, _MIXED_BASE, p, torch.from_numpy(jx))[done]
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3)
+
+
+def test_default_friction_converges_on_the_envs_jax_does(default_friction):
+    """The envs whose solve converges within 31 trips are the same for the
+    port's plain solve and the JAX kernel. The JAX kernel reports no trips;
+    an env that has converged stays frozen, so its x after 31 trips and
+    after 32 are equal bit for bit, and an env that has not moves in trip
+    32. The port's plain solve counts its trips: fewer than 32. Some but not
+    all envs converge."""
+    nv, p, jax_x = default_friction
+    jdone = (jax_x(31) == jax_x(32)).all(-1)
+    trips = []
+    solver_tpu.newton_tiles(nv, _MIXED_KINDS, _MIXED_BASE, 32, 8, True, 1e-8,
+                            *(torch.from_numpy(v) for v in p.values()), trips=trips)
+    done = (trips[0] < 32).numpy()
+    np.testing.assert_array_equal(done, jdone)
+    assert 0 < int(done.sum()) < done.size
 
 
 def test_kernel_meta_codes():

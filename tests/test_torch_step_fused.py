@@ -219,15 +219,13 @@ def test_supports_gate(name, ok):
         name) or getattr(worlds, name)
     m = mjcf.load_model_from_string(xml)
     assert step_tpu.supports(m) is ok
-    if name == "PENDULUM":
-        # outside the fused gate, the general route steps it
+    if not ok:
+        # outside the fused gate, the general route steps it (PILE: box-box
+        # pairs, nv = 72, through the general Newton)
         assert fwd.make_plan(m) == fwd.GeneralPlan()
         d = fwd.step(m, fwd.make_data(m, 2))
-        assert torch.isfinite(d.qpos).all() and float(d.time[0]) == pytest.approx(0.001)
-    elif not ok:
-        # box-box pairs and nv = 72 are beyond both routes
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fwd.step(m, fwd.make_data(m, 2))
+        assert torch.isfinite(d.qpos).all()
+        assert float(d.time[0]) == pytest.approx(float(m.opt.timestep))
 
 
 def test_kernel_meta_layout():
@@ -268,3 +266,101 @@ def test_kernel_meta_carries_the_solve_block(name):
     assert plan.rows == (nrows, len(con_base))
     if name == "CAPSULE":
         assert block[6:6 + nrows] == [3] * 12 + [2]
+
+
+# ---------------------------------------------------------------------------
+# K3's x on saved envs against the JAX kernel (a CPU tool, not a test)
+# ---------------------------------------------------------------------------
+
+def k3_x_against_jax(path="chip_smoke_out/k3_x_envs.npz"):
+    """The fused step's solver x on saved envs against the JAX package's own
+    fused kernel:
+
+        python -m tests.test_torch_step_fused [chip_smoke_out/k3_x_envs.npz]
+
+    chip_smoke.py saves, for every K3 width and shape on 3 and 5 boxes, the
+    envs where K3's x leaves 1e-4 + 1e-4 |x| plus twice the plain version's
+    float32-vs-float64 gap and the SAVED_TOP envs where K3's x and the plain
+    step's float32 x lie farthest from float64: their states, K3's x, the
+    plain step's in float32 and in float64, and over all envs (plain
+    float32's worst, K3's, their 99th percentiles) against float64. This
+    runs `step_tpu.step_batched` of the JAX package (its Pallas kernel in
+    interpret mode on the CPU; one XLA compile per world, minutes for 5
+    boxes) on the same states and prints, env by env, how far each float32
+    x lies from float64 in units of 1e-4 + 1e-4 |x64|, then per shape each
+    float32 x's worst env as a multiple of plain float32's worst over all
+    envs: the JAX kernel's reading is the factor its own float32 rounding
+    reaches on those envs."""
+    from tests.torch_problems import box_cluster
+    saved = np.load(path)
+    keys = sorted({k.rsplit("_", 1)[0] for k in saved.files})
+    np.set_printoptions(precision=4, linewidth=160)
+    for label in sorted({key.split("_")[0] for key in keys}):
+        group = [key for key in keys if key.split("_")[0] == label]
+        nbox = int(label[0])
+        jm = jmjcf.load_model_from_string(box_cluster(nbox), dtype=jnp.float32)
+        params, _ = jstep_tpu._pack_params(jm)
+        # every shape's envs in one batch: one compile per world
+        q, v, w = (np.concatenate([saved[f"{key}_{name}"] for key in group])
+                   for name in "qvw")
+        _, _, jx = jax.jit(lambda q, v, w, p: jstep_tpu.step_batched(jm, q, v, w, p))(
+            q, v, w, params)
+        jx, start = np.asarray(jx), 0
+        for key in group:
+            x64 = saved[f"{key}_p64"]
+            kx = jx[start:start + len(x64)]
+            start += len(x64)
+            unit = 1e-4 + 1e-4 * np.abs(x64)
+            worst_p32, worst_k3, q99_p32, q99_k3 = saved[f"{key}_stats"]
+            print(f"{key}: envs {saved[f'{key}_idx'].tolist()}, max |x| "
+                  f"{np.abs(x64).max(-1)}")
+            reading = {}
+            for name, x in (("K3", saved[f"{key}_k3"]),
+                            ("plain float32", saved[f"{key}_p32"]), ("JAX kernel", kx)):
+                reading[name] = (np.abs(x - x64) / unit).max(-1)
+                print(f"  {name:14s} vs float64: {reading[name]}")
+            print(f"  {'K3':14s} vs JAX kernel: "
+                  f"{(np.abs(saved[f'{key}_k3'] - kx) / unit).max(-1)}")
+            print(f"  over all envs: K3 worst {worst_k3:.3f}, 99th percentile "
+                  f"{q99_k3:.3f}; plain float32 worst {worst_p32:.3f}, 99th percentile "
+                  f"{q99_p32:.3f}")
+            print(f"  worst saved env over plain float32's worst: " + ", ".join(
+                f"{name} {reading[name].max() / worst_p32:.3f}" for name in reading))
+
+
+def jax_x_over_all_envs(nbox, nenv):
+    """The JAX package's fused kernel (interpret mode, CPU) on all of
+    chip_smoke.py's timing states of one K3 shape (nbox boxes, nenv envs,
+    seed 1), against the port's plain step in float64 on the CPU:
+
+        python -m tests.test_torch_step_fused --all 5 65536
+
+    prints the JAX kernel's worst env, 99th percentile and top envs in
+    units of 1e-4 + 1e-4 |x64|, beside which chip_smoke.py prints K3's and
+    the plain float32 step's on the card."""
+    import chip_smoke
+    from tests.torch_problems import box_cluster
+    xml = box_cluster(nbox)
+    q, v, w = chip_smoke.states(nenv, seed=1, device="cpu")
+    m64 = mjcf.load_model_from_string(xml, dtype=torch.float64)
+    plan64 = fwd.make_plan(m64)
+    x64 = step_tpu.step_batched_plain(m64, q.double(), v.double(), w.double(),
+                                      plan64.params, plan64.idx)[2].numpy()
+    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    params, _ = jstep_tpu._pack_params(jm)
+    _, _, jx = jax.jit(lambda q, v, w, p: jstep_tpu.step_batched(jm, q, v, w, p))(
+        q.numpy(), v.numpy(), w.numpy(), params)
+    err = (np.abs(np.asarray(jx) - x64) / (1e-4 + 1e-4 * np.abs(x64))).max(-1)
+    top = np.argsort(err)[::-1][:8]
+    print(f"{nbox} boxes, {nenv} envs: JAX kernel vs float64 worst env {err.max():.3f}, "
+          f"99th percentile {np.quantile(err, 0.99):.3f}; top envs {top.tolist()} at "
+          f"{np.round(err[top], 4).tolist()}")
+
+
+if __name__ == "__main__":
+    import sys
+    jax.config.update("jax_enable_x64", True)     # as tests/conftest.py runs JAX
+    if sys.argv[1:2] == ["--all"]:
+        jax_x_over_all_envs(int(sys.argv[2]), int(sys.argv[3]))
+    else:
+        k3_x_against_jax(*sys.argv[1:])

@@ -100,3 +100,72 @@ def box_cluster(nbox: int) -> str:
         f'<geom type="box" size="0.05 0.05 0.05" pos="{0.15 * k:g} {0.05 * k:g} 0"/>'
         for k in range(1, nbox))
     return worlds.BOXES.replace("</body>", extra + "</body>", 1)
+
+
+# general-Newton worlds beside PILE: a hinge chain of nv 18 lying on the
+# ground, and a walled bin of 2 boxes, 2 spheres and 1 capsule (nv 30)
+def _chain(nlink: int) -> str:
+    body = ""
+    for k in reversed(range(nlink)):
+        body = (f'<body pos="{0.1 if k else 0:g} 0 {0 if k else 0.05:g}">'
+                '<joint type="hinge" axis="0 1 0"/><joint type="hinge" axis="0 0 1"/>'
+                '<joint type="hinge" axis="1 0 0"/>'
+                '<geom type="capsule" fromto="0 0 0 0.1 0 0" size="0.02"/>'
+                + body + "</body>")
+    return ('<mujoco model="chain"><option timestep="0.002" cone="elliptic" '
+            'iterations="30"/><worldbody><geom name="ground" type="plane" '
+            f'size="2 2 1"/>{body}</worldbody></mujoco>')
+
+
+CHAIN = _chain(6)
+
+BIN = """
+<mujoco model="bin5">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="elliptic" iterations="20"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="1 1 1"/>
+    <geom name="wall_x" type="box" pos="0.2 0 0.1" size="0.02 0.25 0.1"/>
+    <geom name="wall_y" type="box" pos="0 0.2 0.1" size="0.25 0.02 0.1"/>
+    <body name="box0"><freejoint/>
+      <geom type="box" size="0.05 0.04 0.035" mass="0.3" friction="0.8 0.005 0.0001"/></body>
+    <body name="box1"><freejoint/>
+      <geom type="box" size="0.045 0.05 0.04" mass="0.3" friction="0.8 0.005 0.0001"/></body>
+    <body name="ball0"><freejoint/>
+      <geom type="sphere" size="0.05" mass="0.3" friction="0.8 0.005 0.0001"/></body>
+    <body name="ball1"><freejoint/>
+      <geom type="sphere" size="0.04" mass="0.3" friction="0.8 0.005 0.0001"/></body>
+    <body name="cap"><freejoint/>
+      <geom type="capsule" size="0.035 0.05" mass="0.3" friction="0.8 0.005 0.0001"/></body>
+  </worldbody>
+</mujoco>
+"""
+# where each BIN body starts: against the walls, the ground and each other
+# (box0 on wall_x and box1, ball0 on wall_y and ball1, ball1 on box1, the
+# capsule lying along x against ball1 and box1)
+_BIN_POS = ((0.14, 0.0, 0.03), (0.05, 0.0, 0.037), (0.0, 0.14, 0.046),
+            (0.0, 0.07, 0.037), (-0.06, 0.06, 0.032))
+_BIN_QUAT = ((1, 0, 0, 0),) * 4 + ((np.sqrt(0.5), 0, np.sqrt(0.5), 0),)
+
+
+def bin_states(nenv: int, seed: int):
+    """Seeded BIN states (qpos (nenv, 35), qvel (nenv, 30), float64 numpy):
+    each body at its start within 1 cm, tilted by about 0.1 rad, moving."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 5, 7))
+    qpos[..., :3] = np.array(_BIN_POS) + 0.01 * rng.uniform(-1, 1, (nenv, 5, 3))
+    quat = np.array(_BIN_QUAT, dtype=float) + 0.05 * rng.normal(size=(nenv, 5, 4))
+    qpos[..., 3:] = quat / np.linalg.norm(quat, axis=-1, keepdims=True)
+    return qpos.reshape(nenv, 35), 0.3 * rng.normal(size=(nenv, 30))
+
+
+def chain_states(nenv: int, seed: int):
+    """Seeded CHAIN states (qpos = qvel (nenv, 18), float64 numpy): links
+    bent up and down by up to 0.5 rad, so that some rest on the ground,
+    folded sideways by 2.4-2.9 rad the one way and the other, so that links
+    two apart touch, and rolled by up to 0.3 rad."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 18))
+    qpos[:, 0::3] = rng.uniform(-0.5, 0.5, (nenv, 6))
+    qpos[:, 1::3] = rng.uniform(2.4, 2.9, (nenv, 6)) * (-1.0) ** np.arange(6)
+    qpos[:, 2::3] = rng.uniform(-0.3, 0.3, (nenv, 6))
+    return qpos, 0.3 * rng.normal(size=(nenv, 18))
