@@ -8,7 +8,10 @@ Phases (any failure raises; the exit code is then not 0):
   2. build: compiles every kernel in mujoco_ros_pkgs_tpu_torch/csrc with
      nvcc for sm_90a, one nvcc per source, all started together; prints
      each kernel's registers, stack and spills, one line per instantiation
-     (K2 and K3 once per group width G; K1's row kernel once per G and n);
+     (K2 and K3 once per group width G; K1's row kernel once per G and n,
+     its block kernel once), and K1's block kernel's shared memory per
+     block and envs per SM (the card's occupancy API) at n = 27, 72, 96;
+     K1's kernels must use no stack;
   3. fused step (K3) vs plain: BOXES and BOXES with a damped free joint at
      4096 envs from seeded numpy states, 1 step (qpos rtol 1e-5 / atol 1e-6,
      qvel and qacc rtol 1e-4 / atol 1e-4) and 5 steps (qpos atol 1e-4);
@@ -28,16 +31,16 @@ Phases (any failure raises; the exit code is then not 0):
      from float64 are saved to chip_smoke_out/k3_x_envs.npz (`python -m
      tests.test_torch_step_fused` runs the JAX package's kernel on them);
   6. Cholesky solve (K1) vs plain: seeded SPD batches (4096, n, n), n in
-     {1, 6, 8, 11, 16, 17, 27, 72, 96} at the width kernels.psd_width picks
-     (rtol 1e-4, atol 1e-5), and NaN above the diagonal must leave x as it
-     was; K1, the plain version and torch.linalg.cholesky +
+     {1, 6, 8, 11, 16, 17, 24, 27, 33, 72, 96} at the width
+     kernels.psd_width picks (8 or 16 lanes, or the block kernel's
+     threads; rtol 1e-4, atol 1e-5), and NaN above the diagonal must leave
+     x as it was; K1, the plain version and torch.linalg.cholesky +
      torch.cholesky_solve (the yardstick, never called by the port) timed
      at 4096 envs, n = 11: one call at a time and by CUDA-graph replay (20
-     calls a replay, and one); K1
-     by graph replay at every width that takes n (8 and 16 lanes per env,
-     and the 32-lane kernel) at n = 6, 8, 11, 16 and 4096 and 65536 envs,
-     each width held against the plain version first, and the 32-lane
-     kernel at n = 27, 72, 96;
+     calls a replay, and one); K1 by graph replay at every width that
+     takes n (8 and 16 lanes per env, and the block kernel) at n = 6, 8,
+     11, 16 and 4096 and 65536 envs, each width held against the plain
+     version first, and the block kernel at n = 27, 72, 96;
   7. Newton solve (K2) vs plain: PENDULUM's own rows at 4096 envs from
      seeded states (qacc, qfrc, row forces at rtol/atol 1e-3) and synthetic
      rows of every kind (eq, fri, lim, condim 1/3/4/6) at nv 6, 11, 16 with
@@ -71,8 +74,8 @@ Phases (any failure raises; the exit code is then not 0):
      the Newton trips per env, host syncs per step; TF32 is off by default;
  12. PILE timing: ms/step at 512 and 4096 envs with the kernels and at 512
      with their plain versions; K1 at n = 72 by graph replay at 512 and 4096
-     envs with its bound; K1 and torch.linalg.cholesky + cholesky_solve at
-     n = 27, 72, 96.
+     envs on PILE Hessians with its bound; K1 and
+     torch.linalg.cholesky + cholesky_solve at n = 27, 72, 96.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs), then the
@@ -82,6 +85,7 @@ sweeps launch through the kernels' own wrappers with the width rule
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -137,8 +141,8 @@ def card_line() -> str:
 
 def build_lines(log):
     """One line per kernel from nvcc's -Xptxas -v output: its name, template
-    arguments (K2 and K3: G; K1's row kernel: G and n), registers, stack and
-    spill stores."""
+    arguments (K2 and K3: G; K1's row kernel: G and n), registers, stack
+    and spill stores."""
     out, name, stack = [], None, ""
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
@@ -153,6 +157,20 @@ def build_lines(log):
             out.append(f"{name}: {regs} registers; {stack}")
             name, stack = None, ""
     return out
+
+
+def block_occupancy(card):
+    """K1's block kernel: shared memory per block (the launch's size) and
+    envs per SM by the card's occupancy API, at n = 27, 72, 96."""
+    per_sm = ctypes.CDLL(str(kernels.library_path("linalg"))).psd_block_per_sm
+    per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for n in (27, 72, 96):
+        smem = ctypes.c_int(0)
+        envs = per_sm(n, ctypes.byref(smem))
+        assert envs > 0, f"occupancy query at n={n}: {envs}"
+        print(f"[build] psd_block_kernel n={n}: {smem.value} bytes of shared memory per "
+              f"block; {envs} envs per SM at {kernels.PSD_BLOCK_THREADS} threads ({card})",
+              flush=True)
 
 
 def zero_counts():
@@ -523,9 +541,9 @@ def k1_phase(card):
     """K1 at the rule's width against the plain version at every n the
     port's kernels take a distinct path for, with NaN above the diagonal
     leaving x as it was; timed at n = 11; then every width at n = 6, 8, 11,
-    16 (4096 and 65536 envs) and the 32-lane kernel at n = 27, 72, 96."""
+    16 (4096 and 65536 envs) and the block kernel at n = 27, 72, 96."""
     err = 0.0
-    for n in (1, 6, 8, 11, 16, 17, 27, 72, 96):
+    for n in (1, 6, 8, 11, 16, 17, 24, 27, 33, 72, 96):
         H, g = spd_batch(NENV, n, seed=n)
         x = linalg_tpu.psd_solve(H, g)
         width = kernels.psd_solve.width
@@ -562,8 +580,8 @@ def k1_phase(card):
 def k1_widths(card):
     """K1's device time (graph replay) at every width that takes n, each
     held against the plain version first: the row kernel at 8 lanes (n <= 8)
-    and 16, the 32-lane kernel at the same n, at 4096 and 65536 envs; the
-    32-lane kernel alone above n = 16."""
+    and 16, the block kernel at the same n, at 4096 and 65536 envs; the
+    block kernel alone above n = 16."""
     out = {}
     shapes = [(n, nenv) for n in (6, 8, 11, 16) for nenv in (NENV, 65536)]
     shapes += [(n, NENV) for n in (27, 72, 96)]
@@ -571,7 +589,7 @@ def k1_widths(card):
         H, g = spd_batch(nenv, n, seed=100 + n)
         ref = linalg_tpu.psd_solve_plain(H, g)
         rule = kernels.psd_width(n)
-        for width in [w for w in (8, 16) if n <= w] + [32]:
+        for width in [w for w in (8, 16) if n <= w] + [kernels.PSD_BLOCK_THREADS]:
             with forced_width(width, "psd_width"):
                 close(f"K1 n={n} nenv={nenv} G={width}", linalg_tpu.psd_solve(H, g), ref,
                       1e-4, 1e-5)
@@ -1032,7 +1050,8 @@ def pile_timing(card, m, plan, d):
     """ms/step of PILE through fwd.step with the kernels at 512 and 4096
     envs (the settled states, tiled), with the plain versions at 512; K1's
     device time (graph replay) at n = 72 on a captured PILE Hessian batch at
-    both sizes, and one call at a time beside cholesky + cholesky_solve at
+    both sizes (held against the plain version first, at pile_vs_plain's
+    tolerance), and one call at a time beside cholesky + cholesky_solve at
     n = 27, 72 and 96 (4096 envs, SPD batches)."""
     out = {}
 
@@ -1062,6 +1081,8 @@ def pile_timing(card, m, plan, d):
         finally:
             linalg_tpu.psd_solve = saved
         H, g = hs[1]
+        close(f"K1 PILE Hessian nenv={nenv}", linalg_tpu.psd_solve(H, g),
+              linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2)
         out[("graph", nenv)] = graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200)
         out[("bound", nenv)] = k1_bound(nenv, 72)
         print(f"[PILE timing] K1 n=72 nenv={nenv} on a PILE Hessian: {out[('graph', nenv)]:.4f} "
@@ -1113,9 +1134,13 @@ def main():
     lines = build_lines(kernels.build_log)
     for line in lines:
         print(f"[build] {line}", flush=True)
-    stack = [line for line in lines if line.startswith("psd_rows_kernel")
-             and "; 0 bytes stack frame" not in line]
-    assert not stack, "K1's row kernel uses stack: " + "; ".join(stack)
+    k1_lines = [line for line in lines if line.startswith(("psd_rows_kernel",
+                                                            "psd_block_kernel"))]
+    assert any(line.startswith("psd_block_kernel") for line in k1_lines) or not lines, \
+        "no ptxas line for K1's block kernel"
+    stack = [line for line in k1_lines if "; 0 bytes stack frame" not in line]
+    assert not stack, "K1's kernels use stack: " + "; ".join(stack)
+    block_occupancy(card)
 
     err3 = max(kernel_vs_plain(worlds.BOXES, "boxes"),
                kernel_vs_plain(BOXES_DAMPED, "boxes_damped"))

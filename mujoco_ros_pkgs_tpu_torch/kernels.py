@@ -13,7 +13,8 @@ launch failed, and counts its launches in a plain integer attribute
 
 K2 and K3 run one Newton body (csrc/solver.cuh) on a group of G lanes per
 env; `group_width` picks G from the rows and the batch, and the C entry
-points take it. K1 picks its lanes per env from n alone (`psd_width`).
+points take it. K1 picks its lanes per env from n alone (`psd_width`): a
+group of 8 or 16 up to n = 16, a block of `PSD_BLOCK_THREADS` above.
 """
 
 from __future__ import annotations
@@ -196,17 +197,30 @@ def step_fused(meta, params, qpos, qvel, ws, rows):
 step_fused.launches = 0
 
 
+# threads per env of K1's block kernel (17 <= n <= 96; csrc/linalg.cuh
+# kBlockThreads): 4 warps, faster than 2 at every n and batch swept on the
+# H100 (PERF.md)
+PSD_BLOCK_THREADS = 128
+
+
 def psd_width(n: int) -> int:
-    """Lanes per env of K1 for n x n systems, as measured on the H100
-    (PERF.md): a lane owns a row in registers up to n = 16, at 8 lanes to
-    n = 8 and 16 above; past 16 the 32-lane shared-memory kernel."""
-    return 8 if n <= 8 else 16 if n <= 16 else 32
+    """Lanes (threads) per env of K1 for n x n systems, as measured on the
+    H100 (PERF.md). Up to n = 16 a lane owns a row in registers, at 8 lanes
+    to n = 8 and 16 above: each column step is a shuffle, an rsqrt and a
+    multiply-add. Past 16 a block of PSD_BLOCK_THREADS threads takes each
+    env: n padded to a multiple of 8, each panel of 8 columns factored in
+    registers by the threads that hold its rows, the trailing triangle
+    updated by the whole block in 4 x 4 register tiles, so an env's latency
+    is two barriers per panel and its multiply-adds are shared by the block
+    (csrc/linalg.cu)."""
+    return 8 if n <= 8 else 16 if n <= 16 else PSD_BLOCK_THREADS
 
 
 def psd_solve(H, g):
     """x = H^-1 g (csrc/linalg.cu, K1) for H (B, n, n) SPD (lower triangle
     read) and g (B, n), float32 on the card, n <= 96, on `psd_width(n)`
-    lanes per env (kept in `psd_solve.width`). Returns x (B, n)."""
+    lanes or threads per env (kept in `psd_solve.width`): the row kernel at
+    8 or 16, the block kernel at PSD_BLOCK_THREADS. Returns x (B, n)."""
     if H.dim() != 3 or H.shape[1] != H.shape[2] or not 1 <= H.shape[1] <= 96 \
             or H.shape[0] < 1:
         raise ValueError(f"psd_solve: H shape {tuple(H.shape)}, expected (B, n, n), "

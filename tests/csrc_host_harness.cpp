@@ -1,17 +1,20 @@
 // Runs the per-env bodies of K2 (csrc/solver.cuh: solve_env<G>, the group
 // Newton body that K2 and K3 share), K3 (csrc/step_fused.cuh: step_env<G>)
-// and K1 at n <= 16 (csrc/linalg.cuh: psd_rows_env<G, n>) on the host, for
+// and K1 (csrc/linalg.cuh: the row body psd_rows_env<G, n> for n <= 16, the
+// block body psd_block_env above) on the host, for
 // tests/test_torch_csrc_host.py.
 //
-// Each block of kThreads threads runs as that many std::threads, 32 to a
-// simulated warp. __syncwarp(mask) is a barrier of the group of G lanes the
-// mask names, and __shfl_xor_sync(mask, ...) goes through memory between two
-// such barriers. Every mask is checked against the calling lane's own group:
-// a sync or shuffle naming any other lanes (the whole warp, say) aborts, as
+// Each block runs as one std::thread per thread, 32 to a simulated warp.
+// __syncwarp(mask) is a barrier of the group of G lanes the mask names, and
+// __shfl_xor_sync(mask, ...) goes through memory between two such
+// barriers. Every mask is checked against the calling lane's own group: a
+// sync or shuffle naming any other lanes (the whole warp, say) aborts, as
 // would a group that leaves the Newton loop at another trip than its warp
-// neighbours and then waited on them. K1's row body names the whole warp
-// (Group::whole_warp), so in chol mode every mask must be the whole warp's
-// and the barrier is the warp's: a lane that left early would hang it.
+// neighbours and then waited on them. K1's bodies name the whole warp
+// (Group::whole_warp, kFullMask), so in chol mode every mask must be the
+// whole warp's and the barrier is the warp's: a lane that left early would
+// hang it. __syncthreads() is a barrier of the block's threads. Shared
+// memory starts as NaN; cp.async copies are plain copies.
 //
 //   csrc_host_harness solve IN OUT    problem in IN, (x, qfrc, f) to OUT
 //   csrc_host_harness step IN OUT     states in IN, (qpos', qvel', x) to OUT
@@ -24,7 +27,8 @@
 // step's IN holds int32 B, nefc, ncon, G, nmeta, nparams, then meta (int32),
 // params, qpos, qvel, ws (float32), as step_fused_launch takes them.
 // chol's IN holds int32 B, n, G, then H (B, n, n) and g (B, n) (float32), as
-// psd_solve_launch takes them.
+// psd_solve_launch takes them: G = 8 or 16 lanes per env for the row body,
+// 128 threads per env for the block body.
 
 #include <barrier>
 #include <cmath>
@@ -54,6 +58,7 @@ struct WarpSim {
 
 thread_local WarpSim* tl_warp = nullptr;
 thread_local int tl_lane = 0;
+thread_local std::barrier<>* tl_block = nullptr;
 
 std::barrier<>& group_barrier(unsigned mask) {
   const int G = tl_warp->G;
@@ -71,6 +76,8 @@ std::barrier<>& group_barrier(unsigned mask) {
 }  // namespace
 
 void __syncwarp(unsigned mask) { group_barrier(mask).arrive_and_wait(); }
+
+void __syncthreads() { tl_block->arrive_and_wait(); }
 
 float __shfl_xor_sync(unsigned mask, float v, int off) {
   std::barrier<>& b = group_barrier(mask);
@@ -109,28 +116,30 @@ std::vector<T> take(FILE* f, size_t n) {
 }
 
 // Runs body(shared, block, thread) for every thread of `blocks` blocks of
-// kThreads threads, one block at a time, each with `smem` floats of shared
+// `threads` threads, one block at a time, each with `smem` floats of shared
 // memory (NaN at the start); `whole`: the masks name the whole warp.
 template <int G, class Body>
-void run_blocks(int blocks, size_t smem, Body body, bool whole = false) {
-  constexpr int kWarps = mrp::solver::kThreads / 32;
+void run_blocks(int blocks, size_t smem, Body body, bool whole = false,
+                int threads = mrp::solver::kThreads) {
   for (int blk = 0; blk < blocks; ++blk) {
     std::vector<float> shared(smem, NAN);
-    WarpSim warps[kWarps];
+    std::vector<WarpSim> warps(threads / 32);
+    std::barrier<> block(threads);
     for (WarpSim& w : warps) {
       w.G = G;
       w.whole = whole;
       for (int k = 0; k < 32 / G; ++k) w.groups.push_back(std::make_unique<std::barrier<>>(G));
     }
-    std::vector<std::thread> threads;
-    for (int t = 0; t < mrp::solver::kThreads; ++t) {
-      threads.emplace_back([&, t] {
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t) {
+      pool.emplace_back([&, t] {
         tl_warp = &warps[t / 32];
         tl_lane = t % 32;
+        tl_block = &block;
         body(shared.data(), blk, t);
       });
     }
-    for (std::thread& th : threads) th.join();
+    for (std::thread& th : pool) th.join();
   }
 }
 
@@ -209,6 +218,19 @@ void chol(FILE* in, FILE* out, const std::vector<int>& head) {
   }
 }
 
+// K1's block body, one block per env, as psd_solve_launch (the 16-byte
+// copies where n % 4 == 0).
+void chol_block(FILE* in, FILE* out, const std::vector<int>& head) {
+  const int B = head[0], n = head[1];
+  const std::vector<float> H = take<float>(in, (size_t)B * n * n);
+  const std::vector<float> g = take<float>(in, (size_t)B * n);
+  std::vector<float> x((size_t)B * n, NAN);
+  run_blocks<32>(B, mrp::block_layout(n).total, [&](float* smem, int blk, int t) {
+    mrp::psd_block_env(smem, blk, t, H.data(), g.data(), x.data(), n, n % 4 == 0);
+  }, true, mrp::kBlockThreads);
+  std::fwrite(x.data(), sizeof(float), x.size(), out);
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -229,10 +251,17 @@ int main(int argc, char** argv) {
   if (!in || !out) return 2;
   const std::vector<int> head = take<int>(in, mode == "chol" ? 3 : 6);
   const int G = head[mode == "solve" ? 4 : mode == "step" ? 3 : 2];
-  if (G != 8 && G != 16) return 2;            // the widths the kernels take
-  if (mode == "solve") G == 8 ? solve<8>(in, out, head) : solve<16>(in, out, head);
-  else if (mode == "step") G == 8 ? step<8>(in, out, head) : step<16>(in, out, head);
-  else G == 8 ? chol<8>(in, out, head) : chol<16>(in, out, head);
+  if (mode == "chol" && G == mrp::kBlockThreads) {
+    chol_block(in, out, head);
+  } else if (G != 8 && G != 16) {
+    return 2;                                 // the widths the kernels take
+  } else if (mode == "solve") {
+    G == 8 ? solve<8>(in, out, head) : solve<16>(in, out, head);
+  } else if (mode == "step") {
+    G == 8 ? step<8>(in, out, head) : step<16>(in, out, head);
+  } else {
+    G == 8 ? chol<8>(in, out, head) : chol<16>(in, out, head);
+  }
   std::fclose(in);
   std::fclose(out);
   return 0;

@@ -2,10 +2,12 @@
 
 g++ builds tests/csrc_host_harness.cpp, which runs K2's body `solve_env<G>`
 (csrc/solver.cuh: the group Newton body K2 and K3 share), K3's
-`step_env<G>` (csrc/step_fused.cuh) and K1's row body `psd_rows_env<G>`
-(csrc/linalg.cuh, n <= 16) with one std::thread per lane, group-masked
-syncs and shuffles that abort on any mask but the calling lane's own group,
-and 128 threads to a block as on the card. Their results are held against
+`step_env<G>` (csrc/step_fused.cuh), K1's row body `psd_rows_env<G>`
+(csrc/linalg.cuh, n <= 16) and K1's block body `psd_block_env`
+(csrc/linalg.cuh, 17 <= n <= 96) with one std::thread per lane,
+group-masked syncs and shuffles that abort on any mask but the calling
+lane's own group, block barriers, and as many threads to a block as on the
+card. Their results are held against
 the port's plain versions, solve_batched_plain, step_batched_plain and
 psd_solve_plain, on seeded float32 inputs. Without a card this is the only
 run of the kernels' bodies. Skips where g++ is absent.
@@ -144,18 +146,12 @@ def test_fused_step_body_matches_plain(harness, tmp_path, name, group):
                                    err_msg=f"{name} G {group} {label}")
 
 
-@pytest.mark.parametrize("group,n", [(8, 1), (8, 7), (8, 8), (16, 9), (16, 11), (16, 16)])
-def test_k1_group_body_matches_plain(harness, tmp_path, group, n):
-    """K1's row body on 13 seeded SPD systems against psd_solve_plain at
-    rtol 1e-4, atol 1e-5, as the card check (float32, the same algorithm,
-    the back substitution's sums as a butterfly). 13 envs leave the last
-    block partial: a simulated warp then holds live groups beside groups
-    past the batch, which must run along (the shuffles name the whole warp,
-    and a lane that left would hang the harness) and store nothing. Above
-    the diagonal H holds NaN, which only the lower triangle's reads keep
-    out of x."""
-    rng = np.random.default_rng(60 + n)
-    nenv = 13
+def _k1_against_plain(exe, tmp_path, group, n, nenv, seed):
+    """K1's body at `group` lanes or threads per env on nenv seeded SPD
+    systems with NaN above the diagonal, against psd_solve_plain at rtol
+    1e-4, atol 1e-5, as the card check (float32, the same algorithm; the
+    back substitution's sums in another order)."""
+    rng = np.random.default_rng(seed)
     A = rng.normal(size=(nenv, n, n))
     H = (A @ A.transpose(0, 2, 1) / n + np.eye(n)).astype(np.float32)
     g = rng.normal(size=(nenv, n)).astype(np.float32)
@@ -165,8 +161,33 @@ def test_k1_group_body_matches_plain(harness, tmp_path, group, n):
         np.array([nenv, n, group], np.int32).tofile(f)
         junk.tofile(f)
         g.tofile(f)
-    subprocess.run([str(harness), "chol", str(src), str(dst)], check=True, timeout=60)
+    subprocess.run([str(exe), "chol", str(src), str(dst)], check=True, timeout=60)
     got = np.fromfile(dst, np.float32).reshape(nenv, n)
     want = linalg_tpu.psd_solve_plain(torch.from_numpy(H), torch.from_numpy(g))
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-4, atol=1e-5,
-                               err_msg=f"G {group} n {n}")
+                               err_msg=f"group {group} n {n}")
+
+
+@pytest.mark.parametrize("group,n", [(8, 1), (8, 7), (8, 8), (16, 9), (16, 11), (16, 16)])
+def test_k1_group_body_matches_plain(harness, tmp_path, group, n):
+    """K1's row body on 13 seeded SPD systems (_k1_against_plain; the back
+    substitution's sums as a butterfly). 13 envs leave the last block
+    partial: a simulated warp then holds live groups beside groups past the
+    batch, which must run along (the shuffles name the whole warp, and a
+    lane that left would hang the harness) and store nothing. Above the
+    diagonal H holds NaN, which only the lower triangle's reads keep out of
+    x."""
+    _k1_against_plain(harness, tmp_path, group, n, 13, 60 + n)
+
+
+@pytest.mark.parametrize("n", [17, 24, 27, 33, 72, 96])
+def test_k1_block_body_matches_plain(harness, tmp_path, n):
+    """K1's block body (n > 16: one block of 4 warps per env, panels of 8
+    columns) on 5 seeded SPD systems (_k1_against_plain), one block per
+    env. n = 17, 24, 27, 33: each side of a panel edge, padded to 24, 24, 32
+    and 40 with the identity; 72: PILE's nv; 96: the cap, whose first panel
+    (100 rows with g's) nearly fills the block's 128 threads. n % 4 == 0 takes the 16-byte copies,
+    which also bring entries above the diagonal in. Above the diagonal H
+    holds NaN, and shared memory starts as NaN: only the lower triangle's
+    reads keep both out of x."""
+    _k1_against_plain(harness, tmp_path, kernels.PSD_BLOCK_THREADS, n, 5, 80 + n)

@@ -51,13 +51,14 @@ def test_solve_wrappers_reject_cpu_tensors():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 5, 8, 9, 11, 16, 17, 27, 96])
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 11, 16, 17, 24, 25, 27, 33, 72, 96])
 def test_psd_solve_kernel_matches_plain_on_card(n):
     """K1 against psd_solve_plain on 4097 seeded SPD systems, a partial last
-    block at every width (rtol 1e-4, atol 1e-5: float32, the same
-    algorithm, rsqrt and sums in another order), one launch at the width of
-    kernels.psd_width; NaN above the diagonal leaves x as it was, bit for
-    bit."""
+    block of the row kernel at every width (rtol 1e-4, atol 1e-5: float32,
+    the same algorithm, rsqrt and sums in another order), one launch at the
+    width of kernels.psd_width; above n = 16 the block kernel on each side
+    of its panel edges (24, 25; 33), at PILE's 72 and at the cap. NaN above
+    the diagonal leaves x as it was, bit for bit."""
     _card()
     rng = np.random.default_rng(n)
     B = 4097
@@ -69,8 +70,8 @@ def test_psd_solve_kernel_matches_plain_on_card(n):
     x = linalg_tpu.psd_solve(H, g)
     torch.cuda.synchronize()
     assert kernels.psd_solve.launches == before + 1
-    assert kernels.psd_solve.width == kernels.psd_width(n) == (8 if n <= 8 else
-                                                              16 if n <= 16 else 32)
+    assert kernels.psd_solve.width == kernels.psd_width(n) == (
+        8 if n <= 8 else 16 if n <= 16 else kernels.PSD_BLOCK_THREADS)
     torch.testing.assert_close(x, linalg_tpu.psd_solve_plain(H, g), rtol=1e-4, atol=1e-5)
     upper = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
     junk = H.masked_fill(upper, float("nan"))
@@ -93,11 +94,13 @@ def test_psd_solve_refuses_n_above_96_on_card():
 
 def test_psd_width_covers_every_n():
     """K1's width rule: one lane per row at 8 lanes to n = 8 and 16 lanes to
-    n = 16 (as measured, PERF.md), the 32-lane kernel to n = 96; the wrapper
-    refuses n > 96 and dtypes other than float32 before it looks for a
-    card."""
+    n = 16 (as measured, PERF.md), a block of 4 warps per env to n = 96;
+    the wrapper refuses n > 96 and dtypes other than float32 before it
+    looks for a card."""
+    assert kernels.PSD_BLOCK_THREADS == 128
     for n in range(1, 97):
-        assert kernels.psd_width(n) == (8 if n <= 8 else 16 if n <= 16 else 32)
+        assert kernels.psd_width(n) == (8 if n <= 8 else 16 if n <= 16
+                                        else kernels.PSD_BLOCK_THREADS)
     with pytest.raises(ValueError, match="1 <= n <= 96"):
         kernels.psd_solve(torch.eye(97)[None], torch.zeros(1, 97))
     with pytest.raises(ValueError, match="float32"):
