@@ -41,8 +41,10 @@ Phases (any failure raises; the exit code is then not 0):
      takes n (8 and 16 lanes per env, and the block kernel) at n = 6, 8,
      11, 16 and 4096 and 65536 envs, each width held against the plain
      version first, and the block kernel at n = 27, 72, 96;
-  7. Newton solve (K2) vs plain: PENDULUM's own rows at 4096 envs from
-     seeded states (qacc, qfrc, row forces at rtol/atol 1e-3) and synthetic
+  7. Newton solve (K2) vs plain: PENDULUM's own rows and those of a
+     PENDULUM with two limited hinges (2 'lim' rows ahead of 33 contact
+     rows) at 4096 envs from seeded states (qacc, qfrc, row forces at
+     rtol/atol 1e-3) and synthetic
      rows of every kind (eq, fri, lim, condim 1/3/4/6) at nv 6, 11, 16 with
      up to 64 rows (rtol/atol 2e-3: both float32, and the solve stops at
      improved_est < tol * scale, where float32 and float64 already differ by
@@ -75,10 +77,26 @@ Phases (any failure raises; the exit code is then not 0):
  12. PILE timing: ms/step at 512 and 4096 envs with the kernels and at 512
      with their plain versions; K1 at n = 72 by graph replay at 512 and 4096
      envs on PILE Hessians with its bound; K1 and
-     torch.linalg.cholesky + cholesky_solve at n = 27, 72, 96.
+     torch.linalg.cholesky + cholesky_solve at n = 27, 72, 96;
+ 13. HUMANOID vs plain: 1024 seeded states (hinges past their limits,
+     random ctrl) settled HUMANOID_SETTLE steps with the kernels (some
+     contacts and some limit rows active), then 1 and 5 steps with the
+     kernels and with their plain versions (phase 8's tolerances; qacc
+     against the float64 step in units of phase 8's tolerance); K1 at
+     n = 27 on every solve of one step (mass matrix, Newton Hessians,
+     Euler's damping solve) against plain and against float64;
+ 14. HUMANOID main path: MujocoServer(HUMANOID, nenv=1024) on the default
+     device, set_ctrl, HUMANOID_STEPS steps from the model's start: K1 twice
+     per step (mass matrix, damping) and once per Newton trip of the batch,
+     K2 and K3 never; finite, the motors' forces the clamped ctrl;
+     env-steps/s and Newton trips per env;
+ 15. HUMANOID timing: fwd.step ms at 1024 and 4096 envs (and at 1024 with
+     the plain versions); K1 at n = 27 on HUMANOID Hessians by graph replay
+     with its bound, the plain version and cholesky + cholesky_solve.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
-the device time alone; `group`: the width the main path runs), then the
+the device time alone; `group`: the width the main path runs; K1's `pile`
+and `humanoid` objects: its runs on those worlds' main paths), then the
 card line, then {"ok": true, "device": {...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
 (group_width, psd_width) forced.
@@ -86,6 +104,7 @@ sweeps launch through the kernels' own wrappers with the width rule
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -99,13 +118,14 @@ import torch
 from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from tests.torch_problems import (BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE, FULL_KINDS,
-                                  MIXED_BASE, MIXED_KINDS, box_cluster, random_problem,
-                                  solve_cost)
+                                  MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED, box_cluster,
+                                  humanoid_states, random_problem, solve_cost)
 
 PENDULUM_DAMPED = (worlds.PENDULUM
                    .replace('type="ball" pos="0 0 1"/>',
@@ -116,6 +136,12 @@ PENDULUM_DAMPED = (worlds.PENDULUM
 NENV = 4096
 # the PILE server's steps (phase 11), about a minute of the card's time
 PILE_STEPS = 600
+# HUMANOID's batch (BASELINE's humanoid bench: bench.py NENV // 4), the steps
+# that settle its seeded states (the feet reach the floor after some 50) and
+# the server's steps (phase 14)
+HUMANOID_NENV = 1024
+HUMANOID_SETTLE = 80
+HUMANOID_STEPS = 200
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -708,6 +734,14 @@ def k2_phase(card):
           f"{float(args['active'][:, [b for b, _ in static[1]]].float().sum(1).mean()):.3f}",
           flush=True)
     err = k2_compare("PENDULUM rows", static, args, 1e-3)
+    ml = mjcf.load_model_from_string(PENDULUM_LIMITED, dtype=torch.float32).to("cuda")
+    lstatic, largs = pendulum_problem(ml, NENV, seed=3)
+    assert lstatic[0][:2] == ("lim", "lim") and len(lstatic[0]) == 35, lstatic[0][:3]
+    lim_active = largs["active"][:, :2].float().sum(1)
+    print(f"[K2] limited PENDULUM: {len(lstatic[0])} rows (2 limit rows first), limit rows "
+          f"active per env mean {float(lim_active.mean()):.3f}", flush=True)
+    assert float(lim_active.sum()) > 0, "no limit row active"
+    err = max(err, k2_compare("limited PENDULUM rows", lstatic, largs, 1e-3))
     for nv, kinds, base in ((6, MIXED_KINDS, MIXED_BASE), (11, MIXED_KINDS, MIXED_BASE),
                             (16, MIXED_KINDS, MIXED_BASE), (16, FULL_KINDS, FULL_BASE)):
         p = {k: torch.from_numpy(v).cuda() for k, v in random_problem(
@@ -798,6 +832,18 @@ def plain_versions():
         yield
     finally:
         linalg_tpu.psd_solve, solver_tpu.solve_batched = saved
+
+
+def captured_solves(m, d, plan):
+    """Every K1 call of one fwd.step of d, in order, as (H, g): the mass
+    matrix, the Newton trips' Hessians, Euler's damping solve."""
+    seen, saved = [], linalg_tpu.psd_solve
+    linalg_tpu.psd_solve = lambda H, g: seen.append((H.clone(), g.clone())) or saved(H, g)
+    try:
+        fwd.step(m, d, plan)
+    finally:
+        linalg_tpu.psd_solve = saved
+    return seen
 
 
 def general_vs_plain():
@@ -976,13 +1022,8 @@ def pile_vs_plain(card):
     print(f"[PILE vs plain] nenv=512: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()),
           flush=True)
 
-    seen, saved = [], linalg_tpu.psd_solve
-    linalg_tpu.psd_solve = lambda H, g: seen.append((H.clone(), g.clone())) or saved(H, g)
-    try:
-        fwd.step(m, d, plan)
-    finally:
-        linalg_tpu.psd_solve = saved
     err = 0.0
+    seen = captured_solves(m, d, plan)
     for i, (H, g) in enumerate(seen[1:]):             # seen[0]: the mass matrix
         x = linalg_tpu.psd_solve(H, g)
         ref = linalg_tpu.psd_solve_plain(H, g)
@@ -1069,18 +1110,7 @@ def pile_timing(card, m, plan, d):
           f"{out[('kernel', 4096)]:.4f} at 4096 with the kernels; "
           f"{out[('plain', 512)]:.4f} at 512 with their plain versions ({card})", flush=True)
     for nenv, dd in ((512, d), (4096, big)):
-        hs = []
-        saved = linalg_tpu.psd_solve
-
-        def capture(H, g):
-            hs.append((H, g))
-            return saved(H, g)
-        linalg_tpu.psd_solve = capture
-        try:
-            fwd.step(m, dd, plan)
-        finally:
-            linalg_tpu.psd_solve = saved
-        H, g = hs[1]
+        H, g = captured_solves(m, dd, plan)[1]
         close(f"K1 PILE Hessian nenv={nenv}", linalg_tpu.psd_solve(H, g),
               linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2)
         out[("graph", nenv)] = graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200)
@@ -1101,10 +1131,230 @@ def pile_timing(card, m, plan, d):
 
 
 def tile_envs(m, d, k):
-    """A batch of k copies of d's state (qpos, qvel, warm start, time)."""
+    """A batch of k copies of d's state (qpos, qvel, warm start, time,
+    ctrl)."""
     return fwd.make_data(m, k * d.qpos.shape[0]).replace(**{
         f: getattr(d, f).repeat((k,) + (1,) * (getattr(d, f).dim() - 1))
-        for f in ("time", "qpos", "qvel", "qacc_warmstart")})
+        for f in ("time", "qpos", "qvel", "qacc_warmstart", "ctrl")})
+
+
+# ---------------------------------------------------------------------------
+# HUMANOID: motors, limit rows, the general Newton, K1 at n = 27
+# ---------------------------------------------------------------------------
+
+def humanoid_data(m, nenv, seed):
+    """The port's batch of tests/torch_problems.humanoid_states on the card:
+    seeded poses 1.3 m up with hinges past their limits, random ctrl."""
+    qpos, qvel, ctrl = (torch.from_numpy(a.astype(np.float32)).cuda()
+                        for a in humanoid_states(m, nenv, seed))
+    return fwd.make_data(m, nenv).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def humanoid_rows(m, d):
+    """The efc rows the next step of d solves (the stages up to make_efc)."""
+    d = collision.collide(m, smooth.fwd_position_smooth(m, d))
+    return efc.make_efc(m, smooth.fwd_velocity_smooth(m, d))
+
+
+def data_as(d, dtype):
+    """d with every floating tensor, the contact set's too, cast to dtype."""
+    def cast(obj):
+        return {f.name: getattr(obj, f.name).to(dtype) for f in dataclasses.fields(obj)
+                if torch.is_tensor(getattr(obj, f.name))
+                and getattr(obj, f.name).is_floating_point()}
+    return d.replace(contact=d.contact.replace(**cast(d.contact)), **cast(d))
+
+
+def humanoid_qacc(qk, qp, x64, trips_k, trips_p):
+    """qacc after one HUMANOID step with the kernels (qk) against their
+    plain versions (qp) and the plain step in float64 (x64). Phase 8's
+    rtol / atol 1e-3 between two float32 solves lies below what float32
+    resolves here: the plain float32 step itself misses float64 by up to
+    8.8 times that tolerance on HUMANOID's settled states (1024 envs, an
+    NVIDIA H100 80GB HBM3), and the few envs where the kernels' qacc and
+    the plain one differ by more took the same Newton trips. So qacc is
+    held against float64 by held_against_f64 in units of phase 8's
+    tolerance, 1e-3 + 1e-3 |x64|; the envs past 1e-3 of plain are printed
+    with their trips and their errors against float64. Returns the max abs
+    difference to plain."""
+    over = ((qk - qp).abs() > 1e-3 + 1e-3 * qp.abs()).any(-1)
+    same = trips_k == trips_p
+    held = held_against_f64("HUMANOID qacc 1 step", qk, qp, x64, 1e-3 + 1e-3 * x64.abs())
+    bad = torch.nonzero(over).flatten().tolist()
+    print(f"[HUMANOID vs plain] qacc 1 step against float64 in units of 1e-3 + 1e-3 |x64|: "
+          f"worst env {held[1]:.3f}, 99th percentile {held[3]:.3f} (plain float32: "
+          f"{held[0]:.3f}, {held[2]:.3f}); {len(bad)} envs past rtol / atol 1e-3 of plain, "
+          f"{int((over & ~same).sum())} of them with other Newton trips (kernels "
+          f"{trips_k[over].tolist()}, plain {trips_p[over].tolist()}), their errors "
+          f"against float64 {[round(float(held[4][i]), 3) for i in bad]} (plain "
+          f"{[round(float(held[5][i]), 3) for i in bad]}); envs with other trips "
+          f"{int((~same).sum())} of {len(same)}", flush=True)
+    return float((qk - qp).abs().max())
+
+
+def humanoid_vs_plain(card):
+    """HUMANOID at 1024 envs from seeded states with random ctrl, settled
+    with the kernels for HUMANOID_SETTLE steps (the feet on the floor; some
+    contacts and some limit rows active, asserted), then 1 and 5 steps with
+    the kernels against their plain versions at general_vs_plain's
+    tolerances for qpos and qvel, qacc held against the float64 step
+    (humanoid_qacc); then K1 at n = 27 on every solve of one step (the mass
+    matrix, each Newton trip's Hessian, Euler's damping solve): against
+    psd_solve_plain at pile_vs_plain's rtol / atol 1e-2 and against the
+    float64 solve by held_against_f64, in units of 1e-5 + 1e-4 |x64|."""
+    m = mjcf.load_model_from_string(HUMANOID, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and (m.nv, m.nu) == (27, 21)
+    t0 = time.perf_counter()
+    d = humanoid_data(m, HUMANOID_NENV, seed=5)
+    for _ in range(HUMANOID_SETTLE):
+        d = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+    e = humanoid_rows(m, d)
+    nlim = sum(m.jnt_limited)
+    lim = e.active[:, :nlim].sum(1).float()
+    con = e.con_active.sum(1).float()
+    print(f"[HUMANOID] {HUMANOID_NENV} envs settled {HUMANOID_SETTLE} steps in "
+          f"{time.perf_counter() - t0:.1f}s: {len(e.kinds)} rows; active limit rows per env "
+          f"mean {float(lim.mean()):.2f} max {int(lim.max())}; active contacts per env mean "
+          f"{float(con.mean()):.2f} max {int(con.max())}, envs in contact "
+          f"{int((con > 0).sum())}; root z mean {float(d.qpos[:, 2].mean()):.4f}", flush=True)
+    assert float(lim.sum()) > 0 and float(con.sum()) > 0, "no limit row or no contact active"
+    dk = dp = d
+    errs = {}
+    for k in range(5):
+        with newton_trips() as lk:
+            dk = fwd.step(m, dk, plan)
+        with plain_versions(), newton_trips() as lp:
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            errs["qpos_1"] = close("HUMANOID qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close("HUMANOID qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            m64 = mjcf.load_model_from_string(HUMANOID, dtype=torch.float64).to("cuda")
+            with plain_versions():
+                x64 = fwd.step(m64, data_as(d, torch.float64)).qacc
+            errs["qacc_1"] = humanoid_qacc(dk.qacc, dp.qacc, x64, lk[0][0], lp[0][0])
+    errs["qpos_5"] = close("HUMANOID qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert torch.isfinite(dk.qpos).all() and torch.isfinite(dk.qvel).all()
+    print(f"[HUMANOID vs plain] nenv={HUMANOID_NENV}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+
+    err = 0.0
+    seen = captured_solves(m, d, plan)
+    labels = (["mass matrix"] + [f"Hessian of Newton trip {i}" for i in range(1, len(seen) - 1)]
+              + ["Euler's damping solve"])
+    for label, (H, g) in zip(labels, seen):
+        assert H.shape[-1] == 27
+        x = linalg_tpu.psd_solve(H, g)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        x64 = torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        e_abs = close(f"K1 HUMANOID {label} vs plain", x, ref, 1e-2, 1e-2)
+        held = held_against_f64(f"K1 HUMANOID {label}", x, ref, x64, 1e-5 + 1e-4 * x64.abs())
+        print(f"[K1 HUMANOID] {label} ({HUMANOID_NENV}, 27, 27): vs plain max abs "
+              f"{e_abs:.3e} (max |x| {float(ref.abs().max()):.3e}); vs float64 in units of "
+              f"1e-5 + 1e-4 |x64|, worst env {held[1]:.3f}, 99th percentile {held[3]:.3f} "
+              f"(plain float32: {held[0]:.3f}, {held[2]:.3f})", flush=True)
+        err = max(err, e_abs)
+    return m, plan, d, max(max(errs.values()), err)
+
+
+def humanoid_main_path():
+    """MujocoServer(HUMANOID, nenv=1024) on the default device: set_ctrl
+    writes a seeded ctrl in [-1.2, 1.2] to every env and another to env 0,
+    then HUMANOID_STEPS steps from the model's start (it falls onto the
+    floor): K1 launches once per step for the mass matrix, once for Euler's
+    damping solve and once per Newton trip the batch ran, K2 and K3 never;
+    everything finite, the motors' forces the clamped ctrl."""
+    zero_counts()
+    t0 = time.perf_counter()
+    srv = MujocoServer(HUMANOID, nenv=HUMANOID_NENV, unpause=False)
+    assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
+    rng = np.random.default_rng(9)
+    ctrl, ctrl0 = rng.uniform(-1.2, 1.2, 21), rng.uniform(-1.2, 1.2, 21)
+    assert srv.set_ctrl(ctrl).success and srv.set_ctrl(ctrl0, env_id=0).success
+    assert not srv.set_ctrl(ctrl[:20]).success
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with newton_trips() as log:
+        assert srv.step(HUMANOID_STEPS).success
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    ran = sum(r for _, r, _ in log)
+    syncs = sum(s for _, _, s in log)
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches,
+                "step_fused": kernels.step_fused.launches}
+    assert len(log) == HUMANOID_STEPS, f"{len(log)} Newton solves in {HUMANOID_STEPS} steps"
+    assert launches == {"psd_solve": 2 * HUMANOID_STEPS + ran, "newton_solve": 0,
+                        "step_fused": 0}, \
+        f"launches {launches}, {HUMANOID_STEPS} steps x 2 + {ran} Newton trips"
+    assert kernels.psd_solve.width == kernels.PSD_BLOCK_THREADS, kernels.psd_solve.width
+    d = srv.d
+    assert all(torch.isfinite(t).all() for t in (d.qpos, d.qvel, d.qacc, d.qfrc_actuator,
+                                                 d.efc_force_contact))
+    want = np.tile(np.clip(ctrl, -1, 1), (HUMANOID_NENV, 1))
+    want[0] = np.clip(ctrl0, -1, 1)
+    np.testing.assert_allclose(d.actuator_force.cpu().numpy(), want, rtol=1e-6)
+    z = d.qpos[:, 2]
+    per_env = torch.cat([t for t, _, _ in log]).float()
+    batch = torch.bincount(torch.tensor([r for _, r, _ in log]),
+                           minlength=srv.m.opt.iterations + 1).tolist()
+    active = d.contact.dist < d.contact.includemargin
+    print(f"[HUMANOID main path] server step({HUMANOID_STEPS}) of HUMANOID x "
+          f"{HUMANOID_NENV}: {t_step:.3f}s wall, {HUMANOID_NENV * HUMANOID_STEPS / t_step:.4g} "
+          f"env-steps/s; launches {launches} (K1 = 2 x {HUMANOID_STEPS} steps + {ran} Newton "
+          f"trips of the batch: {launches['psd_solve'] / HUMANOID_STEPS:.3f} per step); "
+          f"Newton trips per env and step mean {float(per_env.mean()):.3f}, the batch's "
+          f"{ran / HUMANOID_STEPS:.3f}; host syncs per step {syncs / HUMANOID_STEPS:.3f}; "
+          f"root z min {float(z.min()):.4f} max {float(z.max()):.4f}; active contacts per env "
+          f"mean {float(active.sum(1).float().mean()):.2f}; phase "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"[HUMANOID main path] trips the batch ran per step, counts for 0..20: {batch}",
+          flush=True)
+    return launches["psd_solve"], t_step, float(per_env.mean()), ran / HUMANOID_STEPS
+
+
+def humanoid_timing(card, m, plan, d):
+    """fwd.step ms of the settled HUMANOID states at 1024 envs and tiled to
+    4096, with the kernels (and at 1024 with their plain versions); K1 at n
+    = 27 on the first Newton Hessian of a step at both sizes by graph
+    replay, held against the plain version first (1e-2), beside its bound,
+    the plain version and cholesky + cholesky_solve one call at a time."""
+    out = {}
+
+    def run(dd, nsteps):
+        for _ in range(nsteps):
+            dd = fwd.step(m, dd, plan)
+        return dd
+    big = tile_envs(m, d, 4)
+    for nenv, dd in ((HUMANOID_NENV, d), (4 * HUMANOID_NENV, big)):
+        run(dd, 2)
+        out[("kernel", nenv)] = time_ms(lambda: run(dd, 10), 1, warmup=0) / 10
+    with plain_versions():
+        out[("plain", HUMANOID_NENV)] = time_ms(lambda: run(d, 3), 1, warmup=1) / 3
+    print(f"[HUMANOID timing] fwd.step {out[('kernel', HUMANOID_NENV)]:.4f} ms at "
+          f"{HUMANOID_NENV} envs, {out[('kernel', 4 * HUMANOID_NENV)]:.4f} at "
+          f"{4 * HUMANOID_NENV} with the kernels; {out[('plain', HUMANOID_NENV)]:.4f} at "
+          f"{HUMANOID_NENV} with their plain versions ({card})", flush=True)
+    for nenv, dd in ((HUMANOID_NENV, d), (4 * HUMANOID_NENV, big)):
+        H, g = captured_solves(m, dd, plan)[1]
+        close(f"K1 HUMANOID Hessian nenv={nenv}", linalg_tpu.psd_solve(H, g),
+              linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2)
+        out[("graph", nenv)] = graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200)
+        out[("ms", nenv)] = time_ms(lambda: linalg_tpu.psd_solve(H, g), 100)
+        out[("plain_ms", nenv)] = time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 10)
+        out[("library", nenv)] = time_ms(lambda: library_solve(H, g), 100)
+        out[("bound", nenv)] = k1_bound(nenv, 27)
+        print(f"[HUMANOID timing] K1 n=27 nenv={nenv} on a HUMANOID Hessian: "
+              f"{out[('graph', nenv)]:.4f} ms by graph replay, {out[('ms', nenv)]:.4f} one "
+              f"call at a time; plain {out[('plain_ms', nenv)]:.4f} ms; cholesky + "
+              f"cholesky_solve {out[('library', nenv)]:.4f} ms; bound "
+              f"{out[('bound', nenv)][0]:.5f} ms ({out[('bound', nenv)][1]}) ({card})",
+              flush=True)
+    return out
 
 
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
@@ -1159,6 +1409,21 @@ def main():
                   "bound_ms_512": tp[("bound", 512)][0],
                   "bound_ms_4096": tp[("bound", 4096)][0],
                   "library_ms": {n: tp[("library", n)] for n in (27, 72, 96)}}
+    mh, planh, dh, err_h = humanoid_vs_plain(card)
+    launches_h, t_h, trips_env, trips_batch = humanoid_main_path()
+    th = humanoid_timing(card, mh, planh, dh)
+    n1, n4 = HUMANOID_NENV, 4 * HUMANOID_NENV
+    t1["humanoid"] = {
+        "launches": launches_h, "steps": HUMANOID_STEPS,
+        "launches_per_step": launches_h / HUMANOID_STEPS, "max_abs_err": err_h,
+        "env_steps_per_s": HUMANOID_NENV * HUMANOID_STEPS / t_h,
+        "newton_trips_per_env": trips_env, "newton_trips_per_batch_step": trips_batch,
+        "step_ms": {n1: th[("kernel", n1)], n4: th[("kernel", n4)]},
+        "step_plain_ms": {n1: th[("plain", n1)]},
+        **{f"{k}_{n}": th[(key, n)] for n in (n1, n4) for k, key in (
+            ("graph_ms", "graph"), ("ms", "ms"), ("plain_ms", "plain_ms"),
+            ("library_ms", "library"))},
+        **{f"bound_ms_{n}": th[("bound", n)][0] for n in (n1, n4)}}
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -1172,7 +1437,7 @@ def main():
               t3["group"]),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
-             pile=t1["pile"]),
+             pile=t1["pile"], humanoid=t1["humanoid"]),
         entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
               launches12["newton_solve"], err2, t2, t2["group"])]}))
     print(card)

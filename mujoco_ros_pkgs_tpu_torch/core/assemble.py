@@ -2,7 +2,8 @@
 
 Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
-port parses; integer columns become static tuples.
+port parses (actuators: joint-transmission motors); integer columns become
+static tuples.
 """
 
 from __future__ import annotations
@@ -104,8 +105,8 @@ def _t(x, width=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=torch.float64)
 
 
-def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
-    nbody, njnt, ngeom = len(bodies), len(jnts), len(geoms)
+def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
+    nbody, njnt, ngeom, nu = len(bodies), len(jnts), len(geoms), len(acts)
 
     # ---------------- body topology ----------------
     body_parentid = [b.parentid for b in bodies]
@@ -191,6 +192,10 @@ def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
         filterparent=filterparent, excludes=(), explicit_pairs=(),
         collision_mode=opt["collision_mode"])
 
+    # every actuator is a motor: gain 1 on ctrl, no bias (mjGAIN_FIXED)
+    gainprm = np.zeros((nu, 10))
+    gainprm[:, 0] = 1.0
+
     option = types.Option(
         timestep=_t(opt["timestep"]), gravity=_t(opt["gravity"]),
         wind=_t(opt["wind"]), magnetic=_t(opt["magnetic"]),
@@ -203,7 +208,7 @@ def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
         disableflags=opt["disableflags"])
 
     m = types.Model(
-        nq=nq, nv=nv, nbody=nbody, njnt=njnt, ngeom=ngeom, opt=option,
+        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, opt=option,
         qpos0=_t(qpos0), qpos_spring=_t(qpos_spring),
         body_parentid=tuple(body_parentid), body_rootid=tuple(body_rootid),
         body_weldid=tuple(body_weldid),
@@ -224,6 +229,8 @@ def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
         jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_dofadr),
         jnt_bodyid=tuple(j.bodyid for j in jnts),
         jnt_limited=tuple(j.limited for j in jnts),
+        jnt_actfrclimited=tuple(j.actfrclimited for j in jnts),
+        jnt_actfrcrange=_t([j.actfrcrange for j in jnts], 2),
         jnt_pos=_t([j.pos for j in jnts], 3),
         jnt_axis=_t([j.axis for j in jnts], 3),
         jnt_stiffness=_t([j.stiffness for j in jnts]),
@@ -256,10 +263,23 @@ def assemble(name, bodies, jnts, geoms, opt) -> types.Model:
         geom_solimp=_t([g.solimp for g in geoms], 5),
         geom_margin=_t([g.margin for g in geoms]),
         geom_gap=_t([g.gap for g in geoms]),
+        actuator_trntype=(int(types.TrnType.JOINT),) * nu,
+        actuator_dyntype=(int(types.DynType.NONE),) * nu,
+        actuator_gaintype=(int(types.GainType.FIXED),) * nu,
+        actuator_biastype=(int(types.BiasType.NONE),) * nu,
+        actuator_trnid=tuple(a.trnid for a in acts),
+        actuator_ctrllimited=tuple(a.ctrllimited for a in acts),
+        actuator_forcelimited=tuple(a.forcelimited for a in acts),
+        actuator_gainprm=_t(gainprm),
+        actuator_biasprm=_t(np.zeros((nu, 10))),
+        actuator_ctrlrange=_t([a.ctrlrange for a in acts], 2),
+        actuator_forcerange=_t([a.forcerange for a in acts], 2),
+        actuator_gear=_t([a.gear for a in acts], 6),
         name=name,
         body_names=tuple(b.name for b in bodies),
         jnt_names=tuple(j.name for j in jnts),
         geom_names=tuple(g.name for g in geoms),
+        actuator_names=tuple(a.name for a in acts),
         dof_floss_adr=tuple(v for v in range(nv)
                             if jnts[dof_jntid[v]].frictionloss > 0),
         has_damping=bool(any(jnts[j].damping > 0 for j in dof_jntid)),

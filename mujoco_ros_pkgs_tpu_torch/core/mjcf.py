@@ -9,11 +9,13 @@ two compile a model to the same numbers. Supported elements:
   `<freejoint>` and `<inertial>`;
 - geom types plane, sphere, capsule (incl. `fromto`) and box, with mass or
   density, friction, condim, priority, solmix, solref, solimp, margin, gap,
-  contype and conaffinity.
+  contype and conaffinity;
+- `<actuator>` with `<motor>` on a joint transmission (gear, ctrlrange,
+  forcerange, ctrllimited, forcelimited), `<default><motor>` classes.
 
-Anything else (sites, cameras, actuators, sensors, tendons, equality,
-contact pairs, assets, other geom types, fluid shapes) raises ValueError
-naming the feature, rather than being dropped silently.
+Anything else (sites, cameras, other actuators and transmissions, sensors,
+tendons, equality, contact pairs, assets, other geom types, fluid shapes)
+raises ValueError naming the feature, rather than being dropped silently.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, IntegratorType, Joint
 _SOLREF = (0.02, 1.0)
 _SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
-_TOP_LEVEL = ("option", "compiler", "default", "worldbody",
+_TOP_LEVEL = ("option", "compiler", "default", "worldbody", "actuator",
               "size", "visual", "statistic")
 _GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
                "capsule": GeomType.CAPSULE, "box": GeomType.BOX}
@@ -250,7 +252,7 @@ def _collect_defaults(root: ET.Element) -> Dict[str, Dict[str, Dict[str, str]]]:
         cls = e.get("class", "main")
         merged = {k: dict(v) for k, v in inherited.items()}
         for child in e:
-            if child.tag in ("joint", "geom"):
+            if child.tag in ("joint", "geom", "motor"):
                 merged.setdefault(child.tag, {}).update(child.attrib)
             elif child.tag != "default":
                 raise ValueError(f"<default> for <{child.tag}> is not supported")
@@ -446,6 +448,12 @@ def _compile(root: ET.Element) -> types.Model:
         if limited == 2:
             limited = 1 if (comp.autolimits and e.get("range") is not None) else 0
         j.limited = limited
+        j.actfrcrange = _attr_f(e, "actuatorfrcrange", [0, 0])
+        actfrclimited = _attr_tri(e, "actuatorfrclimited", 2)
+        if actfrclimited == 2:
+            actfrclimited = 1 if (comp.autolimits
+                                  and e.get("actuatorfrcrange") is not None) else 0
+        j.actfrclimited = actfrclimited
         j.solref = _attr_f(e, "solreflimit", _SOLREF)
         j.solimp = _attr_f(e, "solimplimit", _SOLIMP)
         j.solref_fri = _attr_f(e, "solreffriction", _SOLREF)
@@ -503,6 +511,36 @@ def _compile(root: ET.Element) -> types.Model:
         g.rbound = _geom_rbound(g.type, g.size)
         geoms.append(g)
         return len(geoms) - 1
+
+    def parse_actuator(e, i):
+        """A <motor> on a joint (gain 1 on ctrl, no bias, no activation);
+        other actuators and transmissions raise."""
+        name = e.get("name", "") or f"#{i}"
+        if e.tag != "motor":
+            raise ValueError(f"actuator '{name}': <{e.tag}> is not supported by the "
+                             f"torch port (only <motor>)")
+        e = _apply_defaults(e, defaults_tree.get(e.get("class", "main"),
+                                                 defaults_tree["main"]), "motor")
+        for trn in ("tendon", "site"):
+            if e.get(trn) is not None:
+                raise ValueError(f"actuator '{name}': {trn} transmission is not "
+                                 f"supported by the torch port")
+        jnt_names = [j.name for j in jnts]
+        if e.get("joint") not in jnt_names:
+            raise ValueError(f"actuator '{name}': needs the joint transmission of a "
+                             f"named joint, got joint={e.get('joint')!r}")
+        a = _Spec()
+        a.name = e.get("name", "")
+        a.trnid = (jnt_names.index(e.get("joint")), -1)
+        a.gear = _attr_f(e, "gear", [1, 0, 0, 0, 0, 0], n=6)
+        a.ctrlrange = _attr_f(e, "ctrlrange", [0, 0])
+        a.forcerange = _attr_f(e, "forcerange", [0, 0])
+        for lim, rng in (("ctrllimited", "ctrlrange"), ("forcelimited", "forcerange")):
+            v = _attr_tri(e, lim, 2)
+            if v == 2:
+                v = 1 if (comp.autolimits and e.get(rng) is not None) else 0
+            setattr(a, lim, v)
+        return a
 
     def walk_body(e: ET.Element, parentid: int, parent_class: str):
         b = _Body()
@@ -584,5 +622,8 @@ def _compile(root: ET.Element) -> types.Model:
         b.mass = max(b.mass, comp.boundmass)
         b.inertia = np.maximum(b.inertia, comp.boundinertia)
 
+    acts = [parse_actuator(e, i) for ae in root.iter("actuator")
+            for i, e in enumerate(ae)]
+
     from mujoco_ros_pkgs_tpu_torch.core.assemble import assemble
-    return assemble(root.get("model", ""), bodies, jnts, geoms, opt)
+    return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt)

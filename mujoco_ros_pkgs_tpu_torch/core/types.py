@@ -2,7 +2,7 @@
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
 port runs today (world + free/ball/hinge/slide joint trees, primitive geoms,
-contacts).
+contacts, joint limits, joint-transmission motors).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -78,6 +78,34 @@ class SolverType(enum.IntEnum):
     PGS = 0
     CG = 1
     NEWTON = 2
+
+
+class TrnType(enum.IntEnum):
+    JOINT = 0
+    JOINTINPARENT = 1
+    SLIDERCRANK = 2
+    TENDON = 3
+    SITE = 4
+
+
+class DynType(enum.IntEnum):
+    NONE = 0
+    INTEGRATOR = 1
+    FILTER = 2
+    FILTEREXACT = 3
+    MUSCLE = 4
+
+
+class GainType(enum.IntEnum):
+    FIXED = 0
+    AFFINE = 1
+    MUSCLE = 2
+
+
+class BiasType(enum.IntEnum):
+    NONE = 0
+    AFFINE = 1
+    MUSCLE = 2
 
 
 def _array():
@@ -181,10 +209,12 @@ class Model:
     jnt_dofadr: Tuple[int, ...] = ()
     jnt_bodyid: Tuple[int, ...] = ()
     jnt_limited: Tuple[int, ...] = ()
+    jnt_actfrclimited: Tuple[int, ...] = ()
     jnt_pos: torch.Tensor = _array()          # (njnt, 3)
     jnt_axis: torch.Tensor = _array()         # (njnt, 3)
     jnt_stiffness: torch.Tensor = _array()    # (njnt,)
     jnt_range: torch.Tensor = _array()        # (njnt, 2)
+    jnt_actfrcrange: torch.Tensor = _array()  # (njnt, 2)
     jnt_solref: torch.Tensor = _array()       # (njnt, 2)
     jnt_solimp: torch.Tensor = _array()       # (njnt, 5)
     jnt_margin: torch.Tensor = _array()       # (njnt,)
@@ -219,11 +249,26 @@ class Model:
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
 
+    # ---- actuators ----
+    actuator_trntype: Tuple[int, ...] = ()
+    actuator_dyntype: Tuple[int, ...] = ()
+    actuator_gaintype: Tuple[int, ...] = ()
+    actuator_biastype: Tuple[int, ...] = ()
+    actuator_trnid: Tuple[Tuple[int, int], ...] = ()
+    actuator_ctrllimited: Tuple[int, ...] = ()
+    actuator_forcelimited: Tuple[int, ...] = ()
+    actuator_gainprm: torch.Tensor = _array()     # (nu, 10)
+    actuator_biasprm: torch.Tensor = _array()     # (nu, 10)
+    actuator_ctrlrange: torch.Tensor = _array()   # (nu, 2)
+    actuator_forcerange: torch.Tensor = _array()  # (nu, 2)
+    actuator_gear: torch.Tensor = _array()        # (nu, 6)
+
     # ---- names ----
     name: str = ""
     body_names: Tuple[str, ...] = ()
     jnt_names: Tuple[str, ...] = ()
     geom_names: Tuple[str, ...] = ()
+    actuator_names: Tuple[str, ...] = ()
 
     # ---- static structure flags (decided at compile) ----
     dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
@@ -313,6 +358,11 @@ class Data:
     qfrc_smooth: torch.Tensor    # (B, nv)
     qacc_smooth: torch.Tensor    # (B, nv)
     qfrc_constraint: torch.Tensor  # (B, nv)
+    # actuators: transmission (position stage) and forces (actuation)
+    actuator_length: torch.Tensor    # (B, nu)
+    actuator_velocity: torch.Tensor  # (B, nu)
+    actuator_force: torch.Tensor     # (B, nu)
+    actuator_moment: torch.Tensor    # (B, nu, nv)
     # contacts and the solver's row forces
     contact: Contact
     efc_force_contact: torch.Tensor  # (B, nefc), nefc >= 1

@@ -1,12 +1,15 @@
-"""Constraint rows of contacts, with the solref/solimp impedance model.
+"""Constraint rows of joint limits and contacts, with the solref/solimp
+impedance model.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py for contact rows: elliptic
-cones of condim 1/3/4/6 and pyramidal facets, every slot of the contact set
-a row block (inactive ones masked), in libmujoco's row order so the rows
-compare 1:1 with the JAX package's. All tensors are batch-first; the row
-layout is static and shared by the batch.
+Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py for limit and contact rows:
+one row per limited hinge or slide joint (on the nearer side of its range),
+then elliptic cones of condim 1/3/4/6 and pyramidal facets, every slot of
+the contact set a row block (inactive rows masked), in libmujoco's row
+order so the rows compare 1:1 with the JAX package's. All tensors are
+batch-first; the row layout is static and shared by the batch.
 
-Equality, friction-loss and limit rows raise NotImplementedError (ROADMAP).
+Equality and friction-loss rows, and limits of ball joints, raise
+NotImplementedError (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, Model
+from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, JointType, Model
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import slot_meta
@@ -35,7 +38,7 @@ class Efc(NamedTuple):
     aref: torch.Tensor           # (B, nefc)
     frictionloss: torch.Tensor   # (B, nefc)
     active: torch.Tensor         # (B, nefc) bool
-    kinds: Tuple[str, ...]       # 'con' per elliptic row, 'lim' per facet
+    kinds: Tuple[str, ...]       # 'lim' per limit row and facet, 'con' per elliptic row
     con_base: Tuple[int, ...]    # first row of each elliptic contact
     con_dim: Tuple[int, ...]     # its condim
     con_mu: torch.Tensor         # (B, ncon_ell, 5) friction of each
@@ -92,27 +95,67 @@ def _check_rows(m: Model):
     if len(m.dof_floss_adr) and not flags & DisableBit.FRICTIONLOSS:
         raise NotImplementedError("efc: friction-loss rows are not ported to the "
                                   "torch package")
-    if any(m.jnt_limited) and not flags & DisableBit.LIMIT:
-        raise NotImplementedError("efc: joint-limit rows are not ported to the "
-                                  "torch package")
+    if not flags & DisableBit.LIMIT:
+        for j, lim in enumerate(m.jnt_limited):
+            if lim and m.jnt_type[j] not in (int(JointType.HINGE), int(JointType.SLIDE)):
+                raise NotImplementedError(
+                    f"efc: limit rows of {JointType(m.jnt_type[j]).name.lower()} joints "
+                    f"(joint '{m.jnt_names[j]}') are not ported to the torch package")
+
+
+def _limited(m: Model) -> Tuple[int, ...]:
+    """The joints with a limit row, in joint order (none when limits or
+    constraints are disabled)."""
+    if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):
+        return ()
+    return tuple(j for j, lim in enumerate(m.jnt_limited) if lim)
+
+
+def _limit_rows(m: Model, d: Data, jnts) -> dict:
+    """One row per limited hinge or slide joint, on the nearer side of its
+    range: pos = qpos - range[0] (J = +1 at the dof) or range[1] - qpos (J =
+    -1), active where pos < margin, the joint's solref / solimp and the
+    dof's invweight0."""
+    dev, nv = d.qpos.device, m.nv
+    jt = mmath.static_tensor(jnts, dev)
+    qa = mmath.static_tensor([m.jnt_qposadr[j] for j in jnts], dev)
+    va = mmath.static_tensor([m.jnt_dofadr[j] for j in jnts], dev)
+    q = d.qpos[:, qa]
+    rng, margin = m.jnt_range[jt], m.jnt_margin[jt]
+    dist_lo, dist_hi = q - rng[:, 0], rng[:, 1] - q
+    lo_closer = dist_lo < dist_hi
+    dist = torch.where(lo_closer, dist_lo, dist_hi)
+    sgn = torch.where(lo_closer, 1.0, -1.0).to(q.dtype)
+    B, L = q.shape
+    J = q.new_zeros(B, L, nv)
+    J[:, mmath.static_tensor(np.arange(L), dev), va] = sgn
+    k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], dist, margin)
+    R = torch.clamp((1.0 - imp) / imp * m.dof_invweight0[va], min=mmath.MINVAL)
+    return dict(J=J, pos=dist, margin=margin.expand(B, L), D=1.0 / R, R=R,
+                aref=-b * (sgn * d.qvel[:, va]) - k * imp * (dist - margin),
+                frictionloss=torch.zeros_like(dist), active=dist < margin)
 
 
 def make_efc(m: Model, d: Data) -> Optional[Efc]:
-    """The contact rows of every slot of d.contact (None without contacts)."""
+    """The limit rows, then the contact rows of every slot of d.contact
+    (None without rows)."""
     _check_rows(m)
-    if not m.ncon_max or m.opt.disableflags & (DisableBit.CONSTRAINT
-                                               | DisableBit.CONTACT):
+    if m.opt.disableflags & DisableBit.CONSTRAINT:
         return None
+    jnts = _limited(m)
+    nlim = len(jnts)
     c = d.contact
     B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
     pyramidal = m.opt.cone == 0
-    slots = [i for i in range(len(c.geom1)) if c.geom1[i] != -1]
-    if not slots:
+    slots = []
+    if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
+        slots = [i for i in range(len(c.geom1)) if c.geom1[i] != -1]
+    if not slots and not nlim:
         return None
 
     def nrows(dim):
         return 2 * (dim - 1) if (pyramidal and dim > 1) else dim
-    bases, rb = [], 0
+    bases, rb = [], nlim
     for i in slots:
         bases.append(rb)
         rb += nrows(c.dim[i])
@@ -132,7 +175,13 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
            for name in ("pos", "margin", "D", "R", "aref", "frictionloss")}
     J = torch.zeros(B, nefc, nv, dtype=dtype, device=dev)
     active = torch.zeros(B, nefc, dtype=torch.bool, device=dev)
-    kinds = [None] * nefc
+    kinds = ["lim"] * nlim + [None] * (nefc - nlim)
+    if nlim:
+        lim = _limit_rows(m, d, jnts)
+        J[:, :nlim] = lim.pop("J")
+        active[:, :nlim] = lim.pop("active")
+        for name, val in lim.items():
+            out[name][:, :nlim] = val
 
     by_dim: dict = {}
     for k, i in enumerate(slots):

@@ -12,10 +12,13 @@ routes, chosen once per model by `make_plan`:
   general Newton of ops/solver.py, whose Hessian solves run K1 (PILE:
   nv 72, 783 rows).
 
+The general route takes joint-limit rows of hinges and slides and
+joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors).
 What neither route covers raises NotImplementedError from make_plan: other
-integrators, sensors, actuation, tendons, fluid, mocap, equality,
-friction-loss and limit rows, CG and PGS, collision routines the port lacks
-and nv > 96 (the JAX package solves those with XLA, not a Pallas kernel).
+integrators, sensors, other actuators, activations and transmissions,
+tendons, fluid, mocap, equality and friction-loss rows, limits of ball
+joints, CG and PGS, collision routines the port lacks and nv > 96 (the JAX
+package solves those with XLA, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ def make_data(m: Model, nenv: int) -> Data:
         cvel=z(m.nbody, 6), cdof_dot=z(m.nv, 6), qM=z(m.nv, m.nv),
         qfrc_bias=z(m.nv), qfrc_passive=z(m.nv), qfrc_actuator=z(m.nv),
         qfrc_smooth=z(m.nv), qacc_smooth=z(m.nv), qfrc_constraint=z(m.nv),
+        actuator_length=z(m.nu), actuator_velocity=z(m.nu), actuator_force=z(m.nu),
+        actuator_moment=z(m.nu, m.nv),
         contact=narrowphase.empty_contact(m, nenv, dtype, dev),
         efc_force_contact=z(nefc))
 
@@ -165,8 +170,7 @@ def check_general(m: Model) -> None:
         _not_ported(f"integrator {IntegratorType(m.opt.integrator).name}")
     if m.nsensor or m.nsensordata:
         _not_ported("sensors")
-    if m.nu or m.na:
-        _not_ported("actuation")
+    smooth.check_actuators(m)
     if m.ntendon:
         _not_ported("tendons")
     if m.has_fluid:

@@ -7,8 +7,9 @@ recursions are level-order sweeps: bodies grouped by tree depth (static),
 each level one gather/compute/scatter over all its bodies. All tensors are
 batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
 compile side uses them at load time, core/constants.py); the stages take
-and return `Data`. Tendons, actuators and fluid forces raise
-NotImplementedError.
+and return `Data`. Actuators are joint-transmission motors on hinges and
+slides (`transmission`, `actuation`); tendons, other actuators and
+transmissions, and fluid forces raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, JointType, Model
+from mujoco_ros_pkgs_tpu_torch.core.types import (
+    BiasType, Data, DisableBit, DynType, GainType, JointType, Model, TrnType,
+)
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 
@@ -428,11 +431,102 @@ def tendon(m: Model, d: Data) -> Data:
     return d
 
 
+@functools.lru_cache(maxsize=128)
+def _trn_meta(actuator_trntype, actuator_trnid, jnt_type, jnt_qposadr, jnt_dofadr):
+    """(actuator, qpos address, dof address) of each actuator: the JAX
+    package's 1-dof joint group; every other transmission raises."""
+    rows = []
+    for i, trn in enumerate(actuator_trntype):
+        if trn not in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)):
+            raise NotImplementedError(f"transmission: {TrnType(trn).name.lower()} "
+                                      f"transmission is not ported to the torch package")
+        j = actuator_trnid[i][0]
+        if jnt_type[j] not in (int(JointType.SLIDE), int(JointType.HINGE)):
+            raise NotImplementedError(f"transmission: a {JointType(jnt_type[j]).name.lower()}"
+                                      f" joint transmission is not ported to the torch "
+                                      f"package")
+        rows.append((i, jnt_qposadr[j], jnt_dofadr[j]))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+
+
+def transmission(m: Model, d: Data) -> Data:
+    """actuator_length, actuator_moment (B, nu, nv) and actuator_velocity
+    = moment qvel (mj_transmission) of joint transmissions on hinges and
+    slides: length = gear qpos, moment gear at the joint's dof."""
+    if m.nu == 0:
+        return d
+    i, qa, va = (mmath.static_tensor(c, d.qpos.device) for c in _trn_meta(
+        m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
+        m.jnt_dofadr).T)
+    gear = m.actuator_gear[i, 0]
+    B = d.qpos.shape[0]
+    length = d.qpos.new_zeros(B, m.nu)
+    length[:, i] = d.qpos[:, qa] * gear
+    moment = d.qpos.new_zeros(B, m.nu, m.nv)
+    moment[:, i, va] = gear
+    return d.replace(actuator_length=length, actuator_moment=moment,
+                     actuator_velocity=torch.einsum("buv,bv->bu", moment, d.qvel))
+
+
+def check_actuators(m: Model) -> None:
+    """Raise NotImplementedError for actuators `transmission` and
+    `actuation` cannot run: any activation (na > 0), dynamics, gain or bias
+    other than a motor's, transmissions other than a hinge's or a slide's."""
+    _trn_meta(m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
+              m.jnt_dofadr)
+    if m.na:
+        raise NotImplementedError("actuation: activation states (na > 0) are not "
+                                  "ported to the torch package")
+    for field, ok, enum in (("dyntype", DynType.NONE, DynType),
+                            ("gaintype", GainType.FIXED, GainType),
+                            ("biastype", BiasType.NONE, BiasType)):
+        bad = [v for v in getattr(m, "actuator_" + field) if v != int(ok)]
+        if bad:
+            raise NotImplementedError(f"actuation: {field} {enum(bad[0]).name.lower()} "
+                                      f"is not ported to the torch package")
+
+
+@functools.lru_cache(maxsize=128)
+def _act_clamp_meta(jnt_actfrclimited, jnt_dofadr):
+    """The dofs whose total actuator force is clamped (the first dof of each
+    joint with actuatorfrclimited, as mj_fwdActuation clamps per joint) and
+    their joints."""
+    dofs = [jnt_dofadr[j] for j, lim in enumerate(jnt_actfrclimited) if lim]
+    jnts = [j for j, lim in enumerate(jnt_actfrclimited) if lim]
+    return np.asarray(dofs, dtype=np.int64), np.asarray(jnts, dtype=np.int64)
+
+
 def actuation(m: Model, d: Data) -> Data:
-    """Actuator forces: models with actuators raise (not ported yet)."""
-    if m.nu or m.na:
-        raise NotImplementedError("actuators are not ported to the torch package")
-    return d
+    """Motor forces (mj_fwdActuation without activation): ctrl clamped to
+    ctrlrange where ctrllimited (unless CLAMPCTRL is disabled), force = gain
+    ctrl clamped to forcerange where forcelimited, qfrc_actuator = moment^T
+    force clamped to actuatorfrcrange at joints that limit it; zeros under
+    DisableBit.ACTUATION. Actuators that are not motors raise."""
+    if m.nu == 0:
+        return d
+    check_actuators(m)
+    flags = m.opt.disableflags
+    if flags & DisableBit.ACTUATION:
+        return d.replace(qfrc_actuator=torch.zeros_like(d.qvel),
+                         actuator_force=torch.zeros_like(d.ctrl))
+    dev = d.qpos.device
+    ctrl = d.ctrl
+    if not flags & DisableBit.CLAMPCTRL and any(m.actuator_ctrllimited):
+        lim = mmath.static_tensor(np.array(m.actuator_ctrllimited, dtype=bool), dev)
+        rng = m.actuator_ctrlrange
+        ctrl = torch.where(lim, torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
+    force = m.actuator_gainprm[:, 0] * ctrl
+    if any(m.actuator_forcelimited):
+        lim = mmath.static_tensor(np.array(m.actuator_forcelimited, dtype=bool), dev)
+        rng = m.actuator_forcerange
+        force = torch.where(lim, torch.clamp(force, rng[:, 0], rng[:, 1]), force)
+    qfrc = torch.einsum("buv,bu->bv", d.actuator_moment, force)
+    dofs, jnts = _act_clamp_meta(m.jnt_actfrclimited, m.jnt_dofadr)
+    if dofs.size:
+        dofs, jnts = mmath.static_tensor(dofs, dev), mmath.static_tensor(jnts, dev)
+        rng = m.jnt_actfrcrange[jnts]
+        qfrc[:, dofs] = torch.clamp(qfrc[:, dofs], rng[:, 0], rng[:, 1])
+    return d.replace(actuator_force=force, qfrc_actuator=qfrc)
 
 
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
@@ -456,7 +550,7 @@ def fwd_position_smooth(m: Model, d: Data) -> Data:
                   xaxis=kin.xaxis, geom_xpos=kin.geom_xpos,
                   geom_xmat=kin.geom_xmat, subtree_com=subtree_com,
                   cinert=cinert, cdof=cdof, qM=crb(m, cinert, cdof))
-    return tendon(m, d)
+    return transmission(m, tendon(m, d))
 
 
 def fwd_velocity_smooth(m: Model, d: Data) -> Data:

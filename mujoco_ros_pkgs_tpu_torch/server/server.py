@@ -2,7 +2,7 @@
 
 Counterpart of mujoco_ros_pkgs_tpu/server/server.py for the requests the
 port serves today: stepping (the Step action), pause, reset, reload with
-rollback, gravity, body and batch state, loading state. The batch lives on
+rollback, gravity, control (set_ctrl), body and batch state, loading state. The batch lives on
 one device, the card unless the caller asks for another; each step runs the
 whole batch through ops/forward.step: one launch of the fused step kernel
 for a single free body, or the general path (with the Cholesky and Newton
@@ -175,6 +175,24 @@ class MujocoServer:
                 off = self._plan.idx["gravity"][0]
                 enabled = not self.m.opt.disableflags & DisableBit.GRAVITY
                 self._plan.params[off:off + 3] = g if enabled else 0.0
+        return ServiceResult(True, "")
+
+    def set_ctrl(self, values, env_id: Optional[int] = None) -> ServiceResult:
+        """Write the control vector (nu,) of every env (env_id None) or of
+        one env, into the batch's ctrl tensor on its device; the next step
+        reads it."""
+        vals = np.asarray(values, dtype=np.float64)
+        if vals.shape != (self.m.nu,):
+            return ServiceResult(False, f"ctrl needs shape ({self.m.nu},), got {vals.shape}")
+        if env_id is not None and not 0 <= env_id < self.nenv:
+            return ServiceResult(False, f"bad env_id {env_id}")
+        with self._lock:
+            ctrl = self.d.ctrl
+            v = torch.as_tensor(vals, dtype=ctrl.dtype).to(ctrl.device)
+            if env_id is None:
+                ctrl.copy_(v.expand_as(ctrl))
+            else:
+                ctrl[env_id] = v
         return ServiceResult(True, "")
 
     def get_batch_state(self) -> dict:

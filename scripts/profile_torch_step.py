@@ -3,6 +3,9 @@
     python scripts/profile_torch_step.py [--world PENDULUM] [--nenv 4096]
         [--steps 32]
 
+`--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE) or
+models/humanoid.py (HUMANOID).
+
 Steps `MujocoServer(world, nenv)` (on the card) through WARMUP steps,
 times `steps` more without the profiler (wall clock to a synchronize), then
 the same number under torch.profiler, and prints:
@@ -12,7 +15,8 @@ the same number under torch.profiler, and prints:
   intervals over the window's wall time);
 - device time per step by kernel name (top 12), and the port's kernels;
 - host time per step of each stage of the general path (smooth position,
-  collision, smooth velocity, smooth acceleration, efc rows, solve, Euler;
+  collision, smooth velocity, actuation, smooth acceleration, efc rows,
+  solve, Euler;
   record_function ranges wrapped around the stage functions by this script,
   not by the port);
 - CUDA runtime calls per step (kernel launches, copies, synchronizations).
@@ -36,14 +40,15 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from mujoco_ros_pkgs_tpu_torch.models import worlds  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.models import humanoid, worlds  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth, solver  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
 
 WARMUP = 64
 STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
-          (smooth, "fwd_velocity_smooth"), (smooth, "fwd_acceleration_smooth"),
+          (smooth, "fwd_velocity_smooth"), (smooth, "actuation"),
+          (smooth, "fwd_acceleration_smooth"),
           (efc, "make_efc"), (solver, "solve"), (fwd, "euler"))
 
 
@@ -88,7 +93,8 @@ def _busy_share(events, t0_us, t1_us) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--world", default="PENDULUM", help="a name in models/worlds.py")
+    ap.add_argument("--world", default="PENDULUM",
+                    help="a name in models/worlds.py or models/humanoid.py")
     ap.add_argument("--nenv", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args(argv)
@@ -100,7 +106,11 @@ def main(argv=None) -> int:
     for mod, name in STAGES:
         setattr(mod, name, _labelled(getattr(mod, name), f"stage:{name}"))
 
-    srv = MujocoServer(getattr(worlds, args.world), nenv=args.nenv, unpause=False)
+    xml = getattr(worlds, args.world, None) or getattr(humanoid, args.world, None)
+    if not isinstance(xml, str):
+        sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py or "
+                 f"models/humanoid.py")
+    srv = MujocoServer(xml, nenv=args.nenv, unpause=False)
     srv.step(WARMUP)
     torch.cuda.synchronize()
     t = time.perf_counter()

@@ -134,7 +134,8 @@ def test_model_to_casts_floats_only():
     ('<mujoco><worldbody><body><site name="s"/></body></worldbody></mujoco>', "site"),
     ('<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody></mujoco>',
      "cylinder"),
-    ('<mujoco><actuator/><worldbody/></mujoco>', "actuator"),
+    ('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
+     '<actuator><velocity joint="j"/></actuator></mujoco>', "actuator"),
 ])
 def test_unsupported_feature_raises(xml, feature):
     with pytest.raises(ValueError, match=feature):

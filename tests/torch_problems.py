@@ -1,6 +1,6 @@
-"""Seeded float32 Newton problems and fused-step worlds for holding the
-port's K2 and K3 kernels, their plain versions and the JAX kernels against
-each other (the tests and chip_smoke.py). Imports no JAX."""
+"""Seeded float32 Newton problems, fused-step worlds and general-route
+states for holding the port's kernels, their plain versions and the JAX
+package against each other (the tests and chip_smoke.py). Imports no JAX."""
 
 import numpy as np
 import torch
@@ -169,3 +169,40 @@ def chain_states(nenv: int, seed: int):
     qpos[:, 1::3] = rng.uniform(2.4, 2.9, (nenv, 6)) * (-1.0) ** np.arange(6)
     qpos[:, 2::3] = rng.uniform(-0.3, 0.3, (nenv, 6))
     return qpos, 0.3 * rng.normal(size=(nenv, 18))
+
+
+# PENDULUM with two limited hinges (2 limit rows ahead of its 33 contact
+# rows: K2 takes 35 rows) and a motor on each: a force range on joint1's, a
+# total actuator force range on joint2
+PENDULUM_LIMITED = (worlds.PENDULUM
+                    .replace('pos="0 0 0.6" axis="0 1 0"/>',
+                             'pos="0 0 0.6" axis="0 1 0" range="-0.5 0.5"/>')
+                    .replace('pos="0 0 0.3" axis="0 1 0"/>',
+                             'pos="0 0 0.3" axis="0 1 0" range="-0.4 0.6" '
+                             'actuatorfrcrange="-3 2"/>')
+                    .replace("</worldbody>", "</worldbody><actuator>"
+                             '<motor joint="joint1" gear="5" ctrlrange="-1 1" '
+                             'forcerange="-0.6 0.8"/>'
+                             '<motor joint="joint2" gear="4" ctrlrange="-1 1"/>'
+                             "</actuator>"))
+
+
+def humanoid_states(m, nenv: int, seed: int, drop: float = 0.0):
+    """Seeded float64 HUMANOID states (qpos (nenv, 28), qvel (nenv, 27),
+    ctrl (nenv, 21)) for the port's compiled HUMANOID `m`: the root `drop` m
+    below its start (the feet hang 0.105 m over the floor there) with a
+    small tilt, each hinge drawn from its range widened by 30% on both sides
+    (some past their limits), random velocities, ctrl from [-1.5, 1.5] (the
+    motors clamp it to [-1, 1])."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(m.qpos0.cpu().double().numpy(), (nenv, 1))
+    qpos[:, 2] -= drop
+    q = rng.normal(size=(nenv, 4)) * 0.05
+    q[:, 0] += 1.0
+    qpos[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    rng_lo, rng_hi = (m.jnt_range[1:, k].cpu().double().numpy() for k in (0, 1))
+    w = rng_hi - rng_lo
+    qpos[:, 7:] = rng.uniform(rng_lo - 0.3 * w, rng_hi + 0.3 * w, size=(nenv, 21))
+    qvel = 0.5 * rng.normal(size=(nenv, 27))
+    ctrl = rng.uniform(-1.5, 1.5, size=(nenv, 21))
+    return qpos, qvel, ctrl
