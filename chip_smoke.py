@@ -92,12 +92,33 @@ Phases (any failure raises; the exit code is then not 0):
      env-steps/s and Newton trips per env;
  15. HUMANOID timing: fwd.step ms at 1024 and 4096 envs (and at 1024 with
      the plain versions); K1 at n = 27 on HUMANOID Hessians by graph replay
-     with its bound, the plain version and cholesky + cholesky_solve.
+     with its bound, the plain version and cholesky + cholesky_solve;
+ 16. SENSORS vs plain (BASELINE config 3's scene: nv 7, 3 sites, 11
+     sensors, 8 contact slots, 24 rows): 2048 seeded envs (the probe near
+     the floor, in contact in most, its rangefinder hitting in some), 1 and
+     5 steps with the kernels and with their plain versions: phase 8's
+     tolerances for qpos and qvel, the position- and velocity-stage sensors
+     at qvel's; qacc and the accelerometer, force and torque at rtol / atol
+     1e-3, or, in envs past it, both held against the float64 step
+     (held_against_f64); K1 at n = 7 on the mass matrix against plain;
+ 17. SENSORS main path: MujocoServer(SENSORS, nenv=2048) on the default
+     device with a SensorsPlugin and bench_config3's three noise models
+     steps SENSORS_STEPS times from the model's start (timed: env-steps/s):
+     K1 and K2 once per step, K3 never; every reading finite, range -1 or
+     positive, probe_pos the probe's xpos, the acc noise's mean within 4
+     sigma / sqrt(N) of 0 and its std within 5% of 0.01 over all envs;
+     reset keeps the noise models; an eval-mode plugin withholds the
+     ground truth;
+ 18. SENSORS timing: fwd.step ms at 2048 envs with the kernels and with
+     their plain versions; K1 at n = 7 on the mass matrix and K2 on the
+     step's rows (held against plain first) by graph replay, one call at a
+     time, plain, bound, and for K1 cholesky + cholesky_solve.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
-the device time alone; `group`: the width the main path runs; K1's `pile`
-and `humanoid` objects: its runs on those worlds' main paths), then the
-card line, then {"ok": true, "device": {...}} as the last line. The width
+the device time alone; `group`: the width the main path runs; K1's `pile`,
+`humanoid` and `sensors` objects and K2's `sensors` object: their runs on
+those worlds' main paths), then the card line, then {"ok": true, "device":
+{...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
 (group_width, psd_width) forced.
 """
@@ -122,10 +143,12 @@ from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from tests.torch_problems import (BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE, FULL_KINDS,
-                                  MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED, box_cluster,
-                                  humanoid_states, random_problem, solve_cost)
+                                  MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED, SENSORS_NOISE,
+                                  SENSORS_POS_VEL, box_cluster, humanoid_states,
+                                  random_problem, sensors_states, solve_cost)
 
 PENDULUM_DAMPED = (worlds.PENDULUM
                    .replace('type="ball" pos="0 0 1"/>',
@@ -142,6 +165,10 @@ PILE_STEPS = 600
 HUMANOID_NENV = 1024
 HUMANOID_SETTLE = 80
 HUMANOID_STEPS = 200
+# SENSORS (BASELINE config 3, which bench.py:160-189 runs at NENV // 2 envs
+# with tests/torch_problems.SENSORS_NOISE) and its server's steps (phase 17)
+SENSORS_NENV = 2048
+SENSORS_STEPS = 500
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -656,7 +683,14 @@ def pendulum_problem(m, nenv, seed):
     """PENDULUM's constraint problem at seeded states, built by the port's
     general path up to the solve: (static args, tensor args)."""
     qpos, qvel = pendulum_states(nenv, seed)
-    d = fwd.make_data(m, nenv).replace(qpos=qpos, qvel=qvel)
+    return rows_problem(m, fwd.make_data(m, nenv).replace(qpos=qpos, qvel=qvel), seed)
+
+
+def rows_problem(m, d, seed):
+    """The constraint problem of the state d, built by the port's general
+    path up to the solve, with a seeded warm start: (static args, tensor
+    args)."""
+    nenv = d.qpos.shape[0]
     d = smooth.fwd_position_smooth(m, d)
     d = collision.collide(m, d)
     d = smooth.fwd_acceleration_smooth(m, smooth.fwd_velocity_smooth(m, d))
@@ -750,27 +784,9 @@ def k2_phase(card):
                    (kinds, base, nv, 32, 8, 1e-8, True), p, 2e-3)
     k2_default_friction()
     prepared = k2_args(static, args)
-    t = {"ms": time_ms(lambda: solver_tpu.solve_batched(*static, **args), 100),
-         "graph_ms": graph_ms(lambda: kernels.newton_solve(*prepared), 100),
-         "plain_ms": time_ms(lambda: solver_tpu.solve_batched_plain(*static, **args), 5)}
-    trips = []
-    kinds, con_base, nv, niter, nls, tol, ws = static
-    solver_tpu.newton_tiles(nv, kinds, con_base, niter, nls, ws, tol, args["J"],
-                            args["aref"], args["D"], args["floss"], args["active"],
-                            args["mu"], args["M"], args["a_s"], args["ws"], trips=trips)
+    t = k2_timing(card, "PENDULUM rows", static, args)
+    kinds, con_base, nv = static[:3]
     nefc, ncon = len(kinds), len(con_base)
-    flops = float(sum(newton_flops(nv, nefc, [d for _, d in con_base], nls, int(k))
-                      for k in trips[0].tolist()))
-    nbytes = NENV * (4 * (nefc * nv + 3 * nefc + 5 * ncon + nv * nv + 2 * nv) + nefc
-                     + 4 * (2 * nv + nefc))
-    t["bound"] = bound(nbytes, flops)
-    t["trips"] = trips[0].float()
-    t["group"] = kernels.group_width(nv, nefc, ncon, NENV)
-    print(f"[K2 timing] PENDULUM rows nenv={NENV}: kernel {t['ms']:.4f} ms (G={t['group']}, "
-          f"solve_batched one call at a time; {t['graph_ms']:.4f} ms by graph replay), "
-          f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
-          f"Newton trips mean {float(t['trips'].mean()):.3f} max "
-          f"{int(t['trips'].max())} ({card})", flush=True)
 
     # every group width: PENDULUM's rows (each held against the plain
     # version first) and the 64 synthetic rows at nv 16
@@ -804,6 +820,35 @@ def k2_phase(card):
             for label, _, rule, _ in cases if label in t["widths"][g]) + f" ({card})",
               flush=True)
     return err, t
+
+
+def k2_timing(card, label, static, args):
+    """K2 on one problem: one call at a time (solve_batched), by graph
+    replay, the plain version, the bound from the Newton trips each env
+    takes, the group width."""
+    prepared = k2_args(static, args)
+    t = {"ms": time_ms(lambda: solver_tpu.solve_batched(*static, **args), 100),
+         "graph_ms": graph_ms(lambda: kernels.newton_solve(*prepared), 100),
+         "plain_ms": time_ms(lambda: solver_tpu.solve_batched_plain(*static, **args), 5)}
+    trips = []
+    kinds, con_base, nv, niter, nls, tol, ws = static
+    solver_tpu.newton_tiles(nv, kinds, con_base, niter, nls, ws, tol, args["J"],
+                            args["aref"], args["D"], args["floss"], args["active"],
+                            args["mu"], args["M"], args["a_s"], args["ws"], trips=trips)
+    nefc, ncon, nenv = len(kinds), len(con_base), args["J"].shape[0]
+    flops = float(sum(newton_flops(nv, nefc, [d for _, d in con_base], nls, int(k))
+                      for k in trips[0].tolist()))
+    nbytes = nenv * (4 * (nefc * nv + 3 * nefc + 5 * ncon + nv * nv + 2 * nv) + nefc
+                     + 4 * (2 * nv + nefc))
+    t["bound"] = bound(nbytes, flops)
+    t["trips"] = trips[0].float()
+    t["group"] = kernels.group_width(nv, nefc, ncon, nenv)
+    print(f"[K2 timing] {label} nenv={nenv}: kernel {t['ms']:.4f} ms (G={t['group']}, "
+          f"solve_batched one call at a time; {t['graph_ms']:.4f} ms by graph replay), "
+          f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); "
+          f"Newton trips mean {float(t['trips'].mean()):.3f} max "
+          f"{int(t['trips'].max())} ({card})", flush=True)
+    return t
 
 
 def k2_args(static, args):
@@ -1357,6 +1402,205 @@ def humanoid_timing(card, m, plan, d):
     return out
 
 
+# ---------------------------------------------------------------------------
+# SENSORS: sites, the sensor stages and the sensors plugin, K1 at n = 7 and
+# K2 at nv 7 with 24 rows
+# ---------------------------------------------------------------------------
+
+def sensors_data(m, nenv, seed):
+    """The port's batch of tests/torch_problems.sensors_states on the card:
+    the probe near the floor, tilted (its corners in contact in most envs,
+    its rangefinder looking up in some), random velocities."""
+    qpos, qvel = (torch.from_numpy(a.astype(np.float32)).cuda()
+                  for a in sensors_states(nenv, seed))
+    return fwd.make_data(m, nenv).replace(qpos=qpos, qvel=qvel)
+
+
+def sensor_cols(m, names):
+    """The sensordata columns of the named sensors."""
+    return [m.sensor_adr[i] + k for i in map(m.sensor, names)
+            for k in range(m.sensor_dim[i])]
+
+
+def sensors_vs_plain(card):
+    """SENSORS at SENSORS_NENV seeded envs, 1 and 5 steps with the kernels
+    and with their plain versions: qpos and qvel at general_vs_plain's
+    tolerances after 1 step and qpos after 5, the position- and
+    velocity-stage sensors at qvel's after 1 step; the accelerometer, force
+    and torque (and qacc), which read qacc, at rtol / atol 1e-3 of plain
+    after 1 step, or, in the envs past that, held against the float64 step
+    by held_against_f64 in units of 1e-3 + 1e-3 |x64|, as HUMANOID's qacc
+    is. Then K1 at n = 7 (the mass-matrix solve) against its plain
+    version."""
+    m = mjcf.load_model_from_string(worlds.SENSORS, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and (m.nv, m.nsensor, m.nsensordata) == (7, 11, 28)
+    d = sensors_data(m, SENSORS_NENV, seed=11)
+    pos_vel = sensor_cols(m, SENSORS_POS_VEL)
+    acc = sensor_cols(m, ("acc", "frc", "trq"))
+    dk, dp, errs = d, d, {}
+    for k in range(5):
+        dk = fwd.step(m, dk, plan)
+        with plain_versions():
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            errs["qpos_1"] = close("SENSORS qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close("SENSORS qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            errs["sensors_pos_vel_1"] = close(
+                "SENSORS position and velocity sensors 1 step", dk.sensordata[:, pos_vel],
+                dp.sensordata[:, pos_vel], 1e-4, 1e-4)
+            m64 = mjcf.load_model_from_string(worlds.SENSORS, dtype=torch.float64).to("cuda")
+            with plain_versions():
+                d64 = fwd.step(m64, data_as(d, torch.float64))
+            for name, got, want, x64 in (
+                    ("qacc", dk.qacc, dp.qacc, d64.qacc),
+                    ("acc, frc, trq", dk.sensordata[:, acc], dp.sensordata[:, acc],
+                     d64.sensordata[:, acc])):
+                errs[f"{name}_1"] = sensors_acc_stage(name, got, want, x64)
+            active = dk.contact.dist < dk.contact.includemargin
+            rng = dk.sensordata[:, m.sensor_adr[m.sensor("range")]]
+            print(f"[SENSORS vs plain] {SENSORS_NENV} envs: active contacts per env mean "
+                  f"{float(active.sum(1).float().mean()):.3f}, envs in contact "
+                  f"{int(active.any(1).sum())}; rangefinder misses {int((rng == -1).sum())}",
+                  flush=True)
+            assert bool(active.any()) and bool((rng == -1).any()) and bool((rng > 0).any())
+    errs["qpos_5"] = close("SENSORS qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert all(torch.isfinite(t).all() for t in (dk.qpos, dk.qvel, dk.sensordata))
+    print(f"[SENSORS vs plain] nenv={SENSORS_NENV}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    (H, g), = captured_solves(m, d, plan)
+    assert H.shape[-1] == 7
+    errs["k1"] = close("K1 SENSORS mass matrix vs plain", linalg_tpu.psd_solve(H, g),
+                       linalg_tpu.psd_solve_plain(H, g), 1e-4, 1e-5)
+    print(f"[K1 SENSORS] mass matrix ({SENSORS_NENV}, 7, 7) at G={kernels.psd_width(7)}: "
+          f"vs plain max abs {errs['k1']:.3e}", flush=True)
+    return m, plan, d, max(errs.values())
+
+
+def sensors_acc_stage(name, got, want, x64):
+    """got (kernels) against want (plain versions) at rtol / atol 1e-3; where
+    envs are past it, both are held against float64 (x64) instead, by
+    held_against_f64 in units of 1e-3 + 1e-3 |x64|. Prints both readings;
+    returns the max abs difference to plain."""
+    unit = 1e-3 + 1e-3 * x64.abs()
+    over = ((got - want).abs() > 1e-3 + 1e-3 * want.abs()).any(-1)
+    e_got, e_plain = (((x.double() - x64).abs() / unit).amax(-1) for x in (got, want))
+    print(f"[SENSORS vs plain] {name} 1 step: {int(over.sum())} envs past rtol / atol 1e-3 "
+          f"of plain; against float64 in units of 1e-3 + 1e-3 |x64|, worst env "
+          f"{float(e_got.max()):.3f}, 99th percentile {float(torch.quantile(e_got, 0.99)):.3f} "
+          f"(plain float32: {float(e_plain.max()):.3f}, "
+          f"{float(torch.quantile(e_plain, 0.99)):.3f})", flush=True)
+    if bool(over.any()):
+        print(f"[SENSORS vs plain] {name}: the envs past it, against float64 "
+              f"{[round(float(e_got[i]), 3) for i in torch.nonzero(over).flatten()]} (plain "
+              f"{[round(float(e_plain[i]), 3) for i in torch.nonzero(over).flatten()]})",
+              flush=True)
+        held_against_f64(f"SENSORS {name} 1 step", got, want, x64, unit)
+    else:
+        close(f"SENSORS {name} 1 step", got, want, 1e-3, 1e-3)
+    return float((got - want).abs().max())
+
+
+def sensors_main_path():
+    """MujocoServer(SENSORS, nenv=SENSORS_NENV) on the default device with a
+    SensorsPlugin and bench_config3's three noise models, SENSORS_STEPS
+    steps from the model's start: K1 and K2 once per step each, K3 never;
+    every reading finite, the range -1 or positive, probe_pos the probe's
+    xpos; over all envs the acc noise's mean within 4 sigma / sqrt(N) of 0
+    and its std within 5% of 0.01. Then reset keeps the models, and an
+    eval-mode plugin withholds the ground truth."""
+    zero_counts()
+    t0 = time.perf_counter()
+    plugin = SensorsPlugin()
+    srv = MujocoServer(worlds.SENSORS, nenv=SENSORS_NENV, plugins=[plugin], seed=5)
+    assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
+    res = srv.register_noise_models(list(SENSORS_NOISE))
+    assert res.success, res.status_message
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(SENSORS_STEPS).success
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches,
+                "step_fused": kernels.step_fused.launches}
+    assert launches == {"psd_solve": SENSORS_STEPS, "newton_solve": SENSORS_STEPS,
+                        "step_fused": 0}, launches
+    assert kernels.psd_solve.width == kernels.psd_width(7), kernels.psd_solve.width
+    m, d = srv.m, srv.d
+    i, _ = srv._plugin_of(SensorsPlugin)
+    ps = srv.pstates[i]
+    noisy, gt = ps["noisy"], ps["gt"]
+    assert noisy.shape == gt.shape == (SENSORS_NENV, 28)
+    assert bool(torch.isfinite(noisy).all()) and bool(torch.isfinite(gt).all())
+    rng = gt[:, m.sensor_adr[m.sensor("range")]]
+    assert bool(((rng == -1) | (rng > 0)).all()), "a range neither -1 nor positive"
+    adr = m.sensor_adr[m.sensor("probe_pos")]
+    assert torch.equal(gt[:, adr:adr + 3], d.xpos[:, m.body("probe")]), "probe_pos != xpos"
+    delta = (noisy - gt)[:, sensor_cols(m, ("acc",))].double().flatten()
+    mean, std, n = float(delta.mean()), float(delta.std()), delta.numel()
+    assert abs(mean) < 4 * 0.01 / n ** 0.5, f"acc noise mean {mean} over {n} samples"
+    assert abs(std / 0.01 - 1) < 0.05, f"acc noise std {std}"
+    single = srv.sensor_outputs(env_id=SENSORS_NENV - 1)
+    assert single[0].shape == (28,) and single[1] is not None
+    z = d.qpos[:, 2]
+    print(f"[SENSORS main path] server step({SENSORS_STEPS}) of SENSORS x {SENSORS_NENV} "
+          f"with the sensors plugin and 3 noise models: {t_step:.3f}s wall, "
+          f"{SENSORS_NENV * SENSORS_STEPS / t_step:.4g} env-steps/s; launches {launches}; "
+          f"acc noise over {n} samples mean {mean:.3e} std {std:.5f}; range misses "
+          f"{int((rng == -1).sum())}; probe z min {float(z.min()):.5f} max "
+          f"{float(z.max()):.5f}", flush=True)
+
+    kept = [ps[k].clone() for k in ("mean", "std", "enabled")]
+    assert srv.reset().success
+    ps = srv.pstates[i]
+    assert all(torch.equal(a, ps[k]) for a, k in zip(kept, ("mean", "std", "enabled")))
+    assert float(ps["noisy"].abs().max()) == 0.0 and srv.step(2).success
+    ev = MujocoServer(worlds.SENSORS, nenv=SENSORS_NENV,
+                      plugins=[SensorsPlugin({"eval_mode": True})])
+    assert ev.step(2).success
+    noisy1, gt1 = ev.sensor_outputs(env_id=0)
+    assert gt1 is None and np.isfinite(noisy1).all()
+    print(f"[SENSORS main path] reset keeps the noise models; eval mode withholds the "
+          f"ground truth; phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, t_step
+
+
+def sensors_timing(card, m, plan, d):
+    """fwd.step of SENSORS at SENSORS_NENV envs by CUDA events with the
+    kernels and with their plain versions; K1 at n = 7 on the mass matrix
+    and K2 on the step's rows (nv 7, 24 rows): by graph replay, one call at
+    a time, the plain versions, bounds, and for K1 cholesky +
+    cholesky_solve."""
+    def run(nsteps):
+        dd = d
+        for _ in range(nsteps):
+            dd = fwd.step(m, dd, plan)
+
+    out = {"step_ms": time_ms(lambda: run(50), 1, warmup=1) / 50}
+    with plain_versions():
+        out["step_plain_ms"] = time_ms(lambda: run(3), 1, warmup=1) / 3
+    print(f"[SENSORS timing] fwd.step nenv={SENSORS_NENV}: {out['step_ms']:.4f} ms/step with "
+          f"the kernels, {out['step_plain_ms']:.4f} ms/step with their plain versions "
+          f"({card})", flush=True)
+    (H, g), = captured_solves(m, d, plan)
+    k1 = {"graph_ms": graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
+          "ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 100),
+          "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 10),
+          "library_ms": time_ms(lambda: library_solve(H, g), 100),
+          "bound": k1_bound(SENSORS_NENV, 7), "group": kernels.psd_width(7)}
+    print(f"[SENSORS timing] K1 n=7 nenv={SENSORS_NENV} on the mass matrix (G={k1['group']}): "
+          f"{k1['graph_ms']:.4f} ms by graph replay, {k1['ms']:.4f} one call at a time; "
+          f"plain {k1['plain_ms']:.4f} ms; cholesky + cholesky_solve {k1['library_ms']:.4f} "
+          f"ms; bound {k1['bound'][0]:.5f} ms ({k1['bound'][1]}) ({card})", flush=True)
+    static, args = rows_problem(m, d, seed=11)
+    assert (static[2], len(static[0])) == (7, 24), (static[2], len(static[0]))
+    k2_compare("SENSORS rows", static, args, 1e-3)
+    k2 = k2_timing(card, "SENSORS rows", static, args)
+    return out, k1, k2
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -1424,6 +1668,19 @@ def main():
             ("graph_ms", "graph"), ("ms", "ms"), ("plain_ms", "plain_ms"),
             ("library_ms", "library"))},
         **{f"bound_ms_{n}": th[("bound", n)][0] for n in (n1, n4)}}
+    ms_, plans_, ds_, err_s = sensors_vs_plain(card)
+    launches_s, t_s = sensors_main_path()
+    ts, ts1, ts2 = sensors_timing(card, ms_, plans_, ds_)
+    sensors = {"nenv": SENSORS_NENV, "steps": SENSORS_STEPS,
+               "env_steps_per_s": SENSORS_NENV * SENSORS_STEPS / t_s, **ts}
+    t1["sensors"] = dict(sensors, launches=launches_s["psd_solve"], max_abs_err=err_s,
+                         **{k: ts1[k] for k in ("graph_ms", "ms", "plain_ms", "library_ms",
+                                                "group")},
+                         bound_ms=ts1["bound"][0], bound_by=ts1["bound"][1])
+    t2["sensors"] = dict(sensors, launches=launches_s["newton_solve"],
+                         **{k: ts2[k] for k in ("graph_ms", "ms", "plain_ms", "group")},
+                         bound_ms=ts2["bound"][0], bound_by=ts2["bound"][1],
+                         newton_trips_mean=float(ts2["trips"].mean()))
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -1437,9 +1694,10 @@ def main():
               t3["group"]),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
-             pile=t1["pile"], humanoid=t1["humanoid"]),
-        entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
-              launches12["newton_solve"], err2, t2, t2["group"])]}))
+             pile=t1["pile"], humanoid=t1["humanoid"], sensors=t1["sensors"]),
+        dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
+                   launches12["newton_solve"], err2, t2, t2["group"]),
+             sensors=t2["sensors"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

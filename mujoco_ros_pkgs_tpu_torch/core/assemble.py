@@ -2,8 +2,8 @@
 
 Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
-port parses (actuators: joint-transmission motors); integer columns become
-static tuples.
+port parses (actuators: joint-transmission motors; sites; the sensors of
+SENSOR_DIM); integer columns become static tuples.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.core import types
-from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, JointType
+from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, JointType, ObjType, SensorType
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import PAIR_NCON
 
 
@@ -105,8 +105,77 @@ def _t(x, width=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=torch.float64)
 
 
-def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
+# the sensor types the port computes (ops/sensor_impl.py) and their widths
+SENSOR_DIM = {
+    SensorType.ACCELEROMETER: 3, SensorType.VELOCIMETER: 3, SensorType.GYRO: 3,
+    SensorType.FORCE: 3, SensorType.TORQUE: 3, SensorType.MAGNETOMETER: 3,
+    SensorType.RANGEFINDER: 1, SensorType.JOINTPOS: 1, SensorType.JOINTVEL: 1,
+    SensorType.FRAMEPOS: 3, SensorType.FRAMEQUAT: 4,
+}
+_OBJ = {"body": ObjType.BODY, "xbody": ObjType.XBODY, "joint": ObjType.JOINT,
+        "geom": ObjType.GEOM, "site": ObjType.SITE, "camera": ObjType.CAMERA}
+
+
+def _sensors(elems, names):
+    """Sensor columns (mjModel.sensor_*): type, the object and reference
+    frame each reads, and its address and width in sensordata. `names`
+    maps "body", "joint", "geom" and "site" to the model's name lists."""
+    def index(sensor, kind, name):
+        if name not in names[kind]:
+            raise ValueError(f"sensor '{sensor}': unknown {kind} '{name}'")
+        return names[kind].index(name)
+
+    def resolve(sensor, objtype, name):
+        kind = {ObjType.BODY: "body", ObjType.XBODY: "body", ObjType.JOINT: "joint",
+                ObjType.GEOM: "geom", ObjType.SITE: "site"}.get(objtype)
+        if kind is None:
+            raise ValueError(f"sensor '{sensor}': cannot resolve {objtype.name} {name}")
+        return index(sensor, kind, name)
+
+    def objtype_of(sensor, attr, value):
+        if value not in _OBJ:
+            raise ValueError(f"sensor '{sensor}': {attr}='{value}' is not one of "
+                             f"{sorted(_OBJ)}")
+        return _OBJ[value]
+
+    cols = {k: [] for k in ("type", "objtype", "objid", "reftype", "refid", "adr",
+                            "dim", "cutoff", "noise", "name")}
+    adr = 0
+    for e in elems:
+        sname = e.get("name", "")
+        st = SensorType[e.tag.upper()]
+        objtype, objid = ObjType.UNKNOWN, -1
+        if e.get("site") is not None:
+            objtype, objid = ObjType.SITE, index(sname, "site", e.get("site"))
+        elif e.get("joint") is not None:
+            objtype, objid = ObjType.JOINT, index(sname, "joint", e.get("joint"))
+        elif e.get("body") is not None:
+            objtype, objid = ObjType.BODY, index(sname, "body", e.get("body"))
+        elif e.get("objtype") is not None:
+            objtype = objtype_of(sname, "objtype", e.get("objtype"))
+            objid = resolve(sname, objtype, e.get("objname"))
+        reftype, refid = ObjType.UNKNOWN, -1
+        if e.get("reftype") is not None:
+            reftype = objtype_of(sname, "reftype", e.get("reftype"))
+            refid = resolve(sname, reftype, e.get("refname"))
+        elif e.get("refname") is not None:
+            # MJCF allows refname with the type implied; xbody by default
+            reftype, refid = ObjType.XBODY, index(sname, "body", e.get("refname"))
+        dim = SENSOR_DIM[st]
+        for key, val in (("type", st), ("objtype", objtype), ("objid", objid),
+                         ("reftype", reftype), ("refid", refid), ("adr", adr),
+                         ("dim", dim)):
+            cols[key].append(int(val))
+        cols["cutoff"].append(float(e.get("cutoff", "0")))
+        cols["noise"].append(float(e.get("noise", "0")))
+        cols["name"].append(sname)
+        adr += dim
+    return cols, adr
+
+
+def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> types.Model:
     nbody, njnt, ngeom, nu = len(bodies), len(jnts), len(geoms), len(acts)
+    nsite = len(sites)
 
     # ---------------- body topology ----------------
     body_parentid = [b.parentid for b in bodies]
@@ -192,6 +261,10 @@ def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
         filterparent=filterparent, excludes=(), explicit_pairs=(),
         collision_mode=opt["collision_mode"])
 
+    scols, nsensordata = _sensors(sensors, {
+        "body": [b.name for b in bodies], "joint": [j.name for j in jnts],
+        "geom": [g.name for g in geoms], "site": [st.name for st in sites]})
+
     # every actuator is a motor: gain 1 on ctrl, no bias (mjGAIN_FIXED)
     gainprm = np.zeros((nu, 10))
     gainprm[:, 0] = 1.0
@@ -208,7 +281,8 @@ def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
         disableflags=opt["disableflags"])
 
     m = types.Model(
-        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, opt=option,
+        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, nsite=nsite,
+        nsensor=len(sensors), nsensordata=nsensordata, opt=option,
         qpos0=_t(qpos0), qpos_spring=_t(qpos_spring),
         body_parentid=tuple(body_parentid), body_rootid=tuple(body_rootid),
         body_weldid=tuple(body_weldid),
@@ -263,6 +337,9 @@ def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
         geom_solimp=_t([g.solimp for g in geoms], 5),
         geom_margin=_t([g.margin for g in geoms]),
         geom_gap=_t([g.gap for g in geoms]),
+        site_bodyid=tuple(st.bodyid for st in sites),
+        site_pos=_t([st.pos for st in sites], 3),
+        site_quat=_t([st.quat for st in sites], 4),
         actuator_trntype=(int(types.TrnType.JOINT),) * nu,
         actuator_dyntype=(int(types.DynType.NONE),) * nu,
         actuator_gaintype=(int(types.GainType.FIXED),) * nu,
@@ -275,11 +352,18 @@ def assemble(name, bodies, jnts, geoms, acts, opt) -> types.Model:
         actuator_ctrlrange=_t([a.ctrlrange for a in acts], 2),
         actuator_forcerange=_t([a.forcerange for a in acts], 2),
         actuator_gear=_t([a.gear for a in acts], 6),
+        sensor_type=tuple(scols["type"]), sensor_objtype=tuple(scols["objtype"]),
+        sensor_objid=tuple(scols["objid"]), sensor_reftype=tuple(scols["reftype"]),
+        sensor_refid=tuple(scols["refid"]), sensor_adr=tuple(scols["adr"]),
+        sensor_dim=tuple(scols["dim"]), sensor_cutoff=_t(scols["cutoff"]),
+        sensor_noise=_t(scols["noise"]),
         name=name,
         body_names=tuple(b.name for b in bodies),
         jnt_names=tuple(j.name for j in jnts),
         geom_names=tuple(g.name for g in geoms),
+        site_names=tuple(st.name for st in sites),
         actuator_names=tuple(a.name for a in acts),
+        sensor_names=tuple(scols["name"]),
         dof_floss_adr=tuple(v for v in range(nv)
                             if jnts[dof_jntid[v]].frictionloss > 0),
         has_damping=bool(any(jnts[j].damping > 0 for j in dof_jntid)),

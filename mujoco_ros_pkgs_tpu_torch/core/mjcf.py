@@ -5,17 +5,22 @@ two compile a model to the same numbers. Supported elements:
 
 - `<option>` (with `<flag>`), `<compiler>` (angle, eulerseq, autolimits,
   inertiafromgeom, boundmass, boundinertia), `<default>` classes;
-- `<worldbody>` static geoms and nested `<body>` with `<joint>`,
-  `<freejoint>` and `<inertial>`;
+- `<worldbody>` static geoms and sites and nested `<body>` with `<joint>`,
+  `<freejoint>`, `<site>` and `<inertial>`;
 - geom types plane, sphere, capsule (incl. `fromto`) and box, with mass or
   density, friction, condim, priority, solmix, solref, solimp, margin, gap,
   contype and conaffinity;
+- sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
+  or `fromto`, `<default><site>` classes;
 - `<actuator>` with `<motor>` on a joint transmission (gear, ctrlrange,
-  forcerange, ctrllimited, forcelimited), `<default><motor>` classes.
+  forcerange, ctrllimited, forcelimited), `<default><motor>` classes;
+- `<sensor>` of the types in core/assemble.SENSOR_DIM, with `cutoff` and
+  `noise`.
 
-Anything else (sites, cameras, other actuators and transmissions, sensors,
-tendons, equality, contact pairs, assets, other geom types, fluid shapes)
-raises ValueError naming the feature, rather than being dropped silently.
+Anything else (cameras, other actuators and transmissions, other sensor
+types, tendons, equality, contact pairs, assets, other geom types, fluid
+shapes) raises ValueError naming the feature, rather than being dropped
+silently.
 """
 
 from __future__ import annotations
@@ -27,13 +32,16 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from mujoco_ros_pkgs_tpu_torch.core import types
-from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, IntegratorType, JointType
+from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM, assemble
+from mujoco_ros_pkgs_tpu_torch.core.types import (
+    GeomType, IntegratorType, JointType, SensorType,
+)
 
 _SOLREF = (0.02, 1.0)
 _SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
 _TOP_LEVEL = ("option", "compiler", "default", "worldbody", "actuator",
-              "size", "visual", "statistic")
+              "sensor", "size", "visual", "statistic")
 _GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
                "capsule": GeomType.CAPSULE, "box": GeomType.BOX}
 _JOINT_TYPES = {"free": JointType.FREE, "ball": JointType.BALL,
@@ -252,7 +260,7 @@ def _collect_defaults(root: ET.Element) -> Dict[str, Dict[str, Dict[str, str]]]:
         cls = e.get("class", "main")
         merged = {k: dict(v) for k, v in inherited.items()}
         for child in e:
-            if child.tag in ("joint", "geom", "motor"):
+            if child.tag in ("joint", "geom", "site", "motor"):
                 merged.setdefault(child.tag, {}).update(child.attrib)
             elif child.tag != "default":
                 raise ValueError(f"<default> for <{child.tag}> is not supported")
@@ -420,6 +428,7 @@ def _compile(root: ET.Element) -> types.Model:
     bodies: List[_Body] = []
     jnts: List[_Spec] = []
     geoms: List[_Spec] = []
+    sites: List[_Spec] = []
     world = _Body()
     world.name = "world"
     bodies.append(world)
@@ -512,6 +521,21 @@ def _compile(root: ET.Element) -> types.Model:
         geoms.append(g)
         return len(geoms) - 1
 
+    def parse_site(e, bclass, bodyid):
+        e = _apply_defaults(e, defaults_tree.get(bclass, defaults_tree["main"]),
+                            "site")
+        st = _Spec()
+        st.name = e.get("name", "")
+        st.bodyid = bodyid
+        st.pos = _attr_f(e, "pos", [0, 0, 0])
+        st.quat = _orientation(e, comp)
+        if e.get("fromto") is not None:
+            ft = _floats(e.get("fromto"))
+            a, b = ft[:3], ft[3:]
+            st.pos = 0.5 * (a + b)
+            st.quat = _z2quat(b - a)
+        sites.append(st)
+
     def parse_actuator(e, i):
         """A <motor> on a joint (gain 1 on ctrl, no bias, no activation);
         other actuators and transmissions raise."""
@@ -561,6 +585,8 @@ def _compile(root: ET.Element) -> types.Model:
                 b.joints.append(parse_joint(child, bclass, bid))
             elif child.tag == "geom":
                 b.geoms.append(parse_geom(child, bclass, bid))
+            elif child.tag == "site":
+                parse_site(child, bclass, bid)
             elif child.tag == "body":
                 walk_body(child, bid, bclass)
             elif child.tag == "inertial":
@@ -588,6 +614,8 @@ def _compile(root: ET.Element) -> types.Model:
     for child in wb:
         if child.tag == "geom":
             world.geoms.append(parse_geom(child, "main", 0))
+        elif child.tag == "site":
+            parse_site(child, "main", 0)
         elif child.tag == "body":
             walk_body(child, 0, "main")
         else:
@@ -624,6 +652,10 @@ def _compile(root: ET.Element) -> types.Model:
 
     acts = [parse_actuator(e, i) for ae in root.iter("actuator")
             for i, e in enumerate(ae)]
-
-    from mujoco_ros_pkgs_tpu_torch.core.assemble import assemble
-    return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt)
+    sensors = [e for se in root.iter("sensor") for e in se]
+    for e in sensors:
+        if SensorType.__members__.get(e.tag.upper()) not in SENSOR_DIM:
+            raise ValueError(f"sensor '{e.get('name', '')}': <{e.tag}> is not "
+                             f"supported by the torch port")
+    return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
+                    sites, sensors)

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
 port runs today (world + free/ball/hinge/slide joint trees, primitive geoms,
-contacts, joint limits, joint-transmission motors).
+contacts, joint limits, joint-transmission motors, sites and sensors).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -108,6 +108,58 @@ class BiasType(enum.IntEnum):
     MUSCLE = 2
 
 
+class SensorType(enum.IntEnum):
+    """mjtSensor; names match the string table the reference sensors plugin maps
+    (mujoco_ros_sensors/src/mujoco_sensor_handler_plugin.cpp:70-105)."""
+    TOUCH = 0
+    ACCELEROMETER = 1
+    VELOCIMETER = 2
+    GYRO = 3
+    FORCE = 4
+    TORQUE = 5
+    MAGNETOMETER = 6
+    RANGEFINDER = 7
+    JOINTPOS = 8
+    JOINTVEL = 9
+    TENDONPOS = 10
+    TENDONVEL = 11
+    ACTUATORPOS = 12
+    ACTUATORVEL = 13
+    ACTUATORFRC = 14
+    BALLQUAT = 15
+    BALLANGVEL = 16
+    JOINTLIMITPOS = 17
+    JOINTLIMITVEL = 18
+    JOINTLIMITFRC = 19
+    TENDONLIMITPOS = 20
+    TENDONLIMITVEL = 21
+    TENDONLIMITFRC = 22
+    FRAMEPOS = 23
+    FRAMEQUAT = 24
+    FRAMEXAXIS = 25
+    FRAMEYAXIS = 26
+    FRAMEZAXIS = 27
+    FRAMELINVEL = 28
+    FRAMEANGVEL = 29
+    FRAMELINACC = 30
+    FRAMEANGACC = 31
+    SUBTREECOM = 32
+    SUBTREELINVEL = 33
+    SUBTREEANGMOM = 34
+    CLOCK = 35
+
+
+class ObjType(enum.IntEnum):
+    """mjtObj subset used by sensors/refs."""
+    UNKNOWN = 0
+    BODY = 1
+    XBODY = 2
+    JOINT = 3
+    GEOM = 5
+    SITE = 6
+    CAMERA = 7
+
+
 def _array():
     """A tensor field (moved and cast by `.to`, carried by `model_from_numpy`)."""
     return field(default=None, metadata={"array": True})
@@ -174,6 +226,7 @@ class Model:
     njnt: int = 0
     ngeom: int = 0
     neq: int = 0
+    nsite: int = 0
     ntendon: int = 0
     nsensor: int = 0
     nsensordata: int = 0
@@ -249,6 +302,11 @@ class Model:
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
 
+    # ---- sites ----
+    site_bodyid: Tuple[int, ...] = ()
+    site_pos: torch.Tensor = _array()         # (nsite, 3)
+    site_quat: torch.Tensor = _array()        # (nsite, 4)
+
     # ---- actuators ----
     actuator_trntype: Tuple[int, ...] = ()
     actuator_dyntype: Tuple[int, ...] = ()
@@ -263,12 +321,25 @@ class Model:
     actuator_forcerange: torch.Tensor = _array()  # (nu, 2)
     actuator_gear: torch.Tensor = _array()        # (nu, 6)
 
+    # ---- sensors ----
+    sensor_type: Tuple[int, ...] = ()
+    sensor_objtype: Tuple[int, ...] = ()
+    sensor_objid: Tuple[int, ...] = ()
+    sensor_reftype: Tuple[int, ...] = ()
+    sensor_refid: Tuple[int, ...] = ()
+    sensor_adr: Tuple[int, ...] = ()
+    sensor_dim: Tuple[int, ...] = ()
+    sensor_cutoff: torch.Tensor = _array()    # (nsensor,)
+    sensor_noise: torch.Tensor = _array()     # (nsensor,)
+
     # ---- names ----
     name: str = ""
     body_names: Tuple[str, ...] = ()
     jnt_names: Tuple[str, ...] = ()
     geom_names: Tuple[str, ...] = ()
+    site_names: Tuple[str, ...] = ()
     actuator_names: Tuple[str, ...] = ()
+    sensor_names: Tuple[str, ...] = ()
 
     # ---- static structure flags (decided at compile) ----
     dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
@@ -296,6 +367,12 @@ class Model:
     def body(self, name: str) -> int:
         """Body id by name (mj_name2id)."""
         return self.body_names.index(name)
+
+    def site(self, name: str) -> int:
+        return self.site_names.index(name)
+
+    def sensor(self, name: str) -> int:
+        return self.sensor_names.index(name)
 
 
 @dataclass
@@ -344,6 +421,8 @@ class Data:
     xaxis: torch.Tensor          # (B, njnt, 3)
     geom_xpos: torch.Tensor      # (B, ngeom, 3)
     geom_xmat: torch.Tensor      # (B, ngeom, 3, 3)
+    site_xpos: torch.Tensor      # (B, nsite, 3)
+    site_xmat: torch.Tensor      # (B, nsite, 3, 3)
     subtree_com: torch.Tensor    # (B, nbody, 3)
     # com-based quantities and the dense mass matrix
     cinert: torch.Tensor         # (B, nbody, 10)
@@ -366,6 +445,8 @@ class Data:
     # contacts and the solver's row forces
     contact: Contact
     efc_force_contact: torch.Tensor  # (B, nefc), nefc >= 1
+    # sensors (ops/sensor.py): ground truth; noise is the sensors plugin's
+    sensordata: torch.Tensor     # (B, nsensordata)
 
     def replace(self, **kw) -> "Data":
         return dataclasses.replace(self, **kw)

@@ -5,6 +5,8 @@ package imports JAX):
   PENDULUM — ball + 2-hinge arm, free ball, static ground
   BOXES    — one free box over a ground plane (the fused-step world)
   PILE     — 12 free bodies in a walled bin (contact-rich)
+  SENSORS  — a free probe with IMU sites and a rangefinder, a hinged arm
+             with a force-torque site (BASELINE config 3's scene)
 """
 
 PENDULUM = """
@@ -78,5 +80,39 @@ PILE = f"""
     <geom name="wall_ym" type="box" pos="0 -0.55 0.15" size="0.6 0.02 0.15"/>
 {_PILE_BODIES}
   </worldbody>
+</mujoco>
+"""
+
+SENSORS = """
+<mujoco model="sensors_bench">
+  <option timestep="0.001" gravity="0 0 -9.81" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="5 5 1"/>
+    <body name="probe" pos="0 0 0.5">
+      <freejoint/>
+      <geom type="box" size="0.05 0.05 0.05" mass="0.2"/>
+      <site name="imu" pos="0 0 0"/>
+      <site name="rf" pos="0 0 -0.05" zaxis="0 0 -1"/>
+    </body>
+    <body name="arm_base" pos="1 0 0.5">
+      <joint name="aj" type="hinge" axis="0 1 0"/>
+      <geom type="capsule" fromto="0 0 0 0 0 0.3" size="0.03"/>
+      <site name="ft" pos="0 0 0.15"/>
+    </body>
+  </worldbody>
+  <sensor>
+    <accelerometer name="acc" site="imu"/>
+    <velocimeter name="vel" site="imu"/>
+    <gyro name="gyr" site="imu"/>
+    <magnetometer name="mag" site="imu"/>
+    <rangefinder name="range" site="rf"/>
+    <force name="frc" site="ft"/>
+    <torque name="trq" site="ft"/>
+    <jointpos name="ajp" joint="aj"/>
+    <jointvel name="ajv" joint="aj"/>
+    <framepos name="probe_pos" objtype="xbody" objname="probe"/>
+    <framequat name="probe_quat" objtype="xbody" objname="probe"/>
+  </sensor>
 </mujoco>
 """

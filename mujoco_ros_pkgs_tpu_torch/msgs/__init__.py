@@ -53,3 +53,12 @@ class ServiceResult:
 @dataclass
 class StepResult:
     success: bool = True
+
+
+@dataclass
+class SensorNoiseModel:
+    """mujoco_ros_msgs/SensorNoiseModel."""
+    sensor_name: str = ""
+    mean: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    std: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    set_flag: int = 0     # bitmask 0x01/02/04 per dim

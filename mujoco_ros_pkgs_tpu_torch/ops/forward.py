@@ -12,31 +12,39 @@ routes, chosen once per model by `make_plan`:
   general Newton of ops/solver.py, whose Hessian solves run K1 (PILE:
   nv 72, 783 rows).
 
-The general route takes joint-limit rows of hinges and slides and
-joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors).
+The general route takes joint-limit rows of hinges and slides,
+joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors),
+the sensors of core/assemble.SENSOR_DIM (SENSORS) and step hooks: a control
+hook before actuation and a passive hook after the passive forces, pure
+functions of (m, d) or, with a hook state, of (m, d, hstate) returning
+(d, hstate). Any hook forces the general route, as in the JAX package.
 What neither route covers raises NotImplementedError from make_plan: other
-integrators, sensors, other actuators, activations and transmissions,
-tendons, fluid, mocap, equality and friction-loss rows, limits of ball
-joints, CG and PGS, collision routines the port lacks and nv > 96 (the JAX
-package solves those with XLA, not a Pallas kernel).
+integrators, other sensor types, other actuators, activations and
+transmissions, tendons, fluid, mocap, equality and friction-loss rows,
+limits of ball joints, CG and PGS, collision routines the port lacks and
+nv > 96 (the JAX package solves those with XLA, not a Pallas kernel).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    Data, DisableBit, IntegratorType, JointType, Model, SolverType,
+    Data, DisableBit, IntegratorType, JointType, Model, SensorType, SolverType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
-from mujoco_ros_pkgs_tpu_torch.ops import smooth, step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import sensor, smooth, step_tpu
+
+# (m, d) -> d, or (m, d, hstate) -> (d, hstate) when a hook state is threaded
+Hook = Optional[Callable[..., Any]]
 
 
 def make_data(m: Model, nenv: int) -> Data:
@@ -60,6 +68,7 @@ def make_data(m: Model, nenv: int) -> Data:
         xpos=z(m.nbody, 3), xquat=xquat, xmat=eye(m.nbody, 3),
         xipos=z(m.nbody, 3), ximat=eye(m.nbody, 3), xanchor=z(m.njnt, 3),
         xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3), geom_xmat=eye(m.ngeom, 3),
+        site_xpos=z(m.nsite, 3), site_xmat=eye(m.nsite, 3),
         subtree_com=z(m.nbody, 3), cinert=z(m.nbody, 10), cdof=z(m.nv, 6),
         cvel=z(m.nbody, 6), cdof_dot=z(m.nv, 6), qM=z(m.nv, m.nv),
         qfrc_bias=z(m.nv), qfrc_passive=z(m.nv), qfrc_actuator=z(m.nv),
@@ -67,25 +76,40 @@ def make_data(m: Model, nenv: int) -> Data:
         actuator_length=z(m.nu), actuator_velocity=z(m.nu), actuator_force=z(m.nu),
         actuator_moment=z(m.nu, m.nv),
         contact=narrowphase.empty_contact(m, nenv, dtype, dev),
-        efc_force_contact=z(nefc))
+        efc_force_contact=z(nefc), sensordata=z(m.nsensordata))
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def forward(m: Model, d: Data) -> Data:
-    """mj_forward: the whole dynamics computation, no integration (the
-    sensor stages of the JAX package are not ported: nsensor > 0 raises)."""
-    if m.nsensor:
-        raise NotImplementedError("forward: sensors are not ported to the torch "
-                                  "package")
+def _call(hook, m, d, hstate, stateful):
+    if stateful:
+        return hook(m, d, hstate)
+    return hook(m, d), hstate
+
+
+def forward(m: Model, d: Data, control_hook: Hook = None,
+            passive_hook: Hook = None, hstate=None):
+    """mj_forward: the whole dynamics computation, no integration, with the
+    sensor stages and the hooks where the JAX package puts them. Returns
+    (d, hstate) when a hook state is given, else d."""
+    stateful = hstate is not None
     d = smooth.fwd_position_smooth(m, d)
     d = collision.collide(m, d)
-    d = smooth.fwd_velocity_smooth(m, d)
+    d = sensor.sensor_pos(m, d)
+    d = smooth.passive(m, smooth.com_vel(m, d))
+    if passive_hook is not None:
+        d, hstate = _call(passive_hook, m, d, hstate, stateful)
+    d = smooth.rne(m, d)
+    d = sensor.sensor_vel(m, d)
+    if control_hook is not None:
+        d, hstate = _call(control_hook, m, d, hstate, stateful)
     d = smooth.actuation(m, d)
     d = smooth.fwd_acceleration_smooth(m, d)
-    return constraint.fwd_constraint(m, d)
+    d = constraint.fwd_constraint(m, d)
+    d = sensor.sensor_acc(m, d)
+    return (d, hstate) if stateful else d
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +192,9 @@ def check_general(m: Model) -> None:
     """Raise NotImplementedError for what the general route cannot step."""
     if m.opt.integrator != int(IntegratorType.EULER):
         _not_ported(f"integrator {IntegratorType(m.opt.integrator).name}")
-    if m.nsensor or m.nsensordata:
-        _not_ported("sensors")
+    for st in m.sensor_type:
+        if st not in SENSOR_DIM:
+            _not_ported(f"sensor type {SensorType(st).name.lower()}")
     smooth.check_actuators(m)
     if m.ntendon:
         _not_ported("tendons")
@@ -200,11 +225,19 @@ def make_plan(m: Model) -> Plan:
     return GeneralPlan()
 
 
-def step(m: Model, d: Data, plan: Optional[Plan] = None) -> Data:
+def step(m: Model, d: Data, plan: Optional[Plan] = None, control_hook: Hook = None,
+         passive_hook: Hook = None, hstate=None):
     """mj_step of the whole batch. A `plan` from make_plan(m) may be made
-    once and reused across steps."""
+    once and reused across steps. A hook or a hook state forces the general
+    route; returns (d, hstate) when hstate is given, else d."""
     plan = plan if plan is not None else make_plan(m)
+    stateful = hstate is not None
+    hooked = control_hook is not None or passive_hook is not None or stateful
     if isinstance(plan, step_tpu.Plan):
-        return step_tpu.step(m, d, plan)
-    d = forward(m, d)
-    return euler(m, d.replace(qacc_warmstart=d.qacc))
+        if not hooked:
+            return step_tpu.step(m, d, plan)
+        check_general(m)
+    out = forward(m, d, control_hook, passive_hook, hstate)
+    d, hstate = out if stateful else (out, hstate)
+    d = euler(m, d.replace(qacc_warmstart=d.qacc))
+    return (d, hstate) if stateful else d

@@ -96,6 +96,42 @@ def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cos(angle * 0.5)[..., None], axis * s[..., None]], -1)
 
 
+def mat_to_quat(mat: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix (..., 3, 3) to quaternion (mju_mat2Quat): Shepperd's
+    method on the largest of the trace and the diagonal (the first on a tie),
+    normalized, w >= 0."""
+    m00, m11, m22 = mat[..., 0, 0], mat[..., 1, 1], mat[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def s_of(x):
+        return torch.sqrt(torch.clamp(x, min=MINVAL)) * 2.0
+    sw, sx = s_of(tr + 1.0), s_of(1.0 + m00 - m11 - m22)
+    sy, sz = s_of(1.0 + m11 - m00 - m22), s_of(1.0 + m22 - m00 - m11)
+    d21, d02, d10 = (mat[..., 2, 1] - mat[..., 1, 2], mat[..., 0, 2] - mat[..., 2, 0],
+                     mat[..., 1, 0] - mat[..., 0, 1])
+    s01, s02, s12 = (mat[..., 0, 1] + mat[..., 1, 0], mat[..., 0, 2] + mat[..., 2, 0],
+                     mat[..., 1, 2] + mat[..., 2, 1])
+    cand = torch.stack([
+        torch.stack([0.25 * sw, d21 / sw, d02 / sw, d10 / sw], -1),
+        torch.stack([d21 / sx, 0.25 * sx, s01 / sx, s02 / sx], -1),
+        torch.stack([d02 / sy, s01 / sy, 0.25 * sy, s12 / sy], -1),
+        torch.stack([d10 / sz, s02 / sz, s12 / sz, 0.25 * sz], -1)], -2)
+    pick = torch.argmax(torch.stack([tr, m00, m11, m22], -1), -1)
+    q = normalize(torch.take_along_dim(cand, pick[..., None, None], -2)[..., 0, :])
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def euler_to_quat(euler: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3), radians, about the fixed x, y and z axes in
+    turn (MuJoCo's eulerseq "XYZ", extrinsic) to a quaternion qz qy qx."""
+    lead, dev, dtype = euler.shape[:-1], euler.device, euler.dtype
+    q = static_tensor(np.eye(4)[0], dev, dtype).expand(lead + (4,))
+    for i in range(3):
+        axis = static_tensor(np.eye(3)[i], dev, dtype)
+        q = quat_mul(axis_angle_to_quat(axis.expand(lead + (3,)), euler[..., i]), q)
+    return q
+
+
 def quat_integrate(q: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
     """Integrate a quaternion by body-local angular velocity
     (mju_quatIntegrate): q' = q * exp(dt/2 * vel)."""

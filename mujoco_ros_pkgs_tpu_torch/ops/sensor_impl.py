@@ -1,0 +1,262 @@
+"""Sensor evaluation over a batch: mj_sensorPos / mj_sensorVel / mj_sensorAcc.
+
+Counterpart of mujoco_ros_pkgs_tpu/ops/sensor_impl.py for the sensor types
+the port compiles (core/assemble.SENSOR_DIM): accelerometer, velocimeter,
+gyro, magnetometer, rangefinder, force, torque, jointpos, jointvel,
+framepos and framequat. Each sensor is one set of batched ops over the
+whole batch (tensors (B, ...)); the values go into d.sensordata as ground
+truth, and noise and cutoff scaling are the sensors plugin's
+(plugins/sensors.py), as the JAX package splits them.
+
+The JAX semantics are copied as they are, including `_rne_post`'s
+cfrc_int, which accumulates each subtree's inertial and bias forces but
+leaves out contact and constraint forces.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_ros_pkgs_tpu_torch.core.types import Data, GeomType, Model, ObjType, SensorType
+from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+from mujoco_ros_pkgs_tpu_torch.ops import smooth
+
+_INF = float("inf")
+
+
+def _tmv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """mat^T @ v over leading dims: a world vector in mat's frame."""
+    return torch.einsum("...ji,...j->...i", mat, v)
+
+
+def _obj_pos_mat(d: Data, objtype: int, objid: int):
+    if objtype == int(ObjType.BODY):
+        return d.xipos[:, objid], d.ximat[:, objid]
+    if objtype == int(ObjType.XBODY):
+        return d.xpos[:, objid], d.xmat[:, objid]
+    if objtype == int(ObjType.SITE):
+        return d.site_xpos[:, objid], d.site_xmat[:, objid]
+    if objtype == int(ObjType.GEOM):
+        return d.geom_xpos[:, objid], d.geom_xmat[:, objid]
+    raise ValueError(f"unsupported sensor objtype {objtype}")
+
+
+def _site_vel(m: Model, d: Data, site: int):
+    """mj_objectVelocity of a site in its own frame: (angular, linear)."""
+    body = m.site_bodyid[site]
+    ref = d.subtree_com[:, m.body_rootid[body]]
+    cv = d.cvel[:, body]
+    ang = cv[:, :3]
+    lin = cv[:, 3:] + mmath.cross(ang, d.site_xpos[:, site] - ref)
+    R = d.site_xmat[:, site]
+    return _tmv(R, ang), _tmv(R, lin)
+
+
+def _rne_post(m: Model, d: Data):
+    """mj_rnePostConstraint subset: each body's spatial acceleration cacc
+    (B, nbody, 6), with qacc and gravity, and the interaction forces
+    cfrc_int (B, nbody, 6) accumulated up the tree, by level-order sweeps."""
+    B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
+    cacc = torch.zeros(B, m.nbody, 6, dtype=dtype, device=dev)
+    cacc[:, 0, 3:] = -m.opt.gravity.to(dtype)
+    maxdof = max(list(m.body_dofnum) + [1])
+    dofadr = np.asarray(m.body_dofadr, dtype=np.int64)
+    dofnum = np.asarray(m.body_dofnum, dtype=np.int64)
+    levels = smooth._model_levels(m)
+    for lv in levels:
+        a = cacc[:, mmath.static_tensor(lv.par, dev)]
+        if m.nv:
+            didx = mmath.static_tensor(np.minimum(dofadr[lv.ids][:, None]
+                                                  + np.arange(maxdof), m.nv - 1), dev)
+            mask = mmath.static_tensor(np.arange(maxdof)[None, :]
+                                       < dofnum[lv.ids][:, None], dev, dtype)
+            a = (a + torch.einsum("bwi,bwij->bwj", d.qvel[:, didx] * mask,
+                                  d.cdof_dot[:, didx])
+                 + torch.einsum("bwi,bwij->bwj", d.qacc[:, didx] * mask, d.cdof[:, didx]))
+        cacc[:, mmath.static_tensor(lv.ids, dev)] = a
+    cfrc = (mmath.inert_vec_mul(d.cinert, cacc)
+            + mmath.force_cross(d.cvel, mmath.inert_vec_mul(d.cinert, d.cvel)))
+    for lv in reversed(levels):
+        cfrc = cfrc.index_add(1, mmath.static_tensor(lv.par, dev),
+                              cfrc[:, mmath.static_tensor(lv.ids, dev)])
+    return cacc, cfrc
+
+
+def _site_acc(m: Model, d: Data, cacc: torch.Tensor, site: int):
+    """Classical linear acceleration at a site (gravity included through
+    cacc of the world) and the angular acceleration of its body."""
+    body = m.site_bodyid[site]
+    off = d.site_xpos[:, site] - d.subtree_com[:, m.body_rootid[body]]
+    cv, ca = d.cvel[:, body], cacc[:, body]
+    w = cv[:, :3]
+    v_p = cv[:, 3:] + mmath.cross(w, off)
+    a_p = ca[:, 3:] + mmath.cross(ca[:, :3], off) + mmath.cross(w, v_p)
+    return a_p, ca[:, :3]
+
+
+# ---------------------------------------------------------------------------
+# ray casting (rangefinder)
+# ---------------------------------------------------------------------------
+
+def _ray_sphere(t, v, r):
+    b = (t * v).sum(-1)
+    c = (t * t).sum(-1) - r * r
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    d1, d2 = -b - sq, -b + sq
+    dist = torch.where(d1 >= 0, d1, d2)
+    return torch.where((disc >= 0) & (dist >= 0), dist, _INF)
+
+
+def _ray_cylinder_side(t, v, r, h):
+    a = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+    b = t[..., 0] * v[..., 0] + t[..., 1] * v[..., 1]
+    c = t[..., 0] * t[..., 0] + t[..., 1] * t[..., 1] - r * r
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a > 1e-12, a, 1e-12)
+    d1 = (-b - sq) / a_safe
+    d2 = (-b + sq) / a_safe
+    ok1 = (d1 >= 0) & ((t[..., 2] + d1 * v[..., 2]).abs() <= h)
+    ok2 = (d2 >= 0) & ((t[..., 2] + d2 * v[..., 2]).abs() <= h)
+    dist = torch.where(ok1, d1, torch.where(ok2, d2, _INF))
+    return torch.where((disc >= 0) & (a > 1e-12), dist, _INF)
+
+
+def _shift_z(t, dz):
+    return torch.cat([t[..., :2], (t[..., 2] + dz)[..., None]], -1)
+
+
+def ray_local(gt: int, size: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Distance along a ray to a primitive in the geom's local frame
+    (t = R^T (origin - p), v = R^T dir, both (..., 3); size (3,)), +inf on a
+    miss. Plane (finite where its size is), sphere, capsule and box: the
+    geom types the port compiles."""
+    if gt == int(GeomType.PLANE):
+        denom = v[..., 2]
+        ok_den = denom.abs() > 1e-12
+        dist = -t[..., 2] / torch.where(ok_den, denom, 1e-12)
+        p = t + dist[..., None] * v
+        in_x = (size[0] <= 0) | (p[..., 0].abs() <= size[0])
+        in_y = (size[1] <= 0) | (p[..., 1].abs() <= size[1])
+        return torch.where(ok_den & (dist >= 0) & in_x & in_y, dist, _INF)
+    if gt == int(GeomType.SPHERE):
+        return _ray_sphere(t, v, size[0])
+    if gt == int(GeomType.CAPSULE):
+        d_cyl = _ray_cylinder_side(t, v, size[0], size[1])
+        d_c1 = _ray_sphere(_shift_z(t, -size[1]), v, size[0])
+        d_c2 = _ray_sphere(_shift_z(t, size[1]), v, size[0])
+        return torch.minimum(d_cyl, torch.minimum(d_c1, d_c2))
+    if gt == int(GeomType.BOX):
+        tmin = torch.zeros_like(t[..., 0])
+        tmax = torch.full_like(t[..., 0], _INF)
+        for ax in range(3):
+            va = torch.where(v[..., ax].abs() > 1e-12, v[..., ax], 1e-12)
+            t1 = (-size[ax] - t[..., ax]) / va
+            t2 = (size[ax] - t[..., ax]) / va
+            tmin = torch.maximum(tmin, torch.minimum(t1, t2))
+            tmax = torch.minimum(tmax, torch.maximum(t1, t2))
+        return torch.where(tmax >= tmin, tmin, _INF)
+    raise NotImplementedError(f"rays against {GeomType(gt).name} geoms are not ported "
+                              f"to the torch package")
+
+
+def _rangefinder(m: Model, d: Data, site: int) -> torch.Tensor:
+    """Distance from the site along its z axis to the nearest geom not on
+    the site's own body, -1 where nothing is hit."""
+    origin = d.site_xpos[:, site]
+    direction = d.site_xmat[:, site, :, 2]
+    body = m.site_bodyid[site]
+    best = torch.full_like(origin[:, 0], _INF)
+    for g in range(m.ngeom):
+        if m.geom_bodyid[g] == body:
+            continue
+        R = d.geom_xmat[:, g]
+        best = torch.minimum(best, ray_local(m.geom_type[g], m.geom_size[g],
+                                             _tmv(R, origin - d.geom_xpos[:, g]),
+                                             _tmv(R, direction)))
+    return torch.where(torch.isinf(best), -1.0, best)
+
+
+# ---------------------------------------------------------------------------
+# stages
+# ---------------------------------------------------------------------------
+
+def _write(d: Data, vals) -> Data:
+    """d with the (address, value (B, k)) pairs written into sensordata."""
+    if not vals:
+        return d
+    sd = d.sensordata.clone()
+    for adr, val in vals:
+        sd[:, adr:adr + val.shape[-1]] = val
+    return d.replace(sensordata=sd)
+
+
+def sensor_pos(m: Model, d: Data) -> Data:
+    vals = []
+    for i in range(m.nsensor):
+        st, ot, oid = m.sensor_type[i], m.sensor_objtype[i], m.sensor_objid[i]
+        rt, rid = m.sensor_reftype[i], m.sensor_refid[i]
+        if st == int(SensorType.FRAMEPOS):
+            val, _ = _obj_pos_mat(d, ot, oid)
+            if rid >= 0:
+                rpos, rmat = _obj_pos_mat(d, rt, rid)
+                val = _tmv(rmat, val - rpos)
+        elif st == int(SensorType.FRAMEQUAT):
+            val = mmath.mat_to_quat(_obj_pos_mat(d, ot, oid)[1])
+            if rid >= 0:
+                rq = mmath.mat_to_quat(_obj_pos_mat(d, rt, rid)[1])
+                val = mmath.quat_mul(mmath.quat_conj(rq), val)
+        elif st == int(SensorType.JOINTPOS):
+            qadr = m.jnt_qposadr[oid]
+            val = d.qpos[:, qadr:qadr + 1]
+        elif st == int(SensorType.MAGNETOMETER):
+            val = _tmv(d.site_xmat[:, oid], m.opt.magnetic.to(d.qpos.dtype))
+        elif st == int(SensorType.RANGEFINDER):
+            val = _rangefinder(m, d, oid)[:, None]
+        else:
+            continue
+        vals.append((m.sensor_adr[i], val))
+    return _write(d, vals)
+
+
+def sensor_vel(m: Model, d: Data) -> Data:
+    vals = []
+    for i in range(m.nsensor):
+        st, oid = m.sensor_type[i], m.sensor_objid[i]
+        if st in (int(SensorType.VELOCIMETER), int(SensorType.GYRO)):
+            ang, lin = _site_vel(m, d, oid)
+            val = lin if st == int(SensorType.VELOCIMETER) else ang
+        elif st == int(SensorType.JOINTVEL):
+            vadr = m.jnt_dofadr[oid]
+            val = d.qvel[:, vadr:vadr + 1]
+        else:
+            continue
+        vals.append((m.sensor_adr[i], val))
+    return _write(d, vals)
+
+
+_RNE_POST_TYPES = (int(SensorType.ACCELEROMETER), int(SensorType.FORCE),
+                   int(SensorType.TORQUE))
+
+
+def sensor_acc(m: Model, d: Data) -> Data:
+    if not any(t in _RNE_POST_TYPES for t in m.sensor_type):
+        return d
+    cacc, cfrc_int = _rne_post(m, d)
+    vals = []
+    for i in range(m.nsensor):
+        st, oid = m.sensor_type[i], m.sensor_objid[i]
+        if st == int(SensorType.ACCELEROMETER):
+            val = _tmv(d.site_xmat[:, oid], _site_acc(m, d, cacc, oid)[0])
+        elif st in (int(SensorType.FORCE), int(SensorType.TORQUE)):
+            body = m.site_bodyid[oid]
+            f = mmath.transform_force(cfrc_int[:, body], d.site_xpos[:, oid],
+                                      d.subtree_com[:, m.body_rootid[body]])
+            val = _tmv(d.site_xmat[:, oid],
+                       f[:, 3:] if st == int(SensorType.FORCE) else f[:, :3])
+        else:
+            continue
+        vals.append((m.sensor_adr[i], val))
+    return _write(d, vals)

@@ -2,7 +2,8 @@
 
 Counterpart of mujoco_ros_pkgs_tpu/ops/smooth.py: kinematics, com_pos, crb,
 com_vel, rne, passive (joint damping and springs), xfrc_accumulate,
-solve_m / mul_m and the fwd_*_smooth stages of the general step. Tree
+solve_m / mul_m and the fwd_*_smooth stages of the general step (the
+position stage also places the sites). Tree
 recursions are level-order sweeps: bodies grouped by tree depth (static),
 each level one gather/compute/scatter over all its bodies. All tensors are
 batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
@@ -550,6 +551,11 @@ def fwd_position_smooth(m: Model, d: Data) -> Data:
                   xaxis=kin.xaxis, geom_xpos=kin.geom_xpos,
                   geom_xmat=kin.geom_xmat, subtree_com=subtree_com,
                   cinert=cinert, cdof=cdof, qM=crb(m, cinert, cdof))
+    if m.nsite:
+        sb = mmath.static_tensor(m.site_bodyid, d.qpos.device, torch.int64)
+        d = d.replace(site_xpos=kin.xpos[:, sb] + torch.einsum(
+            "bsij,sj->bsi", kin.xmat[:, sb], m.site_pos),
+            site_xmat=kin.xmat[:, sb] @ mmath.quat_to_mat(m.site_quat))
     return transmission(m, tendon(m, d))
 
 

@@ -3,8 +3,10 @@
     python scripts/profile_torch_step.py [--world PENDULUM] [--nenv 4096]
         [--steps 32]
 
-`--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE) or
-models/humanoid.py (HUMANOID).
+`--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE,
+SENSORS) or models/humanoid.py (HUMANOID). SENSORS is served with a
+SensorsPlugin and bench_config3's three noise models (bench.py:160-189),
+as BASELINE config 3 runs it.
 
 Steps `MujocoServer(world, nenv)` (on the card) through WARMUP steps,
 times `steps` more without the profiler (wall clock to a synchronize), then
@@ -15,9 +17,9 @@ the same number under torch.profiler, and prints:
   intervals over the window's wall time);
 - device time per step by kernel name (top 12), and the port's kernels;
 - host time per step of each stage of the general path (smooth position,
-  collision, smooth velocity, actuation, smooth acceleration, efc rows,
-  solve, Euler;
-  record_function ranges wrapped around the stage functions by this script,
+  collision, the three sensor stages, the velocity stage's com_vel,
+  passive and rne, actuation, smooth acceleration, efc rows, solve, Euler,
+  the sensors plugin's last stage; record_function ranges wrapped around the stage functions by this script,
   not by the port);
 - CUDA runtime calls per step (kernel launches, copies, synchronizations).
 
@@ -41,15 +43,20 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mujoco_ros_pkgs_tpu_torch.models import humanoid, worlds  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth, solver  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, sensor, smooth, solver  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
+from tests.torch_problems import SENSORS_NOISE  # noqa: E402
 
 WARMUP = 64
 STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
-          (smooth, "fwd_velocity_smooth"), (smooth, "actuation"),
+          (sensor, "sensor_pos"), (smooth, "com_vel"), (smooth, "passive"),
+          (smooth, "rne"),
+          (sensor, "sensor_vel"), (smooth, "actuation"),
           (smooth, "fwd_acceleration_smooth"),
-          (efc, "make_efc"), (solver, "solve"), (fwd, "euler"))
+          (efc, "make_efc"), (solver, "solve"), (sensor, "sensor_acc"), (fwd, "euler"),
+          (SensorsPlugin, "last_stage"))
 
 
 def _labelled(fn, label):
@@ -110,7 +117,11 @@ def main(argv=None) -> int:
     if not isinstance(xml, str):
         sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py or "
                  f"models/humanoid.py")
-    srv = MujocoServer(xml, nenv=args.nenv, unpause=False)
+    sensors = args.world == "SENSORS"
+    srv = MujocoServer(xml, nenv=args.nenv, unpause=False,
+                       plugins=[SensorsPlugin()] if sensors else ())
+    if sensors:
+        assert srv.register_noise_models(list(SENSORS_NOISE)).success
     srv.step(WARMUP)
     torch.cuda.synchronize()
     t = time.perf_counter()

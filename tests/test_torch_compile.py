@@ -131,7 +131,7 @@ def test_model_to_casts_floats_only():
 
 
 @pytest.mark.parametrize("xml,feature", [
-    ('<mujoco><worldbody><body><site name="s"/></body></worldbody></mujoco>', "site"),
+    ('<mujoco><worldbody><body><camera name="c"/></body></worldbody></mujoco>', "camera"),
     ('<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody></mujoco>',
      "cylinder"),
     ('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.msgs import SensorNoiseModel
 from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu
 
 # fused-step worlds beside BOXES: a damped free joint with armature, and a
@@ -206,3 +207,28 @@ def humanoid_states(m, nenv: int, seed: int, drop: float = 0.0):
     qvel = 0.5 * rng.normal(size=(nenv, 27))
     ctrl = rng.uniform(-1.5, 1.5, size=(nenv, 21))
     return qpos, qvel, ctrl
+
+
+# bench_config3's three noise models on SENSORS (bench.py:160-189)
+SENSORS_NOISE = (SensorNoiseModel("acc", [0.0] * 3, [0.01] * 3, 0x7),
+                 SensorNoiseModel("gyr", [0.0] * 3, [0.005] * 3, 0x7),
+                 SensorNoiseModel("range", [0.0], [0.002], 0x1))
+# SENSORS' sensors of the position and velocity stages
+SENSORS_POS_VEL = ("vel", "gyr", "mag", "range", "ajp", "ajv", "probe_pos", "probe_quat")
+
+
+def sensors_states(nenv: int, seed: int):
+    """Seeded float64 SENSORS states (qpos (nenv, 8), qvel (nenv, 7)): the
+    probe box (half size 0.05) 0.02-0.07 m over the floor, tilted so that
+    corners touch it in most envs and its rangefinder looks up (misses) in
+    some, random velocities, the arm's hinge in [-1.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 8))
+    qpos[:, :2] = rng.uniform(-0.3, 0.3, size=(nenv, 2))
+    qpos[:, 2] = rng.uniform(0.02, 0.07, size=nenv)
+    q = rng.normal(size=(nenv, 4))
+    q[:, 0] += 1.0
+    qpos[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qpos[:, 7] = rng.uniform(-1.5, 1.5, size=nenv)
+    qvel = 0.5 * rng.normal(size=(nenv, 7))
+    return qpos, qvel
