@@ -112,12 +112,33 @@ Phases (any failure raises; the exit code is then not 0):
  18. SENSORS timing: fwd.step ms at 2048 envs with the kernels and with
      their plain versions; K1 at n = 7 on the mass matrix and K2 on the
      step's rows (held against plain first) by graph replay, one call at a
-     time, plain, bound, and for K1 cholesky + cholesky_solve.
+     time, plain, bound, and for K1 cholesky + cholesky_solve;
+ 19. ARM7 vs plain (BASELINE config 4's scene: nv 7, a mocap target and
+     the `ee_target` weld, 4 position servos, 3 motors, 100 rows): 2048
+     seeded envs (tests/torch_problems.arm7_states: the weld on in all but
+     one, its target 0.1-0.3 m off, a hinge past a limit in each, every
+     fourth env folded onto the floor, random ctrl), 1 and 5 steps with the
+     kernels and with their plain versions: phase 8's tolerances for qpos
+     and qvel, qacc at rtol / atol 1e-3 or, in envs past it, held against
+     the float64 step; K1 launches 2 + the batch's Newton trips a step, K2
+     and K3 none; K1 at n = 7 on every solve of one step against plain
+     and float64, as phase 13;
+ 20. ARM7 main path: MujocoServer(ARM7, nenv=2048) on the default device
+     with a MocapPlugin and a RosControlPlugin (POSITION_PID on j4-j6,
+     commands set), the weld switched on by set_eq_constraint_parameters
+     (anchored at the end-effector site), bench_config4's ctrl by set_ctrl,
+     set_mocap_state moving the target (all envs, then env 0 apart):
+     ARM7_STEPS steps (timed: env-steps/s): K1 2 + the batch's Newton
+     trips a step, K2 and K3 never; finite; the site's distance to its
+     target below 0.05 m after each move;
+ 21. ARM7 timing: fwd.step ms at 2048 envs with the kernels and with their
+     plain versions; K1 at n = 7 on an ARM7 Newton Hessian by graph replay,
+     one call at a time, plain, bound, cholesky + cholesky_solve.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
-`humanoid` and `sensors` objects and K2's `sensors` object: their runs on
-those worlds' main paths), then the card line, then {"ok": true, "device":
+`humanoid`, `sensors` and `arm7` objects and K2's `sensors` object: their
+runs on those worlds' main paths), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
 (group_width, psd_width) forced.
@@ -143,12 +164,16 @@ from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
+from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
+from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
-from tests.torch_problems import (BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE, FULL_KINDS,
-                                  MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED, SENSORS_NOISE,
-                                  SENSORS_POS_VEL, box_cluster, humanoid_states,
-                                  random_problem, sensors_states, solve_cost)
+from tests.torch_problems import (ARM7_CTRL, BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE,
+                                  FULL_KINDS, MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED,
+                                  SENSORS_NOISE, SENSORS_POS_VEL, arm7_states, box_cluster,
+                                  humanoid_states, random_problem, sensors_states,
+                                  solve_cost)
 
 PENDULUM_DAMPED = (worlds.PENDULUM
                    .replace('type="ball" pos="0 0 1"/>',
@@ -169,6 +194,10 @@ HUMANOID_STEPS = 200
 # with tests/torch_problems.SENSORS_NOISE) and its server's steps (phase 17)
 SENSORS_NENV = 2048
 SENSORS_STEPS = 500
+# ARM7 (BASELINE config 4, which bench.py:192-206 runs at NENV // 2 envs with
+# the weld on) and its server's steps (phase 20)
+ARM7_NENV = 2048
+ARM7_STEPS = 500
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1457,7 +1486,7 @@ def sensors_vs_plain(card):
                     ("qacc", dk.qacc, dp.qacc, d64.qacc),
                     ("acc, frc, trq", dk.sensordata[:, acc], dp.sensordata[:, acc],
                      d64.sensordata[:, acc])):
-                errs[f"{name}_1"] = sensors_acc_stage(name, got, want, x64)
+                errs[f"{name}_1"] = held_stage("SENSORS", name, got, want, x64)
             active = dk.contact.dist < dk.contact.includemargin
             rng = dk.sensordata[:, m.sensor_adr[m.sensor("range")]]
             print(f"[SENSORS vs plain] {SENSORS_NENV} envs: active contacts per env mean "
@@ -1478,7 +1507,7 @@ def sensors_vs_plain(card):
     return m, plan, d, max(errs.values())
 
 
-def sensors_acc_stage(name, got, want, x64):
+def held_stage(world, name, got, want, x64):
     """got (kernels) against want (plain versions) at rtol / atol 1e-3; where
     envs are past it, both are held against float64 (x64) instead, by
     held_against_f64 in units of 1e-3 + 1e-3 |x64|. Prints both readings;
@@ -1486,19 +1515,19 @@ def sensors_acc_stage(name, got, want, x64):
     unit = 1e-3 + 1e-3 * x64.abs()
     over = ((got - want).abs() > 1e-3 + 1e-3 * want.abs()).any(-1)
     e_got, e_plain = (((x.double() - x64).abs() / unit).amax(-1) for x in (got, want))
-    print(f"[SENSORS vs plain] {name} 1 step: {int(over.sum())} envs past rtol / atol 1e-3 "
+    print(f"[{world} vs plain] {name} 1 step: {int(over.sum())} envs past rtol / atol 1e-3 "
           f"of plain; against float64 in units of 1e-3 + 1e-3 |x64|, worst env "
           f"{float(e_got.max()):.3f}, 99th percentile {float(torch.quantile(e_got, 0.99)):.3f} "
           f"(plain float32: {float(e_plain.max()):.3f}, "
           f"{float(torch.quantile(e_plain, 0.99)):.3f})", flush=True)
     if bool(over.any()):
-        print(f"[SENSORS vs plain] {name}: the envs past it, against float64 "
+        print(f"[{world} vs plain] {name}: the envs past it, against float64 "
               f"{[round(float(e_got[i]), 3) for i in torch.nonzero(over).flatten()]} (plain "
               f"{[round(float(e_plain[i]), 3) for i in torch.nonzero(over).flatten()]})",
               flush=True)
-        held_against_f64(f"SENSORS {name} 1 step", got, want, x64, unit)
+        held_against_f64(f"{world} {name} 1 step", got, want, x64, unit)
     else:
-        close(f"SENSORS {name} 1 step", got, want, 1e-3, 1e-3)
+        close(f"{world} {name} 1 step", got, want, 1e-3, 1e-3)
     return float((got - want).abs().max())
 
 
@@ -1601,6 +1630,217 @@ def sensors_timing(card, m, plan, d):
     return out, k1, k2
 
 
+# ---------------------------------------------------------------------------
+# ARM7: mocap, the weld's rows, servos, the mocap and ros_control plugins, the
+# general Newton with K1 at n = 7
+# ---------------------------------------------------------------------------
+
+def arm7_data(m, nenv, seed):
+    """The port's batch of tests/torch_problems.arm7_states on the card: the
+    weld on in every env but the first, its target 0.1-0.3 m off, one
+    hinge per env past a limit, random ctrl (some past its range)."""
+    m64 = mjcf.load_model_from_string(worlds.ARM7)
+    qpos, qvel, ctrl, mpos, mquat, active = arm7_states(m64, nenv, seed)
+    f32 = [torch.from_numpy(a.astype(np.float32)).cuda()
+           for a in (qpos, qvel, ctrl, mpos, mquat)]
+    return fwd.make_data(m, nenv).replace(
+        qpos=f32[0], qvel=f32[1], ctrl=f32[2], mocap_pos=f32[3], mocap_quat=f32[4],
+        eq_active=torch.from_numpy(active).cuda())
+
+
+def arm7_vs_plain(card):
+    """ARM7 at ARM7_NENV envs from seeded states (arm7_data): 1 and 5 steps
+    with the kernels and with their plain versions at general_vs_plain's
+    tolerances for qpos and qvel; qacc at rtol / atol 1e-3 of plain, or,
+    in envs past it, both held against the float64 step (held_stage); K1
+    launches of the kernels' step: the mass matrix, Euler's damping solve
+    and one per Newton trip of the batch. Then K1 at n = 7 on every solve
+    of one step against plain (1e-2) and against float64 by
+    held_against_f64 in units of 1e-5 + 1e-4 |x64|, as HUMANOID's."""
+    m = mjcf.load_model_from_string(worlds.ARM7, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and (m.nv, m.nmocap, m.neq) == (7, 1, 1)
+    d = arm7_data(m, ARM7_NENV, seed=13)
+    e = humanoid_rows(m, d)
+    assert len(e.kinds) == 100 and e.kinds[:6] == ("eq",) * 6
+    weld, lim = e.active[:, :6].all(1), e.active[:, 6:13].sum(1).float()
+    con = e.con_active.sum(1).float()
+    print(f"[ARM7] {ARM7_NENV} seeded envs: 100 rows; weld on in {int(weld.sum())}, its "
+          f"residual {float(e.pos[1:, :3].norm(dim=-1).min()):.3f}-"
+          f"{float(e.pos[1:, :3].norm(dim=-1).max()):.3f} m; active limit rows per env mean "
+          f"{float(lim.mean()):.2f}; active contacts per env mean {float(con.mean()):.2f}, "
+          f"envs in contact {int((con > 0).sum())}", flush=True)
+    assert int(weld.sum()) == ARM7_NENV - 1 and float(lim.sum()) > 0
+    dk = dp = d
+    errs = {}
+    for k in range(5):
+        zero_counts()
+        with newton_trips() as lk:
+            dk = fwd.step(m, dk, plan)
+        torch.cuda.synchronize()
+        launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                    kernels.step_fused.launches)
+        assert launches == (2 + lk[0][1], 0, 0), f"launches {launches}, trips {lk[0][1]}"
+        with plain_versions(), newton_trips() as lp:
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            errs["qpos_1"] = close("ARM7 qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close("ARM7 qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            m64 = mjcf.load_model_from_string(worlds.ARM7, dtype=torch.float64).to("cuda")
+            with plain_versions():
+                x64 = fwd.step(m64, data_as(d, torch.float64)).qacc
+            errs["qacc_1"] = held_stage("ARM7", "qacc", dk.qacc, dp.qacc, x64)
+            print(f"[ARM7 vs plain] step 1: K1 launches {launches[0]} (2 + the batch's "
+                  f"{lk[0][1]} Newton trips; plain {lp[0][1]}), K2 {launches[1]}, K3 "
+                  f"{launches[2]}", flush=True)
+    errs["qpos_5"] = close("ARM7 qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert torch.isfinite(dk.qpos).all() and torch.isfinite(dk.qvel).all()
+    print(f"[ARM7 vs plain] nenv={ARM7_NENV}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+
+    err = 0.0
+    seen = captured_solves(m, d, plan)
+    labels = (["mass matrix"] + [f"Hessian of Newton trip {i}" for i in range(1, len(seen) - 1)]
+              + ["Euler's damping solve"])
+    for label, (H, g) in zip(labels, seen):
+        assert H.shape[-1] == 7
+        x = linalg_tpu.psd_solve(H, g)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        x64 = torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        e_abs = close(f"K1 ARM7 {label} vs plain", x, ref, 1e-2, 1e-2)
+        held = held_against_f64(f"K1 ARM7 {label}", x, ref, x64, 1e-5 + 1e-4 * x64.abs())
+        print(f"[K1 ARM7] {label} ({ARM7_NENV}, 7, 7) at G={kernels.psd_width(7)}: vs plain "
+              f"max abs {e_abs:.3e} (max |x| {float(ref.abs().max()):.3e}); vs float64 in "
+              f"units of 1e-5 + 1e-4 |x64|, worst env {held[1]:.3f}, 99th percentile "
+              f"{held[3]:.3f} (plain float32: {held[0]:.3f}, {held[2]:.3f})", flush=True)
+        err = max(err, e_abs)
+    return m, plan, d, max(max(errs.values()), err)
+
+
+def arm7_main_path():
+    """MujocoServer(ARM7, nenv=ARM7_NENV) on the default device as BASELINE
+    config 4 runs it: MocapPlugin and RosControlPlugin (POSITION_PID on
+    j4-j6, commands set), the weld switched on through
+    set_eq_constraint_parameters (anchored at the end-effector site, no
+    relative pose), bench_config4's ctrl, set_mocap_state moving the
+    target 0.59 m from the site, ARM7_STEPS // 2 steps, then another move
+    (env 0 its own) and ARM7_STEPS // 2 more: K1 twice per step (mass
+    matrix, damping) and once per Newton trip of the batch, K2 and K3
+    never; finite; the site's distance to its target falls below 0.05 m
+    after each move in every env."""
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = RosControlPlugin({"joints": {j: {"method": "POSITION_PID",
+                                          "pid": [20.0, 1.0, 0.5, 5.0],
+                                          "effort_limit": 20.0}
+                                      for j in ("j4", "j5", "j6")}})
+    srv = MujocoServer(worlds.ARM7, nenv=ARM7_NENV, plugins=[MocapPlugin(), rc])
+    assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
+    assert [p.loaded for p in srv.registry.plugins] == [True, True]
+    p = srv.get_eq_constraint_parameters("ee_target")
+    p.active, p.anchor = True, np.array([0.0, 0.0, 0.1])
+    p.relpose = Pose(np.zeros(3), np.array([1.0, 0, 0, 0]))
+    assert srv.set_eq_constraint_parameters(p).success
+    assert srv.set_ctrl(np.array(ARM7_CTRL)).success
+    i, _ = srv._plugin_of(RosControlPlugin)
+    srv.pstates = tuple(rc.set_commands(ps, [0.2, -0.3, 0.1]) if k == i else ps
+                        for k, ps in enumerate(srv.pstates))
+    site = srv.m.site("ee_site")
+
+    def distance(target):
+        xpos = smooth.fwd_position_smooth(srv.m, srv.d).site_xpos[:, site]
+        return (xpos.double() - target).norm(dim=-1)
+
+    targets = torch.tensor([0.35, 0.15, 0.85], dtype=torch.float64,
+                           device="cuda").expand(ARM7_NENV, 3).clone()
+    assert srv.set_mocap_state(MocapState(["mocap_target"], [Pose(targets[0].cpu().numpy())]))\
+        .success
+    moves, t_step, log = [], 0.0, []
+    for move in range(2):
+        before = distance(targets)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with newton_trips() as trips:
+            assert srv.step(ARM7_STEPS // 2).success
+        torch.cuda.synchronize()
+        t_step += time.perf_counter() - t1
+        log += trips
+        after = distance(targets)
+        moves.append((float(before.min()), float(before.max()), float(after.max())))
+        assert float(after.max()) < 0.05 and bool((after < before).all()), moves[-1]
+        if move == 0:
+            targets[:] = torch.tensor([0.2, -0.3, 0.7], dtype=torch.float64)
+            targets[0] = torch.tensor([-0.3, 0.25, 0.75], dtype=torch.float64)
+            assert srv.set_mocap_state(MocapState(
+                ["mocap_target"], [Pose(targets[1].cpu().numpy())])).success
+            assert srv.set_mocap_state(MocapState(
+                ["mocap_target"], [Pose(targets[0].cpu().numpy())], env_id=0)).success
+    ran = sum(r for _, r, _ in log)
+    syncs = sum(s for _, _, s in log)
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches,
+                "step_fused": kernels.step_fused.launches}
+    assert len(log) == ARM7_STEPS, f"{len(log)} Newton solves in {ARM7_STEPS} steps"
+    assert launches == {"psd_solve": 2 * ARM7_STEPS + ran, "newton_solve": 0,
+                        "step_fused": 0}, \
+        f"launches {launches}, {ARM7_STEPS} steps x 2 + {ran} Newton trips"
+    assert kernels.psd_solve.width == kernels.psd_width(7), kernels.psd_solve.width
+    d = srv.d
+    states = [t for ps in srv.pstates for t in ps.values() if t.is_floating_point()]
+    assert all(bool(torch.isfinite(t).all()) for t in (
+        d.qpos, d.qvel, d.qacc, d.qfrc_constraint, d.efc_force_contact, d.qfrc_applied,
+        *states)), "a non-finite value in the state or the plugins' state"
+    per_env = torch.cat([t for t, _, _ in log]).float()
+    print(f"[ARM7 main path] server step({ARM7_STEPS}) of ARM7 x {ARM7_NENV} with the mocap "
+          f"and ros_control plugins and the weld on: {t_step:.3f}s wall, "
+          f"{ARM7_NENV * ARM7_STEPS / t_step:.4g} env-steps/s; launches {launches} a run, per "
+          f"step K1 {launches['psd_solve'] / ARM7_STEPS:.3f} (2 + the batch's "
+          f"{ran / ARM7_STEPS:.3f} Newton trips), K2 "
+          f"{launches['newton_solve'] / ARM7_STEPS:.3f}, K3 "
+          f"{launches['step_fused'] / ARM7_STEPS:.3f}; Newton trips per env and step mean "
+          f"{float(per_env.mean()):.3f}; host syncs per step {syncs / ARM7_STEPS:.3f}; "
+          f"end-effector site to target: {moves[0][0]:.4f}-{moves[0][1]:.4f} m before, "
+          f"{moves[0][2]:.5f} m at most after the first move, {moves[1][0]:.4f}-"
+          f"{moves[1][1]:.4f} m before and {moves[1][2]:.5f} after the second; phase "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches["psd_solve"], t_step, float(per_env.mean()), ran / ARM7_STEPS
+
+
+def arm7_timing(card, m, plan, d):
+    """fwd.step of the seeded ARM7 states at ARM7_NENV envs by CUDA events
+    with the kernels and with their plain versions; K1 at n = 7 on the first
+    Newton Hessian of a step by graph replay, held against the plain
+    version first (1e-2), beside its bound, one call at a time, the plain
+    version and cholesky + cholesky_solve."""
+    def run(nsteps):
+        dd = d
+        for _ in range(nsteps):
+            dd = fwd.step(m, dd, plan)
+
+    out = {"step_ms": time_ms(lambda: run(20), 1, warmup=1) / 20}
+    with plain_versions():
+        out["step_plain_ms"] = time_ms(lambda: run(3), 1, warmup=1) / 3
+    print(f"[ARM7 timing] fwd.step nenv={ARM7_NENV}: {out['step_ms']:.4f} ms/step with the "
+          f"kernels, {out['step_plain_ms']:.4f} ms/step with their plain versions ({card})",
+          flush=True)
+    H, g = captured_solves(m, d, plan)[1]
+    close(f"K1 ARM7 Hessian nenv={ARM7_NENV}", linalg_tpu.psd_solve(H, g),
+          linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2)
+    out.update(graph_ms=graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
+               ms=time_ms(lambda: linalg_tpu.psd_solve(H, g), 100),
+               plain_ms=time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 10),
+               library_ms=time_ms(lambda: library_solve(H, g), 100),
+               bound=k1_bound(ARM7_NENV, 7), group=kernels.psd_width(7))
+    print(f"[ARM7 timing] K1 n=7 nenv={ARM7_NENV} on an ARM7 Newton Hessian "
+          f"(G={out['group']}): {out['graph_ms']:.4f} ms by graph replay, {out['ms']:.4f} one "
+          f"call at a time; plain {out['plain_ms']:.4f} ms; cholesky + cholesky_solve "
+          f"{out['library_ms']:.4f} ms; bound {out['bound'][0]:.5f} ms ({out['bound'][1]}) "
+          f"({card})", flush=True)
+    return out
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -1681,6 +1921,17 @@ def main():
                          **{k: ts2[k] for k in ("graph_ms", "ms", "plain_ms", "group")},
                          bound_ms=ts2["bound"][0], bound_by=ts2["bound"][1],
                          newton_trips_mean=float(ts2["trips"].mean()))
+    ma, plana, da, err_a = arm7_vs_plain(card)
+    launches_a, t_a, trips_env_a, trips_batch_a = arm7_main_path()
+    ta = arm7_timing(card, ma, plana, da)
+    t1["arm7"] = {"nenv": ARM7_NENV, "steps": ARM7_STEPS, "launches": launches_a,
+                  "launches_per_step": launches_a / ARM7_STEPS, "max_abs_err": err_a,
+                  "env_steps_per_s": ARM7_NENV * ARM7_STEPS / t_a,
+                  "newton_trips_per_env": trips_env_a,
+                  "newton_trips_per_batch_step": trips_batch_a,
+                  **{k: ta[k] for k in ("step_ms", "step_plain_ms", "graph_ms", "ms",
+                                        "plain_ms", "library_ms", "group")},
+                  "bound_ms": ta["bound"][0], "bound_by": ta["bound"][1]}
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -1694,7 +1945,8 @@ def main():
               t3["group"]),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
-             pile=t1["pile"], humanoid=t1["humanoid"], sensors=t1["sensors"]),
+             pile=t1["pile"], humanoid=t1["humanoid"], sensors=t1["sensors"],
+             arm7=t1["arm7"]),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
              sensors=t2["sensors"])]}))

@@ -4,8 +4,9 @@ The JAX package beside it stays the reference. This package imports torch
 and numpy only. Today it compiles MJCF models (core/), steps single-free-body
 models such as the BOXES world through a hand-written Hopper kernel
 (ops/step_tpu.py, csrc/, kernels.py) or its plain-torch twin on the CPU,
-steps trees, contact-rich worlds, motors and sensors on the general route
-(ops/forward.py), and serves them (server/) with plugins (plugins/).
+steps trees, contact-rich worlds, actuators, sensors, mocap bodies and
+equality constraints on the general route (ops/forward.py), and serves them
+(server/) with plugins (plugins/: sensors, mocap, ros_control).
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,9 @@
 
 Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
-port parses (actuators: joint-transmission motors; sites; the sensors of
-SENSOR_DIM); integer columns become static tuples.
+port parses (mocap bodies; actuators: joint-transmission motors and position
+and velocity servos; connect, weld and joint equalities; sites; the sensors
+of SENSOR_DIM); integer columns become static tuples.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.core import types
-from mujoco_ros_pkgs_tpu_torch.core.types import GeomType, JointType, ObjType, SensorType
+from mujoco_ros_pkgs_tpu_torch.core.types import (
+    EqType, GeomType, JointType, ObjType, SensorType,
+)
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import PAIR_NCON
 
 
@@ -173,9 +176,56 @@ def _sensors(elems, names):
     return cols, adr
 
 
-def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> types.Model:
+def _equalities(eqs, bodies):
+    """Equality columns (mjModel.eq_*): eq_data holds connect's anchor in
+    body1 (0:3) and the same world point at qpos0 in body2's frame (3:6);
+    weld's anchor in body2 (0:3), body2's pose in body1's frame (3:6 and
+    6:10: the relpose given, its quaternion normalised, else the pose at
+    qpos0) and torquescale (10); joint's polycoef (0:5). Column 10 is 1
+    for every type."""
+    from mujoco_ros_pkgs_tpu_torch.core.mjcf import _quat_mul, _quat_rot, _quat_to_mat
+
+    # world poses of the bodies at qpos0
+    wpos = np.zeros((len(bodies), 3))
+    wquat = np.tile(np.array([1.0, 0, 0, 0]), (len(bodies), 1))
+    for i in range(1, len(bodies)):
+        p = bodies[i].parentid
+        wquat[i] = _quat_mul(wquat[p], bodies[i].quat)
+        wpos[i] = wpos[p] + _quat_rot(bodies[i].pos, wquat[p])
+    data = np.zeros((len(eqs), 11))
+    data[:, 10] = 1.0
+    types_ = []
+    for k, q in enumerate(eqs):
+        b1, b2 = q.obj1id, q.obj2id
+        if q.tag == "connect":
+            types_.append(int(EqType.CONNECT))
+            data[k, 0:3] = q.anchor
+            wp = wpos[b1] + _quat_rot(q.anchor, wquat[b1])
+            data[k, 3:6] = _quat_to_mat(wquat[b2]).T @ (wp - wpos[b2])
+        elif q.tag == "weld":
+            types_.append(int(EqType.WELD))
+            data[k, 0:3] = q.anchor
+            if q.relpose is not None:
+                rp = q.relpose.copy()
+                qn = np.linalg.norm(rp[3:7])
+                if qn > 1e-15:
+                    rp[3:7] /= qn
+                data[k, 3:10] = rp
+            else:
+                data[k, 3:6] = _quat_to_mat(wquat[b1]).T @ (wpos[b2] - wpos[b1])
+                data[k, 6:10] = _quat_mul(wquat[b1] * np.array([1.0, -1, -1, -1]),
+                                          wquat[b2])
+            data[k, 10] = q.torquescale
+        else:
+            types_.append(int(EqType.JOINT))
+            data[k, 0:5] = q.polycoef
+    return types_, data
+
+
+def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
+             eqs=()) -> types.Model:
     nbody, njnt, ngeom, nu = len(bodies), len(jnts), len(geoms), len(acts)
-    nsite = len(sites)
+    nsite, neq = len(sites), len(eqs)
 
     # ---------------- body topology ----------------
     body_parentid = [b.parentid for b in bodies]
@@ -265,9 +315,11 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> type
         "body": [b.name for b in bodies], "joint": [j.name for j in jnts],
         "geom": [g.name for g in geoms], "site": [st.name for st in sites]})
 
-    # every actuator is a motor: gain 1 on ctrl, no bias (mjGAIN_FIXED)
-    gainprm = np.zeros((nu, 10))
-    gainprm[:, 0] = 1.0
+    body_mocapid, nmocap = [-1] * nbody, 0
+    for i, b in enumerate(bodies):
+        if b.mocap:
+            body_mocapid[i], nmocap = nmocap, nmocap + 1
+    eq_type, eq_data = _equalities(eqs, bodies)
 
     option = types.Option(
         timestep=_t(opt["timestep"]), gravity=_t(opt["gravity"]),
@@ -281,8 +333,8 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> type
         disableflags=opt["disableflags"])
 
     m = types.Model(
-        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, nsite=nsite,
-        nsensor=len(sensors), nsensordata=nsensordata, opt=option,
+        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, neq=neq,
+        nmocap=nmocap, nsite=nsite, nsensor=len(sensors), nsensordata=nsensordata, opt=option,
         qpos0=_t(qpos0), qpos_spring=_t(qpos_spring),
         body_parentid=tuple(body_parentid), body_rootid=tuple(body_rootid),
         body_weldid=tuple(body_weldid),
@@ -290,7 +342,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> type
         body_dofnum=tuple(body_dofnum), body_dofadr=tuple(body_dofadr),
         body_geomnum=tuple(len(b.geoms) for b in bodies),
         body_geomadr=tuple((b.geoms[0] if b.geoms else -1) for b in bodies),
-        body_mocapid=(-1,) * nbody,
+        body_mocapid=tuple(body_mocapid),
         body_pos=_t([b.pos for b in bodies]),
         body_quat=_t([b.quat for b in bodies]),
         body_ipos=_t([b.ipos for b in bodies]),
@@ -337,18 +389,24 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> type
         geom_solimp=_t([g.solimp for g in geoms], 5),
         geom_margin=_t([g.margin for g in geoms]),
         geom_gap=_t([g.gap for g in geoms]),
+        eq_type=tuple(eq_type), eq_obj1id=tuple(q.obj1id for q in eqs),
+        eq_obj2id=tuple(q.obj2id for q in eqs),
+        eq_active0=tuple(q.active for q in eqs),
+        eq_solref=_t([q.solref for q in eqs], 2),
+        eq_solimp=_t([q.solimp for q in eqs], 5),
+        eq_data=_t(eq_data, 11),
         site_bodyid=tuple(st.bodyid for st in sites),
         site_pos=_t([st.pos for st in sites], 3),
         site_quat=_t([st.quat for st in sites], 4),
         actuator_trntype=(int(types.TrnType.JOINT),) * nu,
         actuator_dyntype=(int(types.DynType.NONE),) * nu,
         actuator_gaintype=(int(types.GainType.FIXED),) * nu,
-        actuator_biastype=(int(types.BiasType.NONE),) * nu,
+        actuator_biastype=tuple(a.biastype for a in acts),
         actuator_trnid=tuple(a.trnid for a in acts),
         actuator_ctrllimited=tuple(a.ctrllimited for a in acts),
         actuator_forcelimited=tuple(a.forcelimited for a in acts),
-        actuator_gainprm=_t(gainprm),
-        actuator_biasprm=_t(np.zeros((nu, 10))),
+        actuator_gainprm=_t([a.gainprm for a in acts], 10),
+        actuator_biasprm=_t([a.biasprm for a in acts], 10),
         actuator_ctrlrange=_t([a.ctrlrange for a in acts], 2),
         actuator_forcerange=_t([a.forcerange for a in acts], 2),
         actuator_gear=_t([a.gear for a in acts], 6),
@@ -364,6 +422,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=()) -> type
         site_names=tuple(st.name for st in sites),
         actuator_names=tuple(a.name for a in acts),
         sensor_names=tuple(scols["name"]),
+        eq_names=tuple(q.name for q in eqs),
         dof_floss_adr=tuple(v for v in range(nv)
                             if jnts[dof_jntid[v]].frictionloss > 0),
         has_damping=bool(any(jnts[j].damping > 0 for j in dof_jntid)),

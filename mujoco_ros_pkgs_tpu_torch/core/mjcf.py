@@ -6,21 +6,25 @@ two compile a model to the same numbers. Supported elements:
 - `<option>` (with `<flag>`), `<compiler>` (angle, eulerseq, autolimits,
   inertiafromgeom, boundmass, boundinertia), `<default>` classes;
 - `<worldbody>` static geoms and sites and nested `<body>` with `<joint>`,
-  `<freejoint>`, `<site>` and `<inertial>`;
+  `<freejoint>`, `<site>` and `<inertial>`; `mocap="true"` on a joint-less
+  child of the world;
 - geom types plane, sphere, capsule (incl. `fromto`) and box, with mass or
   density, friction, condim, priority, solmix, solref, solimp, margin, gap,
   contype and conaffinity;
 - sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
   or `fromto`, `<default><site>` classes;
-- `<actuator>` with `<motor>` on a joint transmission (gear, ctrlrange,
-  forcerange, ctrllimited, forcelimited), `<default><motor>` classes;
+- `<actuator>` with `<motor>`, `<position>` (kp, kv) and `<velocity>` (kv)
+  on a joint transmission (gear, ctrlrange, forcerange, ctrllimited,
+  forcelimited), and their `<default>` classes;
+- `<equality>` with `<connect>`, `<weld>` and `<joint>` (solref, solimp,
+  active, anchor, relpose, torquescale, polycoef), `<default><equality>`;
 - `<sensor>` of the types in core/assemble.SENSOR_DIM, with `cutoff` and
   `noise`.
 
 Anything else (cameras, other actuators and transmissions, other sensor
-types, tendons, equality, contact pairs, assets, other geom types, fluid
-shapes) raises ValueError naming the feature, rather than being dropped
-silently.
+types, tendons and tendon equalities, contact pairs, assets, other geom
+types, fluid shapes) raises ValueError naming the feature, rather than
+being dropped silently.
 """
 
 from __future__ import annotations
@@ -34,14 +38,17 @@ import numpy as np
 from mujoco_ros_pkgs_tpu_torch.core import types
 from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM, assemble
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    GeomType, IntegratorType, JointType, SensorType,
+    BiasType, GeomType, IntegratorType, JointType, SensorType,
 )
 
 _SOLREF = (0.02, 1.0)
 _SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
 _TOP_LEVEL = ("option", "compiler", "default", "worldbody", "actuator",
-              "sensor", "size", "visual", "statistic")
+              "sensor", "equality", "size", "visual", "statistic")
+_DEFAULT_TAGS = ("joint", "geom", "site", "equality", "motor", "position", "velocity")
+_ACTUATORS = ("motor", "position", "velocity")
+_EQUALITIES = ("connect", "weld", "joint")
 _GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
                "capsule": GeomType.CAPSULE, "box": GeomType.BOX}
 _JOINT_TYPES = {"free": JointType.FREE, "ball": JointType.BALL,
@@ -260,7 +267,7 @@ def _collect_defaults(root: ET.Element) -> Dict[str, Dict[str, Dict[str, str]]]:
         cls = e.get("class", "main")
         merged = {k: dict(v) for k, v in inherited.items()}
         for child in e:
-            if child.tag in ("joint", "geom", "site", "motor"):
+            if child.tag in _DEFAULT_TAGS:
                 merged.setdefault(child.tag, {}).update(child.attrib)
             elif child.tag != "default":
                 raise ValueError(f"<default> for <{child.tag}> is not supported")
@@ -345,6 +352,7 @@ class _Body:
         self.iquat = np.array([1.0, 0, 0, 0])
         self.mass = 0.0
         self.inertia = np.zeros(3)
+        self.mocap = False
         self.joints: List[int] = []
         self.geoms: List[int] = []
 
@@ -537,14 +545,17 @@ def _compile(root: ET.Element) -> types.Model:
         sites.append(st)
 
     def parse_actuator(e, i):
-        """A <motor> on a joint (gain 1 on ctrl, no bias, no activation);
-        other actuators and transmissions raise."""
+        """A <motor> (gain 1 on ctrl, no bias), <position> (gain kp, bias
+        -kp length - kv velocity) or <velocity> (gain kv, bias -kv velocity)
+        on a joint, as the JAX package compiles them; other actuators and
+        transmissions raise."""
         name = e.get("name", "") or f"#{i}"
-        if e.tag != "motor":
+        if e.tag not in _ACTUATORS:
             raise ValueError(f"actuator '{name}': <{e.tag}> is not supported by the "
-                             f"torch port (only <motor>)")
+                             f"torch port (only {', '.join(f'<{t}>' for t in _ACTUATORS)})")
+        tag = e.tag
         e = _apply_defaults(e, defaults_tree.get(e.get("class", "main"),
-                                                 defaults_tree["main"]), "motor")
+                                                 defaults_tree["main"]), tag)
         for trn in ("tendon", "site"):
             if e.get(trn) is not None:
                 raise ValueError(f"actuator '{name}': {trn} transmission is not "
@@ -557,6 +568,16 @@ def _compile(root: ET.Element) -> types.Model:
         a.name = e.get("name", "")
         a.trnid = (jnt_names.index(e.get("joint")), -1)
         a.gear = _attr_f(e, "gear", [1, 0, 0, 0, 0, 0], n=6)
+        a.gainprm, a.biasprm = np.zeros(10), np.zeros(10)
+        a.gainprm[0], a.biastype = 1.0, int(BiasType.NONE)
+        if tag == "position":
+            kp, kv = float(e.get("kp", "1")), float(e.get("kv", "0"))
+            a.gainprm[0], a.biastype = kp, int(BiasType.AFFINE)
+            a.biasprm[1], a.biasprm[2] = -kp, -kv
+        elif tag == "velocity":
+            kv = float(e.get("kv", "1"))
+            a.gainprm[0], a.biastype = kv, int(BiasType.AFFINE)
+            a.biasprm[2] = -kv
         a.ctrlrange = _attr_f(e, "ctrlrange", [0, 0])
         a.forcerange = _attr_f(e, "forcerange", [0, 0])
         for lim, rng in (("ctrllimited", "ctrlrange"), ("forcelimited", "forcerange")):
@@ -566,6 +587,41 @@ def _compile(root: ET.Element) -> types.Model:
             setattr(a, lim, v)
         return a
 
+    def parse_equality(e, i):
+        """A <connect>, <weld> or <joint> equality with its objects resolved
+        to ids; core/assemble fills eq_data from the pose at qpos0."""
+        name = e.get("name", "") or f"#{i}"
+        if e.tag not in _EQUALITIES:
+            raise ValueError(f"equality '{name}': <{e.tag}> is not supported by the "
+                             f"torch port (only {', '.join(f'<{t}>' for t in _EQUALITIES)})")
+        e = _apply_defaults(e, defaults_tree["main"], "equality")
+        q = _Spec()
+        q.tag, q.name = e.tag, e.get("name", "")
+        q.solref = _attr_f(e, "solref", _SOLREF)
+        q.solimp = _attr_f(e, "solimp", _SOLIMP)
+        q.active = 1 if e.get("active", "true").lower() in ("true", "1") else 0
+        if e.tag == "joint":
+            names, keys = [j.name for j in jnts], ("joint1", "joint2")
+        else:
+            names, keys = [b.name for b in bodies], ("body1", "body2")
+        ids = []
+        for key in keys:
+            if e.get(key) is None:
+                ids.append(-1 if key == "joint2" else 0)
+            elif e.get(key) in names:
+                ids.append(names.index(e.get(key)))
+            else:
+                raise ValueError(f"equality '{name}': unknown {key[:-1]} "
+                                 f"'{e.get(key)}'")
+        if e.get(keys[0]) is None:
+            raise ValueError(f"equality '{name}': needs {keys[0]}")
+        q.obj1id, q.obj2id = ids
+        q.anchor = _attr_f(e, "anchor", [0, 0, 0])
+        q.relpose = _floats(e.get("relpose")) if e.get("relpose") is not None else None
+        q.torquescale = float(e.get("torquescale", "1"))
+        q.polycoef = _attr_f(e, "polycoef", [0, 1, 0, 0, 0], n=5)
+        return q
+
     def walk_body(e: ET.Element, parentid: int, parent_class: str):
         b = _Body()
         b.name = e.get("name", "")
@@ -573,8 +629,11 @@ def _compile(root: ET.Element) -> types.Model:
         bclass = e.get("childclass", parent_class)
         b.pos = _attr_f(e, "pos", [0, 0, 0])
         b.quat = _orientation(e, comp)
-        if _attr_b(e, "mocap", False):
-            raise ValueError(f"body '{b.name}': mocap bodies are not supported")
+        b.mocap = _attr_b(e, "mocap", False)
+        if b.mocap and (parentid != 0 or e.find("joint") is not None
+                        or e.find("freejoint") is not None):
+            raise ValueError(f"body '{b.name}': a mocap body must be a child of the "
+                             f"world without joints")
         if float(e.get("gravcomp", "0")) != 0.0:
             raise ValueError(f"body '{b.name}': gravcomp is not supported")
         bodies.append(b)
@@ -657,5 +716,7 @@ def _compile(root: ET.Element) -> types.Model:
         if SensorType.__members__.get(e.tag.upper()) not in SENSOR_DIM:
             raise ValueError(f"sensor '{e.get('name', '')}': <{e.tag}> is not "
                              f"supported by the torch port")
+    eqs = [parse_equality(e, i) for ee in root.iter("equality")
+           for i, e in enumerate(ee)]
     return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
-                    sites, sensors)
+                    sites, sensors, eqs)

@@ -1,8 +1,10 @@
 """Core types: enums, Option, Model (static physics constants), Data (batched state).
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
-port runs today (world + free/ball/hinge/slide joint trees, primitive geoms,
-contacts, joint limits, joint-transmission motors, sites and sensors).
+port runs today (world + free/ball/hinge/slide joint trees, mocap bodies,
+primitive geoms, contacts, joint limits, connect / weld / joint equality
+constraints, joint-transmission motors and position / velocity servos,
+sites and sensors).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -49,6 +51,13 @@ class JointType(enum.IntEnum):
 
     def nv(self) -> int:
         return {0: 6, 1: 3, 2: 1, 3: 1}[int(self)]
+
+
+class EqType(enum.IntEnum):
+    CONNECT = 0
+    WELD = 1
+    JOINT = 2
+    TENDON = 3
 
 
 class GeomType(enum.IntEnum):
@@ -226,6 +235,7 @@ class Model:
     njnt: int = 0
     ngeom: int = 0
     neq: int = 0
+    nmocap: int = 0
     nsite: int = 0
     ntendon: int = 0
     nsensor: int = 0
@@ -302,6 +312,17 @@ class Model:
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
 
+    # ---- equality constraints (eq_data: connect anchor (0:3) and anchor
+    # in body2 at qpos0 (3:6); weld anchor (0:3), relpose pos (3:6) and quat
+    # (6:10), torquescale (10); joint polycoef (0:5)) ----
+    eq_type: Tuple[int, ...] = ()
+    eq_obj1id: Tuple[int, ...] = ()
+    eq_obj2id: Tuple[int, ...] = ()
+    eq_active0: Tuple[int, ...] = ()
+    eq_solref: torch.Tensor = _array()        # (neq, 2)
+    eq_solimp: torch.Tensor = _array()        # (neq, 5)
+    eq_data: torch.Tensor = _array()          # (neq, 11)
+
     # ---- sites ----
     site_bodyid: Tuple[int, ...] = ()
     site_pos: torch.Tensor = _array()         # (nsite, 3)
@@ -340,6 +361,7 @@ class Model:
     site_names: Tuple[str, ...] = ()
     actuator_names: Tuple[str, ...] = ()
     sensor_names: Tuple[str, ...] = ()
+    eq_names: Tuple[str, ...] = ()
 
     # ---- static structure flags (decided at compile) ----
     dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
@@ -367,6 +389,9 @@ class Model:
     def body(self, name: str) -> int:
         """Body id by name (mj_name2id)."""
         return self.body_names.index(name)
+
+    def joint(self, name: str) -> int:
+        return self.jnt_names.index(name)
 
     def site(self, name: str) -> int:
         return self.site_names.index(name)
@@ -411,6 +436,9 @@ class Data:
     ctrl: torch.Tensor           # (B, nu)
     qfrc_applied: torch.Tensor   # (B, nv)
     xfrc_applied: torch.Tensor   # (B, nbody, 6)
+    eq_active: torch.Tensor      # (B, neq) bool
+    mocap_pos: torch.Tensor      # (B, nmocap, 3)
+    mocap_quat: torch.Tensor     # (B, nmocap, 4)
     # kinematics
     xpos: torch.Tensor           # (B, nbody, 3)
     xquat: torch.Tensor          # (B, nbody, 4)

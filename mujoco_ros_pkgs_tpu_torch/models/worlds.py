@@ -7,6 +7,9 @@ package imports JAX):
   PILE     — 12 free bodies in a walled bin (contact-rich)
   SENSORS  — a free probe with IMU sites and a rangefinder, a hinged arm
              with a force-torque site (BASELINE config 3's scene)
+  ARM7     — a 7-hinge arm with 4 position servos and 3 motors, a mocap
+             target and a weld from it to the last link, off at load
+             (BASELINE config 4's scene)
 """
 
 PENDULUM = """
@@ -114,5 +117,60 @@ SENSORS = """
     <framepos name="probe_pos" objtype="xbody" objname="probe"/>
     <framequat name="probe_quat" objtype="xbody" objname="probe"/>
   </sensor>
+</mujoco>
+"""
+
+ARM7 = """
+<mujoco model="arm7_bench">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="5 5 1"/>
+    <body name="mocap_target" mocap="true" pos="0.5 0 0.8">
+      <geom type="sphere" size="0.02" contype="0" conaffinity="0"/>
+    </body>
+    <body name="link0" pos="0 0 0.1">
+      <geom type="capsule" fromto="0 0 0 0 0 0.2" size="0.05"/>
+      <joint name="j0" type="hinge" axis="0 0 1" range="-3 3" damping="1" armature="0.1"/>
+      <body name="link1" pos="0 0 0.2">
+        <geom type="capsule" fromto="0 0 0 0 0 0.2" size="0.045"/>
+        <joint name="j1" type="hinge" axis="0 1 0" range="-2 2" damping="1" armature="0.1"/>
+        <body name="link2" pos="0 0 0.2">
+          <geom type="capsule" fromto="0 0 0 0 0 0.2" size="0.04"/>
+          <joint name="j2" type="hinge" axis="0 0 1" range="-3 3" damping="1" armature="0.1"/>
+          <body name="link3" pos="0 0 0.2">
+            <geom type="capsule" fromto="0 0 0 0 0 0.2" size="0.035"/>
+            <joint name="j3" type="hinge" axis="0 1 0" range="-2 2" damping="1" armature="0.1"/>
+            <body name="link4" pos="0 0 0.2">
+              <geom type="capsule" fromto="0 0 0 0 0 0.15" size="0.03"/>
+              <joint name="j4" type="hinge" axis="0 0 1" range="-3 3" damping="0.5" armature="0.05"/>
+              <body name="link5" pos="0 0 0.15">
+                <geom type="capsule" fromto="0 0 0 0 0 0.15" size="0.025"/>
+                <joint name="j5" type="hinge" axis="0 1 0" range="-2 2" damping="0.5" armature="0.05"/>
+                <body name="link6" pos="0 0 0.15">
+                  <geom name="ee" type="capsule" fromto="0 0 0 0 0 0.1" size="0.02"/>
+                  <joint name="j6" type="hinge" axis="0 0 1" range="-3 3" damping="0.5" armature="0.05"/>
+                  <site name="ee_site" pos="0 0 0.1"/>
+                </body>
+              </body>
+            </body>
+          </body>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <equality>
+    <weld name="ee_target" body1="mocap_target" body2="link6"
+          solref="0.02 1" active="false"/>
+  </equality>
+  <actuator>
+    <position name="p0" joint="j0" kp="40" kv="4" ctrlrange="-3 3"/>
+    <position name="p1" joint="j1" kp="40" kv="4" ctrlrange="-2 2"/>
+    <position name="p2" joint="j2" kp="30" kv="3" ctrlrange="-3 3"/>
+    <position name="p3" joint="j3" kp="30" kv="3" ctrlrange="-2 2"/>
+    <motor name="m4" joint="j4" ctrlrange="-20 20"/>
+    <motor name="m5" joint="j5" ctrlrange="-20 20"/>
+    <motor name="m6" joint="j6" ctrlrange="-10 10"/>
+  </actuator>
 </mujoco>
 """

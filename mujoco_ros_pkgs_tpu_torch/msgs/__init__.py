@@ -6,7 +6,8 @@ __init__ imports JAX.
 """
 
 from dataclasses import dataclass, field
-from typing import Optional
+from enum import IntEnum
+from typing import List, Optional
 
 import numpy as np
 
@@ -53,6 +54,53 @@ class ServiceResult:
 @dataclass
 class StepResult:
     success: bool = True
+
+
+class EqConstraintType(IntEnum):
+    """mujoco_ros_msgs/EqualityConstraintType."""
+    CONNECT = 0
+    WELD = 1
+    JOINT = 2
+    TENDON = 3
+
+
+@dataclass
+class SolverParameters:
+    """mujoco_ros_msgs/SolverParameters (solimp + solref)."""
+    dmin: float = 0.9
+    dmax: float = 0.95
+    width: float = 0.001
+    midpoint: float = 0.5
+    power: float = 2.0
+    timeconst: float = 0.02
+    dampratio: float = 1.0
+
+
+@dataclass
+class EqualityConstraintParameters:
+    """mujoco_ros_msgs/EqualityConstraintParameters."""
+    name: str = ""
+    type: int = int(EqConstraintType.CONNECT)
+    active: bool = True
+    solverParameters: SolverParameters = field(default_factory=SolverParameters)
+    # connect
+    anchor: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    # weld
+    relpose: Pose = field(default_factory=Pose)
+    torquescale: float = 1.0
+    # joint / tendon
+    element1: str = ""
+    element2: str = ""
+    polycoef: np.ndarray = field(default_factory=lambda: np.zeros(5))
+    env_id: Optional[int] = None
+
+
+@dataclass
+class MocapState:
+    """mujoco_ros_msgs/MocapState (parallel arrays of names and poses)."""
+    name: List[str] = field(default_factory=list)
+    pose: List[Pose] = field(default_factory=list)
+    env_id: Optional[int] = None
 
 
 @dataclass

@@ -1,14 +1,17 @@
-"""Constraint rows of joint limits and contacts, with the solref/solimp
-impedance model.
+"""Constraint rows of equalities, joint limits and contacts, with the
+solref/solimp impedance model.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py for limit and contact rows:
-one row per limited hinge or slide joint (on the nearer side of its range),
-then elliptic cones of condim 1/3/4/6 and pyramidal facets, every slot of
-the contact set a row block (inactive rows masked), in libmujoco's row
-order so the rows compare 1:1 with the JAX package's. All tensors are
-batch-first; the row layout is static and shared by the batch.
+Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py for equality, limit and
+contact rows: the rows of every connect (3), weld (6) and joint (1)
+equality, gated by d.eq_active (always present, so the layout does not
+change when one is switched), one row per limited hinge or slide joint (on
+the nearer side of its range), then elliptic cones of condim 1/3/4/6 and
+pyramidal facets, every slot of the contact set a row block (inactive rows
+masked), in libmujoco's row order so the rows compare 1:1 with the JAX
+package's. All tensors are batch-first; the row layout is static and
+shared by the batch.
 
-Equality and friction-loss rows, and limits of ball joints, raise
+Tendon equalities, friction-loss rows and limits of ball joints raise
 NotImplementedError (ROADMAP A5).
 """
 
@@ -19,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, JointType, Model
+from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, EqType, JointType, Model
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import slot_meta
@@ -38,7 +41,8 @@ class Efc(NamedTuple):
     aref: torch.Tensor           # (B, nefc)
     frictionloss: torch.Tensor   # (B, nefc)
     active: torch.Tensor         # (B, nefc) bool
-    kinds: Tuple[str, ...]       # 'lim' per limit row and facet, 'con' per elliptic row
+    kinds: Tuple[str, ...]       # 'eq' per equality row, 'lim' per limit row and
+    #                              facet, 'con' per elliptic row
     con_base: Tuple[int, ...]    # first row of each elliptic contact
     con_dim: Tuple[int, ...]     # its condim
     con_mu: torch.Tensor         # (B, ncon_ell, 5) friction of each
@@ -85,13 +89,19 @@ def _kbi(m: Model, solref, solimp, pos, margin):
 # row assembly
 # ---------------------------------------------------------------------------
 
+_EQ_ROWS = {int(EqType.CONNECT): 3, int(EqType.WELD): 6, int(EqType.JOINT): 1}
+
+
 def _check_rows(m: Model):
     flags = m.opt.disableflags
     if flags & DisableBit.CONSTRAINT:
         return
-    if m.neq and not flags & DisableBit.EQUALITY:
-        raise NotImplementedError("efc: equality rows are not ported to the "
-                                  "torch package")
+    if not flags & DisableBit.EQUALITY:
+        for e, t in enumerate(m.eq_type):
+            if t not in _EQ_ROWS:
+                raise NotImplementedError(
+                    f"efc: rows of {EqType(t).name.lower()} equalities (equality "
+                    f"'{m.eq_names[e]}') are not ported to the torch package")
     if len(m.dof_floss_adr) and not flags & DisableBit.FRICTIONLOSS:
         raise NotImplementedError("efc: friction-loss rows are not ported to the "
                                   "torch package")
@@ -101,6 +111,147 @@ def _check_rows(m: Model):
                 raise NotImplementedError(
                     f"efc: limit rows of {JointType(m.jnt_type[j]).name.lower()} joints "
                     f"(joint '{m.jnt_names[j]}') are not ported to the torch package")
+
+
+def _equalities(m: Model) -> Tuple[int, ...]:
+    """The equalities with rows, in order (none when equality or
+    constraints are disabled)."""
+    if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
+        return ()
+    return tuple(range(m.neq))
+
+
+def _row_group(m: Model, J, pos, norm_pos, invweight, solref, solimp, bias, qvel):
+    """Rows of one equality (J (B, r, nv), pos and bias (B, r)) sharing the
+    impedance of their residual's norm norm_pos (B,) at margin 0, with the
+    J-dot qvel bias subtracted from aref (the JAX package's _row_group)."""
+    k, b, imp = _kbi(m, solref, solimp, norm_pos, 0.0)
+    vel = torch.einsum("brv,bv->br", J, qvel)
+    R = torch.clamp((1.0 - imp) / imp * invweight, min=mmath.MINVAL)
+    R = R[:, None].expand_as(pos)
+    zero = torch.zeros_like(pos)
+    return dict(J=J, pos=pos, margin=zero, D=1.0 / R, R=R,
+                aref=-b * vel - (k * imp)[:, None] * pos - bias, frictionloss=zero)
+
+
+def _point_vel_acc(m: Model, d: Data, cacc, body: int, point):
+    """Angular velocity, spatial angular acceleration and classical bias
+    acceleration of a point (B, 3) fixed to body (mj_objectAcc at qacc = 0)."""
+    ref = d.subtree_com[:, m.body_rootid[body]]
+    w, v = d.cvel[:, body, :3], d.cvel[:, body, 3:]
+    v_p = v + mmath.cross(w, point - ref)
+    ca = cacc[:, body]
+    return w, ca[:, :3], ca[:, 3:] + mmath.cross(ca[:, :3], point - ref) + mmath.cross(w, v_p)
+
+
+def _jac(m: Model, d: Data, point, body: int):
+    """mj_jac at a world point (B, 3) of body: jacp, jacr (B, nv, 3)."""
+    mask = mmath.static_tensor(smooth.body_dof_mask(m)[:, body], d.qpos.device,
+                               d.qpos.dtype)[:, None]
+    offset = point - d.subtree_com[:, m.body_rootid[body]]
+    cdof = d.cdof
+    jacp = (cdof[..., 3:] + mmath.cross(cdof[..., :3], offset[:, None, :])) * mask
+    return jacp, cdof[..., :3] * mask
+
+
+def _quat_lmat(q):
+    """L(q) (B, 4, 4) with L(q) r = q * r."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([torch.stack(r, -1) for r in (
+        (w, -x, -y, -z), (x, w, -z, y), (y, z, w, -x), (z, -y, x, w))], -2)
+
+
+def _quat_rmat(q):
+    """R(q) (B, 4, 4) with R(q) l = l * q."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([torch.stack(r, -1) for r in (
+        (w, -x, -y, -z), (x, w, z, -y), (y, -z, w, x), (z, y, -x, w))], -2)
+
+
+def _pure(v):
+    """The quaternion (0, v) of vectors v (B, 3)."""
+    return torch.cat([torch.zeros_like(v[:, :1]), v], -1)
+
+
+def _eq_rows(m: Model, d: Data, eqs) -> dict:
+    """The rows of the equalities eqs, in order, as the JAX package builds
+    them: connect (3 rows: the anchor's world point on body1 minus body2's
+    point, one impedance from the residual's norm), weld (3 translational
+    rows from body2's pose predicted in body1's frame, then 3 rotational
+    rows ts vec(q2^-1 q1 relq), all six sharing the norm of the 6-vector),
+    joint (1 row: qpos1 - qpos1_0 - poly(qpos2 - qpos2_0)). The J-dot qvel
+    bias of connect and weld rows comes from the bodies' bias accelerations
+    (smooth.bias_acc at qacc = 0, no gravity), computed once."""
+    B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
+    qvel = d.qvel
+    cacc = (smooth.bias_acc(m, d, torch.zeros(6, dtype=dtype, device=dev))
+            if any(m.eq_type[e] != int(EqType.JOINT) for e in eqs) else None)
+    iw = m.body_invweight0.to(dtype)
+    blocks, actives = [], []
+    for e in eqs:
+        et, b1, b2 = m.eq_type[e], m.eq_obj1id[e], m.eq_obj2id[e]
+        solref, solimp, data = m.eq_solref[e], m.eq_solimp[e], m.eq_data[e].to(dtype)
+        if et == int(EqType.CONNECT):
+            p1 = d.xpos[:, b1] + d.xmat[:, b1] @ data[0:3]
+            p2 = d.xpos[:, b2] + d.xmat[:, b2] @ data[3:6]
+            jacp1, _ = _jac(m, d, p1, b1)
+            jacp2, _ = _jac(m, d, p2, b2)
+            pos = p1 - p2
+            bias = (_point_vel_acc(m, d, cacc, b1, p1)[2]
+                    - _point_vel_acc(m, d, cacc, b2, p2)[2])
+            blocks.append(_row_group(m, (jacp1 - jacp2).mT, pos, mmath.norm_safe(pos),
+                                     iw[b1, 0] + iw[b2, 0], solref, solimp, bias, qvel))
+        elif et == int(EqType.WELD):
+            relq, ts = mmath.normalize(data[6:10]), data[10]
+            p1 = d.xpos[:, b1] + d.xmat[:, b1] @ data[3:6]
+            p2 = d.xpos[:, b2] + d.xmat[:, b2] @ data[0:3]
+            jacp1, jacr1 = _jac(m, d, p1, b1)
+            jacp2, jacr2 = _jac(m, d, p2, b2)
+            post = p1 - p2
+            w1, dw1, ap1 = _point_vel_acc(m, d, cacc, b1, p1)
+            w2, dw2, ap2 = _point_vel_acc(m, d, cacc, b2, p2)
+            q2c = mmath.quat_conj(d.xquat[:, b2])
+            Q = mmath.quat_mul(d.xquat[:, b1], relq)
+            posr = ts * mmath.quat_mul(q2c, Q)[:, 1:4]
+            npos = torch.sqrt(torch.clamp((post * post).sum(-1) + (posr * posr).sum(-1),
+                                          min=mmath.MINVAL * mmath.MINVAL))
+            # d residual / d omega (world): 0.5 ts vec(q2^-1 (0, e) Q)
+            G = 0.5 * (_quat_lmat(q2c) @ _quat_rmat(Q))[:, 1:4, 1:4]
+            Jr = ts * (G @ (jacr1 - jacr2).mT)
+            # the rotational J-dot qvel bias: the product rule on
+            # rdot = 0.5 ts vec(q2^-1 (0, dw) Q), dw = w1 - w2
+            dwq, w1q, w2q = _pure(w1 - w2), _pure(w1), _pure(w2)
+            term1 = -0.5 * mmath.quat_mul(q2c, mmath.quat_mul(w2q, mmath.quat_mul(dwq, Q)))
+            term2 = mmath.quat_mul(q2c, mmath.quat_mul(_pure(dw1 - dw2), Q))
+            term3 = 0.5 * mmath.quat_mul(q2c, mmath.quat_mul(dwq, mmath.quat_mul(w1q, Q)))
+            bias_r = 0.5 * ts * (term1 + term2 + term3)[:, 1:4]
+            t = _row_group(m, (jacp1 - jacp2).mT, post, npos, iw[b1, 0] + iw[b2, 0],
+                           solref, solimp, ap1 - ap2, qvel)
+            r = _row_group(m, Jr, posr, npos, iw[b1, 1] + iw[b2, 1], solref, solimp,
+                           bias_r, qvel)
+            blocks.append({k: torch.cat([t[k], r[k]], 1) for k in t})
+        else:
+            c = data[0:5]
+            qa1, v1 = m.jnt_qposadr[b1], m.jnt_dofadr[b1]
+            pos = d.qpos[:, qa1] - m.qpos0[qa1]
+            J = qvel.new_zeros(B, 1, nv)
+            J[:, 0, v1] = 1.0
+            invw = m.dof_invweight0[v1]
+            if b2 >= 0:
+                qa2, v2 = m.jnt_qposadr[b2], m.jnt_dofadr[b2]
+                x = d.qpos[:, qa2] - m.qpos0[qa2]
+                poly = c[0] + x * (c[1] + x * (c[2] + x * (c[3] + x * c[4])))
+                J[:, 0, v2] = -(c[1] + x * (2 * c[2] + x * (3 * c[3] + x * 4 * c[4])))
+                pos = pos - poly
+                invw = invw + m.dof_invweight0[v2]
+            else:
+                pos = pos - c[0]
+            blocks.append(_row_group(m, J, pos[:, None], pos, invw, solref, solimp,
+                                     torch.zeros_like(pos[:, None]), qvel))
+        actives.append(d.eq_active[:, e:e + 1].expand(B, _EQ_ROWS[et]))
+    out = {k: torch.cat([blk[k] for blk in blocks], 1) for k in blocks[0]}
+    out["active"] = torch.cat(actives, 1)
+    return out
 
 
 def _limited(m: Model) -> Tuple[int, ...]:
@@ -137,11 +288,13 @@ def _limit_rows(m: Model, d: Data, jnts) -> dict:
 
 
 def make_efc(m: Model, d: Data) -> Optional[Efc]:
-    """The limit rows, then the contact rows of every slot of d.contact
-    (None without rows)."""
+    """The equality rows, the limit rows, then the contact rows of every
+    slot of d.contact (None without rows)."""
     _check_rows(m)
     if m.opt.disableflags & DisableBit.CONSTRAINT:
         return None
+    eqs = _equalities(m)
+    neq = sum(_EQ_ROWS[m.eq_type[e]] for e in eqs)
     jnts = _limited(m)
     nlim = len(jnts)
     c = d.contact
@@ -150,12 +303,12 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     slots = []
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
         slots = [i for i in range(len(c.geom1)) if c.geom1[i] != -1]
-    if not slots and not nlim:
+    if not slots and not nlim and not neq:
         return None
 
     def nrows(dim):
         return 2 * (dim - 1) if (pyramidal and dim > 1) else dim
-    bases, rb = [], nlim
+    bases, rb = [], neq + nlim
     for i in slots:
         bases.append(rb)
         rb += nrows(c.dim[i])
@@ -175,13 +328,14 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
            for name in ("pos", "margin", "D", "R", "aref", "frictionloss")}
     J = torch.zeros(B, nefc, nv, dtype=dtype, device=dev)
     active = torch.zeros(B, nefc, dtype=torch.bool, device=dev)
-    kinds = ["lim"] * nlim + [None] * (nefc - nlim)
-    if nlim:
-        lim = _limit_rows(m, d, jnts)
-        J[:, :nlim] = lim.pop("J")
-        active[:, :nlim] = lim.pop("active")
-        for name, val in lim.items():
-            out[name][:, :nlim] = val
+    kinds = ["eq"] * neq + ["lim"] * nlim + [None] * (nefc - neq - nlim)
+    for lo, hi, rows in ((0, neq, neq and _eq_rows(m, d, eqs)),
+                         (neq, neq + nlim, nlim and _limit_rows(m, d, jnts))):
+        if rows:
+            J[:, lo:hi] = rows.pop("J")
+            active[:, lo:hi] = rows.pop("active")
+            for name, val in rows.items():
+                out[name][:, lo:hi] = val
 
     by_dim: dict = {}
     for k, i in enumerate(slots):
@@ -279,11 +433,13 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
 
 
 def row_layout(m: Model) -> dict:
-    """Static efc row layout (no Data needed) in assembly order: friction
-    loss, joint limits, then the first row of each contact slot, and the
-    total row count. (The port compiles no equality constraints.)"""
+    """Static efc row layout (no Data needed) in assembly order: equality,
+    friction loss, joint limits, then the first row of each contact slot,
+    and the total row count."""
     flags = m.opt.disableflags
     nrow = 0
+    if not flags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
+        nrow += sum(_EQ_ROWS.get(t, 1) for t in m.eq_type)
     if not flags & (DisableBit.CONSTRAINT | DisableBit.FRICTIONLOSS):
         nrow += len(m.dof_floss_adr)
     if not flags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):

@@ -14,15 +14,17 @@ routes, chosen once per model by `make_plan`:
 
 The general route takes joint-limit rows of hinges and slides,
 joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors),
-the sensors of core/assemble.SENSOR_DIM (SENSORS) and step hooks: a control
-hook before actuation and a passive hook after the passive forces, pure
-functions of (m, d) or, with a hook state, of (m, d, hstate) returning
-(d, hstate). Any hook forces the general route, as in the JAX package.
-What neither route covers raises NotImplementedError from make_plan: other
-integrators, other sensor types, other actuators, activations and
-transmissions, tendons, fluid, mocap, equality and friction-loss rows,
-limits of ball joints, CG and PGS, collision routines the port lacks and
-nv > 96 (the JAX package solves those with XLA, not a Pallas kernel).
+position and velocity servos, mocap bodies and connect, weld and joint
+equality rows (ARM7: nv 7, a mocap-target weld, 100 rows), the sensors of
+core/assemble.SENSOR_DIM (SENSORS) and step hooks: a control hook before
+actuation and a passive hook after the passive forces, pure functions of
+(m, d) or, with a hook state, of (m, d, hstate) returning (d, hstate). Any
+hook forces the general route, as in the JAX package. What neither route
+covers raises NotImplementedError from make_plan: other integrators, other
+sensor types, other actuators, activations and transmissions, tendons,
+fluid, friction-loss rows, limits of ball joints, CG and PGS, collision
+routines the port lacks and nv > 96 (the JAX package solves those with
+XLA, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ Hook = Optional[Callable[..., Any]]
 
 def make_data(m: Model, nenv: int) -> Data:
     """A batch of `nenv` envs at qpos0 (mj_makeData + mj_resetData), on the
-    model's device, in the model's float dtype."""
+    model's device, in the model's float dtype: the mocap bodies at their
+    model pose, the equalities active as eq_active0 says."""
     dev = m.device
     dtype = m.qpos0.dtype
 
@@ -61,10 +64,14 @@ def make_data(m: Model, nenv: int) -> Data:
     xquat = z(m.nbody, 4)
     xquat[..., 0] = 1.0
     nefc = max(efc.row_layout(m)["nrow"], 1)
+    mocap_pos, mocap_quat = smooth.mocap_defaults(m, nenv, dtype, dev)
     return Data(
         time=z(), qpos=m.qpos0.expand(nenv, m.nq).clone(),
         qvel=z(m.nv), qacc=z(m.nv), qacc_warmstart=z(m.nv), ctrl=z(m.nu),
         qfrc_applied=z(m.nv), xfrc_applied=z(m.nbody, 6),
+        eq_active=torch.tensor(m.eq_active0, dtype=torch.bool, device=dev)
+        .reshape(1, m.neq).expand(nenv, m.neq).clone(),
+        mocap_pos=mocap_pos.clone(), mocap_quat=mocap_quat.clone(),
         xpos=z(m.nbody, 3), xquat=xquat, xmat=eye(m.nbody, 3),
         xipos=z(m.nbody, 3), ximat=eye(m.nbody, 3), xanchor=z(m.njnt, 3),
         xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3), geom_xmat=eye(m.ngeom, 3),
@@ -200,8 +207,6 @@ def check_general(m: Model) -> None:
         _not_ported("tendons")
     if m.has_fluid:
         _not_ported("fluid")
-    if any(mc >= 0 for mc in m.body_mocapid):
-        _not_ported("mocap")
     if m.nv > linalg_tpu.MAX_N:
         _not_ported(f"a mass-matrix solve of nv={m.nv} > {linalg_tpu.MAX_N}")
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:

@@ -8,9 +8,11 @@ recursions are level-order sweeps: bodies grouped by tree depth (static),
 each level one gather/compute/scatter over all its bodies. All tensors are
 batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
 compile side uses them at load time, core/constants.py); the stages take
-and return `Data`. Actuators are joint-transmission motors on hinges and
-slides (`transmission`, `actuation`); tendons, other actuators and
-transmissions, and fluid forces raise NotImplementedError.
+and return `Data`. Mocap bodies take their pose from `mocap_pos` /
+`mocap_quat` in the kinematics sweep. Actuators are joint transmissions on
+hinges and slides with a fixed gain and no or an affine bias (motors,
+position and velocity servos: `transmission`, `actuation`); tendons, other
+actuators and transmissions, and fluid forces raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -135,11 +137,25 @@ class Kinematics(NamedTuple):
 # mj_kinematics
 # ---------------------------------------------------------------------------
 
-def kinematics(m: Model, qpos: torch.Tensor) -> Kinematics:
+def mocap_defaults(m: Model, B: int, dtype, dev):
+    """The mocap bodies' model poses (body_pos, body_quat) in mocap order:
+    (B, nmocap, 3), (B, nmocap, 4) (mj_resetData's mocap_pos, mocap_quat)."""
+    ids = mmath.static_tensor([b for b in range(m.nbody) if m.body_mocapid[b] >= 0],
+                              dev, torch.int64)
+    return (m.body_pos[ids].to(dtype).expand(B, -1, -1),
+            m.body_quat[ids].to(dtype).expand(B, -1, -1))
+
+
+def kinematics(m: Model, qpos: torch.Tensor, mocap_pos: torch.Tensor = None,
+               mocap_quat: torch.Tensor = None) -> Kinematics:
     """Forward kinematics of a batch (B, nq); renormalizes quaternions in
     qpos as MuJoCo does. One vectorized pass per tree depth: all four joint
-    types are computed and mask-selected."""
+    types are computed and mask-selected. Mocap bodies take mocap_pos and
+    the normalised mocap_quat (B, nmocap, 3 / 4; the model's body pose
+    when not given) before their children are placed."""
     B, dtype, dev = qpos.shape[0], qpos.dtype, qpos.device
+    if m.nmocap and mocap_pos is None:
+        mocap_pos, mocap_quat = mocap_defaults(m, B, dtype, dev)
     xpos = torch.zeros(B, m.nbody, 3, dtype=dtype, device=dev)
     xquat = torch.zeros(B, m.nbody, 4, dtype=dtype, device=dev)
     xquat[:, 0, 0] = 1.0
@@ -208,6 +224,13 @@ def kinematics(m: Model, qpos: torch.Tensor) -> Kinematics:
                     qpos_out[:, qa[w] + 3:qa[w] + 7] = quat_f[:, w]
                 elif jt[w] == BALL:
                     qpos_out[:, qa[w]:qa[w] + 4] = qloc_b[:, w]
+
+        mocap = np.asarray(m.body_mocapid)[lv.ids]
+        if (mocap >= 0).any():
+            mc = mmath.static_tensor(np.maximum(mocap, 0), dev)
+            is_mocap = mmath.static_tensor(mocap >= 0, dev)[:, None]
+            pos = torch.where(is_mocap, mocap_pos[:, mc], pos)
+            quat = torch.where(is_mocap, mmath.normalize(mocap_quat[:, mc]), quat)
 
         xquat[:, ids] = mmath.normalize(quat)
         xpos[:, ids] = pos
@@ -329,16 +352,17 @@ def com_vel(m: Model, d: Data) -> Data:
 # mj_rne (flg_acc = 0): qfrc_bias
 # ---------------------------------------------------------------------------
 
-def rne(m: Model, d: Data) -> Data:
+def bias_acc(m: Model, d: Data, world_acc: torch.Tensor) -> torch.Tensor:
+    """Every body's spatial acceleration at qacc = 0 (B, nbody, 6), the
+    world's set to world_acc (6,): mj_rne's forward sweep, cdof_dot qvel
+    summed down the tree."""
     B, dtype, dev = d.qpos.shape[0], d.qpos.dtype, d.qpos.device
-    gravity = (0.0 if m.opt.disableflags & DisableBit.GRAVITY else 1.0) * m.opt.gravity
     cacc = torch.zeros(B, m.nbody, 6, dtype=dtype, device=dev)
-    cacc[:, 0, 3:] = -gravity.to(dtype)
+    cacc[:, 0] = world_acc
     maxdof = max(list(m.body_dofnum) + [1])
     dofadr = np.asarray(m.body_dofadr, dtype=np.int64)
     dofnum = np.asarray(m.body_dofnum, dtype=np.int64)
-    levels = _model_levels(m)
-    for lv in levels:
+    for lv in _model_levels(m):
         a = cacc[:, mmath.static_tensor(lv.par, dev)]
         didx = mmath.static_tensor(np.minimum(dofadr[lv.ids][:, None] + np.arange(maxdof),
                                               max(m.nv - 1, 0)), dev)
@@ -346,9 +370,17 @@ def rne(m: Model, d: Data) -> Data:
                                    dev, dtype)
         a = a + torch.einsum("bwi,bwij->bwj", d.qvel[:, didx] * mask, d.cdof_dot[:, didx])
         cacc[:, mmath.static_tensor(lv.ids, dev)] = a
+    return cacc
+
+
+def rne(m: Model, d: Data) -> Data:
+    dtype, dev = d.qpos.dtype, d.qpos.device
+    gravity = (0.0 if m.opt.disableflags & DisableBit.GRAVITY else 1.0) * m.opt.gravity
+    world = torch.cat([torch.zeros(3, dtype=dtype, device=dev), -gravity.to(dtype)])
+    cacc = bias_acc(m, d, world)
     cfrc = (mmath.inert_vec_mul(d.cinert, cacc)
             + mmath.force_cross(d.cvel, mmath.inert_vec_mul(d.cinert, d.cvel)))
-    for lv in reversed(levels):
+    for lv in reversed(_model_levels(m)):
         cfrc = cfrc.index_add(1, mmath.static_tensor(lv.par, dev),
                               cfrc[:, mmath.static_tensor(lv.ids, dev)])
     dof_bodyid = mmath.static_tensor(m.dof_bodyid, dev, torch.int64)
@@ -471,17 +503,18 @@ def transmission(m: Model, d: Data) -> Data:
 
 def check_actuators(m: Model) -> None:
     """Raise NotImplementedError for actuators `transmission` and
-    `actuation` cannot run: any activation (na > 0), dynamics, gain or bias
-    other than a motor's, transmissions other than a hinge's or a slide's."""
+    `actuation` cannot run: any activation (na > 0), dynamics, a gain other
+    than fixed, a bias other than none or affine, transmissions other than
+    a hinge's or a slide's."""
     _trn_meta(m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
               m.jnt_dofadr)
     if m.na:
         raise NotImplementedError("actuation: activation states (na > 0) are not "
                                   "ported to the torch package")
-    for field, ok, enum in (("dyntype", DynType.NONE, DynType),
-                            ("gaintype", GainType.FIXED, GainType),
-                            ("biastype", BiasType.NONE, BiasType)):
-        bad = [v for v in getattr(m, "actuator_" + field) if v != int(ok)]
+    for field, ok, enum in (("dyntype", (DynType.NONE,), DynType),
+                            ("gaintype", (GainType.FIXED,), GainType),
+                            ("biastype", (BiasType.NONE, BiasType.AFFINE), BiasType)):
+        bad = [v for v in getattr(m, "actuator_" + field) if v not in ok]
         if bad:
             raise NotImplementedError(f"actuation: {field} {enum(bad[0]).name.lower()} "
                                       f"is not ported to the torch package")
@@ -498,11 +531,13 @@ def _act_clamp_meta(jnt_actfrclimited, jnt_dofadr):
 
 
 def actuation(m: Model, d: Data) -> Data:
-    """Motor forces (mj_fwdActuation without activation): ctrl clamped to
+    """Actuator forces (mj_fwdActuation without activation): ctrl clamped to
     ctrlrange where ctrllimited (unless CLAMPCTRL is disabled), force = gain
-    ctrl clamped to forcerange where forcelimited, qfrc_actuator = moment^T
-    force clamped to actuatorfrcrange at joints that limit it; zeros under
-    DisableBit.ACTUATION. Actuators that are not motors raise."""
+    ctrl + bias, bias = biasprm[0] + biasprm[1] length + biasprm[2] velocity
+    where the bias is affine (position and velocity servos), clamped to
+    forcerange where forcelimited, qfrc_actuator = moment^T force clamped
+    to actuatorfrcrange at joints that limit it; zeros under
+    DisableBit.ACTUATION. What check_actuators refuses raises."""
     if m.nu == 0:
         return d
     check_actuators(m)
@@ -517,6 +552,12 @@ def actuation(m: Model, d: Data) -> Data:
         rng = m.actuator_ctrlrange
         ctrl = torch.where(lim, torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
     force = m.actuator_gainprm[:, 0] * ctrl
+    if any(t == int(BiasType.AFFINE) for t in m.actuator_biastype):
+        bp = m.actuator_biasprm
+        aff = mmath.static_tensor(np.array(m.actuator_biastype) == int(BiasType.AFFINE),
+                                  dev)
+        force = force + torch.where(aff, bp[:, 0] + bp[:, 1] * d.actuator_length
+                                    + bp[:, 2] * d.actuator_velocity, 0.0)
     if any(m.actuator_forcelimited):
         lim = mmath.static_tensor(np.array(m.actuator_forcelimited, dtype=bool), dev)
         rng = m.actuator_forcerange
@@ -544,7 +585,7 @@ def mul_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def fwd_position_smooth(m: Model, d: Data) -> Data:
-    kin = kinematics(m, d.qpos)
+    kin = kinematics(m, d.qpos, d.mocap_pos, d.mocap_quat)
     subtree_com, cinert, cdof = com_pos(m, kin)
     d = d.replace(qpos=kin.qpos, xpos=kin.xpos, xquat=kin.xquat, xmat=kin.xmat,
                   xipos=kin.xipos, ximat=kin.ximat, xanchor=kin.xanchor,

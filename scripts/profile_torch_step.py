@@ -4,9 +4,12 @@
         [--steps 32]
 
 `--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE,
-SENSORS) or models/humanoid.py (HUMANOID). SENSORS is served with a
+SENSORS, ARM7) or models/humanoid.py (HUMANOID). SENSORS is served with a
 SensorsPlugin and bench_config3's three noise models (bench.py:160-189),
-as BASELINE config 3 runs it.
+as BASELINE config 3 runs it; ARM7 as BASELINE config 4 runs it
+(bench.py:192-206): the weld on, bench_config4's ctrl, with a
+MocapPlugin and a RosControlPlugin (POSITION_PID on j4-j6), the target
+0.59 m from the end effector, as chip_smoke.py's phase 20 serves it.
 
 Steps `MujocoServer(world, nenv)` (on the card) through WARMUP steps,
 times `steps` more without the profiler (wall clock to a synchronize), then
@@ -19,7 +22,8 @@ the same number under torch.profiler, and prints:
 - host time per step of each stage of the general path (smooth position,
   collision, the three sensor stages, the velocity stage's com_vel,
   passive and rne, actuation, smooth acceleration, efc rows, solve, Euler,
-  the sensors plugin's last stage; record_function ranges wrapped around the stage functions by this script,
+  the sensors plugin's last stage, the mocap and ros_control plugins'
+  control hooks; record_function ranges wrapped around the stage functions by this script,
   not by the port);
 - CUDA runtime calls per step (kernel launches, copies, synchronizations).
 
@@ -45,9 +49,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from mujoco_ros_pkgs_tpu_torch.models import humanoid, worlds  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, sensor, smooth, solver  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
-from tests.torch_problems import SENSORS_NOISE  # noqa: E402
+from tests.torch_problems import ARM7_CTRL, SENSORS_NOISE  # noqa: E402
 
 WARMUP = 64
 STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
@@ -56,7 +63,13 @@ STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
           (sensor, "sensor_vel"), (smooth, "actuation"),
           (smooth, "fwd_acceleration_smooth"),
           (efc, "make_efc"), (solver, "solve"), (sensor, "sensor_acc"), (fwd, "euler"),
-          (SensorsPlugin, "last_stage"))
+          (SensorsPlugin, "last_stage"), (MocapPlugin, "control"),
+          (RosControlPlugin, "control"))
+
+
+def _label(mod, name):
+    """A stage's label: the function's name, a plugin's hook with its class."""
+    return f"{mod.__name__}.{name}" if isinstance(mod, type) else name
 
 
 def _labelled(fn, label):
@@ -111,17 +124,28 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     for mod, name in STAGES:
-        setattr(mod, name, _labelled(getattr(mod, name), f"stage:{name}"))
+        setattr(mod, name, _labelled(getattr(mod, name), f"stage:{_label(mod, name)}"))
 
     xml = getattr(worlds, args.world, None) or getattr(humanoid, args.world, None)
     if not isinstance(xml, str):
         sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py or "
                  f"models/humanoid.py")
-    sensors = args.world == "SENSORS"
+    plugins = {"SENSORS": [SensorsPlugin()],
+               "ARM7": [MocapPlugin(), RosControlPlugin({"joints": {
+                   j: {"method": "POSITION_PID", "pid": [20.0, 1.0, 0.5, 5.0],
+                       "effort_limit": 20.0} for j in ("j4", "j5", "j6")}})]}
     srv = MujocoServer(xml, nenv=args.nenv, unpause=False,
-                       plugins=[SensorsPlugin()] if sensors else ())
-    if sensors:
+                       plugins=plugins.get(args.world, ()))
+    if args.world == "SENSORS":
         assert srv.register_noise_models(list(SENSORS_NOISE)).success
+    if args.world == "ARM7":
+        p = srv.get_eq_constraint_parameters("ee_target")
+        p.active, p.anchor = True, [0.0, 0.0, 0.1]
+        p.relpose = Pose([0.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0])
+        assert srv.set_eq_constraint_parameters(p).success
+        assert srv.set_ctrl(ARM7_CTRL).success
+        assert srv.set_mocap_state(MocapState(["mocap_target"],
+                                              [Pose([0.35, 0.15, 0.85])])).success
     srv.step(WARMUP)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -163,9 +187,10 @@ def main(argv=None) -> int:
     for name, (ms, cnt) in kernels.items():
         if "mrp::" in name:
             print(f"[profile]   port kernel {name[:60]}: {ms:.5f} ms/step x{cnt:.1f}")
-    for _, name in STAGES:
-        if name in host:
-            print(f"[profile]   host stage {name}: {host[name]:.4f} ms/step")
+    for mod, name in STAGES:
+        if _label(mod, name) in host:
+            print(f"[profile]   host stage {_label(mod, name)}: "
+                  f"{host[_label(mod, name)]:.4f} ms/step")
     for name, cnt in sorted(runtime.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   runtime {name}: {cnt:.1f} calls/step")
     print(json.dumps({"world": args.world, "nenv": args.nenv, "card": card,

@@ -134,8 +134,12 @@ def test_model_to_casts_floats_only():
     ('<mujoco><worldbody><body><camera name="c"/></body></worldbody></mujoco>', "camera"),
     ('<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody></mujoco>',
      "cylinder"),
-    ('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
-     '<actuator><velocity joint="j"/></actuator></mujoco>', "actuator"),
+    # the case keeps the id it had when it held a <velocity> servo, which
+    # the port now compiles; an <intvelocity> (an activation) still raises
+    pytest.param('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
+                 '<actuator><intvelocity joint="j"/></actuator></mujoco>', "actuator",
+                 id='<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
+                    '<actuator><velocity joint="j"/></actuator></mujoco>-actuator'),
 ])
 def test_unsupported_feature_raises(xml, feature):
     with pytest.raises(ValueError, match=feature):

@@ -206,8 +206,9 @@ def test_limited_pendulum_step_float64():
 
 
 _RAISES = {
-    "position": ('<actuator><position joint="j" kp="10"/></actuator>', ValueError,
-                 "position"),
+    # a position servo compiles now; on a ball joint its transmission raises
+    "position": ('<actuator><position joint="j" kp="10"/></actuator>',
+                 NotImplementedError, "ball joint transmission"),
     "general": ('<actuator><general joint="j" gainprm="3"/></actuator>', ValueError,
                 "general"),
     "tendon": ('<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>'
@@ -219,11 +220,12 @@ _RAISES = {
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_features_raise(case):
     """Other actuators and transmissions raise ValueError at compile; a
-    limited ball joint NotImplementedError from make_plan; each names what
-    is missing."""
+    limited ball joint and a servo on a ball joint NotImplementedError from
+    make_plan; each names what is missing."""
     extra, exc, match = _RAISES[case]
-    joint = ('<joint name="j" type="ball" range="0 0.5"/>' if case == "ball_limit"
-             else '<joint name="j" type="hinge"/>')
+    joint = {"ball_limit": '<joint name="j" type="ball" range="0 0.5"/>',
+             "position": '<joint name="j" type="ball"/>'}.get(
+                 case, '<joint name="j" type="hinge"/>')
     xml = (f'<mujoco><worldbody><body>{joint}<geom type="sphere" size="0.1"/></body>'
            f"</worldbody>{extra}</mujoco>")
     with pytest.raises(exc, match=match):
@@ -232,13 +234,19 @@ def test_unported_features_raise(case):
 
 def test_jax_compiled_position_actuator_raises():
     """A model compiled elsewhere (the JAX package) with a <position>
-    actuator converts, and the port refuses to step it by name."""
-    xml = ('<mujoco><worldbody><body><joint name="j"/><geom type="sphere" size="0.1"/>'
-           '</body></worldbody><actuator><position joint="j" kp="10"/></actuator>'
-           "</mujoco>")
-    m = model_from_numpy(*jax_model_to_numpy(jmjcf.load_model_from_string(xml)))
-    with pytest.raises(NotImplementedError, match="biastype affine"):
-        fwd.make_plan(m)
+    actuator converts and plans on the general route (its affine bias is
+    ported); one whose servo adds an activation (<intvelocity>: an
+    integrator, na = 1) or an affine gain (<damper>) converts, and the port
+    refuses to step it by name."""
+    def converted(act):
+        xml = ('<mujoco><worldbody><body><joint name="j"/><geom type="sphere" '
+               f'size="0.1"/></body></worldbody><actuator>{act}</actuator></mujoco>')
+        return model_from_numpy(*jax_model_to_numpy(jmjcf.load_model_from_string(xml)))
+    assert fwd.make_plan(converted('<position joint="j" kp="10"/>')) == fwd.GeneralPlan()
+    with pytest.raises(NotImplementedError, match="activation"):
+        fwd.make_plan(converted('<intvelocity joint="j" kp="10"/>'))
+    with pytest.raises(NotImplementedError, match="gaintype affine"):
+        fwd.make_plan(converted('<damper joint="j" kv="1"/>'))
 
 
 def test_set_ctrl_and_humanoid_server():

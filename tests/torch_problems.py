@@ -232,3 +232,63 @@ def sensors_states(nenv: int, seed: int):
     qpos[:, 7] = rng.uniform(-1.5, 1.5, size=nenv)
     qvel = 0.5 * rng.normal(size=(nenv, 7))
     return qpos, qvel
+
+
+# bench_config4's joint-space target for ARM7 (bench.py:204-205)
+ARM7_CTRL = (0.3, -0.5, 0.4, 0.6, 2.0, -1.0, 0.5)
+
+
+def arm7_states(m, nenv: int, seed: int):
+    """Seeded float64 ARM7 states for the port's compiled ARM7 `m`: qpos
+    (nenv, 7), qvel (nenv, 7), ctrl (nenv, 7), mocap_pos (nenv, 1, 3),
+    mocap_quat (nenv, 1, 4), eq_active (nenv, 1) bool. Each hinge is drawn
+    from 40% of its range around 0; every fourth env folds j1 and j3 in
+    one plane (j2, j4, j5 at 0) so that the last links reach the floor
+    (contacts up to about 0.1 m deep); one hinge per env other than j1 and
+    j3 (whose limits would fold the arm into the floor; j6 in the folded
+    envs) is put up to 0.03 rad past a limit (an active limit row); random
+    velocities; ctrl
+    drawn from each actuator's ctrlrange widened by 10% (some clamp). The
+    mocap target is placed where the `ee_target` weld holds exactly (its
+    relpose from the last link's pose), then moved 0.1-0.3 m in a random
+    direction and turned by up to 0.3 rad about a random axis; the weld is
+    active in every env but the first."""
+    from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
+    from mujoco_ros_pkgs_tpu_torch.ops import smooth
+
+    rng = np.random.default_rng(seed)
+    lo, hi = (m.jnt_range[:, k].cpu().double().numpy() for k in (0, 1))
+    qpos = rng.uniform(0.4 * lo, 0.4 * hi, size=(nenv, 7))
+    fold = np.arange(nenv) % 4 == 3
+    sign = np.where(rng.uniform(size=nenv) < 0.5, -1.0, 1.0)
+    qpos[fold, 1] = (sign * rng.uniform(1.3, 1.45, size=nenv))[fold]
+    qpos[fold, 3] = (sign * rng.uniform(0.8, 1.0, size=nenv))[fold]
+    qpos[np.ix_(fold, [2, 4, 5])] = 0.0
+    j = np.where(fold, 6, rng.choice([0, 2, 4, 5, 6], size=nenv))
+    side = rng.integers(0, 2, size=nenv)
+    past = rng.uniform(0.0, 0.03, size=nenv)
+    qpos[np.arange(nenv), j] = np.where(side == 1, hi[j] + past, lo[j] - past)
+    qvel = 0.5 * rng.normal(size=(nenv, 7))
+    crng = m.actuator_ctrlrange.cpu().double().numpy()
+    wide = 0.1 * (crng[:, 1] - crng[:, 0])
+    ctrl = rng.uniform(crng[:, 0] - wide, crng[:, 1] + wide, size=(nenv, 7))
+
+    e = m.eq_names.index("ee_target")
+    b2 = m.eq_obj2id[e]
+    data = m.eq_data[e].cpu().double()
+    kin = smooth.kinematics(m.to(dtype=torch.float64), torch.from_numpy(qpos))
+    # body1's pose that satisfies the weld: q1 = q2 relq^-1, p1 = p2 - R1 relpos
+    q1 = mmath.quat_mul(kin.xquat[:, b2], mmath.quat_conj(data[6:10]))
+    p1 = kin.xpos[:, b2] + kin.xmat[:, b2] @ data[0:3] - mmath.rot_vec_quat(data[3:6], q1)
+    step = rng.normal(size=(nenv, 3))
+    step *= rng.uniform(0.1, 0.3, size=(nenv, 1)) / np.linalg.norm(step, axis=1,
+                                                                   keepdims=True)
+    axis = rng.normal(size=(nenv, 3))
+    turn = mmath.axis_angle_to_quat(
+        torch.from_numpy(axis / np.linalg.norm(axis, axis=1, keepdims=True)),
+        torch.from_numpy(rng.uniform(0, 0.3, size=nenv)))
+    mocap_pos = (p1.numpy() + step)[:, None]
+    mocap_quat = mmath.quat_mul(turn, q1).numpy()[:, None]
+    eq_active = np.ones((nenv, 1), dtype=bool)
+    eq_active[0] = False
+    return qpos, qvel, ctrl, mocap_pos, mocap_quat, eq_active
