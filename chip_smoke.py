@@ -134,6 +134,32 @@ Phases (any failure raises; the exit code is then not 0):
  21. ARM7 timing: fwd.step ms at 2048 envs with the kernels and with their
      plain versions; K1 at n = 7 on an ARM7 Newton Hessian by graph replay,
      one call at a time, plain, bound, cholesky + cholesky_solve.
+ 22. PILE at BASELINE config 5's settings (PILE5: ls_iterations 8) with
+     con_topk=64, from phase 10's settled states: 192 solver rows (of 783),
+     1 and 5 steps with the kernels against their plain versions (phase 8's
+     tolerances), K1 1 + the batch's Newton trips a step, K2 and K3 none,
+     one step against the uncompacted step (phase 8's tolerances); K1 on
+     the compacted Hessians against plain and float64; the same with
+     pair_topk=24 too (345 solver rows of 657);
+ 23. MujocoServer(PILE5, nenv=512, con_topk=64): COMPACT_STEPS steps from
+     the model's start (timed), K1 1 + the batch's Newton trips a step;
+ 24. the same with pair_topk=24, one step(1) at a time with
+     broadphase.candidate_overflow summed over every step (0 asserted);
+ 25. PILE5 dropped as bench.py's config5_settling (con_topk=64, 512 envs):
+     SETTLE_STEPS server steps of the transient, the most active slots of
+     any env printed, every body in the bin; one step of the transient
+     against the plain versions;
+ 26. HUMANOID con_topk=48 from phase 13's settled states: 165 solver rows
+     (of 408), as phase 22 (qacc held as phase 13's), and its server at
+     1024 envs (K1 2 + the batch's trips a step); then 17 of PILE's bodies
+     (nv 102) at 256 seeded heaps settled WIDE_SETTLE steps: every solve the
+     library Cholesky's, K1 0, one float32 step against float64, psd_solve
+     refusing n = 102;
+ 27. ROADMAP C7: K1 against float64 on every solve of one step of
+     HUMANOID's and ARM7's seeded states over C7_SEEDS: K1's worst env and
+     its ratio to plain's, printed with the largest; the solves past
+     WORST_FACTOR saved to chip_smoke_out/k1_c7_envs.npz for the JAX
+     kernel (`python -m tests.test_torch_linalg`, on the CPU).
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
@@ -161,7 +187,7 @@ from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
-from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, narrowphase
+from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
@@ -169,11 +195,15 @@ from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
+
+_THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE,
                                   FULL_KINDS, MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED,
-                                  SENSORS_NOISE, SENSORS_POS_VEL, arm7_states, box_cluster,
-                                  humanoid_states, random_problem, sensors_states,
-                                  solve_cost)
+                                  PILE17, SENSORS_NOISE, SENSORS_POS_VEL, arm7_states,
+                                  box_cluster, humanoid_states, pile_heap, random_problem,
+                                  sensors_states, solve_cost)
+
+torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
 PENDULUM_DAMPED = (worlds.PENDULUM
                    .replace('type="ball" pos="0 0 1"/>',
@@ -182,8 +212,8 @@ PENDULUM_DAMPED = (worlds.PENDULUM
                             'pos="0 0 0.6" axis="0 1 0" damping="0.1" stiffness="2"/>')
                    .replace('<freejoint/>', '<joint type="free" damping="0.01"/>'))
 NENV = 4096
-# the PILE server's steps (phase 11), about a minute of the card's time
-PILE_STEPS = 600
+# the PILE server's steps (phase 11), about 30 s of the card's time
+PILE_STEPS = 300
 # HUMANOID's batch (BASELINE's humanoid bench: bench.py NENV // 4), the steps
 # that settle its seeded states (the feet reach the floor after some 50) and
 # the server's steps (phase 14)
@@ -198,10 +228,25 @@ SENSORS_STEPS = 500
 # the weld on) and its server's steps (phase 20)
 ARM7_NENV = 2048
 ARM7_STEPS = 500
-# the card's published peaks (H100 SXM): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores
+# BASELINE config 5 (bench.py:210-237): PILE at 512 envs, Newton iterations
+# 12, ls_iterations 8, con_topk 64 (and pair_topk 24 in its broadphase cell);
+# the compacted servers' steps (phases 23, 24) and the settling transient's
+# (phase 25); HUMANOID's con_topk (bench.py:239-247)
+PILE5 = worlds.PILE.replace('iterations="12"', 'iterations="12" ls_iterations="8"')
+PILE_NENV = 512
+# the nv = 102 world's batch and the steps that settle its heaps (phase 26)
+WIDE_NENV = 256
+WIDE_SETTLE = 60
+COMPACT_STEPS = 200
+SETTLE_STEPS = 150
+HUMANOID_CON_TOPK = 48
+# the seeds of ROADMAP C7's K1 float64 margins (phase 27)
+C7_SEEDS = (1, 2, 3, 4, 6)
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 and float64
+# FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 KERNELS = (kernels.step_fused, kernels.psd_solve, kernels.newton_solve)
 # a float32 result's worst env against float64, as a multiple of the plain
 # float32 version's worst (held_against_f64). For K3, from the JAX package's
@@ -614,9 +659,16 @@ def library_solve(H, g):
 def k1_bound(nenv, n):
     """K1's bound: H's lower triangle (all the function reads of H) and g
     read and x written once, n (n + 1) / 2 + 2 n floats per env; n^3 / 3 + 2
-    n^2 operations per env (the factorisation's n^3 / 6 multiply-adds and
-    the substitutions' n^2, a multiply-add counting 2)."""
-    return bound(nenv * (n * (n + 1) // 2 + 2 * n) * 4, nenv * (n ** 3 / 3 + 2 * n * n))
+    n^2 float32 operations per env (the factorisation's n^3 / 6
+    multiply-adds and the substitutions' n^2, a multiply-add counting 2),
+    and above n = 16 the refinement step's second pair of substitutions (2
+    n^2 more) and its float64 residual (2 n^2 float64 operations, at the
+    card's float64 peak outside the tensor cores)."""
+    f32, f64 = n ** 3 / 3 + 2 * n * n, 0.0
+    if n > linalg_tpu.REFINE_ABOVE:
+        f32, f64 = f32 + 2 * n * n, 2 * n * n
+    return bound(nenv * (n * (n + 1) // 2 + 2 * n) * 4,
+                 nenv * (f32 + f64 * F32_FLOPS / F64_FLOPS))
 
 
 def k1_phase(card):
@@ -1239,7 +1291,7 @@ def data_as(d, dtype):
     return d.replace(contact=d.contact.replace(**cast(d.contact)), **cast(d))
 
 
-def humanoid_qacc(qk, qp, x64, trips_k, trips_p):
+def humanoid_qacc(qk, qp, x64, trips_k, trips_p, label="HUMANOID vs plain"):
     """qacc after one HUMANOID step with the kernels (qk) against their
     plain versions (qp) and the plain step in float64 (x64). Phase 8's
     rtol / atol 1e-3 between two float32 solves lies below what float32
@@ -1255,7 +1307,7 @@ def humanoid_qacc(qk, qp, x64, trips_k, trips_p):
     same = trips_k == trips_p
     held = held_against_f64("HUMANOID qacc 1 step", qk, qp, x64, 1e-3 + 1e-3 * x64.abs())
     bad = torch.nonzero(over).flatten().tolist()
-    print(f"[HUMANOID vs plain] qacc 1 step against float64 in units of 1e-3 + 1e-3 |x64|: "
+    print(f"[{label}] qacc 1 step against float64 in units of 1e-3 + 1e-3 |x64|: "
           f"worst env {held[1]:.3f}, 99th percentile {held[3]:.3f} (plain float32: "
           f"{held[0]:.3f}, {held[2]:.3f}); {len(bad)} envs past rtol / atol 1e-3 of plain, "
           f"{int((over & ~same).sum())} of them with other Newton trips (kernels "
@@ -1841,6 +1893,341 @@ def arm7_timing(card, m, plan, d):
     return out
 
 
+# ---------------------------------------------------------------------------
+# contact compaction (BASELINE config 5 and its humanoid bench): con_topk,
+# pair_topk, the settling transient; the nv > 96 route; C7
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def count_solves():
+    """Record the n of every library Cholesky solve (linalg_tpu.chol_solve)
+    of the general path inside the block."""
+    log, saved = [], linalg_tpu.chol_solve
+    linalg_tpu.chol_solve = lambda H, g: log.append(H.shape[-1]) or saved(H, g)
+    try:
+        yield log
+    finally:
+        linalg_tpu.chol_solve = saved
+
+
+def solver_rows(e):
+    """The rows the general Newton iterates on: the simple rows and every
+    cone group, compacted or not."""
+    _, simple, cones = solver._views(e)
+    return simple.J.shape[1] + sum(g.J.shape[1] * g.dim for g in cones)
+
+
+def carried(m, d):
+    """d's state (qpos, qvel, warm start, ctrl, time) in a new batch of model
+    m (whose contact layout may differ: pair_topk)."""
+    return fwd.make_data(m, d.qpos.shape[0]).replace(**{
+        f: getattr(d, f).clone() for f in ("time", "qpos", "qvel", "qacc_warmstart", "ctrl")})
+
+
+def compact_vs_plain(card, label, xml, d, nrows, hold_qacc=None, **topk):
+    """The compacted model (xml with topk) from the settled state d: its
+    solver rows (nrows, asserted); 1 and 5 steps with the kernels against
+    their plain versions at general_vs_plain's tolerances (qacc at rtol /
+    atol 1e-3, or held against the float64 step by hold_qacc); K1 launches
+    1 or 2 + the batch's Newton trips, K2 and K3 none; one step against
+    the uncompacted model's step with the kernels from the same state at
+    general_vs_plain's tolerances; then K1 on the compacted Newton
+    Hessians of one step against plain (1e-2) and float64
+    (held_against_f64, units 1e-5 + 1e-4 |x64|). Returns (m, plan, the
+    state, the max abs error, K1's errors)."""
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32, **topk).to("cuda")
+    m0 = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan()
+    d = carried(m, d)
+    e = humanoid_rows(m, d)
+    rows = solver_rows(e)
+    act = e.con_active.sum(1)
+    assert rows == nrows and any(b is not None for b in e.cb), \
+        f"{label}: {rows} solver rows, expected {nrows}"
+    fixed = 2 if m.has_damping else 1
+    dk = dp = d
+    errs = {}
+    for k in range(5):
+        zero_counts()
+        with newton_trips() as lk:
+            dk = fwd.step(m, dk, plan)
+        torch.cuda.synchronize()
+        launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                    kernels.step_fused.launches)
+        assert launches == (fixed + lk[0][1], 0, 0), f"{label} launches {launches}"
+        with plain_versions(), newton_trips() as lp:
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            errs["qpos_1"] = close(f"{label} qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close(f"{label} qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            if hold_qacc is None:
+                errs["qacc_1"] = close(f"{label} qacc 1 step", dk.qacc, dp.qacc, 1e-3, 1e-3)
+            else:
+                m64 = mjcf.load_model_from_string(xml, dtype=torch.float64,
+                                                  **topk).to("cuda")
+                with plain_versions():
+                    x64 = fwd.step(m64, data_as(d, torch.float64)).qacc
+                errs["qacc_1"] = hold_qacc(dk.qacc, dp.qacc, x64, lk[0][0], lp[0][0])
+            with newton_trips() as l0:
+                d0 = fwd.step(m0, carried(m0, d), fwd.make_plan(m0))
+            torch.cuda.synchronize()
+            unc = {f: close(f"{label} {f} vs uncompacted", getattr(dk, f), getattr(d0, f),
+                            rt, at)
+                   for f, rt, at in (("qpos", 1e-5, 1e-6), ("qvel", 1e-4, 1e-4))}
+            if hold_qacc is None:
+                unc["qacc"] = close(f"{label} qacc vs uncompacted", dk.qacc, d0.qacc,
+                                    1e-3, 1e-3)
+            else:     # the uncompacted step in the plain version's place
+                unc["qacc"] = hold_qacc(dk.qacc, d0.qacc, x64, lk[0][0], l0[0][0],
+                                        label=f"{label} vs uncompacted")
+            trips1 = lk[0][1]
+    errs["qpos_5"] = close(f"{label} qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert torch.isfinite(dk.qpos).all() and torch.isfinite(dk.qvel).all()
+    print(f"[{label} vs plain] {d.qpos.shape[0]} envs, {rows} solver rows of "
+          f"{len(e.kinds)}; active contact slots per env mean "
+          f"{float(act.float().mean()):.2f} max {int(act.max())}: "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f"; K1 launches a step {fixed} + the batch's {trips1} Newton trips; vs the "
+          f"uncompacted step: " + " ".join(f"{k}={v:.3e}" for k, v in unc.items()),
+          flush=True)
+
+    k1 = []
+    seen = captured_solves(m, d, plan)
+    seen = seen[1:len(seen) - (fixed - 1)]           # the Newton trips' Hessians
+    for i, (H, g) in enumerate(seen):
+        x = linalg_tpu.psd_solve(H, g)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        x64 = torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        e_abs = close(f"K1 {label} Hessian {i + 1} vs plain", x, ref, 1e-2, 1e-2)
+        held = held_against_f64(f"K1 {label} Hessian {i + 1}", x, ref, x64,
+                                1e-5 + 1e-4 * x64.abs())
+        k1.append(e_abs)
+        print(f"[K1 {label}] compacted Hessian of Newton trip {i + 1} {tuple(H.shape)}: vs "
+              f"plain max abs {e_abs:.3e}; vs float64 in units of 1e-5 + 1e-4 |x64|, "
+              f"worst env {held[1]:.3f}, 99th percentile {held[3]:.3f} (plain float32: "
+              f"{held[0]:.3f}, {held[2]:.3f}) ({card})", flush=True)
+    return m, plan, dk, max(max(errs.values()), max(unc.values())), max(k1)
+
+
+def compact_server(label, xml, nenv, nsteps, fixed, overflow=False, start=None,
+                   in_bin=True, **topk):
+    """MujocoServer(xml, nenv, **topk) on the default device, nsteps steps
+    (from `start`'s (qpos, qvel) if given, else the model's start), one
+    step(1) call at a time when `overflow` (each step's
+    broadphase.candidate_overflow summed on the card, asserted 0; the wall
+    time then includes it), else one step(nsteps): K1 `fixed` + the batch's
+    Newton trips a step, K2 and K3 none; finite; on a pile every body above
+    the floor (z > -0.02) and, with in_bin, inside the walls (|x|, |y| <
+    0.6). Returns (K1 launches, wall seconds, trips per env and step, the
+    batch's trips a step, the most active slots of an env (with `start`),
+    the bodies outside the walls)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    srv = MujocoServer(xml, nenv=nenv, unpause=False, **topk)
+    assert srv.device.type == "cuda"
+    if start is not None:
+        srv.d = srv.d.replace(qpos=start[0].clone(), qvel=start[1].clone())
+    dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+    most = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with newton_trips() as log:
+        if overflow or start is not None:
+            for _ in range(nsteps):
+                assert srv.step(1).success
+                if overflow:
+                    dropped += broadphase.candidate_overflow(srv.m, srv.d).sum()
+                else:
+                    c = srv.d.contact
+                    most = torch.maximum(most, (c.dist < c.includemargin).sum(1).max())
+        else:
+            assert srv.step(nsteps).success
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    ran = sum(r for _, r, _ in log)
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches,
+                "step_fused": kernels.step_fused.launches}
+    assert len(log) == nsteps
+    assert launches == {"psd_solve": fixed * nsteps + ran, "newton_solve": 0,
+                        "step_fused": 0}, f"{label} launches {launches}, trips {ran}"
+    assert int(dropped) == 0, f"{label}: the broadphase dropped {int(dropped)} overlapping pairs"
+    d = srv.d
+    assert all(torch.isfinite(t).all() for t in (d.qpos, d.qvel, d.qacc,
+                                                 d.efc_force_contact))
+    where, outside = "", 0
+    if srv.m.nq == 84:
+        pos = d.qpos.reshape(nenv, 12, 7)[..., :3]
+        outside = int((pos[..., :2].abs() >= 0.6).any(-1).sum())
+        assert float(pos[..., 2].min()) > -0.02, f"{label}: a body fell through"
+        assert outside == 0 or not in_bin, f"{label}: {outside} bodies left the bin"
+        where = (f"z min {float(pos[..., 2].min()):.4f}, |x|,|y| max "
+                 f"{float(pos[..., :2].abs().max()):.4f}, bodies outside the walls "
+                 f"{outside} of {12 * nenv}; ")
+    per_env = torch.cat([t for t, _, _ in log]).float()
+    active = d.contact.dist < d.contact.includemargin
+    st = srv.get_solver_stats(0)
+    print(f"[{label} main path] server step({nsteps}) x {nenv}"
+          f"{' one step(1) at a time with candidate_overflow' if overflow else ''}: "
+          f"{t_step:.3f}s wall, {nenv * nsteps / t_step:.4g} env-steps/s; launches {launches} "
+          f"(K1 = {fixed} x {nsteps} + {ran} Newton trips: {launches['psd_solve'] / nsteps:.3f} "
+          f"a step); Newton trips per env and step mean {float(per_env.mean()):.3f}, the "
+          f"batch's {ran / nsteps:.3f}; {where}active slots per env now mean "
+          f"{float(active.sum(1).float().mean()):.2f} max {int(active.sum(1).max())}"
+          f"{', most in any env and step ' + str(int(most)) if start is not None else ''}"
+          f"{'; overflow 0 on every step' if overflow else ''}; get_solver_stats(0) "
+          f"nefc {st['nefc']}, realized trips {st['solver_iterations_realized']}, overflow "
+          f"{st['broadphase_overflow']}; phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return (launches["psd_solve"], t_step, float(per_env.mean()), ran / nsteps, int(most),
+            outside)
+
+
+def settling(card):
+    """PILE dropped as bench.py's config5_settling drops it (the first body
+    0.6-0.8 m up, every dof at 0.5 N(0, 1)), con_topk=64, 512 envs at
+    config 5's settings: the server's SETTLE_STEPS steps of the transient
+    one at a time (the most active slots of any env and step printed: past
+    64 the deepest 64 win), finite, every body above the floor; the drop's
+    speeds throw bodies over the 0.3 m walls, so the bodies outside the bin
+    are counted, beside the same drop without con_topk; then one step from
+    the state after SETTLE_STEPS // 2 steps with the kernels against their
+    plain versions at general_vs_plain's tolerances."""
+    m = mjcf.load_model_from_string(PILE5, dtype=torch.float32).to("cuda")
+    rng = np.random.default_rng(17)
+    qpos = m.qpos0.expand(PILE_NENV, -1).clone()
+    qpos[:, 2] = torch.from_numpy(0.6 + 0.2 * rng.uniform(size=PILE_NENV)).float().cuda()
+    qvel = torch.from_numpy(0.5 * rng.normal(size=(PILE_NENV, m.nv))).float().cuda()
+    out = compact_server("PILE settling con_topk=64", PILE5, PILE_NENV, SETTLE_STEPS, 1,
+                         start=(qpos, qvel), in_bin=False, con_topk=64)
+    unc = compact_server("PILE settling uncompacted", PILE5, PILE_NENV, SETTLE_STEPS, 1,
+                         start=(qpos, qvel), in_bin=False)
+    mk = mjcf.load_model_from_string(PILE5, dtype=torch.float32, con_topk=64).to("cuda")
+    plan = fwd.make_plan(mk)
+    d = fwd.make_data(mk, PILE_NENV).replace(qpos=qpos, qvel=qvel)
+    for _ in range(SETTLE_STEPS // 2):
+        d = fwd.step(mk, d, plan)
+    dk = fwd.step(mk, d, plan)
+    with plain_versions():
+        dp = fwd.step(mk, d, plan)
+    torch.cuda.synchronize()
+    errs = {f: close(f"PILE settling {f} 1 step", getattr(dk, f), getattr(dp, f), rt, at)
+            for f, rt, at in (("qpos", 1e-5, 1e-6), ("qvel", 1e-4, 1e-4),
+                              ("qacc", 1e-3, 1e-3))}
+    act = (d.contact.dist < d.contact.includemargin).sum(1)
+    print(f"[PILE settling vs plain] after {SETTLE_STEPS // 2} steps (active slots per env "
+          f"mean {float(act.float().mean()):.2f} max {int(act.max())}): "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + f" ({card})", flush=True)
+    return out + (unc[5],), max(errs.values())
+
+
+def wide_world(card):
+    """17 of PILE's bodies (tests/torch_problems.PILE17, nv 102) with
+    con_topk=64 at 256 seeded heaps settled WIDE_SETTLE steps on the card:
+    K1 launches 0, every solve the library Cholesky's (mass matrix and each
+    Newton trip: n = 102, counted over the settling); one float32 step of
+    the settled heaps against the float64 step (qpos rtol / atol 1e-5; qvel
+    rtol / atol 1e-3, which holds qacc to 0.5 through h = 0.002; qacc
+    printed in units of 1e-3 + 1e-3 |x64|); fwd.step ms; psd_solve still
+    refuses n = 102 on the card."""
+    m = mjcf.load_model_from_string(PILE17, dtype=torch.float32, con_topk=64).to("cuda")
+    m64 = mjcf.load_model_from_string(PILE17, dtype=torch.float64, con_topk=64).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and m.nv == 102
+    qpos, qvel = (torch.from_numpy(a) for a in pile_heap(m64, WIDE_NENV, seed=21))
+    d = fwd.make_data(m, WIDE_NENV).replace(qpos=qpos.float().cuda(), qvel=qvel.float().cuda())
+    zero_counts()
+    with count_solves() as solves, newton_trips() as log:
+        for _ in range(WIDE_SETTLE):
+            d = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+    ran = sum(r for _, r, _ in log)
+    assert kernels.psd_solve.launches == 0 and kernels.newton_solve.launches == 0
+    assert solves == [102] * (WIDE_SETTLE + ran), f"{len(solves)} library solves"
+    dk = fwd.step(m, d, plan)
+    x64 = fwd.step(m64, data_as(d, torch.float64))
+    torch.cuda.synchronize()
+    errs = {f: close(f"nv 102 {f} vs float64", getattr(dk, f).double(), getattr(x64, f),
+                     tol, tol)
+            for f, tol in (("qpos", 1e-5), ("qvel", 1e-3))}
+    units = ((dk.qacc.double() - x64.qacc).abs() / (1e-3 + 1e-3 * x64.qacc.abs())).amax(-1)
+    errs["qacc"] = float((dk.qacc.double() - x64.qacc).abs().max())
+    act = (dk.contact.dist < dk.contact.includemargin).sum(1)
+    assert int(act.min()) > 0 and float(dk.qfrc_constraint.abs().max()) > 0
+    t = time_ms(lambda: fwd.step(m, dk, plan), 5, warmup=1)
+    try:
+        linalg_tpu.psd_solve(torch.eye(102, device="cuda")[None], torch.zeros(1, 102,
+                                                                              device="cuda"))
+        raise AssertionError("psd_solve took n = 102 on the card")
+    except ValueError:
+        pass
+    print(f"[nv 102] PILE17 x {WIDE_NENV}, con_topk=64 ({len(humanoid_rows(m, d).kinds)} rows, "
+          f"active slots per env mean {float(act.float().mean()):.2f}): {WIDE_SETTLE} steps, "
+          f"library solves {len(solves)} ({WIDE_SETTLE} + {ran} Newton trips), K1 launches 0; "
+          f"one step vs the float64 step: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f", qacc in units of 1e-3 + 1e-3 |x64| worst env {float(units.max()):.3f}, 99th "
+          f"percentile {float(units.quantile(0.99)):.3f}; fwd.step {t:.4f} ms; psd_solve refuses "
+          f"n = 102 on the card ({card})", flush=True)
+    return errs, t
+
+
+def c7_margins(card):
+    """ROADMAP C7: K1 against float64 on every solve of one step (the mass
+    matrix, the Newton Hessians, Euler's damping solve) of HUMANOID's (n =
+    27, the block kernel) and ARM7's (n = 7, the row kernel) seeded states
+    over C7_SEEDS (HUMANOID's root dropped 0.12 m, its feet on the floor),
+    in units of 1e-5 + 1e-4 |x64|: per solve K1's worst env and its ratio to
+    the plain version's (0 where K1 is within one unit), printed, with the
+    largest. The solves past WORST_FACTOR keep their SAVED_TOP worst envs
+    of K1 and of plain in chip_smoke_out/k1_c7_envs.npz (`python -m
+    tests.test_torch_linalg` runs the JAX package's kernel on them).
+    Returns the largest ratio."""
+    mh = mjcf.load_model_from_string(HUMANOID, dtype=torch.float32).to("cuda")
+    mh64 = mjcf.load_model_from_string(HUMANOID)
+    ma = mjcf.load_model_from_string(worlds.ARM7, dtype=torch.float32).to("cuda")
+    worst, saved = (0.0, ""), {}
+    for seed in C7_SEEDS:
+        qpos, qvel, ctrl = (torch.from_numpy(a.astype(np.float32)).cuda()
+                            for a in humanoid_states(mh64, HUMANOID_NENV, seed, drop=0.12))
+        dh = fwd.make_data(mh, HUMANOID_NENV).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+        for world, m, d in (("HUMANOID", mh, dh), ("ARM7", ma, arm7_data(ma, ARM7_NENV, seed))):
+            seen = captured_solves(m, d, fwd.make_plan(m))
+            ratios, worsts = [], []
+            for k, (H, g) in enumerate(seen):
+                x = linalg_tpu.psd_solve(H, g)
+                ref = linalg_tpu.psd_solve_plain(H, g)
+                x64 = torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+                unit = 1e-5 + 1e-4 * x64.abs()
+                e_k = ((x.double() - x64).abs() / unit).amax(-1)
+                e_p = ((ref.double() - x64).abs() / unit).amax(-1)
+                r = float(e_k.max()) / max(float(e_p.max()), 1e-30)
+                r = r if float(e_k.max()) > 1.0 else 0.0
+                ratios.append(r)
+                worsts.append(float(e_k.max()))
+                if r > WORST_FACTOR:
+                    top = torch.unique(torch.cat([e_k.topk(SAVED_TOP).indices,
+                                                  e_p.topk(SAVED_TOP).indices]))
+                    key = f"{world}_{seed}_{k}"
+                    for name, t in (("H", H), ("g", g), ("x64", x64), ("xk", x), ("xp", ref)):
+                        saved[f"{key}_{name}"] = t[top].cpu().numpy()
+            r = max(ratios)
+            if r > worst[0]:
+                worst = (r, f"{world} seed {seed}, solve {ratios.index(r)} of {len(seen)}")
+            print(f"[C7] {world} seed {seed} (n {seen[0][0].shape[-1]}): per solve, K1's worst "
+                  f"env against float64 {[round(x, 3) for x in worsts]}, over plain's "
+                  f"(0 within one unit) {[round(x, 3) for x in ratios]}", flush=True)
+    if saved:
+        os.makedirs("chip_smoke_out", exist_ok=True)
+        np.savez("chip_smoke_out/k1_c7_envs.npz", **saved)
+    print(f"[C7] largest ratio {worst[0]:.3f} ({worst[1]}); WORST_FACTOR {WORST_FACTOR}; "
+          f"{len(saved) // 5} solves past it saved to chip_smoke_out/k1_c7_envs.npz ({card})",
+          flush=True)
+    return worst[0]
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -1933,6 +2320,51 @@ def main():
                                         "plain_ms", "library_ms", "group")},
                   "bound_ms": ta["bound"][0], "bound_by": ta["bound"][1]}
 
+    # phases 22-27: contact compaction, the nv > 96 route, C7
+    compact = {}
+    t0c = time.perf_counter()
+    _, _, _, err_c, k1_c = compact_vs_plain(card, "PILE con_topk=64", PILE5, dp, 192,
+                                            con_topk=64)
+    run = compact_server("PILE con_topk=64", PILE5, PILE_NENV, COMPACT_STEPS, 1, con_topk=64)
+    compact["pile_con_topk"] = dict(zip(("launches", "wall_s", "newton_trips_per_env",
+                                         "newton_trips_per_batch_step"), run[:4]),
+                                    nenv=PILE_NENV, steps=COMPACT_STEPS, solver_rows=192,
+                                    env_steps_per_s=PILE_NENV * COMPACT_STEPS / run[1],
+                                    max_abs_err=err_c, k1_max_abs_err=k1_c)
+    _, _, _, err_b, k1_b = compact_vs_plain(card, "PILE pair_topk=24 con_topk=64", PILE5, dp,
+                                            345, pair_topk=24, con_topk=64)
+    run = compact_server("PILE pair_topk=24 con_topk=64", PILE5, PILE_NENV, COMPACT_STEPS, 1,
+                         overflow=True, pair_topk=24, con_topk=64)
+    compact["pile_broadphase"] = dict(zip(("launches", "wall_s", "newton_trips_per_env",
+                                           "newton_trips_per_batch_step"), run[:4]),
+                                      nenv=PILE_NENV, steps=COMPACT_STEPS, solver_rows=345,
+                                      env_steps_per_s=PILE_NENV * COMPACT_STEPS / run[1],
+                                      broadphase_overflow=0, max_abs_err=err_b,
+                                      k1_max_abs_err=k1_b)
+    run, err_st = settling(card)
+    compact["pile_settling"] = dict(zip(("launches", "wall_s", "newton_trips_per_env",
+                                         "newton_trips_per_batch_step",
+                                         "most_active_slots", "bodies_outside",
+                                         "bodies_outside_uncompacted"), run),
+                                    nenv=PILE_NENV, steps=SETTLE_STEPS, max_abs_err=err_st,
+                                    env_steps_per_s=PILE_NENV * SETTLE_STEPS / run[1])
+    _, _, _, err_hc, k1_hc = compact_vs_plain(card, f"HUMANOID con_topk={HUMANOID_CON_TOPK}",
+                                              HUMANOID, dh, 165, hold_qacc=humanoid_qacc,
+                                              con_topk=HUMANOID_CON_TOPK)
+    run = compact_server(f"HUMANOID con_topk={HUMANOID_CON_TOPK}", HUMANOID, HUMANOID_NENV,
+                         HUMANOID_STEPS, 2, con_topk=HUMANOID_CON_TOPK)
+    compact["humanoid_con_topk"] = dict(zip(("launches", "wall_s", "newton_trips_per_env",
+                                             "newton_trips_per_batch_step"), run[:4]),
+                                        nenv=HUMANOID_NENV, steps=HUMANOID_STEPS,
+                                        solver_rows=165, max_abs_err=err_hc,
+                                        k1_max_abs_err=k1_hc,
+                                        env_steps_per_s=HUMANOID_NENV * HUMANOID_STEPS / run[1])
+    errs_w, t_w = wide_world(card)
+    compact["nv102"] = {"nenv": 256, "k1_launches": 0, "step_ms": t_w, **errs_w}
+    compact["c7_worst_ratio"] = c7_margins(card)
+    print(f"[compaction] phases 22-27 in {time.perf_counter() - t0c:.1f}s", flush=True)
+    t1.update(compact)
+
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
         np.savez("chip_smoke_out/k3_x_envs.npz", **t3["saved"])
@@ -1945,8 +2377,7 @@ def main():
               t3["group"]),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
-             pile=t1["pile"], humanoid=t1["humanoid"], sensors=t1["sensors"],
-             arm7=t1["arm7"]),
+             **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)}),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
              sensors=t2["sensors"])]}))

@@ -29,6 +29,7 @@ being dropped silently.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional
@@ -364,22 +365,28 @@ class _Spec:
 # ---------------------------------------------------------------------------
 
 
-def load_model(path: str, dtype=None) -> types.Model:
+def load_model(path: str, dtype=None, pair_topk: int = 0,
+               con_topk: int = 0) -> types.Model:
     """Load and compile an MJCF file (mj_loadXML analogue)."""
     with open(path) as f:
         xml = f.read()
-    return load_model_from_string(xml, dtype=dtype)
+    return load_model_from_string(xml, dtype=dtype, pair_topk=pair_topk,
+                                  con_topk=con_topk)
 
 
-def load_model_from_string(xml: str, dtype=None) -> types.Model:
-    """Compile an MJCF string to a float64 CPU Model (cast with `dtype`)."""
+def load_model_from_string(xml: str, dtype=None, pair_topk: int = 0,
+                           con_topk: int = 0) -> types.Model:
+    """Compile an MJCF string to a float64 CPU Model (cast with `dtype`),
+    with the broadphase (pair_topk) and active-contact (con_topk)
+    compaction capacities set (types.Model; 0 = off)."""
     root = ET.fromstring(xml)
     if root.tag != "mujoco":
         raise ValueError(f"expected <mujoco> root, got <{root.tag}>")
     for child in root:
         if child.tag not in _TOP_LEVEL:
             raise ValueError(f"<{child.tag}> is not supported by the torch port")
-    m = _compile(root)
+    m = dataclasses.replace(_compile(root), pair_topk=int(pair_topk),
+                            con_topk=int(con_topk))
     return m.to(dtype=dtype) if dtype is not None else m
 
 

@@ -375,7 +375,16 @@ class Model:
     pair_exclude: Tuple[Tuple[int, int], ...] = ()
     pair_explicit: Tuple[Tuple[int, int], ...] = ()
     collision_mode: str = "all"
+    # broadphase compaction: a pair group with more than pair_topk pairs
+    # scores every pair's bounding volumes and runs the narrowphase on the
+    # pair_topk most-overlapping ones only (ops/broadphase.py; 0 = every
+    # pair of the table runs)
     pair_topk: int = 0
+    # active-contact compaction: a cone group with more than con_topk slots
+    # hands the solver only the con_topk most-penetrating slots of each env,
+    # in slot order (ops/efc.make_efc); exact while an env has at most
+    # con_topk active slots, the deepest win beyond (0 = off)
+    con_topk: int = 0
 
     def to(self, device=None, dtype=None) -> "Model":
         """Copy with every tensor on `device`, floating tensors cast to `dtype`."""
@@ -416,6 +425,11 @@ class Contact:
     geom1: Tuple[int, ...] = ()
     geom2: Tuple[int, ...] = ()
     dim: Tuple[int, ...] = ()
+    # the geom pair (B, n_dyn, 2) int64 of each dynamic slot: slots of a
+    # broadphase-compacted group carry geom1 = geom2 = -2, and the j-th of
+    # them reads its pair per env from dyn_pair[:, j] (n_dyn = 0 without
+    # pair_topk)
+    dyn_pair: torch.Tensor = None
 
     def replace(self, **kw) -> "Contact":
         return dataclasses.replace(self, **kw)

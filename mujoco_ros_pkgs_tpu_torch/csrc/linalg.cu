@@ -4,7 +4,11 @@
 //
 // Replaces mujoco_ros_pkgs_tpu/ops/linalg_tpu.py::_solve_batched (its Pallas
 // body `_kernel`): a right-looking Cholesky with the pivot clamp
-// rsqrt(max(d, 1e-30)), then forward and back substitution, fused. The port
+// rsqrt(max(d, 1e-30)), then forward and back substitution, fused; above
+// n = 16 the port's kernel adds one step of iterative refinement with a
+// float64 residual, which the TPU kernel does not take: float32 alone
+// leaves the general Newton's ill-conditioned Hessians as far from float64
+// as chance puts the sums (ROADMAP C7). The port
 // calls it through ops/linalg_tpu.psd_solve for the mass-matrix solve of
 // every general step (smooth.solve_m), Euler's implicit-damping solve and
 // the general Newton's step (ops/solver.newton, once per trip: PILE at

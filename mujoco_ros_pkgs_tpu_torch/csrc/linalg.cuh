@@ -57,6 +57,10 @@
 //   sum it (taking its terms from y_c one at a time loses accuracy on the
 //   ill-conditioned Hessians of PILE), the diagonal block solved by every
 //   lane itself. No barrier.
+// - Then one step of iterative refinement on warp 0: the residual
+//   g - H x summed in float64 from H's lower triangle in device memory,
+//   and the correction solved with the float32 factor by a forward and a
+//   back substitution (residual, forward_substitute, back_substitute).
 //
 // The load reads H's lower triangle row by row, a warp to a row and its
 // lanes on consecutive 16-byte words (cp.async 16-byte copies when n % 4 ==
@@ -302,7 +306,79 @@ __device__ __forceinline__ float y_entry(const float (&y)[3], int k) {
                      kLanes);
 }
 
-// Warp 0: x = L^-T y, y in row N, by panel from the last; lane l holds y_k
+// Warp 0: z = L^-1 r by panel from the first, lane l holding r_k and then
+// z_k for k = l + 32 s in registers (the refinement step's forward
+// substitution; the first solve's rides in the factorisation). For each
+// column c of the panel, z_c = (r_c - s_c) / L_cc with s_c = sum_{k < c}
+// L_ck z_k: each lane sums its columns left of the panel (L_ck from row c
+// of L, z_k its own), a butterfly adds the 32 lanes' sums, and each lane
+// then adds the terms inside the diagonal block, which it solves itself.
+__device__ inline void forward_substitute(const float* sm, const BlockLayout& l, int lane,
+                                          float (&r)[3]) {
+  for (int p = 0; p < l.panels; ++p) {
+    const int c0 = p * kPanel;
+    float sum[kPanel] = {};
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int k = lane + 32 * s;
+      if (k < c0) {
+#pragma unroll
+        for (int c = 0; c < kPanel; ++c) sum[c] += sm[row_offset(l, c0 + c) + k] * r[s];
+      }
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) sum[c] += __shfl_xor_sync(kFullMask, sum[c], off);
+    }
+    float d[kPanel][kPanel], zs[kPanel];
+    load_diagonal(sm, c0, d);
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c) {
+#pragma unroll
+      for (int k = 0; k < c; ++k) sum[c] += d[c][k] * zs[k];
+      zs[c] = div_rn(y_entry(r, c0 + c) - sum[c], d[c][c]);
+    }
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) {
+        if (lane + 32 * s == c0 + c) r[s] = zs[c];
+      }
+    }
+  }
+}
+
+// Warp 0: r = g - H x in float64 from H's lower triangle in device memory
+// (H_ij for j <= i, H_ji above), lane l holding x_k and then r_k for
+// k = l + 32 s (0 past n), rounded to float32: the residual of one step of
+// iterative refinement. Summed in float64, it keeps the digits that the
+// float32 solve lost, so the correction solved with the same factor
+// leaves x far closer to H^-1 g than any float32 ordering of the sums: on
+// the general Newton's ill-conditioned Hessians two float32 orderings
+// miss float64 by a factor of up to 5 apart on their worst envs (PERF.md,
+// C7), the reference's own kernel as much as any.
+__device__ inline void residual(const float* __restrict__ He, const float* __restrict__ ge,
+                                int n, int lane, const float (&x)[3], float (&r)[3]) {
+  double acc[3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int i = lane + 32 * s;
+    acc[s] = i < n ? (double)ge[i] : 0.0;
+  }
+  for (int j = 0; j < n; ++j) {
+    const double xj = y_entry(x, j);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int i = lane + 32 * s;
+      if (i < n) acc[s] -= (double)(j <= i ? He[i * n + j] : He[j * n + i]) * xj;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) r[s] = (float)acc[s];
+}
+
+// Warp 0: x = L^-T y, y in registers, by panel from the last; lane l holds y_k
 // and then x_k for k = l + 32 s in registers. For each column c of the
 // panel, x_c = (y_c - s_c) / L_cc with s_c = sum_{k > c} L_kc x_k summed
 // apart from y_c: each lane sums its rows below the panel (L_kc from row k
@@ -312,11 +388,6 @@ __device__ __forceinline__ float y_entry(const float (&y)[3], int k) {
 // registers.
 __device__ inline void back_substitute(const float* sm, const BlockLayout& l, int lane,
                                        float (&y)[3]) {
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const int k = lane + 32 * s;
-    y[s] = k < l.N ? sm[l.g + k] : 0.0f;
-  }
   for (int p = l.panels - 1; p >= 0; --p) {
     const int c0 = p * kPanel;
     float sum[kPanel] = {};
@@ -391,12 +462,21 @@ __device__ inline void psd_block_env(float* sm, int env, int thread,
     __syncthreads();
   }
   if (warp != 0) return;
-  float y[3];
-  back_substitute(sm, l, lane, y);
+  float y[3], r[3];
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
     const int k = lane + 32 * s;
-    if (k < n) x[(size_t)env * n + k] = y[s];
+    y[s] = k < N ? sm[l.g + k] : 0.0f;
+  }
+  back_substitute(sm, l, lane, y);
+  // one step of iterative refinement: x += (L L^T)^-1 (g - H x)
+  residual(He, g + (size_t)env * n, n, lane, y, r);
+  forward_substitute(sm, l, lane, r);
+  back_substitute(sm, l, lane, r);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int k = lane + 32 * s;
+    if (k < n) x[(size_t)env * n + k] = y[s] + r[s];
   }
 }
 

@@ -9,7 +9,9 @@ the nearer side of its range), then elliptic cones of condim 1/3/4/6 and
 pyramidal facets, every slot of the contact set a row block (inactive rows
 masked), in libmujoco's row order so the rows compare 1:1 with the JAX
 package's. All tensors are batch-first; the row layout is static and
-shared by the batch.
+shared by the batch. With m.con_topk, a cone group the general Newton
+takes is built at each env's K deepest slots only (Efc.cb), their
+canonical rows per env.
 
 Tendon equalities, friction-loss rows and limits of ball joints raise
 NotImplementedError (ROADMAP A5).
@@ -24,7 +26,7 @@ import torch
 
 from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, EqType, JointType, Model
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
-from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver
+from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver, solver_tpu
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import slot_meta
 
 # impedance clamps (mjMINIMP/mjMAXIMP)
@@ -47,6 +49,14 @@ class Efc(NamedTuple):
     con_dim: Tuple[int, ...]     # its condim
     con_mu: torch.Tensor         # (B, ncon_ell, 5) friction of each
     con_active: torch.Tensor     # (B, ncon_ell)
+    # the elliptic cone groups of condim > 1 in the solver's order, slots
+    # grouped by (condim, dynamic): (dim, indices into con_base) each
+    groups: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    # per group, None, or its rows at its K = m.con_topk most-penetrating
+    # slots of each env, in slot order (solver.Cones, row indices per env);
+    # the canonical rows of a compacted group are left empty (zero and
+    # inactive)
+    cb: Tuple[Optional[solver.Cones], ...]
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +297,116 @@ def _limit_rows(m: Model, d: Data, jnts) -> dict:
                 frictionloss=torch.zeros_like(dist), active=dist < margin)
 
 
+def _contact_rows(m: Model, d: Data, dim: int, b1, b2, pos, frame, dist, incm,
+                  solref, solimp, fric, act) -> dict:
+    """The rows of n contact slots of one condim, each (B, n, nr, ...): J,
+    pos, margin, R, aref, act, and for an elliptic cone the friction of its
+    tangential rows (sigma). Body ids b1, b2 are static numpy (n,) or per
+    env (B, n) (the slots of a compacted group)."""
+    B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
+    pyramidal = m.opt.cone == 0
+    bdmask = smooth.body_dof_mask(m)                    # (nv, nbody)
+    rootid = np.asarray(m.body_rootid, dtype=np.int64)
+    qvel = d.qvel
+    nc = pos.shape[1]
+    iw0 = m.body_invweight0[:, 0]
+
+    def side(bs):
+        """The body chain's dof mask (1 or B, n, nv) and the point's offset
+        from the body's root subtree com (B, n, 3)."""
+        if isinstance(bs, np.ndarray):
+            mask = mmath.static_tensor(bdmask[:, bs].T, dev, dtype)[None]
+            ref = d.subtree_com[:, mmath.static_tensor(rootid[bs], dev)]
+            return mask, pos - ref, iw0[mmath.static_tensor(bs, dev)]
+        mask = mmath.static_tensor(bdmask.T, dev, dtype)[bs]
+        root = mmath.static_tensor(rootid, dev)[bs]
+        ref = torch.take_along_dim(d.subtree_com, root[..., None], 1)
+        return mask, pos - ref, iw0[bs]
+    mask1, off1, iw1 = side(b1)
+    mask2, off2, iw2 = side(b2)
+    invw = (iw1 + iw2).to(dtype)
+
+    # translational row along axis a at point p: a . cdof_lin + cdof_ang .
+    # (off x a), a dot of cdof with [off x a, a], masked by the body chain
+    def trans_rows(off, mask, axes):
+        A = torch.cat([mmath.cross(off[:, :, None, :], axes), axes], -1)
+        return torch.einsum("bctk,bvk->bctv", A, d.cdof) * mask[:, :, None, :]
+
+    axes_t = frame[:, :, :1] if dim == 1 else frame[:, :, :3]
+    Jt_all = trans_rows(off2, mask2, axes_t) - trans_rows(off1, mask1, axes_t)
+    Jn = Jt_all[:, :, 0]                                   # (B, nc, nv)
+    Jf_list = []
+    if dim > 1:
+        Jf_list.append(Jt_all[:, :, 1:3])
+    if dim > 3:
+        Pr = torch.einsum("bcrk,bvk->bcrv", frame[:, :, :dim - 3], d.cdof[..., :3])
+        Jf_list.append(Pr * (mask2 - mask1)[:, :, None, :])
+    Jf = (torch.cat(Jf_list, 2) if Jf_list
+          else torch.zeros(B, nc, 0, nv, dtype=dtype, device=dev))
+
+    k_, b_, imp_ = _kbi(m, solref, solimp, dist, incm)
+    rbase = (1.0 - imp_) / imp_
+    out = {}
+    if pyramidal and dim > 1:
+        # facet rows Jn +- mu_k Jt_k, one-sided quadratics ('lim')
+        nr = 2 * (dim - 1)
+        mu = fric[:, :, :dim - 1]
+        sgns = mmath.static_tensor([1.0, -1.0], dev, dtype)
+        Jblk = (Jn[:, :, None, None, :] + sgns[None, None, None, :, None]
+                * (mu[..., None, None] * Jf[:, :, :, None, :])).reshape(B, nc, nr, nv)
+        mu0 = fric[:, :, 0]
+        invw_p = 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) * invw
+        aref = (-b_[..., None] * torch.einsum("bcrv,bv->bcr", Jblk, qvel)
+                - (k_ * imp_ * (dist - incm))[..., None])
+        R = torch.clamp(rbase * invw_p, min=mmath.MINVAL)[..., None].expand(B, nc, nr)
+        posb = dist[..., None].expand(B, nc, nr)
+        mrgb = incm[..., None].expand(B, nc, nr)
+    else:
+        # elliptic (or frictionless): normal row, then the cone's rows
+        Rn = torch.clamp(rbase * invw, min=mmath.MINVAL)
+        aref_n = (-b_ * torch.einsum("bcv,bv->bc", Jn, qvel)
+                  - k_ * imp_ * (dist - incm))
+        nr = dim
+        if dim > 1:
+            # friction rows: D = normal D * impratio, rotational rows
+            # also scaled by mu_k^2
+            scale = m.opt.impratio.to(dtype).expand(B, nc, dim - 1)
+            if dim > 3:
+                scale = torch.cat([scale[..., :2],
+                                   scale[..., 2:] * fric[..., 2:dim - 1] ** 2], -1)
+            Rf = torch.clamp((rbase * invw)[..., None] / scale, min=mmath.MINVAL)
+            aref_f = -b_[..., None] * torch.einsum("bcrv,bv->bcr", Jf, qvel)
+            Jblk = torch.cat([Jn[:, :, None], Jf], 2)
+            R = torch.cat([Rn[..., None], Rf], -1)
+            aref = torch.cat([aref_n[..., None], aref_f], -1)
+            zeros = torch.zeros(B, nc, dim - 1, dtype=dtype, device=dev)
+            posb = torch.cat([dist[..., None], zeros], -1)
+            mrgb = torch.cat([incm[..., None], zeros], -1)
+            scol = mmath.static_tensor(solver_tpu._SIGMA_COL[:dim - 1], dev)
+            out["sigma"] = torch.clamp(fric[..., scol], min=mmath.MINVAL)
+        else:
+            Jblk, R, aref = Jn[:, :, None], Rn[..., None], aref_n[..., None]
+            posb, mrgb = dist[..., None], incm[..., None]
+    out.update(J=Jblk, pos=posb, margin=mrgb, R=R, aref=aref,
+               act=act[..., None].expand(B, nc, nr))
+    return out
+
+
+def _deepest(pen: torch.Tensor, k: int) -> torch.Tensor:
+    """The k slots (B, k) of largest penetration pen (B, C) of each env, in
+    slot order: lax.top_k's choice (a lower slot first among equal values,
+    a stable sort), sorted back."""
+    return torch.sort(torch.sort(pen, dim=1, descending=True, stable=True)[1][:, :k],
+                      dim=1)[0]
+
+
 def make_efc(m: Model, d: Data) -> Optional[Efc]:
     """The equality rows, the limit rows, then the contact rows of every
-    slot of d.contact (None without rows)."""
+    slot of d.contact (None without rows). Contact slots are grouped by
+    (condim, dynamic). With m.con_topk = K, an elliptic cone group of more
+    than K slots is built at each env's K deepest slots only (Efc.cb), when
+    the rows go to the general Newton; the fused solver (solver_tpu.supports)
+    takes every row, as the JAX package's TPU route does."""
     _check_rows(m)
     if m.opt.disableflags & DisableBit.CONSTRAINT:
         return None
@@ -309,26 +426,30 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     def nrows(dim):
         return 2 * (dim - 1) if (pyramidal and dim > 1) else dim
     bases, rb = [], neq + nlim
+    kinds = ["eq"] * neq + ["lim"] * nlim
     for i in slots:
         bases.append(rb)
         rb += nrows(c.dim[i])
+        kinds += ["lim" if pyramidal and c.dim[i] > 1 else "con"] * nrows(c.dim[i])
     nefc = rb
     ell = [k for k, i in enumerate(slots) if not (pyramidal and c.dim[i] > 1)]
+    ci_of = {k: ci for ci, k in enumerate(ell)}
     sel = mmath.static_tensor([slots[k] for k in ell], dev, torch.int64)
     con_base = tuple(bases[k] for k in ell)
     con_dim = tuple(int(c.dim[slots[k]]) for k in ell)
     con_mu = c.friction[:, sel]
     con_act = c.dist[:, sel] < c.includemargin[:, sel]
+    ktop = int(m.con_topk)
+    if ktop and solver_tpu.supports_rows(kinds, con_dim, nv):
+        ktop = 0
 
-    bdmask = smooth.body_dof_mask(m)                    # (nv, nbody)
-    rootid = np.asarray(m.body_rootid, dtype=np.int64)
     gb = np.asarray(m.geom_bodyid, dtype=np.int64)
-    qvel = d.qvel
+    dyn_rank = {i: r for r, i in enumerate(i for i in range(len(c.geom1))
+                                           if c.geom1[i] == -2)}
     out = {name: torch.zeros(B, nefc, dtype=dtype, device=dev)
            for name in ("pos", "margin", "D", "R", "aref", "frictionloss")}
     J = torch.zeros(B, nefc, nv, dtype=dtype, device=dev)
     active = torch.zeros(B, nefc, dtype=torch.bool, device=dev)
-    kinds = ["eq"] * neq + ["lim"] * nlim + [None] * (nefc - neq - nlim)
     for lo, hi, rows in ((0, neq, neq and _eq_rows(m, d, eqs)),
                          (neq, neq + nlim, nlim and _limit_rows(m, d, jnts))):
         if rows:
@@ -339,97 +460,52 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
 
     by_dim: dict = {}
     for k, i in enumerate(slots):
-        by_dim.setdefault(int(c.dim[i]), []).append((k, i))
-    for dim, items in sorted(by_dim.items()):
+        by_dim.setdefault((int(c.dim[i]), c.geom1[i] == -2), []).append((k, i))
+    groups, cbs = [], []
+    for (dim, is_dyn), items in sorted(by_dim.items()):
         idx = mmath.static_tensor([i for _, i in items], dev)
-        nc = len(items)
-        b1 = gb[np.array([c.geom1[i] for _, i in items])]
-        b2 = gb[np.array([c.geom2[i] for _, i in items])]
-        pos = c.pos[:, idx]                                # (B, nc, 3)
-        frame = c.frame[:, idx]                            # (B, nc, 3, 3)
-        dist = c.dist[:, idx]
-        incm = c.includemargin[:, idx]
-        fric = c.friction[:, idx]                          # (B, nc, 5)
-        act = dist < incm
-        iw0 = m.body_invweight0[:, 0]
-        invw = (iw0[mmath.static_tensor(b1, dev)]
-                + iw0[mmath.static_tensor(b2, dev)]).to(dtype)
-
-        # translational row along axis a at point p: a . cdof_lin + cdof_ang .
-        # (off x a), a dot of cdof with [off x a, a], masked by the body chain
-        def trans_rows(bs, axes):
-            mask = mmath.static_tensor(bdmask[:, bs].T, dev, dtype)
-            off = pos - d.subtree_com[:, mmath.static_tensor(rootid[bs], dev)]
-            A = torch.cat([mmath.cross(off[:, :, None, :], axes), axes], -1)
-            return torch.einsum("bctk,bvk->bctv", A, d.cdof) * mask[None, :, None, :]
-
-        axes_t = frame[:, :, :1] if dim == 1 else frame[:, :, :3]
-        Jt_all = trans_rows(b2, axes_t) - trans_rows(b1, axes_t)
-        Jn = Jt_all[:, :, 0]                               # (B, nc, nv)
-        Jf_list = []
-        if dim > 1:
-            Jf_list.append(Jt_all[:, :, 1:3])
-        if dim > 3:
-            mask_d = mmath.static_tensor(bdmask[:, b2].T.astype(np.float64)
-                                         - bdmask[:, b1].T, dev, dtype)
-            Pr = torch.einsum("bcrk,bvk->bcrv", frame[:, :, :dim - 3], d.cdof[..., :3])
-            Jf_list.append(Pr * mask_d[None, :, None, :])
-        Jf = (torch.cat(Jf_list, 2) if Jf_list
-              else torch.zeros(B, nc, 0, nv, dtype=dtype, device=dev))
-
-        k_, b_, imp_ = _kbi(m, c.solref[:, idx], c.solimp[:, idx], dist, incm)
-        rbase = (1.0 - imp_) / imp_
-        if pyramidal and dim > 1:
-            # facet rows Jn +- mu_k Jt_k, one-sided quadratics ('lim')
-            nr = 2 * (dim - 1)
-            mu = fric[:, :, :dim - 1]
-            sgns = mmath.static_tensor([1.0, -1.0], dev, dtype)
-            Jblk = (Jn[:, :, None, None, :] + sgns[None, None, None, :, None]
-                    * (mu[..., None, None] * Jf[:, :, :, None, :])).reshape(B, nc, nr, nv)
-            mu0 = fric[:, :, 0]
-            invw_p = 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) * invw
-            aref = (-b_[..., None] * torch.einsum("bcrv,bv->bcr", Jblk, qvel)
-                    - (k_ * imp_ * (dist - incm))[..., None])
-            R = torch.clamp(rbase * invw_p, min=mmath.MINVAL)[..., None].expand(B, nc, nr)
-            posb = dist[..., None].expand(B, nc, nr)
-            mrgb = incm[..., None].expand(B, nc, nr)
-            kind = "lim"
+        nc, nr = len(items), nrows(dim)
+        if is_dyn:
+            ranks = mmath.static_tensor([dyn_rank[i] for _, i in items], dev)
+            gbt = mmath.static_tensor(gb, dev)
+            pair = c.dyn_pair[:, ranks].long()
+            b1, b2 = gbt[pair[..., 0]], gbt[pair[..., 1]]      # (B, nc)
         else:
-            # elliptic (or frictionless): normal row, then the cone's rows
-            Rn = torch.clamp(rbase * invw, min=mmath.MINVAL)
-            aref_n = (-b_ * torch.einsum("bcv,bv->bc", Jn, qvel)
-                      - k_ * imp_ * (dist - incm))
-            nr = dim
-            if dim > 1:
-                # friction rows: D = normal D * impratio, rotational rows
-                # also scaled by mu_k^2
-                scale = m.opt.impratio.to(dtype).expand(B, nc, dim - 1)
-                if dim > 3:
-                    scale = torch.cat([scale[..., :2],
-                                       scale[..., 2:] * fric[..., 2:dim - 1] ** 2], -1)
-                Rf = torch.clamp((rbase * invw)[..., None] / scale, min=mmath.MINVAL)
-                aref_f = -b_[..., None] * torch.einsum("bcrv,bv->bcr", Jf, qvel)
-                Jblk = torch.cat([Jn[:, :, None], Jf], 2)
-                R = torch.cat([Rn[..., None], Rf], -1)
-                aref = torch.cat([aref_n[..., None], aref_f], -1)
-                zeros = torch.zeros(B, nc, dim - 1, dtype=dtype, device=dev)
-                posb = torch.cat([dist[..., None], zeros], -1)
-                mrgb = torch.cat([incm[..., None], zeros], -1)
-            else:
-                Jblk, R, aref = Jn[:, :, None], Rn[..., None], aref_n[..., None]
-                posb, mrgb = dist[..., None], incm[..., None]
-            kind = "con"
+            b1 = gb[np.array([c.geom1[i] for _, i in items])]
+            b2 = gb[np.array([c.geom2[i] for _, i in items])]
+        fields = [c.pos[:, idx], c.frame[:, idx], c.dist[:, idx],
+                  c.includemargin[:, idx], c.solref[:, idx], c.solimp[:, idx],
+                  c.friction[:, idx]]
         dest_np = np.concatenate([np.arange(bases[k], bases[k] + nr) for k, _ in items])
+        cone = dim > 1 and not pyramidal
+        if cone:
+            groups.append((dim, tuple(ci_of[k] for k, _ in items)))
+        if cone and ktop and nc > ktop:
+            # active-contact compaction: each env's K deepest slots, their
+            # rows built at size K, with their canonical rows per env
+            keep = _deepest(fields[3] - fields[2], ktop)           # (B, K)
+            fields = [torch.take_along_dim(f, keep.view(keep.shape + (1,) * (f.dim() - 2)), 1)
+                      for f in fields]
+            b1, b2 = (torch.take_along_dim(
+                b if torch.is_tensor(b) else mmath.static_tensor(b, dev).expand(B, -1),
+                keep, 1) for b in (b1, b2))
+            rows = _contact_rows(m, d, dim, b1, b2, *fields, fields[2] < fields[3])
+            dest = mmath.static_tensor(dest_np.reshape(nc, nr), dev)[keep]
+            cbs.append(solver.Cones(dim, dest, rows["J"], rows["aref"], 1.0 / rows["R"],
+                                    rows["R"], rows["sigma"], rows["act"][..., 0]))
+            continue
+        if cone:
+            cbs.append(None)
+        rows = _contact_rows(m, d, dim, b1, b2, *fields, fields[2] < fields[3])
         dest = mmath.static_tensor(dest_np, dev)
-        J[:, dest] = Jblk.reshape(B, nc * nr, nv)
-        for name, val in (("pos", posb), ("margin", mrgb), ("R", R),
-                          ("D", 1.0 / R), ("aref", aref)):
-            out[name][:, dest] = val.reshape(B, nc * nr)
-        active[:, dest] = act[..., None].expand(B, nc, nr).reshape(B, nc * nr)
-        for r in dest_np:
-            kinds[r] = kind
+        J[:, dest] = rows["J"].reshape(B, nc * nr, nv)
+        for name in ("pos", "margin", "R", "aref"):
+            out[name][:, dest] = rows[name].reshape(B, nc * nr)
+        out["D"][:, dest] = 1.0 / rows["R"].reshape(B, nc * nr)
+        active[:, dest] = rows["act"].reshape(B, nc * nr)
     return Efc(J=J, active=active, kinds=tuple(kinds), con_base=con_base,
-               con_dim=con_dim, con_mu=con_mu, con_active=con_act, **out)
+               con_dim=con_dim, con_mu=con_mu, con_active=con_act,
+               groups=tuple(groups), cb=tuple(cbs), **out)
 
 
 def row_layout(m: Model) -> dict:

@@ -10,7 +10,10 @@ routes, chosen once per model by `make_plan`:
   and damping solves on CUDA; the Newton solve runs the K2 kernel where it
   takes the system (nv <= 16, at most 64 rows: PENDULUM) and otherwise the
   general Newton of ops/solver.py, whose Hessian solves run K1 (PILE:
-  nv 72, 783 rows).
+  nv 72, 783 rows; 192 with con_topk=64). Past nv = 96 every solve takes
+  the library Cholesky (linalg_tpu.solve), as the JAX package's XLA solve.
+  The broadphase (pair_topk) and active-contact (con_topk) compactions
+  run on the general route; pair_topk refuses the fused route.
 
 The general route takes joint-limit rows of hinges and slides,
 joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors),
@@ -22,9 +25,8 @@ actuation and a passive hook after the passive forces, pure functions of
 hook forces the general route, as in the JAX package. What neither route
 covers raises NotImplementedError from make_plan: other integrators, other
 sensor types, other actuators, activations and transmissions, tendons,
-fluid, friction-loss rows, limits of ball joints, CG and PGS, collision
-routines the port lacks and nv > 96 (the JAX package solves those with
-XLA, not a Pallas kernel).
+fluid, friction-loss rows, limits of ball joints, CG and PGS and
+collision routines the port lacks.
 """
 
 from __future__ import annotations
@@ -170,13 +172,13 @@ def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
 
 
 def euler(m: Model, d: Data) -> Data:
-    """mj_Euler: semi-implicit, implicit in joint damping when present (a K1
-    solve of M + h diag(damping))."""
+    """mj_Euler: semi-implicit, implicit in joint damping when present (a
+    solve of M + h diag(damping), K1 up to nv = 96)."""
     qacc = d.qacc
     if m.has_damping:
         h = m.opt.timestep.to(d.qpos.dtype)
         MhB = d.qM + torch.diag_embed(h * m.dof_damping.to(d.qpos.dtype))
-        qacc = linalg_tpu.psd_solve(MhB, d.qfrc_smooth + d.qfrc_constraint)
+        qacc = linalg_tpu.solve(MhB, d.qfrc_smooth + d.qfrc_constraint)
     return _advance(m, d, qacc)
 
 
@@ -207,8 +209,6 @@ def check_general(m: Model) -> None:
         _not_ported("tendons")
     if m.has_fluid:
         _not_ported("fluid")
-    if m.nv > linalg_tpu.MAX_N:
-        _not_ported(f"a mass-matrix solve of nv={m.nv} > {linalg_tpu.MAX_N}")
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
         for grp in narrowphase.pair_groups(m):
             name = narrowphase._DISPATCH[grp["key"][1:3]].name

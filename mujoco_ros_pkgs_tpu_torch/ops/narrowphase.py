@@ -70,15 +70,21 @@ def _pair_condim(m: Model, g1: int, g2: int) -> int:
 
 
 def pair_groups(m: Model):
-    """Narrowphase groups + the static slot layout (uncompacted table).
+    """Narrowphase groups + the static slot layout, shared by slot_meta,
+    collide and the broadphase so that they agree exactly.
 
-    Each group dict: key, pairs, g1s/g2s, cap, condim, topk (always 0 here)
-    and bases (per-pair slot base). Groups key on (type1, type2, dataids);
-    slots follow collision_pairs order, each pair's `cap` slots contiguous."""
-    if m.pair_topk:
-        raise NotImplementedError("pair_topk broadphase compaction is not "
-                                  "ported to the torch package")
+    Each group dict: key, pairs, g1s/g2s, cap (contacts per pair), condim
+    (uniform, meaningful when compacted) and topk: 0 for a group whose pairs
+    each own `cap` static slots from `bases` (per pair, collision_pairs
+    order), or K = m.pair_topk for a group of more than K compactable pairs
+    whose K most-overlapping pairs per env land in K * cap dynamic slots
+    from `dyn_base` (`dyn_rank` their first rank in Contact.dyn_pair).
+    With pair_topk > 0 the groups also key on condim, so that dynamic slots
+    have one static condim; dynamic blocks follow every static slot."""
+    from mujoco_ros_pkgs_tpu_torch.ops import broadphase
+
     mesh_like = (GeomType.MESH, GeomType.HFIELD)
+    topk = int(m.pair_topk)
     groups: dict = {}
     order = []
     for (g1, g2) in m.collision_pairs:
@@ -86,36 +92,54 @@ def pair_groups(m: Model):
         cap = _DISPATCH[(t1, t2)].cap
         did1 = m.geom_dataid[g1] if t1 in mesh_like else -1
         did2 = m.geom_dataid[g2] if t2 in mesh_like else -1
-        key = ("g", t1, t2, did1, did2, -1)
+        key = ("g", t1, t2, did1, did2, _pair_condim(m, g1, g2) if topk else -1)
         if key not in groups:
             groups[key] = dict(key=key, pairs=[], cap=cap)
             order.append(key)
         groups[key]["pairs"].append((g1, g2))
 
-    base = 0
-    pair_base: dict = {}
-    for (g1, g2) in m.collision_pairs:
-        pair_base[(g1, g2)] = base
-        base += _DISPATCH[(GeomType(m.geom_type[g1]),
-                           GeomType(m.geom_type[g2]))].cap
     out = []
+    pair_grp: dict = {}
     for key in order:
         grp = groups[key]
         pairs = grp["pairs"]
-        grp["topk"] = 0
+        compact = (topk and len(pairs) > topk
+                   and broadphase.compactable(key[1], key[2]))
+        grp["topk"] = topk if compact else 0
         grp["g1s"] = np.array([p[0] for p in pairs])
         grp["g2s"] = np.array([p[1] for p in pairs])
-        grp["condim"] = key[5]      # uniform condim only matters when compacted
-        grp["bases"] = np.array([pair_base[p] for p in pairs])
+        grp["condim"] = key[5]
+        for p in pairs:
+            pair_grp[p] = grp
         out.append(grp)
+    base = 0
+    pair_base: dict = {}
+    for p in m.collision_pairs:
+        grp = pair_grp[p]
+        if not grp["topk"]:
+            pair_base[p] = base
+            base += grp["cap"]
+    dyn_rank = 0
+    for grp in out:
+        if grp["topk"]:
+            grp["dyn_base"], grp["dyn_rank"] = base, dyn_rank
+            base += grp["topk"] * grp["cap"]
+            dyn_rank += grp["topk"] * grp["cap"]
+        else:
+            grp["bases"] = np.array([pair_base[p] for p in grp["pairs"]])
     return out
 
 
 def slot_meta(m: Model):
     """Static (geom1, geom2, condim) tuples for every contact slot, in the
-    order the JAX package's collide() emits them."""
+    order the JAX package's collide() emits them; a dynamic slot carries
+    geom ids -2 (its pair is in Contact.dyn_pair)."""
     slots: dict = {}
     for grp in pair_groups(m):
+        if grp["topk"]:
+            for j in range(grp["topk"] * grp["cap"]):
+                slots[grp["dyn_base"] + j] = (-2, -2, grp["condim"])
+            continue
         for (g1, g2), b in zip(grp["pairs"], grp["bases"]):
             condim = _pair_condim(m, g1, g2)
             for j in range(grp["cap"]):
@@ -126,38 +150,49 @@ def slot_meta(m: Model):
             tuple(slots[i][2] for i in range(n)))
 
 
-def _contact_params_vec(m: Model, g1s: np.ndarray, g2s: np.ndarray, dtype):
-    """mj_contactParam over static pair arrays: (friction5, solref, solimp,
-    margin, gap), one row per pair."""
-    pr = np.array(m.geom_priority)
-    p1, p2 = pr[g1s], pr[g2s]
-    hi = static_tensor(np.where(p1 > p2, g1s, g2s), m.device)
-    neq = static_tensor(p1 != p2, m.device)
-    g1s = static_tensor(g1s, m.device)
-    g2s = static_tensor(g2s, m.device)
+def n_dyn_slots(m: Model) -> int:
+    """The number of dynamic (broadphase-compacted) contact slots."""
+    return sum(g["topk"] * g["cap"] for g in pair_groups(m) if g["topk"])
 
-    fri_eq = torch.maximum(m.geom_friction[g1s], m.geom_friction[g2s])
-    s1, s2 = m.geom_solmix[g1s], m.geom_solmix[g2s]
+
+def _contact_params_vec(m: Model, g1s, g2s, dtype):
+    """mj_contactParam over the pairs of a group: static numpy arrays (P,)
+    or per-env index tensors (B, K) of a compacted group. Returns
+    (friction5, solref, solimp, margin, gap), one entry per pair."""
+    dev = m.device
+    if isinstance(g1s, np.ndarray):
+        pr = np.array(m.geom_priority)
+        p1, p2 = pr[g1s], pr[g2s]
+        hi = static_tensor(np.where(p1 > p2, g1s, g2s), dev)
+        neq = static_tensor(p1 != p2, dev)[..., None]
+        i1, i2 = static_tensor(g1s, dev), static_tensor(g2s, dev)
+    else:
+        i1, i2 = g1s, g2s
+        pr = static_tensor(m.geom_priority, dev)
+        p1, p2 = pr[i1], pr[i2]
+        hi = torch.where(p1 > p2, i1, i2)
+        neq = (p1 != p2)[..., None]
+
+    fri_eq = torch.maximum(m.geom_friction[i1], m.geom_friction[i2])
+    s1, s2 = m.geom_solmix[i1], m.geom_solmix[i2]
     both_small = (s1 < MINVAL) & (s2 < MINVAL)
     mix = torch.where(both_small, 0.5,
                       torch.where(s1 < MINVAL, 0.0,
                                   torch.where(s2 < MINVAL, 1.0,
                                               s1 / torch.clamp(s1 + s2, min=MINVAL))))
-    r1, r2 = m.geom_solref[g1s], m.geom_solref[g2s]
-    standard = (r1[:, 0] > 0) & (r2[:, 0] > 0)
-    solref_eq = torch.where(standard[:, None],
-                            mix[:, None] * r1 + (1 - mix[:, None]) * r2,
-                            torch.minimum(r1, r2))
-    solimp_eq = (mix[:, None] * m.geom_solimp[g1s]
-                 + (1 - mix[:, None]) * m.geom_solimp[g2s])
+    mix = mix[..., None]
+    r1, r2 = m.geom_solref[i1], m.geom_solref[i2]
+    standard = (r1[..., :1] > 0) & (r2[..., :1] > 0)
+    solref_eq = torch.where(standard, mix * r1 + (1 - mix) * r2, torch.minimum(r1, r2))
+    solimp_eq = mix * m.geom_solimp[i1] + (1 - mix) * m.geom_solimp[i2]
 
-    fri = torch.where(neq[:, None], m.geom_friction[hi], fri_eq)
-    solref = torch.where(neq[:, None], m.geom_solref[hi], solref_eq)
-    solimp = torch.where(neq[:, None], m.geom_solimp[hi], solimp_eq)
-    margin = torch.maximum(m.geom_margin[g1s], m.geom_margin[g2s])
-    gap = torch.maximum(m.geom_gap[g1s], m.geom_gap[g2s])
-    friction5 = torch.stack([fri[:, 0], fri[:, 0], fri[:, 1],
-                             fri[:, 2], fri[:, 2]], dim=1)
+    fri = torch.where(neq, m.geom_friction[hi], fri_eq)
+    solref = torch.where(neq, m.geom_solref[hi], solref_eq)
+    solimp = torch.where(neq, m.geom_solimp[hi], solimp_eq)
+    margin = torch.maximum(m.geom_margin[i1], m.geom_margin[i2])
+    gap = torch.maximum(m.geom_gap[i1], m.geom_gap[i2])
+    friction5 = torch.stack([fri[..., 0], fri[..., 0], fri[..., 1],
+                             fri[..., 2], fri[..., 2]], dim=-1)
     return (friction5.to(dtype), solref.to(dtype), solimp.to(dtype),
             margin.to(dtype), gap.to(dtype))
 
@@ -176,7 +211,9 @@ def empty_contact(m: Model, nenv: int, dtype, device) -> Contact:
         pos=z(3),
         frame=torch.eye(3, dtype=dtype, device=device).expand(nenv, n, 3, 3).clone(),
         includemargin=z(), friction=z(5), solref=z(2), solimp=z(5),
-        geom1=g1, geom2=g2, dim=dims)
+        geom1=g1, geom2=g2, dim=dims,
+        dyn_pair=torch.zeros((nenv, n_dyn_slots(m), 2), dtype=torch.int64,
+                             device=device))
 
 
 def _vec(t):
@@ -194,47 +231,80 @@ def _stack_mat(rows):
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
+def _topk_pairs(m: Model, d: Data, grp):
+    """The K most-overlapping pairs (B, K) of a compacted group in every
+    env, most-overlapping first: lax.top_k's order, a lower pair index
+    first among equal scores (a stable sort)."""
+    from mujoco_ros_pkgs_tpu_torch.ops import broadphase
+
+    sep = broadphase.pair_scores(m, d, grp["g1s"], grp["g2s"], grp["key"][1])
+    sel = torch.sort(sep, dim=1, stable=True)[1][:, :grp["topk"]]
+    dev = d.qpos.device
+    return static_tensor(grp["g1s"], dev)[sel], static_tensor(grp["g2s"], dev)[sel]
+
+
 def collide(m: Model, d: Data) -> Data:
-    """Every pair of the static pair table through its primitive; the
-    contacts land in the canonical slot order (slot_meta). Each pair group
-    runs its primitive once over (envs, pairs) component tensors."""
+    """Every pair of the pair table through its primitive; the contacts
+    land in the canonical slot order (slot_meta). Each pair group runs its
+    primitive once over (envs, pairs) component tensors; a compacted group
+    (m.pair_topk) runs it on each env's K most-overlapping pairs, gathered
+    per env, into its dynamic slots."""
     dtype = d.qpos.dtype
     B = d.qpos.shape[0]
-    dists, poss, frames, incms, fris, srefs, simps, dest = ([] for _ in range(8))
+    dev = d.qpos.device
+    dists, poss, frames, params, dest, dyn_pairs = ([] for _ in range(6))
     for grp in pair_groups(m):
-        cap, P = grp["cap"], len(grp["pairs"])
+        cap = grp["cap"]
         name = _DISPATCH[grp["key"][1:3]].name
         if name not in soa.GENERAL_FNS:
             raise NotImplementedError(f"collide: narrowphase routine {name} is not "
                                       "ported to the torch package")
-        g1s, g2s = grp["g1s"], grp["g2s"]
-        dest.append(np.concatenate([np.arange(b, b + cap) for b in grp["bases"]]))
-        friction5, solref, solimp, margin, gap = _contact_params_vec(m, g1s, g2s, dtype)
-        i1 = static_tensor(g1s, d.qpos.device)
-        i2 = static_tensor(g2s, d.qpos.device)
+        if grp["topk"]:
+            i1, i2 = _topk_pairs(m, d, grp)                  # (B, K) per env
+            P = grp["topk"]
+            dyn_pairs.append(torch.stack([i1, i2], -1).repeat_interleave(cap, 1))
+            dest.append(np.arange(grp["dyn_base"], grp["dyn_base"] + P * cap))
+            x1 = torch.take_along_dim(d.geom_xpos, i1[..., None], 1)
+            x2 = torch.take_along_dim(d.geom_xpos, i2[..., None], 1)
+            r1 = torch.take_along_dim(d.geom_xmat, i1[..., None, None], 1)
+            r2 = torch.take_along_dim(d.geom_xmat, i2[..., None, None], 1)
+        else:
+            P = len(grp["pairs"])
+            dest.append(np.concatenate([np.arange(b, b + cap) for b in grp["bases"]]))
+            i1 = static_tensor(grp["g1s"], dev)
+            i2 = static_tensor(grp["g2s"], dev)
+            x1, x2 = d.geom_xpos[:, i1], d.geom_xpos[:, i2]
+            r1, r2 = d.geom_xmat[:, i1], d.geom_xmat[:, i2]
+        friction5, solref, solimp, margin, gap = _contact_params_vec(
+            m, i1 if grp["topk"] else grp["g1s"], i2 if grp["topk"] else grp["g2s"], dtype)
         di, po, fr = soa.GENERAL_FNS[name](
-            _vec(d.geom_xpos[:, i1]), _mat(d.geom_xmat[:, i1]),
-            tuple(m.geom_size[i1].to(dtype).unbind(-1)),
-            _vec(d.geom_xpos[:, i2]), _mat(d.geom_xmat[:, i2]),
-            tuple(m.geom_size[i2].to(dtype).unbind(-1)))
+            _vec(x1), _mat(r1), tuple(m.geom_size[i1].to(dtype).unbind(-1)),
+            _vec(x2), _mat(r2), tuple(m.geom_size[i2].to(dtype).unbind(-1)))
         # (B, P, cap) pair-major, as the JAX package's (P, cap) reshape
         dists.append(torch.stack(di, -1).reshape(B, P * cap))
         poss.append(torch.stack([torch.stack(p, -1) for p in po], -2)
                     .reshape(B, P * cap, 3))
         frames.append(torch.stack([_stack_mat(f) for f in fr], -3)
                       .reshape(B, P * cap, 3, 3))
-        incms.append(torch.repeat_interleave(margin - gap, cap))
-        fris.append(torch.repeat_interleave(friction5, cap, dim=0))
-        srefs.append(torch.repeat_interleave(solref, cap, dim=0))
-        simps.append(torch.repeat_interleave(solimp, cap, dim=0))
-    perm = static_tensor(np.argsort(np.concatenate(dest)), d.qpos.device)
+        # per-pair parameters: (P * cap, ...) of a static group, (B, K * cap,
+        # ...) of a compacted one
+        params.append([t.repeat_interleave(cap, dim=1 if grp["topk"] else 0)
+                       for t in (margin - gap, friction5, solref, solimp)])
+    perm = static_tensor(np.argsort(np.concatenate(dest)), dev)
     geom1, geom2, dims = slot_meta(m)
 
     def per_env(parts):
-        return torch.cat(parts)[perm].expand((B,) + (-1,) * parts[0].dim())
+        if not dyn_pairs:     # shared by the batch: one copy, expanded
+            return torch.cat(parts)[perm].expand((B,) + (-1,) * parts[0].dim())
+        nd = max(p.dim() for p in parts)
+        parts = [p.expand((B,) + p.shape) if p.dim() < nd else p for p in parts]
+        return torch.cat(parts, 1)[:, perm]
+    incm, fric, sref, simp = (per_env(list(col)) for col in zip(*params))
+    dyn_pair = (torch.cat(dyn_pairs, 1) if dyn_pairs
+                else torch.zeros((B, 0, 2), dtype=torch.int64, device=dev))
     contact = Contact(
         dist=torch.cat(dists, 1)[:, perm], pos=torch.cat(poss, 1)[:, perm],
-        frame=torch.cat(frames, 1)[:, perm], includemargin=per_env(incms),
-        friction=per_env(fris), solref=per_env(srefs), solimp=per_env(simps),
-        geom1=geom1, geom2=geom2, dim=dims)
+        frame=torch.cat(frames, 1)[:, perm], includemargin=incm, friction=fric,
+        solref=sref, solimp=simp, geom1=geom1, geom2=geom2, dim=dims,
+        dyn_pair=dyn_pair)
     return d.replace(contact=contact)

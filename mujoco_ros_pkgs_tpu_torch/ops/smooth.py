@@ -572,8 +572,9 @@ def actuation(m: Model, d: Data) -> Data:
 
 
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
-    """M^-1 x (mj_solveM) on the K1 kernel (ops/linalg_tpu.psd_solve)."""
-    return linalg_tpu.psd_solve(d.qM, x)
+    """M^-1 x (mj_solveM): the K1 kernel up to nv = 96, the library
+    Cholesky above (ops/linalg_tpu.solve)."""
+    return linalg_tpu.solve(d.qM, x)
 
 
 def mul_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:

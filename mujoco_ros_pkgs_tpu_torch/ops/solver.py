@@ -11,7 +11,10 @@ dispatches as the JAX package's `solve` does for Newton:
 - every other system (PILE: nv 72, 783 rows) goes through `newton`, the
   counterpart of `_solve_jnp`: opt.iterations honoured exactly, each env
   stopping at its own convergence, its Hessian solved by
-  linalg_tpu.psd_solve (the K1 kernel on CUDA) once per trip.
+  linalg_tpu.solve (the K1 kernel on CUDA up to n = 96) once per trip.
+  With m.con_topk, the cone groups efc compacted are iterated at their
+  size K (per-env rows, Cones) and their forces scattered back to
+  the canonical rows, a dropped slot's rows at exactly 0.
 
 CG and PGS raise NotImplementedError.
 """
@@ -70,21 +73,22 @@ class _Split(NamedTuple):
     fri: torch.Tensor
     lim: torch.Tensor
     groups: Tuple[Tuple[int, torch.Tensor, torch.Tensor, torch.Tensor], ...]
-    # per condim: (dim, contact index (C,), row index (C, dim), the friction
-    # column of each tangential sigma (dim - 1,))
+    # per cone group: (dim, contact index (C,), row index (C, dim), the
+    # friction column of each tangential sigma (dim - 1,))
 
 
 @functools.lru_cache(maxsize=64)
-def _split(kinds, con_base, device) -> _Split:
+def _split(kinds, con_base, cone_groups, device) -> _Split:
     """Made once per row layout and device (the layout is static), never
     per step. Rows are coded as the JAX kernel codes them
-    (solver_tpu.row_codes): a condim-1 contact's row is one-sided."""
+    (solver_tpu.row_codes): a condim-1 contact's row is one-sided. The cone
+    groups are efc's (`Efc.groups`)."""
     codes = np.array(solver_tpu.row_codes(kinds, con_base))
     simple = np.flatnonzero(codes != solver_tpu.ROW_CODE["con"])
     sc = codes[simple]
     groups = []
-    for dim, (cis, bases) in sorted(solver_tpu._cone_groups(con_base).items()):
-        idx = np.asarray(bases)[:, None] + np.arange(dim)
+    for dim, cis in cone_groups:
+        idx = np.asarray([con_base[ci][0] for ci in cis])[:, None] + np.arange(dim)
         groups.append((dim, torch.tensor(cis, device=device),
                        torch.tensor(idx, device=device),
                        torch.tensor(solver_tpu._SIGMA_COL[:dim - 1], device=device)))
@@ -107,10 +111,12 @@ class _Simple(NamedTuple):
     lim: torch.Tensor
 
 
-class _Cones(NamedTuple):
-    """One condim's cones: rows (B, C, dim), J (B, C, dim, nv)."""
+class Cones(NamedTuple):
+    """One cone group as the Newton iterates on it: rows (B, C, dim), J (B,
+    C, dim, nv); a group efc.make_efc compacted (m.con_topk) comes as one,
+    its C slots each env's deepest, their row indices per env."""
     dim: int
-    idx: torch.Tensor             # (C, dim) row index
+    idx: torch.Tensor             # (C, dim) canonical row index, or (B, C, dim) per env
     J: torch.Tensor
     aref: torch.Tensor
     D: torch.Tensor
@@ -119,17 +125,21 @@ class _Cones(NamedTuple):
     act: torch.Tensor             # (B, C) bool
 
 
-def _views(efc) -> Tuple[_Split, _Simple, Tuple[_Cones, ...]]:
+def _views(efc) -> Tuple[_Split, _Simple, Tuple[Cones, ...]]:
     """The solve's view of efc's rows: the split, the simple rows gathered,
     each cone group gathered as (B, C, dim) blocks."""
-    sp = _split(efc.kinds, tuple(zip(efc.con_base, efc.con_dim)), efc.J.device)
+    sp = _split(efc.kinds, tuple(zip(efc.con_base, efc.con_dim)), efc.groups,
+                efc.J.device)
     s = sp.simple
     simple = _Simple(efc.J[:, s], efc.aref[:, s], efc.D[:, s], efc.frictionloss[:, s],
                      efc.active[:, s], sp.eq, sp.fri, sp.lim)
     cones = []
-    for dim, cis, idx, scol in sp.groups:
+    for k, (dim, cis, idx, scol) in enumerate(sp.groups):
+        if efc.cb[k] is not None:      # compacted (m.con_topk): rows per env
+            cones.append(efc.cb[k])
+            continue
         sigma = torch.clamp(efc.con_mu[:, cis][..., scol], min=MINVAL)
-        cones.append(_Cones(dim, idx, efc.J[:, idx], efc.aref[:, idx], efc.D[:, idx],
+        cones.append(Cones(dim, idx, efc.J[:, idx], efc.aref[:, idx], efc.D[:, idx],
                             efc.R[:, idx], sigma, efc.con_active[:, cis]))
     return sp, simple, tuple(cones)
 
@@ -180,7 +190,7 @@ class _ConeW(NamedTuple):
     rw: torch.Tensor
 
 
-def _cone_forces(g: _Cones, u, want_w):
+def _cone_forces(g: Cones, u, want_w):
     """Elliptic-cone forces, Hessian block and cost of one condim group at
     u (B, ..., C, dim), the groups' jar rows. Returns (f (B, ..., C, dim),
     _ConeW or None, cost (B, ...))."""
@@ -228,6 +238,21 @@ def _cone_forces(g: _Cones, u, want_w):
     return f_c, _ConeW(wrow, ru, rw), cost
 
 
+def _rows_at(x, idx):
+    """x (B, nefc) at the rows idx: (C, dim) shared, or (B, C, dim) per env."""
+    if idx.dim() == 2:
+        return x[:, idx]
+    return torch.take_along_dim(x, idx.flatten(1), 1).view(idx.shape)
+
+
+def _put_rows(out, idx, val):
+    """out[:, idx] = val (B, C, dim) for rows idx shared or per env."""
+    if idx.dim() == 2:
+        out[:, idx] = val
+    else:
+        out.scatter_(1, idx.flatten(1), val.flatten(1))
+
+
 def forces_and_weights(efc, jar):
     """Flat row forces f (B, nefc), simple-row weights w (B, nefc; 0 on
     cone rows), the rows' cost (B,) and the dense cone Hessian blocks
@@ -241,8 +266,8 @@ def forces_and_weights(efc, jar):
     w[:, sp.simple] = w_s
     blocks = []
     for g in cones:
-        f_c, cw, c_cost = _cone_forces(g, jar[:, g.idx], True)
-        f[:, g.idx] = f_c
+        f_c, cw, c_cost = _cone_forces(g, _rows_at(jar, g.idx), True)
+        _put_rows(f, g.idx, f_c)
         cost = cost + c_cost
         W = (cw.ru[..., :, None] * cw.ru[..., None, :]
              - cw.rw[..., :, None] * cw.rw[..., None, :]) + torch.diag_embed(cw.wrow)
@@ -264,18 +289,22 @@ def _tmatvec(A, y):
     return torch.einsum("b...n,b...->bn", A, y)
 
 
-def newton(m: Model, d: Data, efc, trips: Optional[list] = None) -> Data:
+def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
+           stats: Optional[dict] = None) -> Data:
     """The Newton solve of a batch of any size (mj_solNewton; the JAX
     package's `_solve_jnp`). Up to opt.iterations Newton trips; an env
     stops at its own convergence and stays frozen while others run, as
     under the JAX package's vmapped while_loop. The line search evaluates
     phi' on the 7-point grid in one pass, then one (ls_iterations <= 8)
     or two passes of 8 points, then a secant step. H = M + J^T W J + 1e-12 I
-    is solved by linalg_tpu.psd_solve (K1 on CUDA) once per trip.
+    is solved by linalg_tpu.solve (K1 on CUDA up to n = 96) once per trip.
 
     The card is asked whether every env has converged once every
     SYNC_EVERY trips. If `trips` is a list, (the Newton trips each env
-    took (B,) int64, the trips the batch ran, the host syncs) is appended."""
+    took (B,) int64, the trips the batch ran, the host syncs) is appended.
+    If `stats` is a dict, it gets each env's Newton trips (`iterations`),
+    the norm of the final gradient (`grad_norm`) and the final cost (`cost`),
+    each (B,)."""
     a_s, M = d.qacc_smooth, d.qM
     dtype, dev = a_s.dtype, a_s.device
     nv = m.nv
@@ -333,7 +362,7 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None) -> Data:
             Bw = torch.einsum("bcdv,bcd->bcv", g.J, w.rw)
             H = (H + Jf.mT @ (w.wrow.flatten(1, 2)[..., None] * Jf)
                  + Au.mT @ Au - Bw.mT @ Bw)
-        dx = -linalg_tpu.psd_solve(H, grad)
+        dx = -linalg_tpu.solve(H, grad)
 
         v = _matvec(simple.J, dx)
         vs = [_matvec(g.J, dx) for g in cones]
@@ -401,8 +430,29 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None) -> Data:
     for g, u in zip(cones, us_of(x)):
         f_c = _cone_forces(g, u, False)[0]
         qfrc = qfrc + _tmatvec(g.J, f_c)
-        f_flat[:, g.idx] = f_c
+        _put_rows(f_flat, g.idx, f_c)     # a dropped slot's rows stay 0
     if trips is not None:
         trips.append((taken, ran, syncs))
+    if stats is not None:
+        stats.update(iterations=taken,
+                     grad_norm=torch.linalg.vector_norm(_matvec(M, x - a_s) - qfrc, dim=-1),
+                     cost=cost_at(x))
     return d.replace(qacc=x, qfrc_constraint=qfrc, efc_force_contact=f_flat,
                      qacc_warmstart=x)
+
+
+def solve_stats(m: Model, d: Data) -> dict:
+    """A diagnostic re-solve of d's constraint problem by the general Newton
+    (the JAX package's `solve_stats`): each env's Newton trips, final
+    gradient norm and cost, as numpy arrays (B,); zeros without
+    constraints. Not part of the step."""
+    from mujoco_ros_pkgs_tpu_torch.ops import constraint, efc as efc_mod
+
+    B = d.qpos.shape[0]
+    e = efc_mod.make_efc(m, d) if constraint._has_constraints(m) else None
+    if e is None:
+        return {"iterations": np.zeros(B, np.int64), "grad_norm": np.zeros(B),
+                "cost": np.zeros(B)}
+    out: dict = {}
+    newton(m, d, e, stats=out)
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -260,9 +260,16 @@ MAX_ROWS = 64
 
 
 def supports(efc, nv: int) -> bool:
-    """The JAX package's gate: condim 1/3/4/6 cones, 1..64 rows, nv <= 16."""
-    return (all(dim in (1, 3, 4, 6) for dim in efc.con_dim)
-            and 1 <= len(efc.kinds) <= MAX_ROWS and nv <= MAX_NV)
+    """The JAX package's gate: condim 1/3/4/6 cones, 1..64 rows, nv <= 16,
+    the rows counted in the canonical layout (a con_topk compaction changes
+    no route)."""
+    return supports_rows(efc.kinds, efc.con_dim, nv)
+
+
+def supports_rows(kinds, con_dim, nv: int) -> bool:
+    """`supports` from a row layout's kinds and elliptic condims."""
+    return (all(dim in (1, 3, 4, 6) for dim in con_dim)
+            and 1 <= len(kinds) <= MAX_ROWS and nv <= MAX_NV)
 
 
 def trip_counts(m):

@@ -2,7 +2,7 @@
 
 Usage:
     python -m mujoco_ros_pkgs_tpu_torch.server.launch --modelfile world.xml \
-        --nenv 4096 --num-steps 1000 [--device cpu]
+        --nenv 4096 --num-steps 1000 [--device cpu] [--pair-topk 24] [--con-topk 64]
 
 Loads the model, runs the batch unpaused until --num-steps steps are done
 (or forever with -1, until SIGINT), and prints `sim_time=` lines to stderr
@@ -28,6 +28,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="terminate after N steps (-1 = run until SIGINT)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the batch: cuda (the default) or cpu")
+    ap.add_argument("--pair-topk", type=int, default=0,
+                    help="broadphase compaction: narrowphase only the K most-"
+                         "overlapping pairs of a large pair group (0 = off)")
+    ap.add_argument("--con-topk", type=int, default=0,
+                    help="active-contact compaction: the solver takes only the "
+                         "K deepest contact slots of a cone group (0 = off)")
     return ap
 
 
@@ -36,7 +42,8 @@ def main(argv=None) -> int:
     from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 
     srv = MujocoServer(args.modelfile, nenv=args.nenv, device=args.device,
-                       unpause=True, num_steps=args.num_steps)
+                       unpause=True, num_steps=args.num_steps,
+                       pair_topk=args.pair_topk, con_topk=args.con_topk)
     stop = {"flag": False}
 
     def sigint(_sig, _frm):

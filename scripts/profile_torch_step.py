@@ -1,7 +1,11 @@
 """Where the torch port's step time goes on the card.
 
     python scripts/profile_torch_step.py [--world PENDULUM] [--nenv 4096]
-        [--steps 32]
+        [--steps 32] [--con-topk K] [--pair-topk K] [--ls-iterations N]
+
+BASELINE config 5's PILE: `--world PILE --nenv 512 --con-topk 64
+--ls-iterations 8` (and `--pair-topk 24` for its broadphase cell); its
+humanoid bench: `--world HUMANOID --nenv 1024 --con-topk 48`.
 
 `--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE,
 SENSORS, ARM7) or models/humanoid.py (HUMANOID). SENSORS is served with a
@@ -11,7 +15,9 @@ as BASELINE config 3 runs it; ARM7 as BASELINE config 4 runs it
 MocapPlugin and a RosControlPlugin (POSITION_PID on j4-j6), the target
 0.59 m from the end effector, as chip_smoke.py's phase 20 serves it.
 
-Steps `MujocoServer(world, nenv)` (on the card) through WARMUP steps,
+Steps `MujocoServer(world, nenv, pair_topk=..., con_topk=...)` (on the
+card; --ls-iterations replaces the model's line-search iterations) through
+WARMUP steps,
 times `steps` more without the profiler (wall clock to a synchronize), then
 the same number under torch.profiler, and prints:
 
@@ -22,6 +28,8 @@ the same number under torch.profiler, and prints:
 - host time per step of each stage of the general path (smooth position,
   collision, the three sensor stages, the velocity stage's com_vel,
   passive and rne, actuation, smooth acceleration, efc rows, solve, Euler,
+  inside them the broadphase's top-k (`_topk_pairs`) and the active-contact
+  top-k (`_deepest`),
   the sensors plugin's last stage, the mocap and ros_control plugins'
   control hooks; record_function ranges wrapped around the stage functions by this script,
   not by the port);
@@ -47,17 +55,22 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mujoco_ros_pkgs_tpu_torch.models import humanoid, worlds  # noqa: E402
-from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, sensor, smooth, solver  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, narrowphase, sensor  # noqa: E402
+from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
+_THREADS = torch.get_num_threads()
 from tests.torch_problems import ARM7_CTRL, SENSORS_NOISE  # noqa: E402
+
+torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
 WARMUP = 64
 STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
+          (narrowphase, "_topk_pairs"), (efc, "_deepest"),
           (sensor, "sensor_pos"), (smooth, "com_vel"), (smooth, "passive"),
           (smooth, "rne"),
           (sensor, "sensor_vel"), (smooth, "actuation"),
@@ -117,6 +130,12 @@ def main(argv=None) -> int:
                     help="a name in models/worlds.py or models/humanoid.py")
     ap.add_argument("--nenv", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--con-topk", type=int, default=0,
+                    help="active-contact compaction capacity (0 = off)")
+    ap.add_argument("--pair-topk", type=int, default=0,
+                    help="broadphase compaction capacity (0 = off)")
+    ap.add_argument("--ls-iterations", type=int, default=0,
+                    help="the model's line-search iterations (0 = the model's own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: a CUDA card is required")
@@ -135,7 +154,10 @@ def main(argv=None) -> int:
                    j: {"method": "POSITION_PID", "pid": [20.0, 1.0, 0.5, 5.0],
                        "effort_limit": 20.0} for j in ("j4", "j5", "j6")}})]}
     srv = MujocoServer(xml, nenv=args.nenv, unpause=False,
-                       plugins=plugins.get(args.world, ()))
+                       plugins=plugins.get(args.world, ()),
+                       pair_topk=args.pair_topk, con_topk=args.con_topk)
+    if args.ls_iterations:
+        srv.m.opt.ls_iterations = args.ls_iterations
     if args.world == "SENSORS":
         assert srv.register_noise_models(list(SENSORS_NOISE)).success
     if args.world == "ARM7":
@@ -178,7 +200,9 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     dev_total = sum(v[0] for v in kernels.values())
 
-    print(f"[profile] {args.world} nenv={args.nenv} ({card}): wall {wall:.4f} ms/step "
+    print(f"[profile] {args.world} nenv={args.nenv} pair_topk={args.pair_topk} "
+          f"con_topk={args.con_topk} ls_iterations={srv.m.opt.ls_iterations} ({card}): "
+          f"wall {wall:.4f} ms/step "
           f"without the profiler, {wall_prof:.4f} ms/step under it; device busy "
           f"share {share:.4f}; device time {dev_total:.4f} ms/step in "
           f"{sum(v[1] for v in kernels.values()):.1f} kernels and copies per step")
@@ -194,6 +218,8 @@ def main(argv=None) -> int:
     for name, cnt in sorted(runtime.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   runtime {name}: {cnt:.1f} calls/step")
     print(json.dumps({"world": args.world, "nenv": args.nenv, "card": card,
+                      "pair_topk": args.pair_topk, "con_topk": args.con_topk,
+                      "ls_iterations": srv.m.opt.ls_iterations,
                       "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
                       "device_busy_share": share, "device_ms_per_step": dev_total,
                       "host_stage_ms_per_step": host}))

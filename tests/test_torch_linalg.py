@@ -69,3 +69,27 @@ def test_psd_solve_float64_and_shapes():
                                rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="shapes"):
         linalg_tpu.psd_solve(torch.from_numpy(H), torch.from_numpy(g[:, :5]))
+
+
+def k1_against_jax(path="chip_smoke_out/k1_c7_envs.npz"):
+    """The JAX package's kernel (interpret mode, float32) on the envs
+    chip_smoke.py's C7 phase saved (H, g, float64's x, K1's, the plain
+    version's), each against float64 in units of 1e-5 + 1e-4 |x64|: the
+    worst env of K1, of the plain version and of the JAX kernel per solve
+    (ROADMAP C7: only a K1 farther from float64 than the JAX kernel is a
+    fault)."""
+    z = np.load(path)
+    for key in sorted({k.rsplit("_", 1)[0] for k in z.files}):
+        H, g, x64, xk, xp = (z[f"{key}_{s}"] for s in ("H", "g", "x64", "xk", "xp"))
+        xj = np.asarray(jlinalg_tpu._solve_batched(jnp.asarray(H), jnp.asarray(g), H.shape[-1]))
+        unit = 1e-5 + 1e-4 * np.abs(x64)
+        worst = [float((np.abs(x.astype(np.float64) - x64) / unit).max()) for x in (xk, xp, xj)]
+        print(f"{key} (n {H.shape[-1]}, {len(H)} envs): worst env against float64, K1 "
+              f"{worst[0]:.3f}, plain {worst[1]:.3f}, JAX kernel {worst[2]:.3f}")
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+    os.environ["MRP_PALLAS_LINALG"] = "1"
+    k1_against_jax(*sys.argv[1:])

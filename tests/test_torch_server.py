@@ -2,8 +2,10 @@
 
 Step action semantics (rejected while running, chunked), pause, reset,
 gravity edits that reach the step with no rebuild, reload with rollback,
-body state, the general path (PENDULUM) behind the server. Plus: the port
-and its server import no JAX, and the entry points default to the card.
+body state, the general path (PENDULUM) behind the server,
+get_solver_stats of a PILE server with both contact compactions. Plus: the
+port and its server import no JAX, and the entry points default to the
+card.
 """
 
 import inspect
@@ -12,10 +14,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from mujoco_ros_pkgs_tpu_torch.server import launch
+from tests.torch_problems import pile_heap
 
 NENV = 4
 
@@ -114,6 +118,7 @@ def test_port_imports_no_jax():
             "mujoco_ros_pkgs_tpu_torch.ops.linalg_tpu, "
             "mujoco_ros_pkgs_tpu_torch.ops.solver, mujoco_ros_pkgs_tpu_torch.ops.efc, "
             "mujoco_ros_pkgs_tpu_torch.ops.narrowphase, "
+            "mujoco_ros_pkgs_tpu_torch.ops.broadphase, "
             "mujoco_ros_pkgs_tpu_torch.ops.collision, "
             "mujoco_ros_pkgs_tpu_torch.ops.constraint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -122,3 +127,27 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_get_solver_stats_on_a_cpu_server():
+    """get_solver_stats of one env of a PILE server with both compactions:
+    the contact counts and forces of that env, a re-solve's Newton trips,
+    gradient norm and cost (equal to ops/solver.newton's on the same env),
+    and no broadphase overflow; reload keeps the server's capacities."""
+    srv = MujocoServer(worlds.PILE, nenv=2, device="cpu", pair_topk=24, con_topk=64)
+    qpos, qvel = pile_heap(srv.m, 2, seed=3)
+    srv.d = srv.d.replace(qpos=torch.from_numpy(qpos).float(),
+                          qvel=torch.from_numpy(qvel).float())
+    assert srv.step(2).success
+    st = srv.get_solver_stats(1)
+    d1 = srv._env_slice(1)
+    assert st["ncon_capacity"] == 219 and st["nefc"] == 657
+    assert st["ncon_active"] == int((d1.contact.dist < d1.contact.includemargin).sum()) > 0
+    assert st["broadphase_overflow"] == 0
+    assert st["solver_iterations_limit"] == 12
+    assert 1 <= st["solver_iterations_realized"] <= 12
+    assert np.isfinite(st["solver_cost"]) and st["solver_grad_norm"] >= 0
+    assert st["efc_force_max"] == float(srv.d.efc_force_contact[1].abs().max())
+    assert srv.reload().success
+    assert (srv.m.pair_topk, srv.m.con_topk) == (24, 64)
+    assert srv.d.contact.dyn_pair.shape == (2, 168, 2)

@@ -1,9 +1,16 @@
 """Seeded float32 Newton problems, fused-step worlds and general-route
 states for holding the port's kernels, their plain versions and the JAX
-package against each other (the tests and chip_smoke.py). Imports no JAX."""
+package against each other (the tests and chip_smoke.py). Imports no JAX.
+
+Importing it caps torch's intra-op threads at TORCH_THREADS for a test
+process (the suite runs several workers on one machine, each of which
+would otherwise start a thread per core); chip_smoke.py sets its own."""
 
 import numpy as np
 import torch
+
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
 
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.msgs import SensorNoiseModel
@@ -292,3 +299,47 @@ def arm7_states(m, nenv: int, seed: int):
     eq_active = np.ones((nenv, 1), dtype=bool)
     eq_active[0] = False
     return qpos, qvel, ctrl, mocap_pos, mocap_quat, eq_active
+
+
+# PILE's free bodies (models/worlds.PILE), cycled: geom type and size
+_PILE_GEOMS = (("box", "0.05 0.045 0.04"), ("sphere", "0.05"),
+               ("capsule", "0.04 0.05"), ("box", "0.055 0.05 0.035"),
+               ("sphere", "0.045"), ("capsule", "0.035 0.06"),
+               ("box", "0.05 0.04 0.05"), ("sphere", "0.055"),
+               ("box", "0.045 0.05 0.045"), ("capsule", "0.045 0.045"),
+               ("sphere", "0.04"), ("box", "0.04 0.055 0.05"))
+
+
+def pile_of(nbody: int) -> str:
+    """PILE's bin holding nbody of its bodies (nv = 6 nbody), PILE's stack
+    continued: body i over the i % 12-th place of its 4 x 3 grid, 0.12 +
+    0.11 i m up. pile_of(12) is PILE itself."""
+    bodies = "\n".join(
+        f"""    <body name="pb{i}" pos="{0.22*(i%4)-0.33:.2f} {0.22*((i%12)//4)-0.22:.2f} {0.12+0.11*i:.2f}">
+      <freejoint/>
+      <geom name="pg{i}" type="{t}" size="{s}" mass="0.3"
+            friction="0.8 0.005 0.0001"/>
+    </body>""" for i, (t, s) in ((i, _PILE_GEOMS[i % 12]) for i in range(nbody)))
+    head, tail = worlds.PILE.split("  </worldbody>")
+    return head[:head.index('    <body name="pb0"')] + bodies + "\n  </worldbody>" + tail
+
+
+# 17 of PILE's bodies: nv 102, past K1's n = 96 (the library Cholesky's route)
+PILE17 = pile_of(17)
+
+
+def pile_heap(m, nenv: int, seed: int):
+    """Seeded float64 heaps in a PILE-like bin for the port's compiled model
+    `m` (qpos (nenv, nq), qvel (nenv, nv)): each body over its place in the
+    model's 4 x 3 grid drawn 0.45 of the way to the centre (0.1 m apart),
+    shifted sideways by up to 2 cm, alternately 4 and 9 cm over the floor
+    (a body past the twelfth 10 cm above the one it shares a place with),
+    with velocities of 0.2 m/s scale: bodies in the floor and in each other
+    (on PILE 18-22 active slots an env, 5-10 of them between bodies)."""
+    rng = np.random.default_rng(seed)
+    nb = m.nq // 7
+    qpos = np.tile(m.qpos0.cpu().double().numpy(), (nenv, 1)).reshape(nenv, nb, 7)
+    qpos[..., :2] *= 0.45
+    qpos[..., :2] += 0.02 * rng.uniform(-1, 1, (nenv, nb, 2))
+    qpos[..., 2] = 0.04 + 0.05 * (np.arange(nb) % 2) + 0.1 * (np.arange(nb) // 12)
+    return qpos.reshape(nenv, 7 * nb), 0.2 * rng.normal(size=(nenv, 6 * nb))
