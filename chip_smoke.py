@@ -155,16 +155,38 @@ Phases (any failure raises; the exit code is then not 0):
      (nv 102) at 256 seeded heaps settled WIDE_SETTLE steps: every solve the
      library Cholesky's, K1 0, one float32 step against float64, psd_solve
      refusing n = 102;
- 27. ROADMAP C7: K1 against float64 on every solve of one step of
-     HUMANOID's and ARM7's seeded states over C7_SEEDS: K1's worst env and
-     its ratio to plain's, printed with the largest; the solves past
-     WORST_FACTOR saved to chip_smoke_out/k1_c7_envs.npz for the JAX
-     kernel (`python -m tests.test_torch_linalg`, on the CPU).
+ 27. ROADMAP C7 and C7b: K1 against float64 on every solve of one step of
+     HUMANOID's (the block kernel), ARM7's, SENSORS's and PENDULUM's (the
+     row kernel) seeded states over C7_SEEDS: K1's worst env and its ratio
+     to plain's, printed with the largest, which must be within
+     WORST_FACTOR; the solves past it, and each world and seed's solve
+     that K1 misses most (beyond one unit), saved to
+     chip_smoke_out/k1_c7_envs.npz first for the JAX kernel (`python -m
+     tests.test_torch_linalg`, on the CPU).
+ 28. the server's control plane: (a) ARM7 at ARM7_NENV envs from the CLI
+     (`python -m mujoco_ros_pkgs_tpu_torch.server.launch`) with a --config
+     of phase 20's mocap and ros_control plugins and control noise, for
+     CLI_STEPS steps: exit 0, sim_time lines that advance to CLI_STEPS dt;
+     (b) phase 20's server on the physics-loop thread, unbound for
+     LOOP_SECONDS beside a thread calling set_mocap_state, set_ctrl,
+     get_body_state and get_solver_stats (no error, finite, K1 2 + the
+     batch's trips a step; env-steps/s), then paced at half its slowdown
+     (measured within 10%), then paused and a Step action of 200 steps
+     preempted after its first feedback (success False, whole chunks);
+     (c) BOXES at 4096 envs on K3: after each model edit (options,
+     friction and size, mass) one server step against the edited model's
+     plain step at phase 3's tolerances with one more K3 launch, a
+     pyramidal cone on the general route, a wrench on the general route
+     (delta qvel = F / m dt at phase 8's tolerances) and K3 again once
+     cleared; (d) a checkpoint of phase 20's server with control noise:
+     the resumed CKPT_STEPS steps against the first, bit for bit or at
+     phase 8's qpos tolerance, the largest difference printed.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
 `humanoid`, `sensors` and `arm7` objects and K2's `sensors` object: their
-runs on those worlds' main paths), then the card line, then {"ok": true, "device":
+runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
+and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
 (group_width, psd_width) forced.
@@ -178,6 +200,8 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -219,11 +243,11 @@ PILE_STEPS = 300
 # the server's steps (phase 14)
 HUMANOID_NENV = 1024
 HUMANOID_SETTLE = 80
-HUMANOID_STEPS = 200
+HUMANOID_STEPS = 150
 # SENSORS (BASELINE config 3, which bench.py:160-189 runs at NENV // 2 envs
 # with tests/torch_problems.SENSORS_NOISE) and its server's steps (phase 17)
 SENSORS_NENV = 2048
-SENSORS_STEPS = 500
+SENSORS_STEPS = 300
 # ARM7 (BASELINE config 4, which bench.py:192-206 runs at NENV // 2 envs with
 # the weld on) and its server's steps (phase 20)
 ARM7_NENV = 2048
@@ -237,11 +261,16 @@ PILE_NENV = 512
 # the nv = 102 world's batch and the steps that settle its heaps (phase 26)
 WIDE_NENV = 256
 WIDE_SETTLE = 60
-COMPACT_STEPS = 200
+COMPACT_STEPS = 150
 SETTLE_STEPS = 150
 HUMANOID_CON_TOPK = 48
 # the seeds of ROADMAP C7's K1 float64 margins (phase 27)
 C7_SEEDS = (1, 2, 3, 4, 6)
+# the server's control plane (phase 28): the CLI's steps, the physics loop's
+# seconds unbound and paced, a checkpoint's continuation
+CLI_STEPS = 300
+LOOP_SECONDS = 10
+CKPT_STEPS = 50
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 and float64
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -661,12 +690,10 @@ def k1_bound(nenv, n):
     read and x written once, n (n + 1) / 2 + 2 n floats per env; n^3 / 3 + 2
     n^2 float32 operations per env (the factorisation's n^3 / 6
     multiply-adds and the substitutions' n^2, a multiply-add counting 2),
-    and above n = 16 the refinement step's second pair of substitutions (2
-    n^2 more) and its float64 residual (2 n^2 float64 operations, at the
-    card's float64 peak outside the tensor cores)."""
-    f32, f64 = n ** 3 / 3 + 2 * n * n, 0.0
-    if n > linalg_tpu.REFINE_ABOVE:
-        f32, f64 = f32 + 2 * n * n, 2 * n * n
+    the refinement step's second pair of substitutions (2 n^2 more) and its
+    float64 residual (2 n^2 float64 operations, at the card's float64 peak
+    outside the tensor cores)."""
+    f32, f64 = n ** 3 / 3 + 4 * n * n, 2 * n * n
     return bound(nenv * (n * (n + 1) // 2 + 2 * n) * 4,
                  nenv * (f32 + f64 * F32_FLOPS / F64_FLOPS))
 
@@ -2175,27 +2202,35 @@ def wide_world(card):
 
 
 def c7_margins(card):
-    """ROADMAP C7: K1 against float64 on every solve of one step (the mass
-    matrix, the Newton Hessians, Euler's damping solve) of HUMANOID's (n =
-    27, the block kernel) and ARM7's (n = 7, the row kernel) seeded states
-    over C7_SEEDS (HUMANOID's root dropped 0.12 m, its feet on the floor),
-    in units of 1e-5 + 1e-4 |x64|: per solve K1's worst env and its ratio to
-    the plain version's (0 where K1 is within one unit), printed, with the
-    largest. The solves past WORST_FACTOR keep their SAVED_TOP worst envs
-    of K1 and of plain in chip_smoke_out/k1_c7_envs.npz (`python -m
-    tests.test_torch_linalg` runs the JAX package's kernel on them).
-    Returns the largest ratio."""
+    """ROADMAP C7 and C7b: K1 against float64 on every solve of one step
+    (the mass matrix, the Newton Hessians, Euler's damping solve) of
+    HUMANOID's (n = 27, the block kernel), ARM7's (n = 7), SENSORS's (n = 7)
+    and PENDULUM's (n = 11, the row kernel) seeded states over C7_SEEDS
+    (HUMANOID's root dropped 0.12 m, its feet on the floor), in units of
+    1e-5 + 1e-4 |x64|: per solve K1's worst env and its ratio to the plain
+    version's (0 where K1 is within one unit), printed, with the largest.
+    The solves past WORST_FACTOR, and each world and seed's solve that K1
+    misses most (beyond one unit), keep their SAVED_TOP worst envs of K1
+    and of plain in chip_smoke_out/k1_c7_envs.npz (`python -m
+    tests.test_torch_linalg` runs the JAX package's kernel on them); then
+    the largest ratio must be within WORST_FACTOR. Returns it."""
     mh = mjcf.load_model_from_string(HUMANOID, dtype=torch.float32).to("cuda")
     mh64 = mjcf.load_model_from_string(HUMANOID)
     ma = mjcf.load_model_from_string(worlds.ARM7, dtype=torch.float32).to("cuda")
+    ms = mjcf.load_model_from_string(worlds.SENSORS, dtype=torch.float32).to("cuda")
+    mp = mjcf.load_model_from_string(worlds.PENDULUM, dtype=torch.float32).to("cuda")
     worst, saved = (0.0, ""), {}
     for seed in C7_SEEDS:
         qpos, qvel, ctrl = (torch.from_numpy(a.astype(np.float32)).cuda()
                             for a in humanoid_states(mh64, HUMANOID_NENV, seed, drop=0.12))
         dh = fwd.make_data(mh, HUMANOID_NENV).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
-        for world, m, d in (("HUMANOID", mh, dh), ("ARM7", ma, arm7_data(ma, ARM7_NENV, seed))):
+        qp, vp = pendulum_states(NENV, seed)
+        for world, m, d in (("HUMANOID", mh, dh), ("ARM7", ma, arm7_data(ma, ARM7_NENV, seed)),
+                            ("SENSORS", ms, sensors_data(ms, SENSORS_NENV, seed)),
+                            ("PENDULUM", mp, fwd.make_data(mp, NENV).replace(qpos=qp,
+                                                                            qvel=vp))):
             seen = captured_solves(m, d, fwd.make_plan(m))
-            ratios, worsts = [], []
+            ratios, worsts, most = [], [], (1.0, {})
             for k, (H, g) in enumerate(seen):
                 x = linalg_tpu.psd_solve(H, g)
                 ref = linalg_tpu.psd_solve_plain(H, g)
@@ -2207,12 +2242,16 @@ def c7_margins(card):
                 r = r if float(e_k.max()) > 1.0 else 0.0
                 ratios.append(r)
                 worsts.append(float(e_k.max()))
-                if r > WORST_FACTOR:
+                if r > WORST_FACTOR or worsts[-1] > most[0]:
                     top = torch.unique(torch.cat([e_k.topk(SAVED_TOP).indices,
                                                   e_p.topk(SAVED_TOP).indices]))
-                    key = f"{world}_{seed}_{k}"
-                    for name, t in (("H", H), ("g", g), ("x64", x64), ("xk", x), ("xp", ref)):
-                        saved[f"{key}_{name}"] = t[top].cpu().numpy()
+                    envs = {f"{world}_{seed}_{k}_{name}": t[top].cpu().numpy() for name, t in
+                            (("H", H), ("g", g), ("x64", x64), ("xk", x), ("xp", ref))}
+                    if r > WORST_FACTOR:
+                        saved.update(envs)
+                    if worsts[-1] > most[0]:
+                        most = (worsts[-1], envs)
+            saved.update(most[1])
             r = max(ratios)
             if r > worst[0]:
                 worst = (r, f"{world} seed {seed}, solve {ratios.index(r)} of {len(seen)}")
@@ -2223,9 +2262,272 @@ def c7_margins(card):
         os.makedirs("chip_smoke_out", exist_ok=True)
         np.savez("chip_smoke_out/k1_c7_envs.npz", **saved)
     print(f"[C7] largest ratio {worst[0]:.3f} ({worst[1]}); WORST_FACTOR {WORST_FACTOR}; "
-          f"{len(saved) // 5} solves past it saved to chip_smoke_out/k1_c7_envs.npz ({card})",
+          f"{len(saved) // 5} solves (past it, and each world and seed's worst beyond one "
+          f"unit) saved to chip_smoke_out/k1_c7_envs.npz ({card})",
           flush=True)
+    assert worst[0] <= WORST_FACTOR, \
+        f"K1 against float64: {worst[0]:.3f} times plain's worst env ({worst[1]})"
     return worst[0]
+
+
+# ---------------------------------------------------------------------------
+# the server's control plane: the CLI with plugins, the physics loop, the Step
+# action, model edits on K3, checkpoints
+# ---------------------------------------------------------------------------
+
+ARM7_PID = {j: {"method": "POSITION_PID", "pid": [20.0, 1.0, 0.5, 5.0], "effort_limit": 20.0}
+            for j in ("j4", "j5", "j6")}
+
+
+def arm7_cli(card, tmp):
+    """Phase 28a: BASELINE config 4 from the CLI. ARM7's XML and a --config
+    JSON with phase 20's mocap and ros_control plugins are written to tmp,
+    and `python -m mujoco_ros_pkgs_tpu_torch.server.launch` serves ARM7 at
+    ARM7_NENV envs for CLI_STEPS steps with control noise: exit 0, sim_time
+    lines that advance, the last at CLI_STEPS * dt."""
+    xml, cfg = os.path.join(tmp, "arm7.xml"), os.path.join(tmp, "arm7_plugins.json")
+    with open(xml, "w") as f:
+        f.write(worlds.ARM7)
+    with open(cfg, "w") as f:
+        json.dump({"MujocoPlugins": [{"type": "mocap"},
+                                     {"type": "ros_control", "joints": ARM7_PID}]}, f)
+    cmd = [sys.executable, "-m", "mujoco_ros_pkgs_tpu_torch.server.launch", "--modelfile", xml,
+           "--nenv", str(ARM7_NENV), "--config", cfg, "--num-steps", str(CLI_STEPS),
+           "--ctrl-noise-std", "0.05", "--ctrl-noise-rate", "0.1", "--verbose"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    times = [float(x) for x in re.findall(r"sim_time=([0-9.]+)s", proc.stderr)]
+    assert proc.returncode == 0, f"launch exited {proc.returncode}: {proc.stderr[-2000:]}"
+    assert "plugins=2" in proc.stderr, proc.stderr[-2000:]
+    assert len(times) >= 2 and times == sorted(times) and times[0] < times[-1], times
+    assert abs(times[-1] - CLI_STEPS * 0.002) < 1e-3, times[-1]
+    print(f"[28a CLI] launch --nenv {ARM7_NENV} --config (mocap, ros_control) --num-steps "
+          f"{CLI_STEPS} --ctrl-noise-std 0.05 --ctrl-noise-rate 0.1: exit 0 in {wall:.1f}s "
+          f"(process start, build check, compile and steps), {len(times)} sim_time lines "
+          f"{times[0]:.3f} .. {times[-1]:.3f} s ({card})", flush=True)
+    return wall
+
+
+def arm7_served(**kw):
+    """Phase 20's server: ARM7 at ARM7_NENV envs with the mocap and
+    ros_control plugins (POSITION_PID on j4-j6, commands set), the weld on,
+    bench_config4's ctrl."""
+    rc = RosControlPlugin({"joints": ARM7_PID})
+    srv = MujocoServer(worlds.ARM7, nenv=ARM7_NENV, plugins=[MocapPlugin(), rc], **kw)
+    p = srv.get_eq_constraint_parameters("ee_target")
+    p.active, p.anchor = True, np.array([0.0, 0.0, 0.1])
+    p.relpose = Pose(np.zeros(3), np.array([1.0, 0, 0, 0]))
+    assert srv.set_eq_constraint_parameters(p).success
+    assert srv.set_ctrl(np.array(ARM7_CTRL)).success
+    i, _ = srv._plugin_of(RosControlPlugin)
+    with srv._lock:
+        srv.pstates = tuple(rc.set_commands(ps, [0.2, -0.3, 0.1]) if k == i else ps
+                            for k, ps in enumerate(srv.pstates))
+    return srv
+
+
+def arm7_loop(card):
+    """Phase 28b: phase 20's server on the physics-loop thread. Unbound, its
+    first chunk alone, then for LOOP_SECONDS (and a whole chunk) while a
+    second thread calls set_mocap_state, set_ctrl, get_body_state and
+    get_solver_stats: no error in either thread, a finite
+    batch, K1 2 + the batch's Newton trips a step; then paced at half the
+    unbound slowdown for LOOP_SECONDS (measured_slowdown within 10%); then
+    paused, a Step action of 200 steps preempted after its first feedback
+    (success False, whole chunks of 16 run). Returns the loop's numbers."""
+    from mujoco_ros_pkgs_tpu_torch.msgs import StepGoal
+    from mujoco_ros_pkgs_tpu_torch.server.server import ACTION_CHUNK, CHUNK
+    srv = arm7_served(unpause=True)
+    errors, stop = [], [False]
+
+    def services():
+        rng = np.random.default_rng(5)
+        try:
+            while not stop[0]:
+                target = Pose(np.array([0.35, 0.15, 0.85]) + 0.05 * rng.normal(size=3))
+                assert srv.set_mocap_state(MocapState(["mocap_target"], [target])).success
+                assert srv.set_ctrl(np.array(ARM7_CTRL) * rng.uniform(0.5, 1.0)).success
+                srv.get_body_state("link6", env_id=int(rng.integers(ARM7_NENV)))
+                srv.get_solver_stats(int(rng.integers(ARM7_NENV)))
+                time.sleep(0.05)
+        except Exception as exc:   # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    log, newton = [], solver.newton
+
+    def logged(m, d, e, **kw):     # get_solver_stats' diagnostic solves pass stats
+        return newton(m, d, e, **kw) if kw else newton(m, d, e, trips=log)
+
+    zero_counts()
+    t_start = srv.sim_time
+    worker = threading.Thread(target=services)
+    def chunk_after(t, timeout=300):
+        """Wait for the end of the first whole chunk after sim time t."""
+        deadline = time.monotonic() + timeout
+        while srv.sim_time < t + (CHUNK + 0.5) * 0.002:
+            assert time.monotonic() < deadline, "the loop finished no chunk"
+            time.sleep(0.05)
+
+    solver.newton = logged
+    try:
+        srv.start_physics_loop()
+        chunk_after(t_start)
+        alone = srv.measured_slowdown
+        worker.start()
+        assert srv.set_speed(-1).success        # unbound still: a new baseline
+        t_services = srv.sim_time
+        time.sleep(LOOP_SECONDS)
+        chunk_after(t_services)
+        unbound = srv.measured_slowdown
+        t_unbound = srv.sim_time
+        target = unbound / 2
+        assert srv.set_speed(target).success
+        time.sleep(LOOP_SECONDS)
+        paced = srv.measured_slowdown
+        stop[0] = True
+        worker.join(timeout=120)
+        assert not worker.is_alive(), "the service thread did not stop"
+        assert srv.set_pause(True).success
+        time.sleep(1.0)
+        t_paused = srv.sim_time
+        fb, done, first = [], [], threading.Event()
+        assert srv.step_action(StepGoal(num_steps=200),
+                               feedback_cb=lambda f: (fb.append(f.steps_left), first.set()),
+                               done_cb=lambda r: done.append(r.success))
+        assert first.wait(timeout=300), "no Step action feedback"
+        srv.preempt_step_action(timeout=300)
+        srv.stop_physics_loop(timeout=300)
+    finally:
+        solver.newton = newton
+    assert srv._physics_thread is None, "the physics loop did not stop"
+    assert errors == [] and srv.physics_error is None, (errors, srv.physics_error)
+    ran = round((t_paused - t_start) / 0.002)
+    action = round((srv.sim_time - t_paused) / 0.002)
+    assert done == [False] and action % ACTION_CHUNK == 0 and 0 < action < 200, (done, action)
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc, d.ctrl))
+    trips = sum(r for _, r, _ in log)
+    k1 = kernels.psd_solve.launches
+    assert len(log) >= ran + action and k1 >= 2 * (ran + action) + trips, (len(log), ran, k1)
+    assert (kernels.newton_solve.launches, kernels.step_fused.launches) == (0, 0)
+    assert abs(paced / target - 1) < 0.1, f"paced at {paced:.5f} for a target of {target:.5f}"
+    out = {"loop_steps": ran, "loop_k1_launches": k1, "loop_newton_solves": len(log),
+           "loop_env_steps_per_s": ARM7_NENV * unbound / 0.002,
+           "loop_alone_env_steps_per_s": ARM7_NENV * alone / 0.002,
+           "loop_unbound_slowdown": unbound, "loop_paced_target": target,
+           "loop_paced_slowdown": paced, "action_steps": action}
+    print(f"[28b loop] ARM7 x {ARM7_NENV} with both plugins on the physics-loop thread: its "
+          f"first chunk alone {out['loop_alone_env_steps_per_s']:.4g} env-steps/s (slowdown "
+          f"{alone:.5f}); then {round((t_unbound - t_services) / 0.002)} steps beside a service "
+          f"thread (set_mocap_state, set_ctrl, get_body_state, get_solver_stats at 20 Hz): "
+          f"slowdown {unbound:.5f}, {out['loop_env_steps_per_s']:.4g} env-steps/s; paced at "
+          f"{target:.5f}: "
+          f"measured {paced:.5f} ({100 * (paced / target - 1):+.1f}%); Step action of 200 "
+          f"preempted after its first feedback: success False, {action} steps (feedback "
+          f"{fb}); K1 {k1} launches over {ran + action} steps and {len(log)} Newton solves "
+          f"(the paused loop's forward passes included), K2 0, K3 0 ({card})", flush=True)
+    return out
+
+
+def boxes_edits(card):
+    """Phase 28c: BOXES at NENV envs on K3. After each edit (physics
+    options, friction and size, the body's mass) the plan is rebuilt from
+    the edited model, and one server step from seeded states equals
+    step_batched_plain of the edited model at phase 3's tolerances, with
+    one more K3 launch; a pyramidal cone moves it to the general route;
+    apply_body_wrench steps on the general route (no K3 launch) with
+    delta qvel = F / m dt at phase 8's tolerances, and after
+    clear_body_wrenches K3 launches again."""
+    from mujoco_ros_pkgs_tpu_torch.msgs import BodyState, GeomProperties
+    srv = MujocoServer(worlds.BOXES, nenv=NENV)
+    box = GeomProperties(name="box", friction_slide=0.6, friction_spin=0.01,
+                         friction_roll=0.001, size_0=0.12, size_1=0.1, size_2=0.08)
+    edits = [("options", "set_physics_properties",
+              ({"timestep": 0.001, "tolerance": 1e-6, "impratio": 3.0},), {}),
+             ("friction and size", "set_geom_properties", (box,),
+              dict(set_friction=True, set_size=True)),
+             ("mass", "set_body_state", (BodyState(name="box", mass=1.5),),
+              dict(set_pose=False, set_twist=False, set_mass=True))]
+    errs = {}
+    for k, (label, method, args, kw) in enumerate(edits):
+        params = srv._plan.params.clone()
+        assert getattr(srv, method)(*args, **kw).success, label
+        plan = srv._plan
+        assert isinstance(plan, step_tpu.Plan) and not torch.equal(plan.params, params)
+        assert torch.equal(plan.params, fwd.make_plan(srv.m).params), label
+        qpos, qvel, ws = states(NENV, seed=20 + k)
+        srv.d = srv.d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=ws)
+        want = step_tpu.step_batched_plain(srv.m, qpos, qvel, ws, plan.params, plan.idx)
+        before = kernels.step_fused.launches
+        assert srv.step(1).success
+        torch.cuda.synchronize()
+        assert kernels.step_fused.launches == before + 1, label
+        errs[label] = max(close(f"28c {label} qpos", srv.d.qpos, want[0], 1e-5, 1e-6),
+                          close(f"28c {label} qvel", srv.d.qvel, want[1], 1e-4, 1e-4),
+                          close(f"28c {label} qacc", srv.d.qacc, want[2], 1e-4, 1e-4))
+    assert srv.set_physics_properties({"cone": "pyramidal"}).success
+    assert srv._plan == fwd.GeneralPlan()
+    before = kernels.step_fused.launches
+    assert srv.step(1).success and kernels.step_fused.launches == before
+    assert srv.set_physics_properties({"cone": "elliptic"}).success
+    assert isinstance(srv._plan, step_tpu.Plan)
+    assert srv.set_gravity((0.0, 0.0, 0.0)).success
+    qpos, qvel, _ = states(NENV, seed=30)
+    qpos[:, 2] += 1.0
+    srv.d = srv.d.replace(qpos=qpos, qvel=qvel)
+    force = torch.tensor([3.0, -2.0, 1.0], device=srv.device)
+    assert srv.apply_body_wrench("box", force=tuple(force.tolist())).success
+    v0 = srv.d.qvel.clone()
+    before = (kernels.step_fused.launches, kernels.psd_solve.launches)
+    assert srv.step(1).success
+    after = (kernels.step_fused.launches, kernels.psd_solve.launches)
+    assert after[0] == before[0] and after[1] > before[1], (before, after)
+    dv = srv.d.qvel[:, :3] - v0[:, :3]
+    errs["wrench"] = close("28c wrench dv", dv, (force / 1.5 * 0.001).expand_as(dv), 1e-4,
+                           1e-4)
+    assert srv.clear_body_wrenches().success and srv.step(1).success
+    assert kernels.step_fused.launches == before[0] + 1
+    print(f"[28c edits] BOXES x {NENV} on K3: after each edit one server step against the "
+          f"edited model's plain step: " + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; cone pyramidal: general route, no K3 launch; a wrench: general route, dv = "
+          f"F / m dt; cleared: K3 again ({card})", flush=True)
+    return max(errs.values())
+
+
+def arm7_checkpoint(card, tmp):
+    """Phase 28d: a checkpoint of phase 20's server with control noise
+    (ARM7 at ARM7_NENV envs, both plugins): save, CKPT_STEPS steps, load,
+    CKPT_STEPS steps again; the two continuations are compared, bit for bit
+    where they agree so, and otherwise at phase 8's qpos tolerance (the
+    general route's scatter-adds use atomics), the largest difference
+    printed."""
+    from mujoco_ros_pkgs_tpu_torch.server import checkpoint
+    srv = arm7_served(ctrl_noise_std=0.05, ctrl_noise_rate=0.1)
+    assert srv.step(20).success
+    path = os.path.join(tmp, "arm7_ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save(srv, path)
+    t_save = time.perf_counter() - t0
+    assert srv.step(CKPT_STEPS).success
+    first = [t.clone() for t in (srv.d.qpos, srv.d.qvel, srv.d.ctrl)]
+    t0 = time.perf_counter()
+    checkpoint.load(srv, path)
+    t_load = time.perf_counter() - t0
+    assert srv.step(CKPT_STEPS).success
+    again = (srv.d.qpos, srv.d.qvel, srv.d.ctrl)
+    diffs = [float((a - b).abs().max()) for a, b in zip(first, again)]
+    exact = all(torch.equal(a, b) for a, b in zip(first, again))
+    if not exact:
+        close("28d qpos of the resumed run", again[0], first[0], 0.0, 1e-4)
+    size = os.path.getsize(path + ".bin")
+    print(f"[28d checkpoint] ARM7 x {ARM7_NENV} with plugins and control noise: save "
+          f"{t_save:.3f}s, load {t_load:.3f}s, {size} bytes; the resumed {CKPT_STEPS} steps "
+          f"against the first: max |dqpos| {diffs[0]:.3e}, |dqvel| {diffs[1]:.3e}, |dctrl| "
+          f"{diffs[2]:.3e}, {'bit for bit' if exact else 'held at qpos atol 1e-4'} ({card})",
+          flush=True)
+    return {"max_dqpos": diffs[0], "max_dqvel": diffs[1], "max_dctrl": diffs[2],
+            "bit_for_bit": exact}
 
 
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
@@ -2364,6 +2666,15 @@ def main():
     compact["c7_worst_ratio"] = c7_margins(card)
     print(f"[compaction] phases 22-27 in {time.perf_counter() - t0c:.1f}s", flush=True)
     t1.update(compact)
+
+    # phase 28: the server's control plane
+    t0s = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_wall = arm7_cli(card, tmp)
+        t1["arm7"].update(arm7_loop(card), cli_steps=CLI_STEPS, cli_wall_s=cli_wall)
+        err3 = max(err3, boxes_edits(card))
+        t1["arm7"]["checkpoint"] = arm7_checkpoint(card, tmp)
+    print(f"[server] phase 28 in {time.perf_counter() - t0s:.1f}s", flush=True)
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)

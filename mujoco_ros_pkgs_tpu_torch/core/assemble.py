@@ -9,6 +9,8 @@ of SENSOR_DIM); integer columns become static tuples.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -60,6 +62,18 @@ def collision_pair_table(geom_type, geom_contype, geom_conaffinity,
         ordered.append((g1, g2))
         ncon_max += cap
     return tuple(ordered), ncon_max
+
+
+def rebuild_pair_table(m: "types.Model") -> "types.Model":
+    """Recompute collision_pairs / ncon_max for a Model whose geom types (or
+    filter inputs) changed at run time (set_geom_properties with set_type).
+    Returns an updated Model."""
+    filterparent = not bool(m.opt.disableflags & types.DisableBit.FILTERPARENT)
+    ordered, ncon_max = collision_pair_table(
+        m.geom_type, m.geom_contype, m.geom_conaffinity, m.geom_bodyid,
+        m.body_weldid, m.body_parentid, filterparent, m.pair_exclude,
+        m.pair_explicit, m.collision_mode)
+    return dataclasses.replace(m, collision_pairs=ordered, ncon_max=ncon_max)
 
 
 def compute_simple_dofs(body_parentid, body_dofnum, body_dofadr, jnt_bodyid,

@@ -402,6 +402,9 @@ class Model:
     def joint(self, name: str) -> int:
         return self.jnt_names.index(name)
 
+    def geom(self, name: str) -> int:
+        return self.geom_names.index(name)
+
     def site(self, name: str) -> int:
         return self.site_names.index(name)
 

@@ -4,11 +4,11 @@
 //
 // Replaces mujoco_ros_pkgs_tpu/ops/linalg_tpu.py::_solve_batched (its Pallas
 // body `_kernel`): a right-looking Cholesky with the pivot clamp
-// rsqrt(max(d, 1e-30)), then forward and back substitution, fused; above
-// n = 16 the port's kernel adds one step of iterative refinement with a
-// float64 residual, which the TPU kernel does not take: float32 alone
-// leaves the general Newton's ill-conditioned Hessians as far from float64
-// as chance puts the sums (ROADMAP C7). The port
+// rsqrt(max(d, 1e-30)), then forward and back substitution, fused; the
+// port's kernel then takes one step of iterative refinement with a float64
+// residual, which the TPU kernel does not take: float32 alone leaves the
+// general Newton's ill-conditioned Hessians as far from float64 as chance
+// puts the sums (ROADMAP C7, C7b). The port
 // calls it through ops/linalg_tpu.psd_solve for the mass-matrix solve of
 // every general step (smooth.solve_m), Euler's implicit-damping solve and
 // the general Newton's step (ops/solver.newton, once per trip: PILE at
@@ -21,15 +21,18 @@
 //   psd_rows_env on a group of G lanes per env, G = 8 for n <= 8 and 16
 //   above (kernels.psd_width), 128 / G envs per block of 128 threads, one
 //   instantiation per n. Lane i owns row i in registers and the columns go
-//   by shuffles named for the whole warp (warp.cuh group_chol_solve_rows):
-//   no shared memory and no barrier.
+//   by shuffles named for the whole warp (warp.cuh group_chol_factor_rows,
+//   group_chol_substitute_rows), and the refinement's float64 residual is
+//   summed by a reduce-scatter butterfly over the group
+//   (linalg.cuh group_residual_rows): no shared memory and no barrier.
 // - 17 <= n <= 96 (PILE: n = 72): psd_block_kernel runs psd_block_env on
 //   one block of kBlockThreads = 128 threads per env (4 warps;
 //   kernels.PSD_BLOCK_THREADS). 4 warps beat 2 at every n and batch swept
 //   on the H100 (PERF.md, PR 7), so the width is fixed.
 //
 // Cost: each env reads H's lower triangle and g, n (n + 1) / 2 + n floats,
-// writes n, and does about n^3 / 6 + n^2 multiply-adds, so at the sizes of
+// writes n, and does about n^3 / 6 + 2 n^2 multiply-adds (the refinement's
+// second substitutions) and n^2 in float64 (its residual), so at the sizes of
 // the general path the bound is the bytes (n = 72, 4096 envs: 0.0136 ms;
 // the operations 0.0082 ms). What holds the kernels back is latency: n
 // dependent column steps per env, and as many envs in flight as hide it.

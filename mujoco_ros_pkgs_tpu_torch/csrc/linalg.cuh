@@ -5,10 +5,15 @@
 // 16 for n <= 16; kernels.psd_width picks it), lane i holding row i of the
 // matrix in registers. Lane i reads row i of H's lower triangle, H[i][0..i],
 // straight into h[0..i] (zeros above the diagonal and in lanes i >= n) and
-// g_i into a register; warp.cuh's group_chol_solve_rows does the rest by
-// shuffles, with no barrier: the right-looking Cholesky with the pivot clamp
-// rsqrt(max(d, 1e-30)), then forward and back substitution. Lane i writes
-// x_i, so the group's stores are consecutive. n is a template parameter (the
+// g_i into a register; warp.cuh's group_chol_factor_rows and
+// group_chol_substitute_rows do the rest by shuffles, with no barrier: the
+// right-looking Cholesky with the pivot clamp rsqrt(max(d, 1e-30)), then
+// forward and back substitution. Then one step of iterative refinement, as
+// the block body's: the residual g - H x in float64 (group_residual_rows,
+// from H's lower triangle in device memory, by a reduce-scatter butterfly
+// over the group), and the correction by the same substitutions with the
+// factor still in registers. Lane i writes x_i, so the group's stores are
+// consecutive. n is a template parameter (the
 // launch instantiates every n <= G), so the solve unrolls to exactly n
 // columns with no run-time bound checks. The shuffles name the whole warp
 // (Group::whole_warp): no group leaves early. A group past the end of the
@@ -78,9 +83,44 @@ constexpr int kBlockWarps = 4;      // warps per env of the block body
 constexpr int kBlockThreads = kBlockWarps * 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// r_i = g_i - sum_k H_ik x_k in float64, rounded to float32, by the group
+// of the row body: lane k (x_k its own, 0 for k >= n) forms the products
+// H_ik x_k from column k of H's lower triangle in device memory, and a
+// reduce-scatter butterfly sums the G columns so that lane i ends with the
+// sum of row i. Lane k keeps its partial sums in an order of its own, slot t
+// holding row t ^ k: at each level a lane keeps the first half of its slots
+// and sends the second half, which holds the rows the partner keeps, so
+// every slot index is static and no select is needed. Indices are clamped
+// to n - 1 by min and max rather than tested (a test per product holds a
+// predicate live, and past the 7 predicate registers they go to the
+// stack): a clamped row's sum belongs to a lane i >= n, which drops it.
+template <int G, int n>
+__device__ inline float group_residual_rows(const Group<G>& grp, const float* __restrict__ He,
+                                            float gi, float xk) {
+  const int kc = min(grp.lane, n - 1);
+  auto product = [&](int i) -> double {
+    const int ic = min(i, n - 1);
+    return (double)He[max(ic, kc) * n + min(ic, kc)] * xk;
+  };
+  double v[G / 2];
+#pragma unroll
+  for (int t = 0; t < G / 2; ++t)
+    v[t] = product(t ^ grp.lane) +
+           __shfl_xor_sync(grp.mask, product((t + G / 2) ^ grp.lane), G / 2);
+#pragma unroll
+  for (int half = G / 4; half > 0; half >>= 1) {
+#pragma unroll
+    for (int t = 0; t < half; ++t) v[t] += __shfl_xor_sync(grp.mask, v[t + half], half);
+  }
+  return (float)((double)gi - v[0]);
+}
+
 // One thread's part of the solve of env block * (kRowsThreads / G) +
 // thread / G. H (B, n, n), g (B, n), x (B, n), n <= G. Lanes i >= n hold
-// zeros and store nothing.
+// zeros and store nothing. After the solve, one step of iterative
+// refinement as the block body takes: x += (L L^T)^-1 (g - H x), the
+// residual in float64 (group_residual_rows), the correction solved with
+// the float32 factor still in h.
 template <int G, int n>
 __device__ inline void psd_rows_env(int block, int thread, const float* __restrict__ H,
                                     const float* __restrict__ g, float* __restrict__ x,
@@ -91,13 +131,21 @@ __device__ inline void psd_rows_env(int block, int thread, const float* __restri
   const int src = env < B ? env : B - 1;
   const int i = grp.lane;
   const bool row = i < n;
-  const float* Hi = H + ((size_t)src * n + i) * n;
+  const float* He = H + (size_t)src * n * n;
+  const float* Hi = He + (size_t)i * n;
   float h[n];
 #pragma unroll
   for (int k = 0; k < n; ++k) h[k] = row && k <= i ? Hi[k] : 0.0f;
-  const float y = group_chol_solve_rows<G, n>(grp, h, row ? g[(size_t)src * n + i] : 0.0f,
-                                              n);
-  if (row && env < B) x[(size_t)env * n + i] = y;
+  const float gi = row ? g[(size_t)src * n + i] : 0.0f;
+  group_chol_factor_rows<G, n>(grp, h, n);
+  // Lane and batch tests made after the factorisation take opaque copies of
+  // i and env: otherwise the compiler keeps the first tests' predicates
+  // live through the whole solve, and past the 7 predicate registers it
+  // spills them to the stack.
+  const float y = group_chol_substitute_rows<G, n>(grp, h, gi, n, opaque(i));
+  const float r = group_residual_rows<G, n>(grp, He, gi, y);
+  const float z = group_chol_substitute_rows<G, n>(grp, h, r, n, opaque(i));
+  if (opaque(i) < n && opaque(env) < B) x[(size_t)env * n + i] = y + z;
 }
 
 // Shared-memory layout of one env of the block body (offsets in floats).

@@ -56,6 +56,50 @@ class StepResult:
     success: bool = True
 
 
+@dataclass
+class StepGoal:
+    """mujoco_ros_msgs/action/Step goal."""
+    num_steps: int = 1
+
+
+@dataclass
+class StepFeedback:
+    steps_left: int = 0
+
+
+@dataclass
+class ScalarStamped:
+    value: float = 0.0
+    time: float = 0.0
+
+
+class GeomTypeMsg(IntEnum):
+    """mujoco_ros_msgs/GeomType constants."""
+    PLANE = 0
+    HFIELD = 1
+    SPHERE = 2
+    CAPSULE = 3
+    ELLIPSOID = 4
+    CYLINDER = 5
+    BOX = 6
+    MESH = 7
+
+
+@dataclass
+class GeomProperties:
+    """mujoco_ros_msgs/GeomProperties."""
+    name: str = ""
+    type: int = int(GeomTypeMsg.SPHERE)
+    body_mass: float = 0.0
+    friction_slide: float = 1.0
+    friction_spin: float = 0.005
+    friction_roll: float = 0.0001
+    size_0: float = 0.0
+    size_1: float = 0.0
+    size_2: float = 0.0
+    env_id: Optional[int] = None
+
+
 class EqConstraintType(IntEnum):
     """mujoco_ros_msgs/EqualityConstraintType."""
     CONNECT = 0

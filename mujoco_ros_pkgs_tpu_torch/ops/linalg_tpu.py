@@ -7,10 +7,12 @@ Counterpart of mujoco_ros_pkgs_tpu/ops/linalg_tpu.py (`_kernel`,
 batch with n <= 96 launches the hand-written kernel csrc/linalg.cu
 (kernels.psd_solve); on a CPU tensor it runs `psd_solve_plain`, the same
 right-looking Cholesky with the TPU kernel's pivot clamp, in plain torch,
-and, as the kernel does above n = 16, one step of iterative refinement
-with a float64 residual (past the TPU kernel, whose float32 answers on the
+and, as the kernel does at every n, one step of iterative refinement with
+a float64 residual (past the TPU kernel, whose float32 answers on the
 general Newton's ill-conditioned Hessians miss float64 by as much as any
-other float32 ordering of its sums: PERF.md, ROADMAP C7).
+other float32 ordering of its sums: PERF.md, ROADMAP C7, C7b).
+`chol_solve_plain` is the solve without that step, the one K2's and K3's
+bodies take inside their Newton (their plain versions call it).
 Any other CUDA input raises. `solve`, which the step calls, picks the
 route from n alone: `psd_solve` up to MAX_N, and above it `chol_solve`,
 the library Cholesky the JAX package also uses there (`_xla_solve`: no
@@ -22,10 +24,6 @@ from __future__ import annotations
 import torch
 
 MAX_N = 96
-# K1's block kernel (n > 16, kernels.psd_width) ends with one step of
-# iterative refinement; its row kernel (n <= 16), whose body K2 and K3
-# share, does not
-REFINE_ABOVE = 16
 
 def _cholesky(H: torch.Tensor) -> torch.Tensor:
     """The right-looking Cholesky of H's lower triangle: column j gets
@@ -57,21 +55,27 @@ def _substitute(L: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def chol_solve_plain(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) SPD H (lower triangle read), (B, n) g -> (B, n) x: the
+    right-looking Cholesky (_cholesky), forward and back substitution, and
+    no refinement: the Cholesky solve of K2's and K3's Newton bodies
+    (warp.cuh group_chol_solve_rows)."""
+    return _substitute(_cholesky(H), g)
+
+
 def psd_solve_plain(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """(B, n, n) SPD H (lower triangle read), (B, n) g -> (B, n) x.
 
-    K1's arithmetic in plain torch: the right-looking Cholesky (_cholesky),
-    forward and back substitution, and for n > REFINE_ABOVE one step of
+    K1's arithmetic in plain torch at every n: the right-looking Cholesky
+    (_cholesky), forward and back substitution, then one step of
     iterative refinement, x += (L L^T)^-1 (g - H x) with the residual summed
     in float64 from H's lower triangle."""
     L = _cholesky(H)
     x = _substitute(L, g)
-    if H.shape[-1] > REFINE_ABOVE:
-        low = torch.tril(H).double()
-        Hs = low + torch.tril(low, -1).mT
-        r = g.double() - (Hs @ x.double()[..., None])[..., 0]
-        x = x + _substitute(L, r.to(g.dtype))
-    return x
+    low = torch.tril(H).double()
+    Hs = low + torch.tril(low, -1).mT
+    r = g.double() - (Hs @ x.double()[..., None])[..., 0]
+    return x + _substitute(L, r.to(g.dtype))
 
 
 def psd_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ tensor `solve_batched` launches the hand-written kernel csrc/solver.cu
 `newton_tiles`. `newton_tiles` is also the plain version of the device
 functions in csrc/newton.cuh that the fused step kernel (ops/step_tpu.py,
 csrc/step_fused.cu) runs. The CPU tests hold it against the JAX kernel in
-interpret mode. Its Cholesky solve is linalg_tpu.psd_solve_plain, the
+interpret mode. Its Cholesky solve is linalg_tpu.chol_solve_plain, the
 right-looking factorisation that csrc/solver.cu runs; the JAX kernel and
 csrc/newton.cuh factor left-looking, which differs from it only in the
 rounding of an SPD system.
@@ -203,7 +203,7 @@ def newton_tiles(nv, kinds, con_base, niter, nls, warmstart, tol, J, aref, D,
         for idx, Wm in Wc.values():
             Jc = J[:, idx]                                   # (B, n, dim, nv)
             H = H + torch.einsum("bcki,bckl,bclj->bij", Jc, Wm, Jc)
-        dx = linalg_tpu.psd_solve_plain(H, -grad)
+        dx = linalg_tpu.chol_solve_plain(H, -grad)
         v_ls = (J @ dx[..., None])[..., 0]
         Mdx = Mmul(dx)
         gMd = (Mdx * xs).sum(-1)

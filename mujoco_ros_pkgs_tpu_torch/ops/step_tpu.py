@@ -308,7 +308,7 @@ class _Problem(NamedTuple):
 def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
     """Kinematics, CRB, RNE, narrowphase and contact rows of the fused step,
     op for op the JAX kernel's computation (the mass-matrix solve factors
-    right-looking, as linalg_tpu.psd_solve_plain does)."""
+    right-looking, as linalg_tpu.chol_solve_plain does)."""
     pairs, slots = _slot_table(m)
     refsafe = not m.opt.disableflags & DisableBit.REFSAFE
     nv = 6
@@ -375,7 +375,7 @@ def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
     damping = Pv("damping")
     qfrc_smooth = torch.stack([-damping[v] * qv[v] - _sv_dot(cdof[v], cfrc)
                                for v in range(nv)], -1)
-    a_s = linalg_tpu.psd_solve_plain(M, qfrc_smooth)
+    a_s = linalg_tpu.chol_solve_plain(M, qfrc_smooth)
 
     # ---- narrowphase ----
     def geom_frame(g):
@@ -449,7 +449,7 @@ def _problem(m: Model, qpos, qvel, params, idx) -> _Problem:
 def step_batched_plain(m: Model, qpos, qvel, ws, params, idx):
     """(B, 7), (B, 6), (B, 6) float32 + params -> (qpos', qvel', x_solver),
     in plain torch, op for op the computation of the JAX kernel but for the
-    order of the Cholesky factorisations (linalg_tpu.psd_solve_plain)."""
+    order of the Cholesky factorisations (linalg_tpu.chol_solve_plain)."""
     flags = m.opt.disableflags
     niter, nls = solver_tpu.trip_counts(m)
     pr = _problem(m, qpos, qvel, params, idx)
@@ -465,7 +465,7 @@ def step_batched_plain(m: Model, qpos, qvel, ws, params, idx):
         qfrc_con = (pr.J * f[..., None]).sum(-2)
         damping = params[idx["damping"][0]:idx["damping"][0] + 6]
         MhB = pr.M + torch.diag_embed(dt * damping)
-        qacc = linalg_tpu.psd_solve_plain(MhB, pr.qfrc_smooth + qfrc_con)
+        qacc = linalg_tpu.chol_solve_plain(MhB, pr.qfrc_smooth + qfrc_con)
     pos, quat = pr.pos, pr.quat
     qvel_new = qvel + dt * qacc
     qv = qvel_new.unbind(-1)

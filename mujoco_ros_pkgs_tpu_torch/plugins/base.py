@@ -62,6 +62,11 @@ class MujocoPlugin:
                    generator: torch.Generator) -> Tuple[Data, Any]:
         return d, ps
 
+    # -- host-side notifications --
+    def on_geom_changed(self, m: Model, geom_id: int) -> None:
+        """Called after set_geom_properties edited geom `geom_id` of the
+        served model m (the reference's onGeomChanged, plugin_utils.h:135)."""
+
 
 class PluginRegistry:
     """Ordered plugin set with quarantine semantics (plugin_utils.cpp:83-112).

@@ -1,1 +1,3 @@
-from mujoco_ros_pkgs_tpu_torch.server.server import MujocoServer  # noqa: F401
+from mujoco_ros_pkgs_tpu_torch.server.server import (  # noqa: F401
+    AdminHashError, LockDisciplineError, MujocoServer,
+)

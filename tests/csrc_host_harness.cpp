@@ -45,6 +45,8 @@
 #define __forceinline__ inline
 
 static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+static inline int min(int a, int b) { return a < b ? a : b; }
+static inline int max(int a, int b) { return a > b ? a : b; }
 
 namespace {
 
@@ -52,6 +54,7 @@ struct WarpSim {
   int G = 32;
   bool whole = false;             // masks name the whole warp (chol mode)
   float slot[32] = {};
+  double dslot[32] = {};
   std::vector<std::unique_ptr<std::barrier<>>> groups;   // one per group
   std::barrier<> warp{32};
 };
@@ -84,6 +87,15 @@ float __shfl_xor_sync(unsigned mask, float v, int off) {
   tl_warp->slot[tl_lane] = v;
   b.arrive_and_wait();
   const float r = tl_warp->slot[tl_lane ^ off];
+  b.arrive_and_wait();
+  return r;
+}
+
+double __shfl_xor_sync(unsigned mask, double v, int off) {
+  std::barrier<>& b = group_barrier(mask);
+  tl_warp->dslot[tl_lane] = v;
+  b.arrive_and_wait();
+  const double r = tl_warp->dslot[tl_lane ^ off];
   b.arrive_and_wait();
   return r;
 }

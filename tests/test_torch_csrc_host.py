@@ -193,30 +193,44 @@ def test_k1_block_body_matches_plain(harness, tmp_path, n):
     _k1_against_plain(harness, tmp_path, kernels.PSD_BLOCK_THREADS, n, 5, 80 + n)
 
 
-@pytest.mark.parametrize("n", [27, 72])
-def test_k1_block_body_refines_ill_conditioned(harness, tmp_path, n):
-    """K1's block body ends with one step of iterative refinement (a
-    float64 residual from H's lower triangle, the correction solved with
-    the float32 factor): on 8 seeded systems of condition 1e6 its x is
+def _k1_refines(exe, tmp_path, group, n, nenv, seed):
+    """K1's body at `group` on nenv seeded systems of condition 1e6: its x is
     within 2e-4 of float64's largest |x| (the float32 solve without the
-    step misses by more than 2e-3 on some env), and within 2e-4 of
-    psd_solve_plain, which takes the same step."""
-    rng = np.random.default_rng(200 + n)
-    Q = np.linalg.qr(rng.normal(size=(8, n, n)))[0]
+    refinement step misses by more than 2e-3 on some env), and within 2e-4
+    of psd_solve_plain, which takes the same step."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.normal(size=(nenv, n, n)))[0]
     H = ((Q * np.logspace(0, 6, n)) @ Q.transpose(0, 2, 1)).astype(np.float32)
-    g = rng.normal(size=(8, n)).astype(np.float32)
+    g = rng.normal(size=(nenv, n)).astype(np.float32)
     src, dst = tmp_path / "in", tmp_path / "out"
     with open(src, "wb") as f:
-        np.array([8, n, kernels.PSD_BLOCK_THREADS], np.int32).tofile(f)
+        np.array([nenv, n, group], np.int32).tofile(f)
         H.tofile(f)
         g.tofile(f)
-    subprocess.run([str(harness), "chol", str(src), str(dst)], check=True, timeout=60)
-    got = np.fromfile(dst, np.float32).reshape(8, n)
+    subprocess.run([str(exe), "chol", str(src), str(dst)], check=True, timeout=60)
+    got = np.fromfile(dst, np.float32).reshape(nenv, n)
     x64 = np.linalg.solve(H.astype(np.float64), g.astype(np.float64)[..., None])[..., 0]
     scale = np.abs(x64).max(-1, keepdims=True)
     H_t, g_t = torch.from_numpy(H), torch.from_numpy(g)
-    unrefined = linalg_tpu._substitute(linalg_tpu._cholesky(H_t), g_t).numpy()
+    unrefined = linalg_tpu.chol_solve_plain(H_t, g_t).numpy()
     assert (np.abs(unrefined - x64) / scale).max() > 2e-3
     assert (np.abs(got - x64) / scale).max() < 2e-4
     np.testing.assert_allclose(got, linalg_tpu.psd_solve_plain(H_t, g_t).numpy(), rtol=0,
                                atol=2e-4 * scale.max())
+
+
+@pytest.mark.parametrize("n", [27, 72])
+def test_k1_block_body_refines_ill_conditioned(harness, tmp_path, n):
+    """K1's block body ends with one step of iterative refinement (a
+    float64 residual from H's lower triangle, the correction solved with
+    the float32 factor), on 8 systems (_k1_refines)."""
+    _k1_refines(harness, tmp_path, kernels.PSD_BLOCK_THREADS, n, 8, 200 + n)
+
+
+@pytest.mark.parametrize("group,n", [(8, 7), (16, 11), (16, 16)])
+def test_k1_row_body_refines_ill_conditioned(harness, tmp_path, group, n):
+    """K1's row body takes the same step (its float64 residual summed by a
+    reduce-scatter butterfly over the group, linalg.cuh
+    group_residual_rows), on 13 systems: a partial last block, as
+    test_k1_group_body_matches_plain (_k1_refines)."""
+    _k1_refines(harness, tmp_path, group, n, 13, 300 + n)

@@ -30,14 +30,22 @@ def srv():
 
 
 def test_step_is_rejected_while_running(srv):
+    """step is rejected while the physics loop runs unpaused, and for
+    nsteps <= 0 (as the JAX server's step)."""
     assert srv.step(3).success
     assert srv.sim_time == pytest.approx(0.006, abs=1e-6)
     srv.set_pause(False)
-    assert not srv.step(1).success
-    srv.set_pause(True)
+    srv.start_physics_loop()
+    try:
+        assert not srv.step(1).success
+        srv.set_pause(True)
+    finally:
+        srv.stop_physics_loop()
+    assert srv._physics_thread is None
     assert not srv.step(0).success
+    t = srv.sim_time
     assert srv.step(70).success                    # two chunks: 64 + 6
-    assert srv.sim_time == pytest.approx(0.146, abs=1e-5)   # 73 steps
+    assert srv.sim_time - t == pytest.approx(0.140, abs=1e-5)   # 70 steps
 
 
 def test_box_falls_and_reset_restores(srv):
@@ -120,7 +128,10 @@ def test_port_imports_no_jax():
             "mujoco_ros_pkgs_tpu_torch.ops.narrowphase, "
             "mujoco_ros_pkgs_tpu_torch.ops.broadphase, "
             "mujoco_ros_pkgs_tpu_torch.ops.collision, "
-            "mujoco_ros_pkgs_tpu_torch.ops.constraint; "
+            "mujoco_ros_pkgs_tpu_torch.ops.constraint, "
+            "mujoco_ros_pkgs_tpu_torch.server.checkpoint, "
+            "mujoco_ros_pkgs_tpu_torch.server.launch, "
+            "mujoco_ros_pkgs_tpu_torch.utils.log; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mujoco_ros_pkgs_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
