@@ -180,7 +180,25 @@ Phases (any failure raises; the exit code is then not 0):
      (delta qvel = F / m dt at phase 8's tolerances) and K3 again once
      cleared; (d) a checkpoint of phase 20's server with control noise:
      the resumed CKPT_STEPS steps against the first, bit for bit or at
-     phase 8's qpos tolerance, the largest difference printed.
+     phase 8's qpos tolerance, the largest difference printed;
+ 29. K3's twelve pair primitives: (a) K3 against its plain version on
+     BOX_BIN (BASELINE config 2's free box in PILE's walled bin: plane-box
+     and four box-box pairs, 60 rows) and the five PEGS worlds
+     (tests/torch_problems) at NENV seeded envs, 1 step (qpos, qvel at
+     phase 3's tolerances; the solver's x held against the float64 plain
+     step by held_against_f64) and 5 steps (qpos atol 1e-4), and the envs
+     with an active contact of each primitive at the compared step (every
+     one of the twelve > 0); (b) MujocoServer(BOX_BIN, nenv=BIN_NENV) from
+     seeded drops steps BIN_STEPS times on K3 alone (K3 launches = steps,
+     K1 and K2 0; finite, every box in the bin), env-steps/s, then
+     BIN_GENERAL_STEPS on the general route (fwd.GeneralPlan, the route
+     BOX_BIN took before: K1 and K2), env-steps/s; (c) K3 on BOX_BIN at
+     both group widths at 4096 and 65536 envs (qpos against plain at
+     phase 3's tolerance, qvel and x against float64 by held_against_f64):
+     ms/step over 200 steps and graph_ms, the plain step's ms at 4096, the
+     bound from newton_flops at 60 rows plus the narrowphase's operations
+     (PRIM_OPS), and K3's shared memory per block and blocks per SM at 60
+     rows and 20 contacts (the card's occupancy API).
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
@@ -212,6 +230,7 @@ from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
+from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
@@ -221,11 +240,12 @@ from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 
 _THREADS = torch.get_num_threads()
-from tests.torch_problems import (ARM7_CTRL, BOXES_DAMPED, DEFAULT_FRICTION, FULL_BASE,
-                                  FULL_KINDS, MIXED_BASE, MIXED_KINDS, PENDULUM_LIMITED,
-                                  PILE17, SENSORS_NOISE, SENSORS_POS_VEL, arm7_states,
-                                  box_cluster, humanoid_states, pile_heap, random_problem,
-                                  sensors_states, solve_cost)
+from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
+                                  FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS, PEGS,
+                                  PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
+                                  arm7_states, box_bin_states, box_cluster, humanoid_states,
+                                  pegs_states, pile_heap, random_problem, sensors_states,
+                                  solve_cost)
 
 torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
@@ -271,6 +291,19 @@ C7_SEEDS = (1, 2, 3, 4, 6)
 CLI_STEPS = 300
 LOOP_SECONDS = 10
 CKPT_STEPS = 50
+# K3's pair primitives (phase 29): BOX_BIN's server batch (BASELINE config
+# 2's), its steps on K3 and on the general route
+BIN_NENV = 4096
+BIN_STEPS = 500
+BIN_GENERAL_STEPS = 20
+# operations (a multiply-add counts 2) of one pair's narrowphase, once per
+# pair, counted by hand from csrc/narrowphase.cuh (make_frame about 40),
+# and of one contact slot's rows and impedance (up to condim 3)
+PRIM_OPS = {"_plane_sphere": 55, "_plane_capsule": 80, "_plane_ellipsoid": 100,
+            "_plane_cylinder": 160, "_plane_box": 290, "_sphere_sphere": 65,
+            "_sphere_capsule": 105, "_sphere_cylinder": 130, "_sphere_box": 120,
+            "_capsule_capsule": 115, "_capsule_box": 240, "_box_box": 1400}
+SLOT_OPS = 150
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 and float64
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2530,6 +2563,216 @@ def arm7_checkpoint(card, tmp):
             "bit_for_bit": exact}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: K3's twelve pair primitives (BOX_BIN, PEGS)
+# ---------------------------------------------------------------------------
+
+def pair_states(m, label, nenv, seed):
+    """Seeded states of a phase 29 world on the card (qpos, qvel, warmstart):
+    box_bin_states or pegs_states, the warmstart 0.5 N(0, 1) as states()."""
+    qpos, qvel = (box_bin_states(nenv, seed) if label == "BIN"
+                  else pegs_states(m, nenv, seed))
+    ws = (0.5 * np.random.default_rng(seed + 1).normal(size=(nenv, 6))).astype(np.float32)
+    return tuple(torch.from_numpy(a).to("cuda") for a in (qpos, qvel, ws))
+
+
+def active_envs(m, plan, qpos, qvel):
+    """{primitive: envs with an active contact of it} at (qpos, qvel), from
+    the plain step's rows."""
+    pairs, slots = step_tpu._slot_table(m)
+    act = step_tpu._problem(m, qpos, qvel, plan.params, plan.idx).act
+    per = {}
+    for (pi, *_), (row, _) in zip(slots, step_tpu.contact_layout(m)):
+        fn = pairs[pi]["fn"]
+        per[fn] = per.get(fn, torch.zeros_like(act[:, row])) | act[:, row]
+    return {fn: int(v.sum()) for fn, v in per.items()}
+
+
+def k3_pairs_vs_plain(card):
+    """Phase 29a: K3 against its plain version on BOX_BIN and the five PEGS
+    worlds at NENV seeded envs (qpos, qvel 1 step at phase 3's tolerances,
+    x held against the float64 plain step, qpos 5 steps atol 1e-4); the
+    envs with an active contact of each primitive at the compared step,
+    every one of the twelve in some env."""
+    t0 = time.perf_counter()
+    counts, errs, held = {}, {}, {}
+    for label, xml in [("BIN", BOX_BIN)] + [(f"PEGS {t}", x) for t, x in PEGS.items()]:
+        m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+        plan = fwd.make_plan(m)
+        assert isinstance(plan, step_tpu.Plan), f"{label} does not plan the fused step"
+        q, v, w = pair_states(m, label, NENV, seed=7)
+        for fn, n in active_envs(m, plan, q, v).items():
+            counts[fn] = counts.get(fn, 0) + n
+        m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
+        plan64 = fwd.make_plan(m64)
+        x64 = step_tpu.step_batched_plain(m64, q.double(), v.double(), w.double(),
+                                          plan64.params, plan64.idx)[2]
+        kq, kv, kx = q, v, w
+        pq, pv, px = q, v, w
+        before = kernels.step_fused.launches
+        e = {}
+        for k in range(5):
+            kq, kv, kx = step_tpu.step_batched(m, kq, kv, kx, plan)
+            pq, pv, px = step_tpu.step_batched_plain(m, pq, pv, px, plan.params, plan.idx)
+            torch.cuda.synchronize()
+            if k == 0:
+                e["qpos_1"] = close(f"29a {label} qpos 1 step", kq, pq, 1e-5, 1e-6)
+                e["qvel_1"] = close(f"29a {label} qvel 1 step", kv, pv, 1e-4, 1e-4)
+                held[label] = held_against_f64(f"29a {label} x", kx, px, x64,
+                                               1e-4 + 1e-4 * x64.abs())[:4]
+        e["qpos_5"] = close(f"29a {label} qpos 5 steps", kq, pq, 0.0, 1e-4)
+        assert kernels.step_fused.launches == before + 5, "K3 launches not counted"
+        assert torch.isfinite(kq).all() and torch.isfinite(kv).all()
+        errs[label] = dict(e, x_units_worst=held[label][1], x_units_worst_plain=held[label][0])
+        print(f"[29a K3 vs plain] {label} rows={plan.rows[0]} nenv={NENV}: " + " ".join(
+            f"{k}={x:.3e}" for k, x in e.items()) + "; x against float64 worst env "
+            f"{held[label][1]:.3f}, 99th percentile {held[label][3]:.3f} (plain float32: "
+            f"{held[label][0]:.3f}, {held[label][2]:.3f}) ({card})", flush=True)
+    assert set(counts) == set(narrowphase_soa.SOA_FNS), sorted(counts)
+    print("[29a K3 vs plain] envs with an active contact at the compared step, per "
+          "primitive: " + ", ".join(f"{fn[1:]} {counts[fn]}" for fn in narrowphase_soa.SOA_FNS)
+          + f"; phase {time.perf_counter() - t0:.1f}s", flush=True)
+    assert all(n > 0 for n in counts.values()), counts
+    err = max(e[k] for e in errs.values() for k in ("qpos_1", "qvel_1", "qpos_5"))
+    return err, counts, errs
+
+
+def bin_main_path(card):
+    """Phase 29b: MujocoServer(BOX_BIN, nenv=BIN_NENV) from seeded drops
+    steps BIN_STEPS times on K3 alone, then BIN_GENERAL_STEPS on the
+    general route (the route BOX_BIN took before K3 had box-box)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    srv = MujocoServer(BOX_BIN, nenv=BIN_NENV, unpause=False)
+    assert srv.device.type == "cuda" and isinstance(srv._plan, step_tpu.Plan)
+    q, v, _ = pair_states(srv.m, "BIN", BIN_NENV, seed=8)
+    srv.d = srv.d.replace(qpos=q, qvel=v)
+    walls0 = active_envs(srv.m, srv._plan, q, v)["_box_box"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(BIN_STEPS).success
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    launches = {"step_fused": kernels.step_fused.launches,
+                "psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches}
+    assert launches == {"step_fused": BIN_STEPS, "psd_solve": 0, "newton_solve": 0}, launches
+    d = srv.d
+    assert torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()
+    xy = float(d.qpos[:, :2].abs().max())
+    z = float(d.qpos[:, 2].min())
+    assert xy < 0.53 and z > 0.09, f"a box left the bin: |x|, |y| up to {xy}, z min {z}"
+    walls1 = active_envs(srv.m, srv._plan, d.qpos, d.qvel)["_box_box"]
+    rate = BIN_NENV * BIN_STEPS / t_step
+    # the general route, for the record: the plan BOX_BIN had before this
+    # slice (a measurement only; the server plans K3)
+    srv._plan = fwd.GeneralPlan()
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(BIN_GENERAL_STEPS).success
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t1
+    gen = {"step_fused": kernels.step_fused.launches, "psd_solve": kernels.psd_solve.launches,
+           "newton_solve": kernels.newton_solve.launches}
+    assert gen["step_fused"] == 0 and gen["newton_solve"] == BIN_GENERAL_STEPS, gen
+    rate_gen = BIN_NENV * BIN_GENERAL_STEPS / t_gen
+    print(f"[29b BIN main path] server step({BIN_STEPS}) of BOX_BIN x {BIN_NENV} on K3: "
+          f"{t_step:.3f}s wall, {rate:.4g} env-steps/s; launches {launches}; envs against a "
+          f"wall {walls0} at the start, {walls1} at the end; |x|,|y| max {xy:.4f}, z min "
+          f"{z:.4f}; general route (GeneralPlan) step({BIN_GENERAL_STEPS}): {t_gen:.3f}s, "
+          f"{rate_gen:.4g} env-steps/s, launches {gen}; phase "
+          f"{time.perf_counter() - t0:.1f}s ({card})", flush=True)
+    return {"nenv": BIN_NENV, "steps": BIN_STEPS, "launches": launches["step_fused"],
+            "env_steps_per_s": rate, "general_env_steps_per_s": rate_gen,
+            "general_launches_per_step": {k: x / BIN_GENERAL_STEPS for k, x in gen.items()},
+            "envs_against_a_wall": [walls0, walls1]}
+
+
+def k3_bound(m, plan, q, v, nenv):
+    """K3's bound on these states: its bytes (qpos, qvel, warmstart in;
+    qpos, qvel, x out) and its operations (the smooth part, the
+    narrowphase by PRIM_OPS and SLOT_OPS, newton_flops at the plain
+    version's trips of every env)."""
+    pr = step_tpu._problem(m, q, v, plan.params, plan.idx)
+    trips = []
+    niter, nls = solver_tpu.trip_counts(m)
+    solver_tpu.newton_tiles(6, ("con",) * pr.J.shape[-2], pr.con_base, niter, nls, True,
+                            plan.params[plan.idx["tol"][0]], pr.J, pr.aref, pr.D,
+                            torch.zeros_like(pr.D), pr.act, pr.mu, pr.M, pr.a_s,
+                            torch.zeros_like(v), trips=trips)
+    dims = [dim for _, dim in pr.con_base]
+    pairs, slots = step_tpu._slot_table(m)
+    per_env = 3000.0 + sum(PRIM_OPS[p["fn"]] for p in pairs) + SLOT_OPS * len(slots)
+    t = trips[0]
+    counts = torch.bincount(t.long()).tolist()
+    flops = float(sum(c * newton_flops(6, pr.J.shape[-2], dims, nls, k)
+                      for k, c in enumerate(counts))) + nenv * per_env
+    return bound(nenv * 38 * 4, flops), float(t.float().mean()), int(t.max())
+
+
+def bin_timing(card):
+    """Phase 29c: K3 on BOX_BIN at both group widths at 4096 and 65536
+    envs, each width held against the plain step first (qpos at phase 3's
+    tolerance; qvel and x against the float64 plain step by
+    held_against_f64, in units of 1e-4 + 1e-4 |.|: at 65536 envs a few
+    qvel entries of K3 and plain float32 differ by up to 8e-4): ms/step
+    over 200 steps and graph_ms; the plain step at 4096; the bound; K3's
+    shared memory and blocks per SM."""
+    m = mjcf.load_model_from_string(BOX_BIN, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    per_sm = ctypes.CDLL(str(kernels.library_path("step_fused"))).step_fused_per_sm
+    per_sm.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = {"smem": {}, "blocks_per_sm": {}}
+    for g in kernels.GROUP_WIDTHS:
+        smem = ctypes.c_int(0)
+        blocks = per_sm(*plan.rows, g, ctypes.byref(smem))
+        assert blocks > 0, f"K3 occupancy at {plan.rows}, G={g}: {blocks}"
+        out["smem"][g], out["blocks_per_sm"][g] = smem.value, blocks
+        print(f"[29c BIN timing] step_fused_kernel G={g} at {plan.rows[0]} rows, "
+              f"{plan.rows[1]} contacts: {smem.value} bytes of shared memory per block, "
+              f"{blocks} blocks ({blocks * 128 // g} envs) per SM ({card})", flush=True)
+
+    def kernel(q, v, w):
+        return kernels.step_fused(plan.meta, plan.params, q, v, w, plan.rows)
+
+    def plain(q, v, w):
+        return step_tpu.step_batched_plain(m, q, v, w, plan.params, plan.idx)
+
+    m64 = mjcf.load_model_from_string(BOX_BIN, dtype=torch.float64).to("cuda")
+    plan64 = fwd.make_plan(m64)
+    for nenv in (NENV, 65536):
+        q, v, w = pair_states(m, "BIN", nenv, seed=1)
+        want = plain(q, v, w)
+        want64 = step_tpu.step_batched_plain(m64, q.double(), v.double(), w.double(),
+                                             plan64.params, plan64.idx)
+        rule = kernels.group_width(6, *plan.rows, nenv)
+        for g in kernels.GROUP_WIDTHS:
+            with forced_width(g):
+                got = kernel(q, v, w)
+                close(f"29c BIN G={g} qpos", got[0], want[0], 1e-5, 1e-6)
+                held = [held_against_f64(f"29c BIN G={g} {name}", got[i], want[i],
+                                         want64[i], 1e-4 + 1e-4 * want64[i].abs())[:2]
+                        for i, name in ((1, "qvel"), (2, "x"))]
+                out[("ms", nenv, g)] = time_steps(kernel, q, v, w, nsteps=200, warmup=20)
+                out[("graph", nenv, g)] = graph_ms(lambda: kernel(q, v, w), 100)
+            print(f"[29c BIN timing] K3 G={g}{' (rule)' if g == rule else ''} nenv={nenv}: "
+                  f"{out[('ms', nenv, g)]:.4f} ms/step, graph {out[('graph', nenv, g)]:.4f} "
+                  f"ms/call; qvel and x against float64, worst env {held[0][1]:.3f} and "
+                  f"{held[1][1]:.3f} units (plain float32 {held[0][0]:.3f} and "
+                  f"{held[1][0]:.3f}) ({card})", flush=True)
+        out[("bound", nenv)], trips_mean, trips_max = k3_bound(m, plan, q, v, nenv)
+        out[("group", nenv)] = rule
+        print(f"[29c BIN timing] nenv={nenv}: bound {out[('bound', nenv)][0]:.5f} ms "
+              f"({out[('bound', nenv)][1]}); Newton trips of the first step mean "
+              f"{trips_mean:.3f} max {trips_max}", flush=True)
+    out["plain_ms"] = time_steps(plain, *pair_states(m, "BIN", NENV, seed=1), nsteps=5,
+                                 warmup=1)
+    print(f"[29c BIN timing] plain step nenv={NENV}: {out['plain_ms']:.4f} ms/step ({card})",
+          flush=True)
+    return out
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -2676,16 +2919,37 @@ def main():
         t1["arm7"]["checkpoint"] = arm7_checkpoint(card, tmp)
     print(f"[server] phase 28 in {time.perf_counter() - t0s:.1f}s", flush=True)
 
+    # phase 29: K3's twelve pair primitives
+    t0p = time.perf_counter()
+    err_p, counts_p, errs_p = k3_pairs_vs_plain(card)
+    err3 = max(err3, err_p)
+    bin_run = bin_main_path(card)
+    tb = bin_timing(card)
+    n1, n2 = NENV, 65536
+    bin_run.update(
+        max_abs_err=max(errs_p["BIN"][k] for k in ("qpos_1", "qvel_1", "qpos_5")),
+        rows=60, contacts=20, group=tb[("group", n1)], plain_ms=tb["plain_ms"],
+        smem_bytes=tb["smem"], blocks_per_sm=tb["blocks_per_sm"],
+        **{f"ms_{n}_g{g}": tb[("ms", n, g)] for n in (n1, n2) for g in kernels.GROUP_WIDTHS},
+        **{f"graph_ms_{n}_g{g}": tb[("graph", n, g)] for n in (n1, n2)
+           for g in kernels.GROUP_WIDTHS},
+        **{f"bound_ms_{n}": tb[("bound", n)][0] for n in (n1, n2)},
+        **{f"bound_by_{n}": tb[("bound", n)][1] for n in (n1, n2)})
+    bin_run["x_units_worst"] = errs_p["BIN"]["x_units_worst"]
+    pegs = {label: e for label, e in errs_p.items() if label != "BIN"}
+    pegs["active_envs"] = counts_p
+    print(f"[29] phase 29 in {time.perf_counter() - t0p:.1f}s", flush=True)
+
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
         np.savez("chip_smoke_out/k3_x_envs.npz", **t3["saved"])
         print(f"[timing] K3 envs past the float32 budget saved to "
               f"chip_smoke_out/k3_x_envs.npz ({len(t3['saved'])} arrays)", flush=True)
     print(json.dumps({"kernels": [
-        entry("step_fused", "step_fused.cu", "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
-              launches3, err3, {"ms": t3[("kernel", NENV)], "graph_ms": t3["graph_ms"],
-                                "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]},
-              t3["group"]),
+        dict(entry("step_fused", "step_fused.cu", "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
+                   launches3, err3, {"ms": t3[("kernel", NENV)], "graph_ms": t3["graph_ms"],
+                                     "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]},
+                   t3["group"]), bin=bin_run, pegs=pegs),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)}),

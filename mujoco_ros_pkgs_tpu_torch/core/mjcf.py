@@ -8,7 +8,8 @@ two compile a model to the same numbers. Supported elements:
 - `<worldbody>` static geoms and sites and nested `<body>` with `<joint>`,
   `<freejoint>`, `<site>` and `<inertial>`; `mocap="true"` on a joint-less
   child of the world;
-- geom types plane, sphere, capsule (incl. `fromto`) and box, with mass or
+- geom types plane, sphere, capsule, ellipsoid, cylinder and box (a
+  capsule or a cylinder also by `fromto`), with mass or
   density, friction, condim, priority, solmix, solref, solimp, margin, gap,
   contype and conaffinity;
 - sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
@@ -22,8 +23,8 @@ two compile a model to the same numbers. Supported elements:
   `noise`.
 
 Anything else (cameras, other actuators and transmissions, other sensor
-types, tendons and tendon equalities, contact pairs, assets, other geom
-types, fluid shapes) raises ValueError naming the feature, rather than
+types, tendons and tendon equalities, contact pairs, assets, mesh and
+height-field geoms, fluid shapes) raises ValueError naming the feature, rather than
 being dropped silently.
 """
 
@@ -51,7 +52,8 @@ _DEFAULT_TAGS = ("joint", "geom", "site", "equality", "motor", "position", "velo
 _ACTUATORS = ("motor", "position", "velocity")
 _EQUALITIES = ("connect", "weld", "joint")
 _GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
-               "capsule": GeomType.CAPSULE, "box": GeomType.BOX}
+               "capsule": GeomType.CAPSULE, "ellipsoid": GeomType.ELLIPSOID,
+               "cylinder": GeomType.CYLINDER, "box": GeomType.BOX}
 _JOINT_TYPES = {"free": JointType.FREE, "ball": JointType.BALL,
                 "slide": JointType.SLIDE, "hinge": JointType.HINGE}
 
@@ -304,6 +306,10 @@ def _geom_volume(gtype: int, size: np.ndarray) -> float:
         return 4.0 / 3.0 * np.pi * r ** 3
     if gtype == GeomType.CAPSULE:
         return 4.0 / 3.0 * np.pi * r ** 3 + 2.0 * size[1] * np.pi * r * r
+    if gtype == GeomType.CYLINDER:
+        return 2.0 * size[1] * np.pi * r * r
+    if gtype == GeomType.ELLIPSOID:
+        return 4.0 / 3.0 * np.pi * size[0] * size[1] * size[2]
     if gtype == GeomType.BOX:
         return 8.0 * size[0] * size[1] * size[2]
     return 0.0
@@ -325,6 +331,14 @@ def _geom_inertia_diag(gtype: int, size: np.ndarray, mass: float) -> np.ndarray:
         ixy = (mc * (3 * r * r + 4 * hl * hl) / 12.0
                + ms * (0.4 * r * r + hl * hl + 0.75 * hl * r))
         return np.array([ixy, ixy, iz])
+    if gtype == GeomType.CYLINDER:
+        hl = size[1]
+        iz = 0.5 * mass * r * r
+        ixy = mass * (3 * r * r + 4 * hl * hl) / 12.0
+        return np.array([ixy, ixy, iz])
+    if gtype == GeomType.ELLIPSOID:
+        a, b, c = size
+        return mass / 5.0 * np.array([b * b + c * c, a * a + c * c, a * a + b * b])
     if gtype == GeomType.BOX:
         sx, sy, sz = size
         return mass / 3.0 * np.array([sy * sy + sz * sz, sx * sx + sz * sz,
@@ -339,6 +353,10 @@ def _geom_rbound(gtype: int, size: np.ndarray) -> float:
         return size[0]
     if gtype == GeomType.CAPSULE:
         return size[0] + size[1]
+    if gtype == GeomType.CYLINDER:
+        return float(np.sqrt(size[0] ** 2 + size[1] ** 2))
+    if gtype == GeomType.ELLIPSOID:
+        return float(np.max(size))
     return float(np.linalg.norm(size))     # box
 
 

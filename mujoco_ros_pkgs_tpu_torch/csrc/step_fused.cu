@@ -63,3 +63,27 @@ extern "C" int step_fused_launch(const void* meta, const void* params,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// Blocks of step_fused_kernel<group> one SM holds at nefc rows and ncon
+// contacts by the card's occupancy rules, with the shared memory a block
+// takes in *smem_bytes (chip_smoke.py prints both); a negative CUDA error
+// code if the query fails, -1 for shapes the launch refuses.
+extern "C" int step_fused_per_sm(int nefc, int ncon, int group, int* smem_bytes) {
+  if (nefc < 1 || nefc > mrp::solver::kMaxRows || ncon < 1 || ncon > nefc) return -1;
+  if (group != 8 && group != 16) return -1;
+  const int per_block = mrp::solver::kThreads / group;
+  const size_t smem = (size_t)per_block *
+                      mrp::solver::env_layout(mrp::NV, nefc, ncon).total * sizeof(float);
+  *smem_bytes = (int)smem;
+  const void* fn = group == 8 ? (const void*)mrp::step_fused_kernel<8>
+                              : (const void*)mrp::step_fused_kernel<16>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return -(int)e;
+  }
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, mrp::solver::kThreads, smem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}

@@ -3,7 +3,8 @@
 //
 // Replaces mujoco_ros_pkgs_tpu/ops/step_tpu.py::_make_step_kernel (the JAX
 // package's fused Pallas step): quaternion kinematics, single-body CRB and
-// RNE, static-vs-body plane narrowphase (narrowphase.cuh), contact efc rows
+// RNE, static-vs-body narrowphase by any of the twelve analytic pair
+// primitives (narrowphase.cuh), contact efc rows
 // with the solref/solimp impedance, the Newton solve and Euler with implicit
 // joint damping. Its plain-torch twin is
 // ops/step_tpu.py::step_batched_plain of the torch port.
@@ -55,13 +56,22 @@ enum { P_DT, P_GRAVITY, P_TOL, P_IMPRATIO, P_MASS, P_INERTIA, P_IPOS, P_IQUAT,
        P_INCM, P_LEN };
 enum { R_PRIM, R_PI, R_G1, R_G1BODY, R_G2, R_G2BODY, R_SIGN, R_DIM,
        PAIR_STRIDE };
-enum { PRIM_PLANE_SPHERE, PRIM_PLANE_CAPSULE, PRIM_PLANE_BOX };
+// primitive ids: the order of ops/narrowphase_soa.py SOA_FNS (PRIM_ID)
+enum { PRIM_PLANE_SPHERE, PRIM_PLANE_CAPSULE, PRIM_PLANE_ELLIPSOID, PRIM_PLANE_CYLINDER,
+       PRIM_PLANE_BOX, PRIM_SPHERE_SPHERE, PRIM_SPHERE_CAPSULE, PRIM_SPHERE_CYLINDER,
+       PRIM_SPHERE_BOX, PRIM_CAPSULE_CAPSULE, PRIM_CAPSULE_BOX, PRIM_BOX_BOX, PRIM_COUNT };
 constexpr int PAIR_BASE = H_LEN + P_LEN;
 constexpr float MINIMP = 0.0001f, MAXIMP = 0.9999f;
+// each primitive's contacts (ops/narrowphase.py _DISPATCH caps), 3 bits per
+// id in id order: 1 2 1 4 4 1 1 1 1 1 2 4
+constexpr unsigned long long kPrimCaps =
+    1ull | 2ull << 3 | 1ull << 6 | 4ull << 9 | 4ull << 12 | 1ull << 15 | 1ull << 18 |
+    1ull << 21 | 1ull << 24 | 1ull << 27 | 2ull << 30 | 4ull << 33;
 
-// contacts a pair's primitive writes (its slots)
+// contacts a pair's primitive writes (its slots); 1 for an unknown id,
+// which the dispatch then traps on
 __device__ inline int prim_cap(int prim) {
-  return prim == PRIM_PLANE_SPHERE ? 1 : (prim == PRIM_PLANE_CAPSULE ? 2 : 4);
+  return (unsigned)prim < PRIM_COUNT ? (int)((kPrimCaps >> (3 * prim)) & 7ull) : 1;
 }
 
 // Cholesky solve H x = g reading the lower triangle of H, by one thread
@@ -156,10 +166,6 @@ __device__ inline float sv_dot(const float* a, const float* b) {
 // x**p for x >= 0 as exp(p log x), the formula of the JAX kernel; 0 at 0
 __device__ inline float pow_(float x, float p) {
   return x <= 0.0f ? 0.0f : expf(p * logf(fmaxf(x, 1e-30f)));
-}
-
-__device__ inline float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
 }
 
 // stiffness k, damping b and impedance imp of one contact (efc._kbi twin)
@@ -354,12 +360,23 @@ __device__ inline void step_env(float* smem, int block, int thread,
     GeomFrame g1, g2;
     geom_frame(params, rec[R_G1], rec[R_G1BODY] != 0, pos, R, g1);
     geom_frame(params, rec[R_G2], rec[R_G2BODY] != 0, pos, R, g2);
+    const float* s1 = params + rec[R_G1];
     const float* s2 = params + rec[R_G2];
     Contact con;
     switch (rec[R_PRIM]) {
-      case PRIM_PLANE_SPHERE: plane_sphere(g1, g2, s2, k, con); break;
-      case PRIM_PLANE_CAPSULE: plane_capsule(g1, g2, s2, k, con); break;
-      default: plane_box(g1, g2, s2, k, con); break;
+      case PRIM_PLANE_SPHERE: plane_sphere(g1, g2, s1, s2, k, con); break;
+      case PRIM_PLANE_CAPSULE: plane_capsule(g1, g2, s1, s2, k, con); break;
+      case PRIM_PLANE_ELLIPSOID: plane_ellipsoid(g1, g2, s1, s2, k, con); break;
+      case PRIM_PLANE_CYLINDER: plane_cylinder(g1, g2, s1, s2, k, con); break;
+      case PRIM_PLANE_BOX: plane_box(g1, g2, s1, s2, k, con); break;
+      case PRIM_SPHERE_SPHERE: sphere_sphere(g1, g2, s1, s2, k, con); break;
+      case PRIM_SPHERE_CAPSULE: sphere_capsule(g1, g2, s1, s2, k, con); break;
+      case PRIM_SPHERE_CYLINDER: sphere_cylinder(g1, g2, s1, s2, k, con); break;
+      case PRIM_SPHERE_BOX: sphere_box(g1, g2, s1, s2, k, con); break;
+      case PRIM_CAPSULE_CAPSULE: capsule_capsule(g1, g2, s1, s2, k, con); break;
+      case PRIM_CAPSULE_BOX: capsule_box(g1, g2, s1, s2, k, con); break;
+      case PRIM_BOX_BOX: box_box(g1, g2, s1, s2, k, con); break;
+      default: __trap();   // an id kernel_meta never writes: stop the launch
     }
     const float dist = con.dist;
     const int pi = rec[R_PI];

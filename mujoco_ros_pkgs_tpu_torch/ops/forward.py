@@ -44,7 +44,6 @@ from mujoco_ros_pkgs_tpu_torch.core.types import (
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
-from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
 from mujoco_ros_pkgs_tpu_torch.ops import sensor, smooth, step_tpu
 
 # (m, d) -> d, or (m, d, hstate) -> (d, hstate) when a hook state is threaded
@@ -198,7 +197,8 @@ def _not_ported(what: str):
 
 
 def check_general(m: Model) -> None:
-    """Raise NotImplementedError for what the general route cannot step."""
+    """Raise NotImplementedError for what the general route cannot step, and
+    ValueError for a geom pair with no ported narrowphase routine."""
     if m.opt.integrator != int(IntegratorType.EULER):
         _not_ported(f"integrator {IntegratorType(m.opt.integrator).name}")
     for st in m.sensor_type:
@@ -210,10 +210,7 @@ def check_general(m: Model) -> None:
     if m.has_fluid:
         _not_ported("fluid")
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
-        for grp in narrowphase.pair_groups(m):
-            name = narrowphase._DISPATCH[grp["key"][1:3]].name
-            if name not in soa.GENERAL_FNS:
-                _not_ported(f"narrowphase routine {name}")
+        narrowphase.check_pairs(m)
     if constraint._has_constraints(m):
         efc._check_rows(m)
         if m.opt.solver != int(SolverType.NEWTON):
@@ -223,7 +220,8 @@ def check_general(m: Model) -> None:
 def make_plan(m: Model) -> Plan:
     """The route `step` takes for this model and what it needs: the fused
     route's packed params and kernel metadata, or the general route.
-    Raises NotImplementedError for a model the port cannot step."""
+    Raises NotImplementedError for a model the port cannot step (ValueError
+    for a geom pair without a ported narrowphase routine)."""
     if step_tpu.supports(m):
         return step_tpu.make_plan(m)
     check_general(m)

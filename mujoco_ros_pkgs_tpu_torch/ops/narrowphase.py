@@ -5,8 +5,11 @@ Counterpart of mujoco_ros_pkgs_tpu/ops/narrowphase.py. The slot layout
 the JAX package's, because contact rows are compared with it row by row.
 The dispatch table names every routine the JAX package has, so the pair
 table and capacities agree for any model; the routines the port implements
-live in ops/narrowphase_soa.py (GENERAL_FNS), and `collide` raises for a
-pair group whose routine is not there.
+are the twelve analytic primitives of ops/narrowphase_soa.py (SOA_FNS).
+A pair that needs another routine (MPR's `convex_pair` for a cylinder
+against a capsule, a box or a cylinder, or an ellipsoid against anything
+but a plane; meshes; height fields) raises ValueError naming the pair
+(`check_pairs`, which forward.make_plan and `collide` call).
 
 Per-pair parameter mixing mirrors mj_contactParam (priority, solmix,
 solref/solimp blending, elementwise-max friction).
@@ -60,6 +63,21 @@ for _t2, _cap in ((GeomType.SPHERE, 1), (GeomType.CAPSULE, 2),
 
 # capacity table consumed by the compiler (core/assemble.py)
 PAIR_NCON = {k: r.cap for k, r in _DISPATCH.items()}
+
+
+def check_pairs(m: Model) -> None:
+    """Raise ValueError for the first collision pair whose routine is not one
+    of the port's primitives (narrowphase_soa.SOA_FNS), naming its geoms."""
+    for g1, g2 in m.collision_pairs:
+        t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
+        name = _DISPATCH[(t1, t2)].name
+        if name not in soa.SOA_FNS:
+            names = [m.geom_names[g] if g < len(m.geom_names) and m.geom_names[g]
+                     else f"#{g}" for g in (g1, g2)]
+            raise ValueError(
+                f"geom pair '{names[0]}' ({t1.name.lower()}) / '{names[1]}' "
+                f"({t2.name.lower()}) needs the narrowphase routine {name}, "
+                "which is not ported to the torch package")
 
 
 def _pair_condim(m: Model, g1: int, g2: int) -> int:
@@ -256,9 +274,8 @@ def collide(m: Model, d: Data) -> Data:
     for grp in pair_groups(m):
         cap = grp["cap"]
         name = _DISPATCH[grp["key"][1:3]].name
-        if name not in soa.GENERAL_FNS:
-            raise NotImplementedError(f"collide: narrowphase routine {name} is not "
-                                      "ported to the torch package")
+        if name not in soa.SOA_FNS:
+            check_pairs(m)      # raises, naming the pair
         if grp["topk"]:
             i1, i2 = _topk_pairs(m, d, grp)                  # (B, K) per env
             P = grp["topk"]
@@ -277,7 +294,7 @@ def collide(m: Model, d: Data) -> Data:
             r1, r2 = d.geom_xmat[:, i1], d.geom_xmat[:, i2]
         friction5, solref, solimp, margin, gap = _contact_params_vec(
             m, i1 if grp["topk"] else grp["g1s"], i2 if grp["topk"] else grp["g2s"], dtype)
-        di, po, fr = soa.GENERAL_FNS[name](
+        di, po, fr = soa.SOA_FNS[name](
             _vec(x1), _mat(r1), tuple(m.geom_size[i1].to(dtype).unbind(-1)),
             _vec(x2), _mat(r2), tuple(m.geom_size[i2].to(dtype).unbind(-1)))
         # (B, P, cap) pair-major, as the JAX package's (P, cap) reshape

@@ -3,14 +3,14 @@
 Counterpart of mujoco_ros_pkgs_tpu/ops/narrowphase_soa.py. A vec3 is a tuple
 of three (B,) tensors, a mat3 a 3x3 nested tuple (M[i][j] row i column j).
 The primitives mirror the JAX package op for op, with the same guards, tie
-breaking and contact order. The plane primitives are the ones the fused
-step kernel has (SOA_FNS, which ops/step_tpu.supports() gates on; their
-device versions are in csrc/narrowphase.cuh). The general path
-(GENERAL_FNS, ops/narrowphase.collide) runs them and six more as plain
-torch, as they are plain jnp in the JAX package: sphere-sphere,
-sphere-capsule, sphere-box, capsule-capsule, capsule-box and box-box, which
-with the plane primitives step every pair of PILE. Ellipsoids and
-cylinders are not ported.
+breaking and contact order. SOA_FNS holds all twelve, in the JAX package's
+order: the planes against spheres, capsules, ellipsoids, cylinders and
+boxes, then sphere-sphere, sphere-capsule, sphere-cylinder, sphere-box,
+capsule-capsule, capsule-box and box-box. The general path
+(ops/narrowphase.collide) runs them as plain torch, as they are plain jnp
+in the JAX package; the fused step (ops/step_tpu) runs them here on the CPU
+and as their device versions in csrc/narrowphase.cuh on the card, where
+PRIM_ID numbers them.
 """
 
 from __future__ import annotations
@@ -124,7 +124,8 @@ def make_frame(n):
 
 # ---------------------------------------------------------------------------
 # primitives: (P1, M1, S1, P2, M2, S2) -> (dists [cap], poss [cap] vec3,
-# frames [cap] mat3 rows); geom 1 is the plane, normal from geom 1 into 2
+# frames [cap] mat3 rows); geom 1 has the lower type (a plane is always geom
+# 1), and the normal points from geom 1 into geom 2
 # ---------------------------------------------------------------------------
 
 
@@ -279,6 +280,93 @@ def _capsule_box(P1, M1, S1, P2, M2, S2):
     return dists, poss, frames
 
 
+def _plane_ellipsoid(P1, M1, S1, P2, M2, S2):
+    """The ellipsoid's support point along -n (its deepest point)."""
+    n, p0 = m_col(M1, 2), P1
+    c, R, s = P2, M2, S2
+    nl = m_tmatvec(R, n)
+    sn = (s[0] * nl[0], s[1] * nl[1], s[2] * nl[2])
+    denom = v_norm_safe(sn)
+    support_local = v_scale((s[0] * sn[0], s[1] * sn[1], s[2] * sn[2]),
+                            -1.0 / denom)
+    p = v_add(c, m_matvec(R, support_local))
+    dist = v_dot(n, v_sub(p, p0))
+    pos = v_sub(p, v_scale(n, 0.5 * dist))
+    return [dist], [pos], [make_frame(n)]
+
+
+def _plane_cylinder(P1, M1, S1, P2, M2, S2):
+    """4 contacts: a tilted cylinder's two rim points on each cap (the
+    lower cap's first); an upright one (axis within 1e-8 of n) the lower
+    cap's rim points at 0, 120 and 240 degrees about its x axis, and the
+    fourth slot inactive (dist 1e10)."""
+    n, p0 = m_col(M1, 2), P1
+    c, a = P2, m_col(M2, 2)
+    r, hl = S2[0], S2[1]
+    an = v_dot(a, n)
+    perp = v_neg(v_sub(n, v_scale(a, an)))
+    pnorm = v_norm_safe(perp)
+    degenerate = pnorm < 1e-8
+    rim = v_where(degenerate, m_col(M2, 0), v_scale(perp, 1.0 / pnorm))
+    lower = torch.where(an > 0, -1.0, 1.0).to(an.dtype)
+    frame = make_frame(n)
+
+    def cap_pts(sgn_cap):
+        center = v_add(c, v_scale(a, sgn_cap * hl))
+        return [v_add(center, v_scale(rim, r)), v_sub(center, v_scale(rim, r))]
+
+    tilt = cap_pts(lower) + cap_pts(-lower)
+    t1 = m_col(M2, 0)
+    t2 = m_col(M2, 1)
+    center = v_add(c, v_scale(a, lower * hl))
+    h32 = 0.8660254037844386
+    tri = [v_add(center, v_scale(t1, r)),
+           v_add(center, v_add(v_scale(t1, -0.5 * r), v_scale(t2, h32 * r))),
+           v_add(center, v_add(v_scale(t1, -0.5 * r), v_scale(t2, -h32 * r))),
+           center]
+    np0 = v_dot(n, p0)
+    dists, poss = [], []
+    for k in range(4):
+        pt = v_where(degenerate, tri[k], tilt[k])
+        dist = v_dot(pt, n) - np0
+        if k == 3:
+            dist = torch.where(degenerate, torch.full_like(dist, 1e10), dist)
+        dists.append(dist)
+        poss.append(v_sub(pt, v_scale(n, 0.5 * dist)))
+    return dists, poss, [frame] * 4
+
+
+def _sphere_cylinder(P1, M1, S1, P2, M2, S2):
+    """Sphere against cylinder: the closest point on the side or a cap, or
+    from inside the nearer of the two surfaces."""
+    cs, rs = P1, S1[0]
+    cc, Rc = P2, M2
+    r, hl = S2[0], S2[1]
+    local = m_tmatvec(Rc, v_sub(cs, cc))
+    rad = torch.sqrt(torch.clamp(local[0] ** 2 + local[1] ** 2, min=MINVAL * MINVAL))
+    raddir = (local[0] / rad, local[1] / rad, torch.zeros_like(rad))
+    clamped_z = torch.clamp(local[2], -hl, hl)
+    clamped_r = torch.minimum(rad, r)
+    absz = torch.abs(local[2])
+    inside = (rad < r) & (absz < hl)
+    side = (raddir[0] * r, raddir[1] * r, clamped_z)
+    cap = (raddir[0] * clamped_r, raddir[1] * clamped_r, torch.sign(local[2]) * hl)
+    use_side = rad > r
+    closest_local = v_where(
+        inside,
+        v_where(r - rad < hl - absz, side, cap),
+        v_where(use_side & (absz < hl), side,
+                v_where(absz >= hl, cap, side)))
+    closest = v_add(cc, m_matvec(Rc, closest_local))
+    dvec = v_sub(closest, cs)
+    nrm = v_norm_safe(dvec)
+    nn = v_normalize(dvec)
+    n_out = v_where(inside, v_neg(nn), nn)
+    dist = torch.where(inside, -(nrm + rs), nrm - rs)
+    pos = v_sub(closest, v_scale(n_out, 0.5 * dist))
+    return [dist], [pos], [make_frame(n_out)]
+
+
 def _box_box(P1, M1, S1, P2, M2, S2):
     """Box against box: separating-axis test over the 15 axes (3 face
     normals of each box, 9 edge crosses), 4 contacts from the reference
@@ -401,17 +489,21 @@ def _box_box(P1, M1, S1, P2, M2, S2):
     return dists, poss, [frame] * 4
 
 
-# keyed by the JAX package's routine names (ops/narrowphase._DISPATCH); the
-# index is the primitive id the fused CUDA kernel dispatches on
+# keyed by the JAX package's routine names (ops/narrowphase._DISPATCH), in
+# its order; the index is the primitive id the fused CUDA kernel dispatches
+# on (csrc/step_fused.cuh, enum Prim)
 SOA_FNS = {
     "_plane_sphere": _plane_sphere,
     "_plane_capsule": _plane_capsule,
+    "_plane_ellipsoid": _plane_ellipsoid,
+    "_plane_cylinder": _plane_cylinder,
     "_plane_box": _plane_box,
+    "_sphere_sphere": _sphere_sphere,
+    "_sphere_capsule": _sphere_capsule,
+    "_sphere_cylinder": _sphere_cylinder,
+    "_sphere_box": _sphere_box,
+    "_capsule_capsule": _capsule_capsule,
+    "_capsule_box": _capsule_box,
+    "_box_box": _box_box,
 }
 PRIM_ID = {name: i for i, name in enumerate(SOA_FNS)}
-
-# every primitive the port has, for the general path's collide
-GENERAL_FNS = dict(SOA_FNS, _sphere_sphere=_sphere_sphere,
-                   _sphere_capsule=_sphere_capsule, _sphere_box=_sphere_box,
-                   _capsule_capsule=_capsule_capsule, _capsule_box=_capsule_box,
-                   _box_box=_box_box)

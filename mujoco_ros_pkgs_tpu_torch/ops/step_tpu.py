@@ -9,8 +9,10 @@ lanes per env. On a CPU tensor it runs
 `step_batched_plain`, the same computation in plain torch, which is also the
 kernel's reference on the card.
 
-Scope (`supports`): world + one free-joint body; plane-vs-{sphere, capsule,
-box} pairs between the world and the body; elliptic cone, condim 1/3/4/6,
+Scope (`supports`): world + one free-joint body; pairs between the world
+and the body with any of the twelve analytic primitives (planes, spheres,
+capsules, ellipsoids against a plane, cylinders against a plane or a sphere,
+boxes; ops/narrowphase_soa.SOA_FNS); elliptic cone, condim 1/3/4/6,
 at most 64 rows; Euler, Newton; no actuators, tendons, sensors, equality,
 limits, friction loss or fluid. Like the JAX kernel it reads neither
 qfrc_applied nor xfrc_applied.
@@ -44,8 +46,13 @@ MAX_ROWS = solver_tpu.MAX_ROWS     # the Newton body's maximum
 
 
 def supports(m: Model) -> bool:
-    """The JAX package's gate for the fused step, AND every pair primitive
-    being one the port has (narrowphase_soa.SOA_FNS)."""
+    """Static qualification of the model for the fused whole step: the JAX
+    package's gate (step_tpu.supports there). World + one free body; every
+    collision pair between the world and the body, with one of the twelve
+    analytic primitives (narrowphase_soa.SOA_FNS; MPR, mesh and height-field
+    pairs keep the general route); elliptic cones, the Newton solver, Euler,
+    condim 1/3/4/6, 1 to 64 rows; no actuators, tendons, equality rows,
+    sensors, mocap bodies, limits, friction loss, fluid or pair compaction."""
     if not (m.nbody == 2 and m.njnt == 1 and m.jnt_type[0] == int(JointType.FREE)):
         return False
     if m.nu or m.na or m.ntendon or m.neq or m.nsensor or m.nsensordata:

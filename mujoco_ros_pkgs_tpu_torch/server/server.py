@@ -82,6 +82,8 @@ STATUS_LOADING = 1
 CHUNK = 64          # substeps of `step` and of the unbound physics loop per chunk
 ACTION_CHUNK = 16   # substeps of the Step action per feedback
 # geom types a geom may be set to: those the port compiles (core/mjcf.py)
+# and collides with every other one (a cylinder or an ellipsoid needs MPR
+# against some, ops/narrowphase.check_pairs)
 SETTABLE_GEOM_TYPES = (GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE, GeomType.BOX)
 
 

@@ -45,6 +45,7 @@
 #define __forceinline__ inline
 
 static inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+[[noreturn]] static inline void __trap() { std::abort(); }
 static inline int min(int a, int b) { return a < b ? a : b; }
 static inline int max(int a, int b) { return a > b ? a : b; }
 

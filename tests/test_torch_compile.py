@@ -132,8 +132,12 @@ def test_model_to_casts_floats_only():
 
 @pytest.mark.parametrize("xml,feature", [
     ('<mujoco><worldbody><body><camera name="c"/></body></worldbody></mujoco>', "camera"),
-    ('<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody></mujoco>',
-     "cylinder"),
+    # the case keeps the id it had when it held a cylinder, which the port
+    # now compiles; a mesh geom still raises
+    pytest.param('<mujoco><worldbody><geom type="mesh" mesh="m"/></worldbody></mujoco>',
+                 "mesh",
+                 id='<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody>'
+                    '</mujoco>-cylinder'),
     # the case keeps the id it had when it held a <velocity> servo, which
     # the port now compiles; an <intvelocity> (an activation) still raises
     pytest.param('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'

@@ -26,8 +26,9 @@ from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
-from tests.torch_problems import (BOXES_DAMPED, CAPSULE_CONDIM6, MIXED_BASE, MIXED_KINDS,
-                                  box_cluster, fused_states, random_problem)
+from tests.torch_problems import (BOX_BIN, BOXES_DAMPED, CAPSULE_CONDIM6, MIXED_BASE,
+                                  MIXED_KINDS, PEGS, box_bin_states, box_cluster,
+                                  fused_states, pegs_states, random_problem)
 
 HARNESS = Path(__file__).resolve().parent / "csrc_host_harness.cpp"
 NENV = 8
@@ -95,7 +96,8 @@ def test_group_newton_body_matches_plain(harness, tmp_path, group, nv, niter, nl
 
 
 # (nv, rows, contacts, envs): BOXES, PENDULUM, the maxima with cones and
-# all condim 1, 5 boxes on one body past one wave, nv 3 with one row
+# all condim 1, 5 boxes on one body or BOX_BIN past one wave, nv 3 with
+# one row
 @pytest.mark.parametrize("nv,nefc,ncon,nenv", [(6, 12, 4, 65536), (11, 33, 11, 4096),
                                                (16, 64, 18, 4096), (16, 64, 64, 4096),
                                                (6, 60, 20, 65536), (3, 1, 0, 4096)])
@@ -111,21 +113,34 @@ def test_block_shared_memory_fits_the_card(harness, nv, nefc, ncon, nenv):
 
 @pytest.mark.parametrize("name,group", [("boxes", 8), ("boxes", 16),
                                         ("boxes_damped", 8), ("capsule_condim6", 16),
-                                        ("box_cluster5", 8)])
+                                        ("box_cluster5", 8), ("box_bin", 16),
+                                        ("pegs_sphere", 8), ("pegs_capsule", 16),
+                                        ("pegs_box", 8), ("pegs_cylinder", 16),
+                                        ("pegs_ellipsoid", 8)])
 def test_fused_step_body_matches_plain(harness, tmp_path, name, group):
     """One fused step of 16 seeded envs (K3's step_env on the group body;
-    box_cluster5: five box pairs, 60 rows) against step_batched_plain, at
-    the tolerances of the card check: qpos
-    rtol 1e-5 / atol 1e-6, qvel and the solver's x rtol/atol 1e-4 (float32,
-    the same algorithm, sums in another order)."""
+    box_cluster5: five box pairs, 60 rows; box_bin: BOX_BIN, a free box
+    against the floor and four walls, 60 rows, every other env 12 cm lower
+    than box_bin_states drops it; pegs_*: the PEGS worlds from pegs_states,
+    which with box_bin take all twelve pair primitives, each in contact in
+    some env) against step_batched_plain, at the tolerances of the card
+    check: qpos rtol 1e-5 / atol 1e-6, qvel and the solver's x rtol/atol
+    1e-4 (float32, the same algorithm, sums in another order)."""
     xml = {"boxes": worlds.BOXES, "boxes_damped": BOXES_DAMPED,
-           "capsule_condim6": CAPSULE_CONDIM6, "box_cluster5": box_cluster(5)}[name]
+           "capsule_condim6": CAPSULE_CONDIM6, "box_cluster5": box_cluster(5),
+           "box_bin": BOX_BIN, **{f"pegs_{t}": x for t, x in PEGS.items()}}[name]
     m = mjcf.load_model_from_string(xml, dtype=torch.float32)
     plan = fwd.make_plan(m)
     meta = np.array(step_tpu.kernel_meta(m, plan.idx), np.int32)
     params = plan.params.numpy()
     nenv = 16
-    qpos, qvel = fused_states(nenv, seed=9)
+    if name == "box_bin":
+        qpos, qvel = box_bin_states(nenv, seed=9)
+        qpos[::2, 2] -= 0.12
+    elif name.startswith("pegs"):
+        qpos, qvel = pegs_states(m, nenv, seed=9)
+    else:
+        qpos, qvel = fused_states(nenv, seed=9)
     ws = (0.5 * np.random.default_rng(10).normal(size=(nenv, 6))).astype(np.float32)
     nefc, ncon = plan.rows
     src, dst = tmp_path / "in", tmp_path / "out"
@@ -138,12 +153,18 @@ def test_fused_step_body_matches_plain(harness, tmp_path, name, group):
     out = np.fromfile(dst, np.float32)
     got = out[:nenv * 7].reshape(nenv, 7), out[nenv * 7:nenv * 13].reshape(nenv, 6), \
         out[nenv * 13:].reshape(nenv, 6)
-    want = step_tpu.step_batched_plain(m, *(torch.from_numpy(a) for a in (qpos, qvel, ws)),
-                                       plan.params, plan.idx)
+    tq, tv = torch.from_numpy(qpos), torch.from_numpy(qvel)
+    want = step_tpu.step_batched_plain(m, tq, tv, torch.from_numpy(ws), plan.params, plan.idx)
     for label, a, b, rtol, atol in zip(("qpos", "qvel", "x"), got, want,
                                        (1e-5, 1e-4, 1e-4), (1e-6, 1e-4, 1e-4)):
         np.testing.assert_allclose(a, b.numpy(), rtol=rtol, atol=atol,
                                    err_msg=f"{name} G {group} {label}")
+    if name == "box_bin" or name.startswith("pegs"):
+        pairs, slots = step_tpu._slot_table(m)
+        active = step_tpu._problem(m, tq, tv, plan.params, plan.idx).act
+        seen = {pairs[pi]["fn"] for (pi, *_), (row, _) in
+                zip(slots, step_tpu.contact_layout(m)) if bool(active[:, row].any())}
+        assert seen == {p["fn"] for p in pairs}, f"{name}: only {sorted(seen)} in contact"
 
 
 def _k1_against_plain(exe, tmp_path, group, n, nenv, seed):

@@ -1,4 +1,4 @@
-"""The port's pair primitives (ops/narrowphase_soa.GENERAL_FNS) against the
+"""The port's pair primitives (ops/narrowphase_soa.SOA_FNS) against the
 JAX package's structure-of-arrays primitives of the same name.
 
 Inputs are seeded numpy poses at tests/test_narrowphase_soa.py's sizes
@@ -84,17 +84,16 @@ def _flat(out):
              for f in frames])
 
 
-@pytest.mark.parametrize("name,poses", [(n, "random") for n in sorted(soa.GENERAL_FNS)]
+@pytest.mark.parametrize("name,poses", [(n, "random") for n in sorted(soa.SOA_FNS)]
                          + [("_box_box", "face_on")])
 def test_primitive_matches_jax(name, poses):
-    """Every general-route primitive, float64, rtol 1e-9 / atol 1e-12: the
-    five the port had and the four PILE needs (sphere-sphere, sphere-box,
-    capsule-box, box-box), plus face-on box stacks."""
+    """Every primitive, float64, rtol 1e-9 / atol 1e-12: the twelve of the
+    fused step and the general route, plus face-on box stacks."""
     rng = np.random.default_rng(sorted(CASES).index(name))
     g1, g2 = _poses(rng, name) if poses == "random" else _face_on_boxes()
     want = _flat(jsoa.SOA_FNS[name](*_components(g1, "jax"), *_components(g2, "jax")))
-    got = _flat(soa.GENERAL_FNS[name](*_components(g1, "torch"),
-                                      *_components(g2, "torch")))
+    got = _flat(soa.SOA_FNS[name](*_components(g1, "torch"),
+                                  *_components(g2, "torch")))
     for label, a, b in zip(("dist", "pos", "frame"), got, want):
         assert len(a) == len(b)
         for k, (x, y) in enumerate(zip(a, b)):

@@ -343,3 +343,163 @@ def pile_heap(m, nenv: int, seed: int):
     qpos[..., :2] += 0.02 * rng.uniform(-1, 1, (nenv, nb, 2))
     qpos[..., 2] = 0.04 + 0.05 * (np.arange(nb) % 2) + 0.1 * (np.arange(nb) // 12)
     return qpos.reshape(nenv, 7 * nb), 0.2 * rng.normal(size=(nenv, 6 * nb))
+
+
+# BASELINE config 2's free box (worlds.BOXES: size 0.1, mass 0.5) in PILE's
+# walled bin (worlds.PILE's floor and four walls): plane-box with the floor
+# (4 slots) and box-box with each wall (4 x 4 slots), 20 slots and 60
+# elliptic rows, on the fused step
+BOX_BIN = (worlds.BOXES.replace('model="boxes_bench"', 'model="box_bin"')
+           .replace('<geom name="ground" type="plane" size="10 10 1"/>',
+                    worlds.PILE[worlds.PILE.index('<geom name="ground"'):
+                                worlds.PILE.index('\n    <body name="pb0"')]))
+# the walls' inner faces are 0.53 m from the bin's centre
+_BIN_INNER = 0.53
+
+
+def box_bin_states(nenv: int, seed: int):
+    """Seeded BOX_BIN states (qpos (nenv, 7), qvel (nenv, 6), float32 numpy):
+    the box's centre uniform over the bin's floor within 0.1 m (its half
+    size) of the walls' inner faces, a uniformly random orientation,
+    dropped from 0.15-0.35 m and moving at 0.5 N(0, 1) as bench.py drops
+    BOXES (bench.py:148-152, `_prepare`), but for a horizontal speed of
+    0.8-1.2 m/s in a random direction. Some 20% of the envs start against a
+    wall (a tilted box reaches 0.17 m from its centre); at 1 m/s the rest
+    reach one within about 0.4 s."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, 7), np.float32)
+    half = _BIN_INNER - 0.1
+    qpos[:, :2] = rng.uniform(-half, half, (nenv, 2))
+    qpos[:, 2] = 0.15 + 0.2 * rng.uniform(size=nenv)
+    quat = rng.normal(size=(nenv, 4))
+    qpos[:, 3:] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    qvel = 0.5 * rng.normal(size=(nenv, 6))
+    heading = rng.uniform(0, 2 * np.pi, nenv)
+    speed = rng.uniform(0.8, 1.2, nenv)
+    qvel[:, 0], qvel[:, 1] = speed * np.cos(heading), speed * np.sin(heading)
+    return qpos, qvel.astype(np.float32)
+
+
+# PEGS(t): one free body of geom type t (mass 0.5) over a plane, among the
+# static pegs its pairs have an analytic primitive for (a sphere, a
+# capsule lying along y and a box turned 30 degrees about x, each 0.3 m up
+# and 0.4 m from the centre); with BOX_BIN they take all twelve primitives
+# of ops/narrowphase_soa.SOA_FNS onto the fused step:
+#   sphere: plane_sphere, sphere_sphere, sphere_capsule, sphere_box;
+#   capsule: plane_capsule, sphere_capsule, capsule_capsule, capsule_box;
+#   box: plane_box, sphere_box, capsule_box, box_box;
+#   cylinder: plane_cylinder, sphere_cylinder (its pairs with a capsule or
+#   a box need MPR); ellipsoid: plane_ellipsoid (likewise every other pair)
+PEG_GEOMS = {
+    "sphere": '<geom name="peg_sphere" type="sphere" pos="0.4 0 0.3" size="0.05"/>',
+    "capsule": ('<geom name="peg_capsule" type="capsule" '
+                'fromto="-0.4 -0.1 0.3 -0.4 0.1 0.3" size="0.03"/>'),
+    "box": ('<geom name="peg_box" type="box" pos="0 0.4 0.3" size="0.05 0.06 0.07" '
+            'quat="0.96592583 0.25881905 0 0"/>'),
+}
+PEG_BODIES = {"sphere": ("0.06", ("sphere", "capsule", "box")),
+              "capsule": ("0.04 0.08", ("sphere", "capsule", "box")),
+              "box": ("0.06 0.05 0.04", ("sphere", "capsule", "box")),
+              "cylinder": ("0.05 0.07", ("sphere",)),
+              "ellipsoid": ("0.07 0.05 0.04", ())}
+
+
+def pegs(body: str) -> str:
+    """PEGS(body): the world of one free `body` geom among its pegs."""
+    size, peg_types = PEG_BODIES[body]
+    pegs_xml = "\n    ".join(PEG_GEOMS[t] for t in peg_types)
+    return f"""
+<mujoco model="pegs_{body}">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="ground" type="plane" size="5 5 1"/>
+    {pegs_xml}
+    <body name="body" pos="0 0 0.3">
+      <freejoint/>
+      <geom name="body" type="{body}" size="{size}" mass="0.5"
+            friction="1 0.005 0.0001"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
+PEGS = {t: pegs(t) for t in PEG_BODIES}
+
+
+def _quat_mat(q):
+    """(..., 4) unit quaternions -> (..., 3, 3) rotation matrices."""
+    w, x, y, z = np.moveaxis(q, -1, 0)
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def _pair_depth(m, g, body_geom, pos, quat):
+    """The deepest contact distance (B,) of static geom g against the body's
+    geom with the body at (pos, quat), by the port's plain primitive."""
+    from mujoco_ros_pkgs_tpu_torch.ops import narrowphase, narrowphase_soa
+
+    def frame(geom, bpos, bquat):
+        gp = m.geom_pos[geom].double().cpu().numpy()
+        gR = _quat_mat(m.geom_quat[geom].double().cpu().numpy())
+        if bpos is None:
+            return np.broadcast_to(gp, pos.shape), np.broadcast_to(gR, pos.shape + (3,))
+        R = _quat_mat(bquat)
+        return bpos + R @ gp, R @ gR
+
+    frames = {g: frame(g, None, None), body_geom: frame(body_geom, pos, quat)}
+    g1, g2 = sorted((g, body_geom), key=lambda i: (m.geom_type[i], i))
+    fn = narrowphase_soa.SOA_FNS[narrowphase._DISPATCH[(m.geom_type[g1],
+                                                        m.geom_type[g2])].name]
+    args = []
+    for geom in (g1, g2):
+        p, R = (torch.from_numpy(np.ascontiguousarray(a)) for a in frames[geom])
+        size = m.geom_size[geom].double().cpu()
+        args += [tuple(p[:, k] for k in range(3)),
+                 tuple(tuple(R[:, i, j] for j in range(3)) for i in range(3)),
+                 tuple(size[k].expand(p.shape[0]) for k in range(3))]
+    return torch.stack(fn(*args)[0], -1).amin(-1).numpy()
+
+
+def pegs_states(m, nenv: int, seed: int):
+    """Seeded PEGS states for the port's compiled PEGS model `m` (qpos
+    (nenv, 7), qvel (nenv, 6), float32 numpy): env i reaches for target i %
+    (pegs + 1), the plane first, in a uniformly random orientation. It
+    moves in from a random direction (straight down onto the plane, 0.3 m
+    about the centre) to where its geom touches the target (a bisection on
+    the pair's plain primitive), then 2 cm further in to 0.5 cm short of
+    it: about 80% of the envs press into their target. Velocities 0.3
+    N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    body_geom = list(m.geom_bodyid).index(1)
+    targets = [g for g in range(m.ngeom) if m.geom_bodyid[g] == 0]
+    target = np.arange(nenv) % len(targets)
+    quat = rng.normal(size=(nenv, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    base = np.zeros((nenv, 3))
+    base[:, :2] = rng.uniform(-0.3, 0.3, (nenv, 2))
+    direction = rng.normal(size=(nenv, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    depth = rng.uniform(-0.005, 0.02, nenv)
+    rb = m.geom_rbound.double().cpu().numpy()
+    gpos = m.geom_pos.double().cpu().numpy()
+    qpos = np.zeros((nenv, 7))
+    for k, g in enumerate(targets):
+        sel = target == k
+        if m.geom_type[g] == 0:         # the plane: come down from above
+            b, d = base[sel], np.broadcast_to([0.0, 0.0, 1.0], (int(sel.sum()), 3))
+        else:
+            b, d = np.broadcast_to(gpos[g], (int(sel.sum()), 3)), direction[sel]
+        lo = np.zeros(len(b))
+        hi = np.full(len(b), 2.0 * (rb[g] + rb[body_geom]) + 0.1)
+        for _ in range(40):
+            mid = 0.5 * (lo + hi)
+            into = _pair_depth(m, g, body_geom, b + d * mid[:, None], quat[sel]) < 0
+            lo, hi = np.where(into, mid, lo), np.where(into, hi, mid)
+        qpos[sel, :3] = b + d * (hi - depth[sel])[:, None]
+    qpos[:, 3:] = quat
+    return qpos.astype(np.float32), (0.3 * rng.normal(size=(nenv, 6))).astype(np.float32)
