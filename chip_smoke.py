@@ -199,11 +199,35 @@ Phases (any failure raises; the exit code is then not 0):
      bound from newton_flops at 60 rows plus the narrowphase's operations
      (PRIM_OPS), and K3's shared memory per block and blocks per SM at 60
      rows and 20 contacts (the card's occupancy API).
+ 30. the rows, actuators and fixed tendons of real robot models: (a)
+     PANDA_PICK (tests/torch_problems: a Panda-style arm, joint friction
+     loss, <general> servos, a tendon-coupled gripper, a free box; nv 15,
+     102 rows) at PANDA_NENV seeded envs, 1 and 5 steps with the kernels
+     against their plain versions (phase 19's tolerances, qacc held
+     against float64 where past them), K1 2 + the batch's Newton trips a
+     step, the envs with each row kind and geom pair active printed (every
+     one > 0), K1 at n = 15 on every solve of one step against plain and
+     float64; TENDON_ACT (a limited ball, two tendons with a tendon
+     equality, friction loss, a site thruster, an <intvelocity>, a
+     <damper>, a filterexact <general>; nv 6, 26 rows) at TENDON_NENV
+     seeded envs: each row kind active in some env, K2 against its plain
+     version on the model-made rows (phase 7's 1e-3, or, in envs past it,
+     both held against the float64 plain solve), one step against
+     plain (K1 2, K2 1), K1 on its solves against plain; (b)
+     MujocoServer(PANDA_PICK, nenv=PANDA_NENV) from seeded grasp poses
+     (set_qpos), set_ctrl open, PANDA_CLOSE_AT steps, set_ctrl closed, the
+     rest of PANDA_STEPS (env-steps/s; K1 2 + the batch's trips a step, K2
+     and K3 0; finite; the envs holding the box between the pads, > 0),
+     and a TENDON_ACT server's checkpoint with act resumed (bit for bit,
+     or at qpos and act atol 1e-4); (c) fwd.step ms of PANDA_PICK, K1 at
+     n = 15 on its Hessian by graph replay with plain, cholesky +
+     cholesky_solve and bound, K2 on TENDON_ACT's rows by graph replay
+     with plain and bound.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
-`humanoid`, `sensors` and `arm7` objects and K2's `sensors` object: their
-runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
+`humanoid`, `sensors`, `arm7` and `panda` objects and K2's `sensors` and
+`tendon_act` objects: their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
@@ -241,11 +265,13 @@ from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 
 _THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
-                                  FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS, PEGS,
+                                  FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS,
+                                  PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PEGS,
                                   PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
-                                  arm7_states, box_bin_states, box_cluster, humanoid_states,
-                                  pegs_states, pile_heap, random_problem, sensors_states,
-                                  solve_cost)
+                                  TENDON_ACT, arm7_states, box_bin_states, box_cluster,
+                                  humanoid_states, panda_states, pegs_states, pile_heap,
+                                  random_problem, sensors_states, solve_cost,
+                                  tendon_act_states)
 
 torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
@@ -256,18 +282,18 @@ PENDULUM_DAMPED = (worlds.PENDULUM
                             'pos="0 0 0.6" axis="0 1 0" damping="0.1" stiffness="2"/>')
                    .replace('<freejoint/>', '<joint type="free" damping="0.01"/>'))
 NENV = 4096
-# the PILE server's steps (phase 11), about 30 s of the card's time
-PILE_STEPS = 300
+# the PILE server's steps (phase 11), about 20 s of the card's time
+PILE_STEPS = 200
 # HUMANOID's batch (BASELINE's humanoid bench: bench.py NENV // 4), the steps
 # that settle its seeded states (the feet reach the floor after some 50) and
 # the server's steps (phase 14)
 HUMANOID_NENV = 1024
 HUMANOID_SETTLE = 80
-HUMANOID_STEPS = 150
+HUMANOID_STEPS = 100
 # SENSORS (BASELINE config 3, which bench.py:160-189 runs at NENV // 2 envs
 # with tests/torch_problems.SENSORS_NOISE) and its server's steps (phase 17)
 SENSORS_NENV = 2048
-SENSORS_STEPS = 300
+SENSORS_STEPS = 200
 # ARM7 (BASELINE config 4, which bench.py:192-206 runs at NENV // 2 envs with
 # the weld on) and its server's steps (phase 20)
 ARM7_NENV = 2048
@@ -281,8 +307,8 @@ PILE_NENV = 512
 # the nv = 102 world's batch and the steps that settle its heaps (phase 26)
 WIDE_NENV = 256
 WIDE_SETTLE = 60
-COMPACT_STEPS = 150
-SETTLE_STEPS = 150
+COMPACT_STEPS = 100
+SETTLE_STEPS = 100
 HUMANOID_CON_TOPK = 48
 # the seeds of ROADMAP C7's K1 float64 margins (phase 27)
 C7_SEEDS = (1, 2, 3, 4, 6)
@@ -296,6 +322,13 @@ CKPT_STEPS = 50
 BIN_NENV = 4096
 BIN_STEPS = 500
 BIN_GENERAL_STEPS = 20
+# phase 30: PANDA_PICK at BASELINE config 4's batch (the arm configuration's,
+# bench.py NENV // 2), its server's steps and the step at which its gripper
+# closes; TENDON_ACT's batch (K2's rows)
+PANDA_NENV = 2048
+PANDA_STEPS = 500
+PANDA_CLOSE_AT = 100
+TENDON_NENV = 4096
 # operations (a multiply-add counts 2) of one pair's narrowphase, once per
 # pair, counted by hand from csrc/narrowphase.cuh (make_frame about 40),
 # and of one contact slot's rows and impedance (up to condim 3)
@@ -1619,16 +1652,16 @@ def sensors_vs_plain(card):
     return m, plan, d, max(errs.values())
 
 
-def held_stage(world, name, got, want, x64):
-    """got (kernels) against want (plain versions) at rtol / atol 1e-3; where
+def held_stage(world, name, got, want, x64, tol=1e-3):
+    """got (kernels) against want (plain versions) at rtol / atol tol; where
     envs are past it, both are held against float64 (x64) instead, by
-    held_against_f64 in units of 1e-3 + 1e-3 |x64|. Prints both readings;
+    held_against_f64 in units of tol + tol |x64|. Prints both readings;
     returns the max abs difference to plain."""
-    unit = 1e-3 + 1e-3 * x64.abs()
-    over = ((got - want).abs() > 1e-3 + 1e-3 * want.abs()).any(-1)
+    unit = tol + tol * x64.abs()
+    over = ((got - want).abs() > tol + tol * want.abs()).any(-1)
     e_got, e_plain = (((x.double() - x64).abs() / unit).amax(-1) for x in (got, want))
-    print(f"[{world} vs plain] {name} 1 step: {int(over.sum())} envs past rtol / atol 1e-3 "
-          f"of plain; against float64 in units of 1e-3 + 1e-3 |x64|, worst env "
+    print(f"[{world} vs plain] {name} 1 step: {int(over.sum())} envs past rtol / atol {tol:g} "
+          f"of plain; against float64 in units of {tol:g} + {tol:g} |x64|, worst env "
           f"{float(e_got.max()):.3f}, 99th percentile {float(torch.quantile(e_got, 0.99)):.3f} "
           f"(plain float32: {float(e_plain.max()):.3f}, "
           f"{float(torch.quantile(e_plain, 0.99)):.3f})", flush=True)
@@ -1639,7 +1672,7 @@ def held_stage(world, name, got, want, x64):
               flush=True)
         held_against_f64(f"{world} {name} 1 step", got, want, x64, unit)
     else:
-        close(f"{world} {name} 1 step", got, want, 1e-3, 1e-3)
+        close(f"{world} {name} 1 step", got, want, tol, tol)
     return float((got - want).abs().max())
 
 
@@ -2773,6 +2806,292 @@ def bin_timing(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the rows, actuators and fixed tendons of real robot models
+# (PANDA_PICK, TENDON_ACT)
+# ---------------------------------------------------------------------------
+
+def active_kinds(m, e):
+    """Envs with an active row of each kind in the rows e (efc.make_efc):
+    equality, friction loss, each joint type's limits, tendon limits,
+    contacts; and, per geom pair, envs with an active contact slot."""
+    neq = sum(efc._EQ_ROWS[m.eq_type[i]] for i in efc._equalities(m))
+    nfri = sum(map(len, efc._frictional(m)))
+    jnts, tens = efc._limited(m)
+    base = neq + nfri
+    spans = {"equality": list(range(neq)), "friction loss": list(range(neq, base))}
+    for k, j in enumerate(jnts):
+        name = ("ball" if m.jnt_type[j] == 1 else "hinge/slide") + " limit"
+        spans.setdefault(name, []).append(base + k)
+    spans["tendon limit"] = list(range(base + len(jnts), base + len(jnts) + len(tens)))
+    out = {k: int(e.active[:, v].any(1).sum()) for k, v in spans.items() if v}
+    out["contact"] = int(e.con_active.any(1).sum())
+    g1, g2, _ = narrowphase.slot_meta(m)
+    pairs = {}
+    for slot, (a, b) in enumerate(zip(g1, g2)):
+        pairs.setdefault(f"{m.geom_names[a] or a}-{m.geom_names[b] or b}", []).append(slot)
+    # the slots are the elliptic contacts in slot order
+    out["by pair"] = {k: int(e.con_active[:, v].any(1).sum()) for k, v in pairs.items()}
+    return out
+
+
+def panda_data(m, nenv, seed):
+    """The port's batch of tests/torch_problems.panda_states on the card: the
+    arm at a perturbed grasp pose, the box between the pads, the gripper
+    open (some fingers past their limits) or closed on the box."""
+    qpos, qvel, ctrl = panda_states(mjcf.load_model_from_string(PANDA_PICK), nenv, seed)
+    f32 = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (qpos, qvel, ctrl)]
+    return fwd.make_data(m, nenv).replace(qpos=f32[0], qvel=f32[1], ctrl=f32[2])
+
+
+def panda_vs_plain(card):
+    """30a: PANDA_PICK at PANDA_NENV seeded envs (panda_data), 1 and 5
+    steps through fwd.step with the kernels and with their plain versions
+    at general_vs_plain's tolerances for qpos and qvel, qacc at rtol / atol
+    1e-3 of plain or, in envs past it, both held against the float64 step
+    (held_stage); K1 launches 2 + the batch's Newton trips a step, K2 and K3
+    none; the envs with each row kind active; K1 at n = 15 on every solve of
+    one step against plain (1e-2) and float64, as phase 19's."""
+    m = mjcf.load_model_from_string(PANDA_PICK, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and (m.nv, m.nu, m.ntendon) == (15, 8, 1)
+    d = panda_data(m, PANDA_NENV, seed=21)
+    dk = dp = d
+    errs = {}
+    for k in range(5):
+        zero_counts()
+        with newton_trips() as lk:
+            dk = fwd.step(m, dk, plan)
+        torch.cuda.synchronize()
+        launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                    kernels.step_fused.launches)
+        assert launches == (2 + lk[0][1], 0, 0), f"launches {launches}, trips {lk[0][1]}"
+        with plain_versions():
+            dp = fwd.step(m, dp, plan)
+        torch.cuda.synchronize()
+        if k == 0:
+            e = humanoid_rows(m, d)
+            assert len(e.kinds) == 102 and e.kinds[:18] == ("eq",) + ("fri",) * 7 + ("lim",) * 10
+            counts = active_kinds(m, humanoid_rows(m, dk))
+            print(f"[30a PANDA vs plain] {PANDA_NENV} seeded envs, 102 rows; envs with an "
+                  f"active row after 1 step: {counts}", flush=True)
+            assert all(v > 0 for k_, v in counts.items() if k_ != "by pair"), counts
+            assert all(counts["by pair"][p] > 0 for p in (
+                "floor-box", "left_pad-box", "right_pad-box")), counts["by pair"]
+            errs["qpos_1"] = close("PANDA qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6)
+            errs["qvel_1"] = close("PANDA qvel 1 step", dk.qvel, dp.qvel, 1e-4, 1e-4)
+            m64 = mjcf.load_model_from_string(PANDA_PICK, dtype=torch.float64).to("cuda")
+            with plain_versions():
+                x64 = fwd.step(m64, data_as(d, torch.float64)).qacc
+            errs["qacc_1"] = held_stage("PANDA", "qacc", dk.qacc, dp.qacc, x64)
+            print(f"[30a PANDA vs plain] step 1: K1 launches {launches[0]} (2 + the batch's "
+                  f"{lk[0][1]} Newton trips), K2 {launches[1]}, K3 {launches[2]}", flush=True)
+    errs["qpos_5"] = close("PANDA qpos 5 steps", dk.qpos, dp.qpos, 0.0, 1e-4)
+    assert torch.isfinite(dk.qpos).all() and torch.isfinite(dk.qvel).all()
+    print(f"[30a PANDA vs plain] nenv={PANDA_NENV}: " + " ".join(
+        f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    err = 0.0
+    seen = captured_solves(m, d, plan)
+    labels = (["mass matrix"] + [f"Hessian of Newton trip {i}" for i in range(1, len(seen) - 1)]
+              + ["Euler's damping solve"])
+    worst = []
+    for label, (H, g) in zip(labels, seen):
+        assert H.shape[-1] == 15
+        x = linalg_tpu.psd_solve(H, g)
+        ref = linalg_tpu.psd_solve_plain(H, g)
+        x64 = torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+        torch.cuda.synchronize()
+        err = max(err, close(f"K1 PANDA {label} vs plain", x, ref, 1e-2, 1e-2))
+        held = held_against_f64(f"K1 PANDA {label}", x, ref, x64, 1e-5 + 1e-4 * x64.abs())
+        worst.append((held[1], held[0]))
+    print(f"[30a K1 PANDA] {len(seen)} solves of one step ({PANDA_NENV}, 15, 15) at "
+          f"G={kernels.psd_width(15)}: vs plain max abs {err:.3e}; vs float64 in units of "
+          f"1e-5 + 1e-4 |x64|, worst env over the solves {max(w for w, _ in worst):.3f} "
+          f"(plain float32 {max(p for _, p in worst):.3f})", flush=True)
+    return m, plan, d, max(max(errs.values()), err)
+
+
+def tendon_act_vs_plain(card):
+    """30a: TENDON_ACT at TENDON_NENV seeded envs (tendon_act_states): the
+    envs with each row kind active; K2 against its plain version on the
+    model-made rows (phase 7's rtol / atol 1e-3, or, in envs past it, both
+    held against the float64 plain solve by held_stage); one step with the kernels
+    against their plain versions (phase 8's tolerances for qpos and act,
+    qvel's and qacc's too or, in envs past them, both held against the
+    float64 step; K1 twice and K2 once a step); K1 on the mass matrix and Euler's
+    damping solve against plain (1e-4 / 1e-5)."""
+    m = mjcf.load_model_from_string(TENDON_ACT, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and (m.nv, m.na, m.ntendon) == (6, 2, 2)
+    qpos, qvel, act, ctrl = (torch.from_numpy(a.astype(np.float32)).cuda()
+                             for a in tendon_act_states(TENDON_NENV, seed=23))
+    d = fwd.make_data(m, TENDON_NENV).replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
+    e = humanoid_rows(m, d)
+    counts = active_kinds(m, e)
+    print(f"[30a TENDON_ACT] {TENDON_NENV} seeded envs, {len(e.kinds)} rows {e.kinds[:5]} + "
+          f"{len(e.con_base)} contacts; envs with an active row: {counts}", flush=True)
+    assert e.kinds[:5] == ("eq", "fri", "fri", "lim", "lim") and len(e.kinds) == 26
+    assert all(v > 0 for k, v in counts.items() if k != "by pair"), counts
+    static, args = rows_problem(m, d, seed=23)
+    got = solver_tpu.solve_batched(*static, **args)
+    want = solver_tpu.solve_batched_plain(*static, **args)
+    x64 = solver_tpu.solve_batched_plain(*static, **{
+        k: v.double() if v.is_floating_point() else v for k, v in args.items()})
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got)
+    err = max(held_stage("TENDON_ACT K2", name, a, b, c)
+              for name, a, b, c in zip(("qacc", "qfrc", "f_rows"), got, want, x64))
+    zero_counts()
+    dk = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    assert launches == (2, 1, 0), launches
+    m64 = mjcf.load_model_from_string(TENDON_ACT, dtype=torch.float64).to("cuda")
+    with plain_versions():
+        dp = fwd.step(m, d, plan)
+        d64 = fwd.step(m64, data_as(d, torch.float64))
+    errs = {"qpos_1": close("TENDON_ACT qpos 1 step", dk.qpos, dp.qpos, 1e-5, 1e-6),
+            "qvel_1": held_stage("TENDON_ACT", "qvel", dk.qvel, dp.qvel, d64.qvel, 1e-4),
+            "qacc_1": held_stage("TENDON_ACT", "qacc", dk.qacc, dp.qacc, d64.qacc),
+            "act_1": close("TENDON_ACT act 1 step", dk.act, dp.act, 1e-5, 1e-6)}
+    for label, (H, g) in zip(("mass matrix", "Euler's damping solve"),
+                             captured_solves(m, d, plan)):
+        errs[f"k1 {label}"] = close(f"K1 TENDON_ACT {label} vs plain",
+                                    linalg_tpu.psd_solve(H, g),
+                                    linalg_tpu.psd_solve_plain(H, g), 1e-4, 1e-5)
+    print(f"[30a TENDON_ACT vs plain] nenv={TENDON_NENV}: K2 on its rows {err:.3e}; "
+          f"launches of one step {launches}; " + " ".join(
+              f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    return static, args, max(err, max(errs.values()))
+
+
+def panda_main_path(card):
+    """30b: MujocoServer(PANDA_PICK, nenv=PANDA_NENV) on the default device:
+    each env put at its seeded grasp pose by set_qpos (the fingers open),
+    set_ctrl of the grasp pose with the gripper open, PANDA_CLOSE_AT steps,
+    then set_ctrl with the gripper closed and the rest of PANDA_STEPS
+    (timed: env-steps/s): K1 2 + the batch's Newton trips a step, K2 and K3
+    never; finite; the envs whose box is held between the pads at the end
+    (its center within 1 cm of the pads' midpoint, the `split` tendon shut
+    to about the box's width, 2-3 cm)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    srv = MujocoServer(PANDA_PICK, nenv=PANDA_NENV)
+    assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
+    qpos, _, ctrl = panda_states(mjcf.load_model_from_string(PANDA_PICK), PANDA_NENV, seed=22)
+    qpos[:, 7:9] = 0.04
+    for k in range(PANDA_NENV):
+        assert srv.set_qpos(qpos[k], env_id=k, zero_qvel=True).success
+    log, t_step = [], 0.0
+    for gripper, nsteps in ((PANDA_OPEN, PANDA_CLOSE_AT), (PANDA_CLOSED,
+                                                          PANDA_STEPS - PANDA_CLOSE_AT)):
+        assert srv.set_ctrl(np.append(ctrl[0, :7], gripper)).success
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with newton_trips() as trips:
+            assert srv.step(nsteps).success
+        torch.cuda.synchronize()
+        t_step += time.perf_counter() - t1
+        log += trips
+    ran = sum(r for _, r, _ in log)
+    launches = {"psd_solve": kernels.psd_solve.launches,
+                "newton_solve": kernels.newton_solve.launches,
+                "step_fused": kernels.step_fused.launches}
+    assert len(log) == PANDA_STEPS, f"{len(log)} Newton solves in {PANDA_STEPS} steps"
+    assert launches == {"psd_solve": 2 * PANDA_STEPS + ran, "newton_solve": 0,
+                        "step_fused": 0}, f"launches {launches}, trips {ran}"
+    assert kernels.psd_solve.width == kernels.psd_width(15), kernels.psd_solve.width
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (
+        d.qpos, d.qvel, d.qacc, d.qfrc_constraint, d.efc_force_contact, d.ten_length))
+    counts = active_kinds(srv.m, humanoid_rows(srv.m, d))
+    pads = [srv.m.geom(n) for n in ("left_pad", "right_pad")]
+    off = d.xpos[:, srv.m.body("box"), :2] - d.geom_xpos[:, pads, :2].mean(1)
+    width = d.ten_length[:, 0]
+    held = (off.norm(dim=-1) < 0.01) & (width > 0.02) & (width < 0.03)
+    per_env = torch.cat([t for t, _, _ in log]).float()
+    out = {"nenv": PANDA_NENV, "steps": PANDA_STEPS, "launches": launches["psd_solve"],
+           "launches_per_step": launches["psd_solve"] / PANDA_STEPS,
+           "env_steps_per_s": PANDA_NENV * PANDA_STEPS / t_step,
+           "newton_trips_per_env": float(per_env.mean()),
+           "newton_trips_per_batch_step": ran / PANDA_STEPS, "held_envs": int(held.sum())}
+    print(f"[30b PANDA main path] server step({PANDA_STEPS}) of PANDA_PICK x {PANDA_NENV}, "
+          f"the gripper closed after {PANDA_CLOSE_AT}: {t_step:.3f}s wall, "
+          f"{out['env_steps_per_s']:.4g} env-steps/s; launches {launches} a run, per step K1 "
+          f"{out['launches_per_step']:.3f} (2 + the batch's {ran / PANDA_STEPS:.3f} Newton "
+          f"trips), K2 0, K3 0; Newton trips per env and step mean "
+          f"{out['newton_trips_per_env']:.3f}; envs with an active row at the end {counts}; "
+          f"box held between the pads in {out['held_envs']} envs (split "
+          f"{float(width.min()):.4f}-{float(width.max()):.4f} m); phase "
+          f"{time.perf_counter() - t0:.1f}s ({card})", flush=True)
+    assert out["held_envs"] > 0, "no env holds the box"
+    return out
+
+
+def tendon_act_checkpoint(card, tmp):
+    """30b: a checkpoint of MujocoServer(TENDON_ACT, nenv=TENDON_NENV) with
+    activations: set_ctrl, 20 steps, save, CKPT_STEPS steps, load,
+    CKPT_STEPS steps again; the two continuations (qpos, qvel, act)
+    compared bit for bit where they agree so, and otherwise at phase 8's
+    qpos tolerance, as phase 28d."""
+    from mujoco_ros_pkgs_tpu_torch.server import checkpoint
+    srv = MujocoServer(TENDON_ACT, nenv=TENDON_NENV)
+    assert srv.set_ctrl(np.array([3.0, 0.8, 0.5, -0.6])).success
+    assert srv.step(20).success
+    assert float(srv.d.act.abs().min()) > 0.0, "an activation stayed 0"
+    path = os.path.join(tmp, "tendon_act_ckpt")
+    checkpoint.save(srv, path)
+    assert srv.step(CKPT_STEPS).success
+    first = [t.clone() for t in (srv.d.qpos, srv.d.qvel, srv.d.act)]
+    checkpoint.load(srv, path)
+    assert srv.step(CKPT_STEPS).success
+    again = (srv.d.qpos, srv.d.qvel, srv.d.act)
+    diffs = [float((a - b).abs().max()) for a, b in zip(first, again)]
+    exact = all(torch.equal(a, b) for a, b in zip(first, again))
+    if not exact:
+        close("30b qpos of the resumed run", again[0], first[0], 0.0, 1e-4)
+        close("30b act of the resumed run", again[2], first[2], 0.0, 1e-4)
+    print(f"[30b checkpoint] TENDON_ACT x {TENDON_NENV} with act: the resumed {CKPT_STEPS} "
+          f"steps against the first: max |dqpos| {diffs[0]:.3e}, |dqvel| {diffs[1]:.3e}, "
+          f"|dact| {diffs[2]:.3e}, {'bit for bit' if exact else 'held at atol 1e-4'} "
+          f"({card})", flush=True)
+    return {"max_dqpos": diffs[0], "max_dqvel": diffs[1], "max_dact": diffs[2],
+            "bit_for_bit": exact}
+
+
+def panda_timing(card, m, plan, d, static, args):
+    """30c: fwd.step of the seeded PANDA_PICK states at PANDA_NENV envs by
+    CUDA events with the kernels and with their plain versions; K1 at n =
+    15 on the first Newton Hessian of a step by graph replay (held against
+    plain first), one call at a time, the plain version, cholesky +
+    cholesky_solve and the bound; K2 on TENDON_ACT's rows by graph replay,
+    one call at a time, plain and the bound (k2_timing)."""
+    def run(nsteps):
+        dd = d
+        for _ in range(nsteps):
+            dd = fwd.step(m, dd, plan)
+
+    out = {"step_ms": time_ms(lambda: run(5), 1, warmup=1) / 5}
+    with plain_versions():
+        out["step_plain_ms"] = time_ms(lambda: run(1), 1, warmup=1)
+    H, g = captured_solves(m, d, plan)[1]
+    close(f"K1 PANDA Hessian nenv={PANDA_NENV}", linalg_tpu.psd_solve(H, g),
+          linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2)
+    out.update(graph_ms=graph_ms(lambda: linalg_tpu.psd_solve(H, g), 200),
+               ms=time_ms(lambda: linalg_tpu.psd_solve(H, g), 100),
+               plain_ms=time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 10),
+               library_ms=time_ms(lambda: library_solve(H, g), 100),
+               bound=k1_bound(PANDA_NENV, 15), group=kernels.psd_width(15))
+    print(f"[30c timing] fwd.step PANDA nenv={PANDA_NENV}: {out['step_ms']:.4f} ms/step with "
+          f"the kernels, {out['step_plain_ms']:.4f} with their plain versions; K1 n=15 on a "
+          f"PANDA Newton Hessian (G={out['group']}): {out['graph_ms']:.4f} ms by graph "
+          f"replay, {out['ms']:.4f} one call at a time; plain {out['plain_ms']:.4f} ms; "
+          f"cholesky + cholesky_solve {out['library_ms']:.4f} ms; bound "
+          f"{out['bound'][0]:.5f} ms ({out['bound'][1]}) ({card})", flush=True)
+    return out, k2_timing(card, "TENDON_ACT rows", static, args)
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -2940,6 +3259,24 @@ def main():
     pegs["active_envs"] = counts_p
     print(f"[29] phase 29 in {time.perf_counter() - t0p:.1f}s", flush=True)
 
+    # phase 30: the rows, actuators and fixed tendons of real robot models
+    t0r = time.perf_counter()
+    mr, planr, dr, err_r = panda_vs_plain(card)
+    static_t, args_t, err_t = tendon_act_vs_plain(card)
+    panda = panda_main_path(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_t = tendon_act_checkpoint(card, tmp)
+    tr, tt = panda_timing(card, mr, planr, dr, static_t, args_t)
+    panda.update(max_abs_err=err_r, **{k: tr[k] for k in (
+        "step_ms", "step_plain_ms", "graph_ms", "ms", "plain_ms", "library_ms", "group")},
+        bound_ms=tr["bound"][0], bound_by=tr["bound"][1])
+    tendon_act = {"nenv": TENDON_NENV, "rows": len(static_t[0]), "max_abs_err": err_t,
+                  "checkpoint": ckpt_t,
+                  **{k: tt[k] for k in ("graph_ms", "ms", "plain_ms", "group")},
+                  "bound_ms": tt["bound"][0], "bound_by": tt["bound"][1],
+                  "newton_trips_mean": float(tt["trips"].mean())}
+    print(f"[30] phase 30 in {time.perf_counter() - t0r:.1f}s", flush=True)
+
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
         np.savez("chip_smoke_out/k3_x_envs.npz", **t3["saved"])
@@ -2952,10 +3289,11 @@ def main():
                    t3["group"]), bin=bin_run, pegs=pegs),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
-             **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)}),
+             **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
+             panda=panda),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
-             sensors=t2["sensors"])]}))
+             sensors=t2["sensors"], tendon_act=tendon_act)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

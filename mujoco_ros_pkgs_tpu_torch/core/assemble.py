@@ -2,9 +2,9 @@
 
 Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
-port parses (mocap bodies; actuators: joint-transmission motors and position
-and velocity servos; connect, weld and joint equalities; sites; the sensors
-of SENSOR_DIM); integer columns become static tuples.
+port parses (mocap bodies; fixed tendons; actuators with their activation
+layout; connect, weld, joint and tendon equalities; sites; the sensors of
+SENSOR_DIM); integer columns become static tuples.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from mujoco_ros_pkgs_tpu_torch.core import types
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    EqType, GeomType, JointType, ObjType, SensorType,
+    EqType, GeomType, JointType, ObjType, SensorType, WrapType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import PAIR_NCON
 
@@ -231,13 +231,70 @@ def _equalities(eqs, bodies):
                                           wquat[b2])
             data[k, 10] = q.torquescale
         else:
-            types_.append(int(EqType.JOINT))
+            types_.append(int(EqType.JOINT if q.tag == "joint" else EqType.TENDON))
             data[k, 0:5] = q.polycoef
     return types_, data
 
 
+def _tendons(tendons):
+    """Tendon and wrap columns (mjModel.tendon_*, wrap_*) of fixed tendons:
+    one JOINT wrap entry per joint, its coef in wrap_prm."""
+    adr, num, wtype, wobj, wprm = [], [], [], [], []
+    for t in tendons:
+        adr.append(len(wtype))
+        num.append(len(t.entries))
+        for j, coef in t.entries:
+            wtype.append(int(WrapType.JOINT))
+            wobj.append(j)
+            wprm.append(coef)
+    return dict(
+        ntendon=len(tendons), nwrap=len(wtype), tendon_adr=tuple(adr),
+        tendon_num=tuple(num), tendon_limited=tuple(t.limited for t in tendons),
+        tendon_range=_t([t.range for t in tendons], 2),
+        tendon_solref_lim=_t([t.solref for t in tendons], 2),
+        tendon_solimp_lim=_t([t.solimp for t in tendons], 5),
+        tendon_margin=_t([t.margin for t in tendons]),
+        tendon_stiffness=_t([t.stiffness for t in tendons]),
+        tendon_damping=_t([t.damping for t in tendons]),
+        tendon_frictionloss=_t([t.frictionloss for t in tendons]),
+        tendon_lengthspring=_t([t.lengthspring for t in tendons], 2),
+        tendon_length0=_t(np.zeros(len(tendons))),
+        tendon_invweight0=_t(np.zeros(len(tendons))),
+        wrap_type=tuple(wtype), wrap_objid=tuple(wobj), wrap_prm=_t(wprm),
+        tendon_names=tuple(t.name for t in tendons),
+        tendon_floss_adr=tuple(k for k, t in enumerate(tendons) if t.frictionloss > 0))
+
+
+def _actuators(acts):
+    """Actuator columns (mjModel.actuator_*): one activation slot, in
+    actuator order, per actuator with dynamics."""
+    actadr, na = [], 0
+    for a in acts:
+        actadr.append(na if a.dyntype != int(types.DynType.NONE) else -1)
+        na += actadr[-1] >= 0
+    return dict(
+        na=na, actuator_trntype=tuple(a.trntype for a in acts),
+        actuator_dyntype=tuple(a.dyntype for a in acts),
+        actuator_gaintype=tuple(a.gaintype for a in acts),
+        actuator_biastype=tuple(a.biastype for a in acts),
+        actuator_trnid=tuple(a.trnid for a in acts),
+        actuator_actadr=tuple(actadr),
+        actuator_actnum=tuple(int(adr >= 0) for adr in actadr),
+        actuator_ctrllimited=tuple(a.ctrllimited for a in acts),
+        actuator_forcelimited=tuple(a.forcelimited for a in acts),
+        actuator_actlimited=tuple(a.actlimited for a in acts),
+        actuator_dynprm=_t([a.dynprm for a in acts], 10),
+        actuator_gainprm=_t([a.gainprm for a in acts], 10),
+        actuator_biasprm=_t([a.biasprm for a in acts], 10),
+        actuator_ctrlrange=_t([a.ctrlrange for a in acts], 2),
+        actuator_forcerange=_t([a.forcerange for a in acts], 2),
+        actuator_actrange=_t([a.actrange for a in acts], 2),
+        actuator_gear=_t([a.gear for a in acts], 6),
+        actuator_names=tuple(a.name for a in acts))
+
+
 def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
-             eqs=()) -> types.Model:
+             eqs=(), tendons=()) -> types.Model:
     nbody, njnt, ngeom, nu = len(bodies), len(jnts), len(geoms), len(acts)
     nsite, neq = len(sites), len(eqs)
 
@@ -412,18 +469,6 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         site_bodyid=tuple(st.bodyid for st in sites),
         site_pos=_t([st.pos for st in sites], 3),
         site_quat=_t([st.quat for st in sites], 4),
-        actuator_trntype=(int(types.TrnType.JOINT),) * nu,
-        actuator_dyntype=(int(types.DynType.NONE),) * nu,
-        actuator_gaintype=(int(types.GainType.FIXED),) * nu,
-        actuator_biastype=tuple(a.biastype for a in acts),
-        actuator_trnid=tuple(a.trnid for a in acts),
-        actuator_ctrllimited=tuple(a.ctrllimited for a in acts),
-        actuator_forcelimited=tuple(a.forcelimited for a in acts),
-        actuator_gainprm=_t([a.gainprm for a in acts], 10),
-        actuator_biasprm=_t([a.biasprm for a in acts], 10),
-        actuator_ctrlrange=_t([a.ctrlrange for a in acts], 2),
-        actuator_forcerange=_t([a.forcerange for a in acts], 2),
-        actuator_gear=_t([a.gear for a in acts], 6),
         sensor_type=tuple(scols["type"]), sensor_objtype=tuple(scols["objtype"]),
         sensor_objid=tuple(scols["objid"]), sensor_reftype=tuple(scols["reftype"]),
         sensor_refid=tuple(scols["refid"]), sensor_adr=tuple(scols["adr"]),
@@ -434,7 +479,6 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         jnt_names=tuple(j.name for j in jnts),
         geom_names=tuple(g.name for g in geoms),
         site_names=tuple(st.name for st in sites),
-        actuator_names=tuple(a.name for a in acts),
         sensor_names=tuple(scols["name"]),
         eq_names=tuple(q.name for q in eqs),
         dof_floss_adr=tuple(v for v in range(nv)
@@ -449,6 +493,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
             np.stack([b.iquat for b in bodies])),
         collision_pairs=ordered, ncon_max=ncon_max,
         collision_mode=opt["collision_mode"],
+        **_tendons(tendons), **_actuators(acts),
     )
 
     from mujoco_ros_pkgs_tpu_torch.core import constants

@@ -1,7 +1,8 @@
 """Derived model constants needing dynamics at qpos0 (mj_setConst analogue).
 
-Counterpart of mujoco_ros_pkgs_tpu/core/constants.py: dof_invweight0 and
-body_invweight0 from the port's own kinematics/com_pos/crb at qpos0, in the
+Counterpart of mujoco_ros_pkgs_tpu/core/constants.py: dof_invweight0,
+body_invweight0 and the fixed tendons' length0 and invweight0 (ten_J M^-1
+ten_J^T) from the port's own kinematics/com_pos/crb at qpos0, in the
 model's (float64, load-time) precision.
 """
 
@@ -47,5 +48,9 @@ def set_constants(m: Model) -> Model:
         jacr = cdof[:, :3] * mask
         inv.append(torch.stack([torch.trace(jacp.T @ Minv @ jacp) / 3.0,
                                 torch.trace(jacr.T @ Minv @ jacr) / 3.0]))
-    return dataclasses.replace(m, dof_invweight0=dof_invweight0,
-                               body_invweight0=torch.stack(inv))
+    updates = dict(dof_invweight0=dof_invweight0, body_invweight0=torch.stack(inv))
+    if m.ntendon:
+        length, ten_J = smooth.fixed_tendons(m, m.qpos0[None])
+        updates.update(tendon_length0=length[0], tendon_invweight0=torch.einsum(
+            "ti,ij,tj->t", ten_J[0], Minv, ten_J[0]))
+    return dataclasses.replace(m, **updates)

@@ -14,18 +14,25 @@ two compile a model to the same numbers. Supported elements:
   contype and conaffinity;
 - sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
   or `fromto`, `<default><site>` classes;
-- `<actuator>` with `<motor>`, `<position>` (kp, kv) and `<velocity>` (kv)
-  on a joint transmission (gear, ctrlrange, forcerange, ctrllimited,
-  forcelimited), and their `<default>` classes;
-- `<equality>` with `<connect>`, `<weld>` and `<joint>` (solref, solimp,
-  active, anchor, relpose, torquescale, polycoef), `<default><equality>`;
+- `<tendon>` with `<fixed>` tendons (joint entries with coef; limited,
+  range, margin, solreflimit, solimplimit, stiffness, damping,
+  frictionloss, springlength) and their `<default>` classes;
+- `<actuator>` with `<motor>`, `<position>` (kp, kv), `<velocity>` (kv),
+  `<intvelocity>` (kp; an integrator activation), `<damper>` (kv; an
+  affine gain) and `<general>` (dyntype none / integrator / filter /
+  filterexact, gaintype fixed / affine, biastype none / affine, dynprm,
+  gainprm, biasprm) on a joint (any type), tendon or site transmission
+  (gear, ctrlrange, forcerange, actrange and their limited flags), and
+  their `<default>` classes;
+- `<equality>` with `<connect>`, `<weld>`, `<joint>` and `<tendon>`
+  (solref, solimp, active, anchor, relpose, torquescale, polycoef),
+  `<default><equality>`;
 - `<sensor>` of the types in core/assemble.SENSOR_DIM, with `cutoff` and
   `noise`.
 
-Anything else (cameras, other actuators and transmissions, other sensor
-types, tendons and tendon equalities, contact pairs, assets, mesh and
-height-field geoms, fluid shapes) raises ValueError naming the feature, rather than
-being dropped silently.
+Anything else (cameras, muscles, spatial tendons, other sensor types,
+contact pairs, assets, mesh and height-field geoms, fluid shapes) raises
+ValueError naming the feature, rather than being dropped silently.
 """
 
 from __future__ import annotations
@@ -40,17 +47,22 @@ import numpy as np
 from mujoco_ros_pkgs_tpu_torch.core import types
 from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM, assemble
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    BiasType, GeomType, IntegratorType, JointType, SensorType,
+    BiasType, DynType, GainType, GeomType, IntegratorType, JointType, SensorType,
+    TrnType,
 )
 
 _SOLREF = (0.02, 1.0)
 _SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
-_TOP_LEVEL = ("option", "compiler", "default", "worldbody", "actuator",
+_TOP_LEVEL = ("option", "compiler", "default", "worldbody", "tendon", "actuator",
               "sensor", "equality", "size", "visual", "statistic")
-_DEFAULT_TAGS = ("joint", "geom", "site", "equality", "motor", "position", "velocity")
-_ACTUATORS = ("motor", "position", "velocity")
-_EQUALITIES = ("connect", "weld", "joint")
+_ACTUATORS = ("motor", "position", "velocity", "intvelocity", "damper", "general")
+_DEFAULT_TAGS = ("joint", "geom", "site", "tendon", "equality") + _ACTUATORS
+_EQUALITIES = ("connect", "weld", "joint", "tendon")
+_DYNTYPES = {"none": DynType.NONE, "integrator": DynType.INTEGRATOR,
+             "filter": DynType.FILTER, "filterexact": DynType.FILTEREXACT}
+_GAINTYPES = {"fixed": GainType.FIXED, "affine": GainType.AFFINE}
+_BIASTYPES = {"none": BiasType.NONE, "affine": BiasType.AFFINE}
 _GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
                "capsule": GeomType.CAPSULE, "ellipsoid": GeomType.ELLIPSOID,
                "cylinder": GeomType.CYLINDER, "box": GeomType.BOX}
@@ -466,6 +478,12 @@ def _compile(root: ET.Element) -> types.Model:
     world.name = "world"
     bodies.append(world)
 
+    def limited(e, flag, rng):
+        """A limited flag (true / false / auto): auto is true where
+        autolimits is on and the range is given."""
+        v = _attr_tri(e, flag, 2)
+        return (1 if (comp.autolimits and e.get(rng) is not None) else 0) if v == 2 else v
+
     def parse_joint(e, bclass, bodyid):
         if e.tag != "freejoint":
             # <freejoint> takes only name/group: joint defaults do not apply
@@ -486,16 +504,9 @@ def _compile(root: ET.Element) -> types.Model:
         if j.type in (int(JointType.HINGE), int(JointType.BALL)):
             rng = comp.ang(rng)
         j.range = rng
-        limited = _attr_tri(e, "limited", 2)
-        if limited == 2:
-            limited = 1 if (comp.autolimits and e.get("range") is not None) else 0
-        j.limited = limited
+        j.limited = limited(e, "limited", "range")
         j.actfrcrange = _attr_f(e, "actuatorfrcrange", [0, 0])
-        actfrclimited = _attr_tri(e, "actuatorfrclimited", 2)
-        if actfrclimited == 2:
-            actfrclimited = 1 if (comp.autolimits
-                                  and e.get("actuatorfrcrange") is not None) else 0
-        j.actfrclimited = actfrclimited
+        j.actfrclimited = limited(e, "actuatorfrclimited", "actuatorfrcrange")
         j.solref = _attr_f(e, "solreflimit", _SOLREF)
         j.solimp = _attr_f(e, "solimplimit", _SOLIMP)
         j.solref_fri = _attr_f(e, "solreffriction", _SOLREF)
@@ -569,11 +580,47 @@ def _compile(root: ET.Element) -> types.Model:
             st.quat = _z2quat(b - a)
         sites.append(st)
 
+    def parse_tendon(e, i):
+        """A <fixed> tendon: its joint entries (joint id, coef) and its
+        limit, spring, damping and friction-loss parameters, as the JAX
+        compiler reads them; a <spatial> tendon raises."""
+        name = e.get("name", "") or f"#{i}"
+        if e.tag != "fixed":
+            raise ValueError(f"tendon '{name}': <{e.tag}> tendons are not supported by "
+                             f"the torch port (only <fixed>)")
+        e = _apply_defaults(e, defaults_tree.get(e.get("class", "main"),
+                                                 defaults_tree["main"]), "tendon")
+        t = _Spec()
+        t.name = e.get("name", "")
+        jnt_names = [j.name for j in jnts]
+        t.entries = []
+        for we in e:
+            if we.tag != "joint" or we.get("joint") not in jnt_names or we.get("coef") is None:
+                raise ValueError(f"tendon '{name}': a fixed tendon's entries are "
+                                 f"<joint joint=... coef=...> of named joints, got "
+                                 f"<{we.tag} {we.attrib}>")
+            t.entries.append((jnt_names.index(we.get("joint")), float(we.get("coef"))))
+        t.limited = limited(e, "limited", "range")
+        t.range = _attr_f(e, "range", [0, 0])
+        t.solref = _attr_f(e, "solreflimit", _SOLREF)
+        t.solimp = _attr_f(e, "solimplimit", _SOLIMP)
+        t.margin = float(e.get("margin", "0"))
+        t.stiffness = float(e.get("stiffness", "0"))
+        t.damping = float(e.get("damping", "0"))
+        t.frictionloss = float(e.get("frictionloss", "0"))
+        t.lengthspring = np.array([-1.0, -1.0])
+        if e.get("springlength") is not None:
+            sl = _floats(e.get("springlength"))
+            t.lengthspring = sl if sl.size == 2 else np.array([sl[0], sl[0]])
+        return t
+
     def parse_actuator(e, i):
-        """A <motor> (gain 1 on ctrl, no bias), <position> (gain kp, bias
-        -kp length - kv velocity) or <velocity> (gain kv, bias -kv velocity)
-        on a joint, as the JAX package compiles them; other actuators and
-        transmissions raise."""
+        """An actuator as the JAX package compiles it: <motor> (gain 1 on
+        ctrl, no bias), <position> (gain kp, bias -kp length - kv
+        velocity), <velocity> (gain kv, bias -kv velocity), <intvelocity>
+        (an integrator activation, gain kp, bias -kp length), <damper>
+        (affine gain -kv velocity) or <general>, on a joint, tendon or site
+        transmission; muscles raise."""
         name = e.get("name", "") or f"#{i}"
         if e.tag not in _ACTUATORS:
             raise ValueError(f"actuator '{name}': <{e.tag}> is not supported by the "
@@ -581,20 +628,13 @@ def _compile(root: ET.Element) -> types.Model:
         tag = e.tag
         e = _apply_defaults(e, defaults_tree.get(e.get("class", "main"),
                                                  defaults_tree["main"]), tag)
-        for trn in ("tendon", "site"):
-            if e.get(trn) is not None:
-                raise ValueError(f"actuator '{name}': {trn} transmission is not "
-                                 f"supported by the torch port")
-        jnt_names = [j.name for j in jnts]
-        if e.get("joint") not in jnt_names:
-            raise ValueError(f"actuator '{name}': needs the joint transmission of a "
-                             f"named joint, got joint={e.get('joint')!r}")
         a = _Spec()
         a.name = e.get("name", "")
-        a.trnid = (jnt_names.index(e.get("joint")), -1)
         a.gear = _attr_f(e, "gear", [1, 0, 0, 0, 0, 0], n=6)
-        a.gainprm, a.biasprm = np.zeros(10), np.zeros(10)
-        a.gainprm[0], a.biastype = 1.0, int(BiasType.NONE)
+        a.dynprm, a.gainprm, a.biasprm = np.zeros(10), np.zeros(10), np.zeros(10)
+        a.dynprm[0] = a.gainprm[0] = 1.0
+        a.dyntype, a.gaintype, a.biastype = (int(DynType.NONE), int(GainType.FIXED),
+                                             int(BiasType.NONE))
         if tag == "position":
             kp, kv = float(e.get("kp", "1")), float(e.get("kv", "0"))
             a.gainprm[0], a.biastype = kp, int(BiasType.AFFINE)
@@ -603,18 +643,48 @@ def _compile(root: ET.Element) -> types.Model:
             kv = float(e.get("kv", "1"))
             a.gainprm[0], a.biastype = kv, int(BiasType.AFFINE)
             a.biasprm[2] = -kv
+        elif tag == "intvelocity":
+            kp = float(e.get("kp", "1"))
+            a.gainprm[0], a.biastype, a.dyntype = kp, int(BiasType.AFFINE), int(DynType.INTEGRATOR)
+            a.biasprm[1] = -kp
+        elif tag == "damper":
+            a.gaintype = int(GainType.AFFINE)
+            a.gainprm[:3] = [0.0, 0.0, -float(e.get("kv", "1"))]
+        elif tag == "general":
+            for attr, table, key in (("dyntype", _DYNTYPES, "none"),
+                                     ("gaintype", _GAINTYPES, "fixed"),
+                                     ("biastype", _BIASTYPES, "none")):
+                if e.get(attr) == "muscle":
+                    raise ValueError(f"actuator '{name}': {attr} muscle is not supported "
+                                     f"by the torch port")
+                setattr(a, attr, int(_choice(e, attr, table, key)))
+            for attr in ("dynprm", "gainprm", "biasprm"):
+                if e.get(attr) is not None:
+                    v = _floats(e.get(attr))
+                    getattr(a, attr)[:v.size] = v[:10]
+        trn = [(k, e.get(k)) for k in ("joint", "tendon", "site") if e.get(k) is not None]
+        if not trn:
+            raise ValueError(f"actuator '{name}': needs a joint, tendon or site transmission")
+        kind, target = trn[0]
+        names = {"joint": [j.name for j in jnts], "tendon": [t.name for t in tendons],
+                 "site": [st.name for st in sites]}[kind]
+        if target not in names:
+            raise ValueError(f"actuator '{name}': unknown {kind} '{target}'")
+        a.trntype = int({"joint": TrnType.JOINT, "tendon": TrnType.TENDON,
+                         "site": TrnType.SITE}[kind])
+        a.trnid = (names.index(target), -1)
         a.ctrlrange = _attr_f(e, "ctrlrange", [0, 0])
         a.forcerange = _attr_f(e, "forcerange", [0, 0])
-        for lim, rng in (("ctrllimited", "ctrlrange"), ("forcelimited", "forcerange")):
-            v = _attr_tri(e, lim, 2)
-            if v == 2:
-                v = 1 if (comp.autolimits and e.get(rng) is not None) else 0
-            setattr(a, lim, v)
+        a.actrange = _attr_f(e, "actrange", [0, 0])
+        for flag, rng in (("ctrllimited", "ctrlrange"), ("forcelimited", "forcerange"),
+                          ("actlimited", "actrange")):
+            setattr(a, flag, limited(e, flag, rng))
         return a
 
     def parse_equality(e, i):
-        """A <connect>, <weld> or <joint> equality with its objects resolved
-        to ids; core/assemble fills eq_data from the pose at qpos0."""
+        """A <connect>, <weld>, <joint> or <tendon> equality with its
+        objects resolved to ids; core/assemble fills eq_data from the pose
+        at qpos0."""
         name = e.get("name", "") or f"#{i}"
         if e.tag not in _EQUALITIES:
             raise ValueError(f"equality '{name}': <{e.tag}> is not supported by the "
@@ -627,12 +697,14 @@ def _compile(root: ET.Element) -> types.Model:
         q.active = 1 if e.get("active", "true").lower() in ("true", "1") else 0
         if e.tag == "joint":
             names, keys = [j.name for j in jnts], ("joint1", "joint2")
+        elif e.tag == "tendon":
+            names, keys = [t.name for t in tendons], ("tendon1", "tendon2")
         else:
             names, keys = [b.name for b in bodies], ("body1", "body2")
         ids = []
         for key in keys:
             if e.get(key) is None:
-                ids.append(-1 if key == "joint2" else 0)
+                ids.append(-1 if key in ("joint2", "tendon2") else 0)
             elif e.get(key) in names:
                 ids.append(names.index(e.get(key)))
             else:
@@ -734,6 +806,8 @@ def _compile(root: ET.Element) -> types.Model:
         b.mass = max(b.mass, comp.boundmass)
         b.inertia = np.maximum(b.inertia, comp.boundinertia)
 
+    tendons = [parse_tendon(e, i) for te in root.findall("tendon")
+               for i, e in enumerate(te)]
     acts = [parse_actuator(e, i) for ae in root.iter("actuator")
             for i, e in enumerate(ae)]
     sensors = [e for se in root.iter("sensor") for e in se]
@@ -744,4 +818,4 @@ def _compile(root: ET.Element) -> types.Model:
     eqs = [parse_equality(e, i) for ee in root.iter("equality")
            for i, e in enumerate(ee)]
     return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
-                    sites, sensors, eqs)
+                    sites, sensors, eqs, tendons)

@@ -2,9 +2,10 @@
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
 port runs today (world + free/ball/hinge/slide joint trees, mocap bodies,
-primitive geoms, contacts, joint limits, connect / weld / joint equality
-constraints, joint-transmission motors and position / velocity servos,
-sites and sensors).
+primitive geoms, contacts, joint and tendon limits, friction loss, connect /
+weld / joint / tendon equality constraints, fixed tendons, actuators with
+activation states on joint, tendon and site transmissions, sites and
+sensors).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -58,6 +59,14 @@ class EqType(enum.IntEnum):
     WELD = 1
     JOINT = 2
     TENDON = 3
+
+
+class WrapType(enum.IntEnum):
+    JOINT = 1
+    PULLEY = 2
+    SITE = 3
+    SPHERE = 4
+    CYLINDER = 5
 
 
 class GeomType(enum.IntEnum):
@@ -238,6 +247,7 @@ class Model:
     nmocap: int = 0
     nsite: int = 0
     ntendon: int = 0
+    nwrap: int = 0
     nsensor: int = 0
     nsensordata: int = 0
 
@@ -323,6 +333,25 @@ class Model:
     eq_solimp: torch.Tensor = _array()        # (neq, 5)
     eq_data: torch.Tensor = _array()          # (neq, 11)
 
+    # ---- fixed tendons: tendon t sums wrap_prm[k] qpos[wrap_objid[k]] over
+    # its entries k in [tendon_adr[t], tendon_adr[t] + tendon_num[t]) ----
+    tendon_adr: Tuple[int, ...] = ()
+    tendon_num: Tuple[int, ...] = ()
+    tendon_limited: Tuple[int, ...] = ()
+    tendon_range: torch.Tensor = _array()         # (ntendon, 2)
+    tendon_solref_lim: torch.Tensor = _array()    # (ntendon, 2)
+    tendon_solimp_lim: torch.Tensor = _array()    # (ntendon, 5)
+    tendon_margin: torch.Tensor = _array()        # (ntendon,)
+    tendon_stiffness: torch.Tensor = _array()
+    tendon_damping: torch.Tensor = _array()
+    tendon_frictionloss: torch.Tensor = _array()
+    tendon_lengthspring: torch.Tensor = _array()  # (ntendon, 2), -1: length0
+    tendon_length0: torch.Tensor = _array()
+    tendon_invweight0: torch.Tensor = _array()
+    wrap_type: Tuple[int, ...] = ()
+    wrap_objid: Tuple[int, ...] = ()
+    wrap_prm: torch.Tensor = _array()             # (nwrap,) coef of each entry
+
     # ---- sites ----
     site_bodyid: Tuple[int, ...] = ()
     site_pos: torch.Tensor = _array()         # (nsite, 3)
@@ -334,13 +363,18 @@ class Model:
     actuator_gaintype: Tuple[int, ...] = ()
     actuator_biastype: Tuple[int, ...] = ()
     actuator_trnid: Tuple[Tuple[int, int], ...] = ()
+    actuator_actadr: Tuple[int, ...] = ()     # -1 without an activation
+    actuator_actnum: Tuple[int, ...] = ()
     actuator_ctrllimited: Tuple[int, ...] = ()
     actuator_forcelimited: Tuple[int, ...] = ()
+    actuator_actlimited: Tuple[int, ...] = ()
+    actuator_dynprm: torch.Tensor = _array()      # (nu, 10)
     actuator_gainprm: torch.Tensor = _array()     # (nu, 10)
     actuator_biasprm: torch.Tensor = _array()     # (nu, 10)
     actuator_ctrlrange: torch.Tensor = _array()   # (nu, 2)
     actuator_forcerange: torch.Tensor = _array()  # (nu, 2)
     actuator_gear: torch.Tensor = _array()        # (nu, 6)
+    actuator_actrange: torch.Tensor = _array()    # (nu, 2)
 
     # ---- sensors ----
     sensor_type: Tuple[int, ...] = ()
@@ -362,9 +396,11 @@ class Model:
     actuator_names: Tuple[str, ...] = ()
     sensor_names: Tuple[str, ...] = ()
     eq_names: Tuple[str, ...] = ()
+    tendon_names: Tuple[str, ...] = ()
 
     # ---- static structure flags (decided at compile) ----
     dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
+    tendon_floss_adr: Tuple[int, ...] = ()    # tendons with frictionloss > 0
     has_damping: bool = False
     has_fluid: bool = False
     dof_simple: Tuple[int, ...] = ()
@@ -411,6 +447,12 @@ class Model:
     def sensor(self, name: str) -> int:
         return self.sensor_names.index(name)
 
+    def tendon(self, name: str) -> int:
+        return self.tendon_names.index(name)
+
+    def actuator(self, name: str) -> int:
+        return self.actuator_names.index(name)
+
 
 @dataclass
 class Contact:
@@ -448,6 +490,7 @@ class Data:
     time: torch.Tensor           # (B,)
     qpos: torch.Tensor           # (B, nq)
     qvel: torch.Tensor           # (B, nv)
+    act: torch.Tensor            # (B, na) actuator activations
     qacc: torch.Tensor           # (B, nv)
     qacc_warmstart: torch.Tensor  # (B, nv)
     ctrl: torch.Tensor           # (B, nu)
@@ -487,6 +530,11 @@ class Data:
     actuator_velocity: torch.Tensor  # (B, nu)
     actuator_force: torch.Tensor     # (B, nu)
     actuator_moment: torch.Tensor    # (B, nu, nv)
+    act_dot: torch.Tensor            # (B, na)
+    # fixed tendons (position stage)
+    ten_length: torch.Tensor         # (B, ntendon)
+    ten_J: torch.Tensor              # (B, ntendon, nv)
+    ten_velocity: torch.Tensor       # (B, ntendon)
     # contacts and the solver's row forces
     contact: Contact
     efc_force_contact: torch.Tensor  # (B, nefc), nefc >= 1

@@ -20,9 +20,11 @@ def _has_constraints(m: Model) -> bool:
         return True
     if m.neq and not (m.opt.disableflags & DisableBit.EQUALITY):
         return True
-    if any(m.jnt_limited) and not (m.opt.disableflags & DisableBit.LIMIT):
+    if ((any(m.jnt_limited) or any(m.tendon_limited))
+            and not (m.opt.disableflags & DisableBit.LIMIT)):
         return True
-    if len(m.dof_floss_adr) and not (m.opt.disableflags & DisableBit.FRICTIONLOSS):
+    if ((m.dof_floss_adr or m.tendon_floss_adr)
+            and not (m.opt.disableflags & DisableBit.FRICTIONLOSS)):
         return True
     return False
 

@@ -1,20 +1,18 @@
-"""Constraint rows of equalities, joint limits and contacts, with the
-solref/solimp impedance model.
+"""Constraint rows of equalities, friction loss, limits and contacts, with
+the solref/solimp impedance model.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py for equality, limit and
-contact rows: the rows of every connect (3), weld (6) and joint (1)
-equality, gated by d.eq_active (always present, so the layout does not
-change when one is switched), one row per limited hinge or slide joint (on
-the nearer side of its range), then elliptic cones of condim 1/3/4/6 and
-pyramidal facets, every slot of the contact set a row block (inactive rows
-masked), in libmujoco's row order so the rows compare 1:1 with the JAX
-package's. All tensors are batch-first; the row layout is static and
-shared by the batch. With m.con_topk, a cone group the general Newton
-takes is built at each env's K deepest slots only (Efc.cb), their
-canonical rows per env.
-
-Tendon equalities, friction-loss rows and limits of ball joints raise
-NotImplementedError (ROADMAP A5).
+Counterpart of mujoco_ros_pkgs_tpu/ops/efc.py: the rows of every connect
+(3), weld (6), joint (1) and tendon (1) equality, gated by d.eq_active
+(always present, so the layout does not change when one is switched), one
+friction-loss row per dof and per fixed tendon with frictionloss > 0
+(always active), one limit row per limited hinge, slide or ball joint (on
+the nearer side of its range; a ball joint's about its rotation axis) and
+per limited tendon, then elliptic cones of condim 1/3/4/6 and pyramidal
+facets, every slot of the contact set a row block (inactive rows masked),
+in libmujoco's row order so the rows compare 1:1 with the JAX package's.
+All tensors are batch-first; the row layout is static and shared by the
+batch. With m.con_topk, a cone group the general Newton takes is built at
+each env's K deepest slots only (Efc.cb), their canonical rows per env.
 """
 
 from __future__ import annotations
@@ -43,8 +41,9 @@ class Efc(NamedTuple):
     aref: torch.Tensor           # (B, nefc)
     frictionloss: torch.Tensor   # (B, nefc)
     active: torch.Tensor         # (B, nefc) bool
-    kinds: Tuple[str, ...]       # 'eq' per equality row, 'lim' per limit row and
-    #                              facet, 'con' per elliptic row
+    kinds: Tuple[str, ...]       # 'eq' per equality row, 'fri' per friction-loss
+    #                              row, 'lim' per limit row and facet, 'con'
+    #                              per elliptic row
     con_base: Tuple[int, ...]    # first row of each elliptic contact
     con_dim: Tuple[int, ...]     # its condim
     con_mu: torch.Tensor         # (B, ncon_ell, 5) friction of each
@@ -99,28 +98,22 @@ def _kbi(m: Model, solref, solimp, pos, margin):
 # row assembly
 # ---------------------------------------------------------------------------
 
-_EQ_ROWS = {int(EqType.CONNECT): 3, int(EqType.WELD): 6, int(EqType.JOINT): 1}
+_EQ_ROWS = {int(EqType.CONNECT): 3, int(EqType.WELD): 6, int(EqType.JOINT): 1,
+            int(EqType.TENDON): 1}
+# the joint types with a limit row (a limited free joint has none)
+_LIMIT_TYPES = (int(JointType.HINGE), int(JointType.SLIDE), int(JointType.BALL))
 
 
 def _check_rows(m: Model):
-    flags = m.opt.disableflags
-    if flags & DisableBit.CONSTRAINT:
+    """Raise NotImplementedError for the rows of an equality type the JAX
+    package's general route lacks (EqType values past TENDON)."""
+    if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
         return
-    if not flags & DisableBit.EQUALITY:
-        for e, t in enumerate(m.eq_type):
-            if t not in _EQ_ROWS:
-                raise NotImplementedError(
-                    f"efc: rows of {EqType(t).name.lower()} equalities (equality "
-                    f"'{m.eq_names[e]}') are not ported to the torch package")
-    if len(m.dof_floss_adr) and not flags & DisableBit.FRICTIONLOSS:
-        raise NotImplementedError("efc: friction-loss rows are not ported to the "
-                                  "torch package")
-    if not flags & DisableBit.LIMIT:
-        for j, lim in enumerate(m.jnt_limited):
-            if lim and m.jnt_type[j] not in (int(JointType.HINGE), int(JointType.SLIDE)):
-                raise NotImplementedError(
-                    f"efc: limit rows of {JointType(m.jnt_type[j]).name.lower()} joints "
-                    f"(joint '{m.jnt_names[j]}') are not ported to the torch package")
+    for e, t in enumerate(m.eq_type):
+        if t not in _EQ_ROWS:
+            raise NotImplementedError(
+                f"efc: rows of equality type {t} (equality '{m.eq_names[e]}') are not "
+                f"ported to the torch package")
 
 
 def _equalities(m: Model) -> Tuple[int, ...]:
@@ -129,6 +122,15 @@ def _equalities(m: Model) -> Tuple[int, ...]:
     if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
         return ()
     return tuple(range(m.neq))
+
+
+def _rows(m: Model, J, pos, margin, invweight, solref, solimp, floss, vel) -> dict:
+    """Rows (B, r) each with its own impedance at pos and margin (the JAX
+    package's _row): aref = -b vel - k imp (pos - margin)."""
+    k, b, imp = _kbi(m, solref, solimp, pos, margin)
+    R = torch.clamp((1.0 - imp) / imp * invweight, min=mmath.MINVAL)
+    return dict(J=J, pos=pos, margin=margin, D=1.0 / R, R=R,
+                aref=-b * vel - k * imp * (pos - margin), frictionloss=floss)
 
 
 def _row_group(m: Model, J, pos, norm_pos, invweight, solref, solimp, bias, qvel):
@@ -189,13 +191,15 @@ def _eq_rows(m: Model, d: Data, eqs) -> dict:
     point, one impedance from the residual's norm), weld (3 translational
     rows from body2's pose predicted in body1's frame, then 3 rotational
     rows ts vec(q2^-1 q1 relq), all six sharing the norm of the 6-vector),
-    joint (1 row: qpos1 - qpos1_0 - poly(qpos2 - qpos2_0)). The J-dot qvel
+    joint (1 row: qpos1 - qpos1_0 - poly(qpos2 - qpos2_0)), tendon (1 row:
+    L1 - L1_0 - poly(L2 - L2_0), J = ten_J1 - poly' ten_J2). The J-dot qvel
     bias of connect and weld rows comes from the bodies' bias accelerations
     (smooth.bias_acc at qacc = 0, no gravity), computed once."""
     B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
     qvel = d.qvel
     cacc = (smooth.bias_acc(m, d, torch.zeros(6, dtype=dtype, device=dev))
-            if any(m.eq_type[e] != int(EqType.JOINT) for e in eqs) else None)
+            if any(m.eq_type[e] in (int(EqType.CONNECT), int(EqType.WELD)) for e in eqs)
+            else None)
     iw = m.body_invweight0.to(dtype)
     blocks, actives = [], []
     for e in eqs:
@@ -241,19 +245,23 @@ def _eq_rows(m: Model, d: Data, eqs) -> dict:
                            bias_r, qvel)
             blocks.append({k: torch.cat([t[k], r[k]], 1) for k in t})
         else:
+            # joint or tendon: coordinate 1 minus a quartic of coordinate 2,
+            # each from its reference (qpos0, length0)
+            def coord(i):
+                if et == int(EqType.JOINT):
+                    qa, v = m.jnt_qposadr[i], m.jnt_dofadr[i]
+                    Ji = qvel.new_zeros(B, 1, nv)
+                    Ji[:, 0, v] = 1.0
+                    return d.qpos[:, qa] - m.qpos0[qa], Ji, m.dof_invweight0[v]
+                return (d.ten_length[:, i] - m.tendon_length0[i], d.ten_J[:, i:i + 1],
+                        m.tendon_invweight0[i])
             c = data[0:5]
-            qa1, v1 = m.jnt_qposadr[b1], m.jnt_dofadr[b1]
-            pos = d.qpos[:, qa1] - m.qpos0[qa1]
-            J = qvel.new_zeros(B, 1, nv)
-            J[:, 0, v1] = 1.0
-            invw = m.dof_invweight0[v1]
+            pos, J, invw = coord(b1)
             if b2 >= 0:
-                qa2, v2 = m.jnt_qposadr[b2], m.jnt_dofadr[b2]
-                x = d.qpos[:, qa2] - m.qpos0[qa2]
+                x, J2, invw2 = coord(b2)
                 poly = c[0] + x * (c[1] + x * (c[2] + x * (c[3] + x * c[4])))
-                J[:, 0, v2] = -(c[1] + x * (2 * c[2] + x * (3 * c[3] + x * 4 * c[4])))
-                pos = pos - poly
-                invw = invw + m.dof_invweight0[v2]
+                dpoly = c[1] + x * (2 * c[2] + x * (3 * c[3] + x * 4 * c[4]))
+                pos, J, invw = pos - poly, J - dpoly[:, None, None] * J2, invw + invw2
             else:
                 pos = pos - c[0]
             blocks.append(_row_group(m, J, pos[:, None], pos, invw, solref, solimp,
@@ -264,37 +272,103 @@ def _eq_rows(m: Model, d: Data, eqs) -> dict:
     return out
 
 
-def _limited(m: Model) -> Tuple[int, ...]:
-    """The joints with a limit row, in joint order (none when limits or
-    constraints are disabled)."""
+def _frictional(m: Model) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The dofs and the tendons with a friction-loss row, in order (none
+    when friction loss or constraints are disabled)."""
+    if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.FRICTIONLOSS):
+        return (), ()
+    return tuple(m.dof_floss_adr), tuple(m.tendon_floss_adr)
+
+
+def _friction_rows(m: Model, d: Data, dofs, tens) -> dict:
+    """One always-active row per dof (J the dof's unit row) and per tendon
+    (J its ten_J) with friction loss: pos and margin 0, the dof's solref /
+    solimp (a tendon's limit ones, as the JAX package takes them) and
+    invweight0, frictionloss the row's Huber threshold."""
+    dev, B, nv = d.qpos.device, d.qpos.shape[0], m.nv
+    dt, tt = (mmath.static_tensor(np.asarray(a, dtype=np.int64), dev) for a in (dofs, tens))
+    J = d.qvel.new_zeros(B, len(dofs), nv)
+    J[:, mmath.static_tensor(np.arange(len(dofs)), dev), dt] = 1.0
+    J = torch.cat([J, d.ten_J[:, tt]], 1)
+    vel = torch.cat([d.qvel[:, dt], torch.einsum("btv,bv->bt", d.ten_J[:, tt], d.qvel)], 1)
+    zero = torch.zeros_like(vel)
+    rows = _rows(m, J, zero, zero,
+                 torch.cat([m.dof_invweight0[dt], m.tendon_invweight0[tt]]),
+                 torch.cat([m.dof_solref[dt], m.tendon_solref_lim[tt]]),
+                 torch.cat([m.dof_solimp[dt], m.tendon_solimp_lim[tt]]),
+                 torch.cat([m.dof_frictionloss[dt], m.tendon_frictionloss[tt]]).expand_as(vel),
+                 vel)
+    rows["active"] = torch.ones_like(vel, dtype=torch.bool)
+    return rows
+
+
+def _limited(m: Model) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The joints (hinge, slide, ball) and the tendons with a limit row,
+    in order (none when limits or constraints are disabled)."""
     if m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):
-        return ()
-    return tuple(j for j, lim in enumerate(m.jnt_limited) if lim)
+        return (), ()
+    return (tuple(j for j, lim in enumerate(m.jnt_limited)
+                  if lim and m.jnt_type[j] in _LIMIT_TYPES),
+            tuple(t for t, lim in enumerate(m.tendon_limited) if lim))
 
 
-def _limit_rows(m: Model, d: Data, jnts) -> dict:
-    """One row per limited hinge or slide joint, on the nearer side of its
-    range: pos = qpos - range[0] (J = +1 at the dof) or range[1] - qpos (J =
-    -1), active where pos < margin, the joint's solref / solimp and the
-    dof's invweight0."""
-    dev, nv = d.qpos.device, m.nv
-    jt = mmath.static_tensor(jnts, dev)
-    qa = mmath.static_tensor([m.jnt_qposadr[j] for j in jnts], dev)
-    va = mmath.static_tensor([m.jnt_dofadr[j] for j in jnts], dev)
-    q = d.qpos[:, qa]
-    rng, margin = m.jnt_range[jt], m.jnt_margin[jt]
-    dist_lo, dist_hi = q - rng[:, 0], rng[:, 1] - q
-    lo_closer = dist_lo < dist_hi
-    dist = torch.where(lo_closer, dist_lo, dist_hi)
-    sgn = torch.where(lo_closer, 1.0, -1.0).to(q.dtype)
-    B, L = q.shape
-    J = q.new_zeros(B, L, nv)
-    J[:, mmath.static_tensor(np.arange(L), dev), va] = sgn
-    k, b, imp = _kbi(m, m.jnt_solref[jt], m.jnt_solimp[jt], dist, margin)
-    R = torch.clamp((1.0 - imp) / imp * m.dof_invweight0[va], min=mmath.MINVAL)
-    return dict(J=J, pos=dist, margin=margin.expand(B, L), D=1.0 / R, R=R,
-                aref=-b * (sgn * d.qvel[:, va]) - k * imp * (dist - margin),
-                frictionloss=torch.zeros_like(dist), active=dist < margin)
+def _limit_rows(m: Model, d: Data, jnts, tens) -> dict:
+    """One row per limited joint, then per limited tendon. A hinge or slide
+    (and a tendon) on the nearer side of its range: pos = x - range[0] (J
+    = +1 at the dof, or +ten_J) or range[1] - x (J = -1, or -ten_J); a ball
+    joint about its rotation axis: pos = max(range) - angle, J = -axis at
+    its 3 dofs. Active where pos < margin, with the joint's (tendon's)
+    solref / solimp / margin and its dof's (tendon's) invweight0."""
+    dev, B, nv, dtype = d.qpos.device, d.qpos.shape[0], m.nv, d.qpos.dtype
+    n = len(jnts) + len(tens)
+    J = d.qpos.new_zeros(B, n, nv)
+    dist = d.qpos.new_zeros(B, n)
+    vel = d.qpos.new_zeros(B, n)
+
+    def t(a):
+        return mmath.static_tensor(np.asarray(a, dtype=np.int64), dev)
+
+    def nearer(x, rng):
+        lo, hi = x - rng[:, 0], rng[:, 1] - x
+        lo_closer = lo < hi
+        return torch.where(lo_closer, lo, hi), torch.where(lo_closer, 1.0, -1.0).to(dtype)
+    one = [k for k, j in enumerate(jnts) if m.jnt_type[j] != int(JointType.BALL)]
+    ball = [k for k, j in enumerate(jnts) if m.jnt_type[j] == int(JointType.BALL)]
+    if one:
+        jt = t([jnts[k] for k in one])
+        va = t([m.jnt_dofadr[jnts[k]] for k in one])
+        q = d.qpos[:, t([m.jnt_qposadr[jnts[k]] for k in one])]
+        dk, sgn = nearer(q, m.jnt_range[jt])
+        dist[:, t(one)] = dk
+        J[:, t(one), va] = sgn
+        vel[:, t(one)] = sgn * d.qvel[:, va]
+    if ball:
+        jt = t([jnts[k] for k in ball])
+        qa = np.asarray([m.jnt_qposadr[jnts[k]] for k in ball])
+        va = np.asarray([m.jnt_dofadr[jnts[k]] for k in ball])
+        axis_angle = mmath.quat_to_vel(d.qpos[:, t(qa[:, None] + np.arange(4))])
+        rng = m.jnt_range[jt]
+        dist[:, t(ball)] = torch.maximum(rng[:, 0], rng[:, 1]) - mmath.norm_safe(axis_angle)
+        Jb = -mmath.normalize(axis_angle)                          # (B, W, 3)
+        J[:, t(ball)[:, None], t(va[:, None] + np.arange(3))] = Jb
+        vel[:, t(ball)] = (Jb * d.qvel[:, t(va[:, None] + np.arange(3))]).sum(-1)
+    if tens:
+        tt = t(tens)
+        rows = t(np.arange(len(jnts), n))
+        dk, sgn = nearer(d.ten_length[:, tt], m.tendon_range[tt])
+        dist[:, rows] = dk
+        J[:, rows] = sgn[..., None] * d.ten_J[:, tt]
+        vel[:, rows] = torch.einsum("btv,bv->bt", J[:, rows], d.qvel)
+    jt, tt = t(jnts), t(tens)
+    va = t([m.jnt_dofadr[j] for j in jnts])
+    margin = torch.cat([m.jnt_margin[jt], m.tendon_margin[tt]])
+    out = _rows(m, J, dist, margin.expand(B, n),
+                torch.cat([m.dof_invweight0[va], m.tendon_invweight0[tt]]),
+                torch.cat([m.jnt_solref[jt], m.tendon_solref_lim[tt]]),
+                torch.cat([m.jnt_solimp[jt], m.tendon_solimp_lim[tt]]),
+                torch.zeros_like(dist), vel)
+    out["active"] = dist < margin
+    return out
 
 
 def _contact_rows(m: Model, d: Data, dim: int, b1, b2, pos, frame, dist, incm,
@@ -401,8 +475,8 @@ def _deepest(pen: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def make_efc(m: Model, d: Data) -> Optional[Efc]:
-    """The equality rows, the limit rows, then the contact rows of every
-    slot of d.contact (None without rows). Contact slots are grouped by
+    """The equality rows, the friction-loss rows, the limit rows, then the
+    contact rows of every slot of d.contact (None without rows). Contact slots are grouped by
     (condim, dynamic). With m.con_topk = K, an elliptic cone group of more
     than K slots is built at each env's K deepest slots only (Efc.cb), when
     the rows go to the general Newton; the fused solver (solver_tpu.supports)
@@ -412,21 +486,23 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
         return None
     eqs = _equalities(m)
     neq = sum(_EQ_ROWS[m.eq_type[e]] for e in eqs)
-    jnts = _limited(m)
-    nlim = len(jnts)
+    fdofs, ftens = _frictional(m)
+    nfri = len(fdofs) + len(ftens)
+    jnts, ltens = _limited(m)
+    nlim = len(jnts) + len(ltens)
     c = d.contact
     B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
     pyramidal = m.opt.cone == 0
     slots = []
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
         slots = [i for i in range(len(c.geom1)) if c.geom1[i] != -1]
-    if not slots and not nlim and not neq:
+    if not slots and not nlim and not neq and not nfri:
         return None
 
     def nrows(dim):
         return 2 * (dim - 1) if (pyramidal and dim > 1) else dim
-    bases, rb = [], neq + nlim
-    kinds = ["eq"] * neq + ["lim"] * nlim
+    bases, rb = [], neq + nfri + nlim
+    kinds = ["eq"] * neq + ["fri"] * nfri + ["lim"] * nlim
     for i in slots:
         bases.append(rb)
         rb += nrows(c.dim[i])
@@ -451,7 +527,9 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     J = torch.zeros(B, nefc, nv, dtype=dtype, device=dev)
     active = torch.zeros(B, nefc, dtype=torch.bool, device=dev)
     for lo, hi, rows in ((0, neq, neq and _eq_rows(m, d, eqs)),
-                         (neq, neq + nlim, nlim and _limit_rows(m, d, jnts))):
+                         (neq, neq + nfri, nfri and _friction_rows(m, d, fdofs, ftens)),
+                         (neq + nfri, neq + nfri + nlim,
+                          nlim and _limit_rows(m, d, jnts, ltens))):
         if rows:
             J[:, lo:hi] = rows.pop("J")
             active[:, lo:hi] = rows.pop("active")
@@ -510,16 +588,13 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
 
 def row_layout(m: Model) -> dict:
     """Static efc row layout (no Data needed) in assembly order: equality,
-    friction loss, joint limits, then the first row of each contact slot,
-    and the total row count."""
+    friction loss, joint and tendon limits, then the first row of each
+    contact slot, and the total row count."""
     flags = m.opt.disableflags
     nrow = 0
     if not flags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
         nrow += sum(_EQ_ROWS.get(t, 1) for t in m.eq_type)
-    if not flags & (DisableBit.CONSTRAINT | DisableBit.FRICTIONLOSS):
-        nrow += len(m.dof_floss_adr)
-    if not flags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):
-        nrow += sum(1 for lim in m.jnt_limited if lim)
+    nrow += sum(map(len, _frictional(m))) + sum(map(len, _limited(m)))
     con_bases, con_nrows = [], []
     if m.ncon_max and not flags & (DisableBit.CONSTRAINT | DisableBit.CONTACT):
         pyramidal = m.opt.cone == 0

@@ -15,18 +15,21 @@ routes, chosen once per model by `make_plan`:
   The broadphase (pair_topk) and active-contact (con_topk) compactions
   run on the general route; pair_topk refuses the fused route.
 
-The general route takes joint-limit rows of hinges and slides,
+The general route takes joint-limit rows of hinges, slides and ball
+joints, friction-loss rows of dofs and fixed tendons, tendon limits,
 joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors),
-position and velocity servos, mocap bodies and connect, weld and joint
-equality rows (ARM7: nv 7, a mocap-target weld, 100 rows), the sensors of
-core/assemble.SENSOR_DIM (SENSORS) and step hooks: a control hook before
-actuation and a passive hook after the passive forces, pure functions of
-(m, d) or, with a hook state, of (m, d, hstate) returning (d, hstate). Any
-hook forces the general route, as in the JAX package. What neither route
-covers raises NotImplementedError from make_plan: other integrators, other
-sensor types, other actuators, activations and transmissions, tendons,
-fluid, friction-loss rows, limits of ball joints, CG and PGS and
-collision routines the port lacks.
+position and velocity servos, `<general>` / `<intvelocity>` / `<damper>`
+actuators with their activations (integrated by `_advance`) on joint,
+tendon and site transmissions, fixed tendons (PANDA_PICK's gripper),
+mocap bodies and connect, weld, joint and tendon equality rows (ARM7: nv
+7, a mocap-target weld, 100 rows), the sensors of core/assemble.SENSOR_DIM
+(SENSORS) and step hooks: a control hook before actuation and a passive
+hook after the passive forces, pure functions of (m, d) or, with a hook
+state, of (m, d, hstate) returning (d, hstate). Any hook forces the
+general route, as in the JAX package. What neither route covers raises
+NotImplementedError from make_plan: other integrators, other sensor
+types, muscles, spatial tendons, fluid, CG and PGS and collision routines
+the port lacks.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    Data, DisableBit, IntegratorType, JointType, Model, SensorType, SolverType,
+    Data, DisableBit, DynType, IntegratorType, JointType, Model, SensorType, SolverType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
@@ -53,7 +56,7 @@ Hook = Optional[Callable[..., Any]]
 def make_data(m: Model, nenv: int) -> Data:
     """A batch of `nenv` envs at qpos0 (mj_makeData + mj_resetData), on the
     model's device, in the model's float dtype: the mocap bodies at their
-    model pose, the equalities active as eq_active0 says."""
+    model pose, the equalities active as eq_active0 says, activations 0."""
     dev = m.device
     dtype = m.qpos0.dtype
 
@@ -68,7 +71,7 @@ def make_data(m: Model, nenv: int) -> Data:
     mocap_pos, mocap_quat = smooth.mocap_defaults(m, nenv, dtype, dev)
     return Data(
         time=z(), qpos=m.qpos0.expand(nenv, m.nq).clone(),
-        qvel=z(m.nv), qacc=z(m.nv), qacc_warmstart=z(m.nv), ctrl=z(m.nu),
+        qvel=z(m.nv), act=z(m.na), qacc=z(m.nv), qacc_warmstart=z(m.nv), ctrl=z(m.nu),
         qfrc_applied=z(m.nv), xfrc_applied=z(m.nbody, 6),
         eq_active=torch.tensor(m.eq_active0, dtype=torch.bool, device=dev)
         .reshape(1, m.neq).expand(nenv, m.neq).clone(),
@@ -82,7 +85,8 @@ def make_data(m: Model, nenv: int) -> Data:
         qfrc_bias=z(m.nv), qfrc_passive=z(m.nv), qfrc_actuator=z(m.nv),
         qfrc_smooth=z(m.nv), qacc_smooth=z(m.nv), qfrc_constraint=z(m.nv),
         actuator_length=z(m.nu), actuator_velocity=z(m.nu), actuator_force=z(m.nu),
-        actuator_moment=z(m.nu, m.nv),
+        actuator_moment=z(m.nu, m.nv), act_dot=z(m.na),
+        ten_length=z(m.ntendon), ten_J=z(m.ntendon, m.nv), ten_velocity=z(m.ntendon),
         contact=narrowphase.empty_contact(m, nenv, dtype, dev),
         efc_force_contact=z(nefc), sensordata=z(m.nsensordata))
 
@@ -163,10 +167,44 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch
     return out
 
 
+@functools.lru_cache(maxsize=128)
+def _act_slot_meta(actuator_dyntype, actuator_actadr, actuator_actlimited, na):
+    """Per activation slot: its actuator, whether its dynamics are
+    FILTEREXACT and whether actrange clamps it (mj_advance)."""
+    src = np.zeros(na, dtype=np.int64)
+    exact = np.zeros(na, dtype=bool)
+    lim = np.zeros(na, dtype=bool)
+    for i, (dyn, adr) in enumerate(zip(actuator_dyntype, actuator_actadr)):
+        if adr >= 0:
+            src[adr] = i
+            exact[adr] = dyn == int(DynType.FILTEREXACT)
+            lim[adr] = bool(actuator_actlimited[i])
+    return src, exact, lim
+
+
 def _advance(m: Model, d: Data, qacc: torch.Tensor) -> Data:
+    """mj_advance: qvel += h qacc, qpos integrated with the new qvel, act
+    += h act_dot (FILTEREXACT's activations by the exact update act +=
+    act_dot tau (1 - exp(-h / tau))), clamped to actrange where
+    actlimited."""
     h = m.opt.timestep.to(d.qpos.dtype)
     qvel = d.qvel + h * qacc
-    return d.replace(qpos=integrate_pos(m, d.qpos, qvel, h), qvel=qvel,
+    act = d.act
+    if m.na:
+        src, exact, lim = _act_slot_meta(m.actuator_dyntype, m.actuator_actadr,
+                                         m.actuator_actlimited, m.na)
+        dev = d.qpos.device
+        srct = mmath.static_tensor(src, dev)
+        act = d.act + h * d.act_dot
+        if exact.any():
+            tau = torch.clamp(m.actuator_dynprm[srct, 0], min=mmath.MINVAL)
+            act = torch.where(mmath.static_tensor(exact, dev),
+                              d.act + d.act_dot * tau * (1.0 - torch.exp(-h / tau)), act)
+        if lim.any():
+            rng = m.actuator_actrange[srct]
+            act = torch.where(mmath.static_tensor(lim, dev),
+                              torch.clamp(act, rng[:, 0], rng[:, 1]), act)
+    return d.replace(qpos=integrate_pos(m, d.qpos, qvel, h), qvel=qvel, act=act,
                      time=d.time + h)
 
 
@@ -205,8 +243,7 @@ def check_general(m: Model) -> None:
         if st not in SENSOR_DIM:
             _not_ported(f"sensor type {SensorType(st).name.lower()}")
     smooth.check_actuators(m)
-    if m.ntendon:
-        _not_ported("tendons")
+    smooth.check_tendons(m)
     if m.has_fluid:
         _not_ported("fluid")
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:

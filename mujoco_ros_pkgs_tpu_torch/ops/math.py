@@ -79,6 +79,15 @@ def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     return qdif[..., 1:] / sin_half[..., None] * angle[..., None]
 
 
+def quat_to_vel(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion to its 3D angular displacement, axis times angle
+    (mju_quat2Vel with dt = 1)."""
+    q = torch.where(q[..., :1] < 0, -q, q)
+    sin_half = norm_safe(q[..., 1:])
+    angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+    return q[..., 1:] / sin_half[..., None] * angle[..., None]
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """Quaternion to 3x3 rotation matrix (mju_quat2Mat)."""
     w, x, y, z = q.unbind(-1)

@@ -9,10 +9,14 @@ each level one gather/compute/scatter over all its bodies. All tensors are
 batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
 compile side uses them at load time, core/constants.py); the stages take
 and return `Data`. Mocap bodies take their pose from `mocap_pos` /
-`mocap_quat` in the kinematics sweep. Actuators are joint transmissions on
-hinges and slides with a fixed gain and no or an affine bias (motors,
-position and velocity servos: `transmission`, `actuation`); tendons, other
-actuators and transmissions, and fluid forces raise NotImplementedError.
+`mocap_quat` in the kinematics sweep. Fixed tendons (`tendon`: length,
+ten_J, velocity) feed the passive forces (springs with a deadband,
+damping), the tendon transmission and the tendon rows. `transmission`
+takes the JAX package's five groups (1-dof, ball and free joints,
+tendons, sites) and `actuation` its activation dynamics (integrator,
+filter, filterexact: act_dot), fixed and affine gains, no and affine
+biases and the force and joint-force clamps. Spatial tendons, muscles and
+fluid forces raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    BiasType, Data, DisableBit, DynType, GainType, JointType, Model, TrnType,
+    BiasType, Data, DisableBit, DynType, GainType, JointType, Model, TrnType, WrapType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
@@ -408,11 +412,9 @@ def _spring_meta(jnt_type, jnt_qposadr, jnt_dofadr):
 
 
 def passive(m: Model, d: Data) -> Data:
-    """Joint damping and joint springs (mj_passive without tendons or
-    fluid, which raise)."""
-    if m.ntendon:
-        raise NotImplementedError("passive: tendon springs and damping are not "
-                                  "ported to the torch package")
+    """Joint damping, joint springs and the fixed tendons' springs (with
+    the deadband [lengthspring0, lengthspring1], -1 meaning length0) and
+    damping, mapped by ten_J (mj_passive without fluid, which raises)."""
     if m.has_fluid:
         raise NotImplementedError("passive: fluid forces are not ported to the "
                                   "torch package")
@@ -443,6 +445,14 @@ def passive(m: Model, d: Data) -> Data:
         qi = t(qa[:, None] + 3 + ar4)
         dif = mmath.quat_sub(d.qpos[:, qi], m.qpos_spring[qi])
         qfrc[:, t(va[:, None] + 3 + ar3)] += -stiff * dif
+    if m.ntendon:
+        spring = m.tendon_lengthspring
+        low = torch.where(spring[:, 0] < 0, m.tendon_length0, spring[:, 0])
+        high = torch.where(spring[:, 1] < 0, m.tendon_length0, spring[:, 1])
+        L = d.ten_length
+        displ = torch.where(L > high, high - L, torch.where(L < low, low - L, 0.0))
+        frc = m.tendon_stiffness * displ - m.tendon_damping * d.ten_velocity
+        qfrc = qfrc + torch.einsum("btv,bt->bv", d.ten_J, frc)
     return d.replace(qfrc_passive=qfrc)
 
 
@@ -458,66 +468,142 @@ def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
     return ((d.cdof @ fs.transpose(-1, -2)) * mask).sum(-1)
 
 
+@functools.lru_cache(maxsize=128)
+def _tendon_meta(tendon_adr, tendon_num, wrap_type, wrap_objid, jnt_qposadr,
+                 jnt_dofadr):
+    """(tendon, wrap entry, qpos address, dof address) of every joint entry
+    of the fixed tendons; a spatial tendon raises."""
+    rows = []
+    for t, (adr, num) in enumerate(zip(tendon_adr, tendon_num)):
+        for k in range(adr, adr + num):
+            if wrap_type[k] != int(WrapType.JOINT):
+                raise NotImplementedError(
+                    f"tendon {t}: spatial tendons ({WrapType(wrap_type[k]).name.lower()} "
+                    f"wrap entries) are not ported to the torch package")
+            j = wrap_objid[k]
+            rows.append((t, k, jnt_qposadr[j], jnt_dofadr[j]))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 4)
+
+
+def check_tendons(m: Model) -> None:
+    """Raise NotImplementedError for tendons `tendon` cannot compute
+    (spatial ones)."""
+    _tendon_meta(m.tendon_adr, m.tendon_num, m.wrap_type, m.wrap_objid,
+                 m.jnt_qposadr, m.jnt_dofadr)
+
+
+def fixed_tendons(m: Model, qpos: torch.Tensor):
+    """Lengths (B, ntendon) and Jacobians ten_J (B, ntendon, nv) of the
+    fixed tendons at qpos (B, nq): length = sum coef qpos, ten_J the coefs
+    at the entries' dofs."""
+    B, dev = qpos.shape[0], qpos.device
+    seg, widx, qa, va = (mmath.static_tensor(c, dev) for c in _tendon_meta(
+        m.tendon_adr, m.tendon_num, m.wrap_type, m.wrap_objid, m.jnt_qposadr,
+        m.jnt_dofadr).T)
+    coef = m.wrap_prm[widx].to(qpos.dtype)
+    length = qpos.new_zeros(B, m.ntendon).index_add(1, seg, coef * qpos[:, qa])
+    ten_J = qpos.new_zeros(B, m.ntendon * m.nv).index_add(
+        1, seg * m.nv + va, coef.expand(B, -1)).view(B, m.ntendon, m.nv)
+    return length, ten_J
+
+
 def tendon(m: Model, d: Data) -> Data:
-    if m.ntendon:
-        raise NotImplementedError("tendons are not ported to the torch package")
-    return d
+    """mj_tendon of fixed tendons: ten_length, ten_J and ten_velocity =
+    ten_J qvel."""
+    if m.ntendon == 0:
+        return d
+    length, ten_J = fixed_tendons(m, d.qpos)
+    return d.replace(ten_length=length, ten_J=ten_J,
+                     ten_velocity=torch.einsum("btv,bv->bt", ten_J, d.qvel))
 
 
 @functools.lru_cache(maxsize=128)
 def _trn_meta(actuator_trntype, actuator_trnid, jnt_type, jnt_qposadr, jnt_dofadr):
-    """(actuator, qpos address, dof address) of each actuator: the JAX
-    package's 1-dof joint group; every other transmission raises."""
-    rows = []
+    """The JAX package's static actuator groups: 'jnt1' (actuator, qpos
+    address, dof address) of hinge and slide transmissions, 'jntb' and
+    'jntf' (actuator, dof address) of ball and free joints, 'ten'
+    (actuator, tendon), 'site' (actuator, site); other transmissions
+    raise."""
+    groups = {"jnt1": [], "jntb": [], "jntf": [], "ten": [], "site": []}
     for i, trn in enumerate(actuator_trntype):
-        if trn not in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)):
+        tid = actuator_trnid[i][0]
+        if trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)):
+            jt = jnt_type[tid]
+            if jt in (int(JointType.SLIDE), int(JointType.HINGE)):
+                groups["jnt1"].append((i, jnt_qposadr[tid], jnt_dofadr[tid]))
+            else:
+                groups["jntb" if jt == int(JointType.BALL) else "jntf"].append(
+                    (i, jnt_dofadr[tid]))
+        elif trn == int(TrnType.TENDON):
+            groups["ten"].append((i, tid))
+        elif trn == int(TrnType.SITE):
+            groups["site"].append((i, tid))
+        else:
             raise NotImplementedError(f"transmission: {TrnType(trn).name.lower()} "
                                       f"transmission is not ported to the torch package")
-        j = actuator_trnid[i][0]
-        if jnt_type[j] not in (int(JointType.SLIDE), int(JointType.HINGE)):
-            raise NotImplementedError(f"transmission: a {JointType(jnt_type[j]).name.lower()}"
-                                      f" joint transmission is not ported to the torch "
-                                      f"package")
-        rows.append((i, jnt_qposadr[j], jnt_dofadr[j]))
-    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+    return {k: np.asarray(v, dtype=np.int64).reshape(-1, 3 if k == "jnt1" else 2)
+            for k, v in groups.items()}
 
 
 def transmission(m: Model, d: Data) -> Data:
     """actuator_length, actuator_moment (B, nu, nv) and actuator_velocity
-    = moment qvel (mj_transmission) of joint transmissions on hinges and
-    slides: length = gear qpos, moment gear at the joint's dof."""
+    = moment qvel (mj_transmission): a hinge or slide's gear qpos and gear
+    at its dof; a ball or free joint's gear at its 3 or 6 dofs (length 0);
+    a tendon's gear length and gear ten_J; a site's wrench gear (in the
+    site's frame) through the site's Jacobian (length 0)."""
     if m.nu == 0:
         return d
-    i, qa, va = (mmath.static_tensor(c, d.qpos.device) for c in _trn_meta(
-        m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
-        m.jnt_dofadr).T)
-    gear = m.actuator_gear[i, 0]
-    B = d.qpos.shape[0]
+    g = _trn_meta(m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
+                  m.jnt_dofadr)
+    dev, B = d.qpos.device, d.qpos.shape[0]
+    gear = m.actuator_gear
     length = d.qpos.new_zeros(B, m.nu)
-    length[:, i] = d.qpos[:, qa] * gear
     moment = d.qpos.new_zeros(B, m.nu, m.nv)
-    moment[:, i, va] = gear
+
+    def t(a):
+        return mmath.static_tensor(a, dev)
+    if len(g["jnt1"]):
+        i, qa, va = (t(c) for c in g["jnt1"].T)
+        length[:, i] = d.qpos[:, qa] * gear[i, 0]
+        moment[:, i, va] = gear[i, 0]
+    for key, w in (("jntb", 3), ("jntf", 6)):
+        if len(g[key]):
+            i, va = g[key].T
+            moment[:, t(i)[:, None], t(va[:, None] + np.arange(w))] = gear[t(i), :w]
+    if len(g["ten"]):
+        i, tid = (t(c) for c in g["ten"].T)
+        length[:, i] = d.ten_length[:, tid] * gear[i, 0]
+        moment[:, i] = d.ten_J[:, tid] * gear[i, 0][:, None]
+    if len(g["site"]):
+        i, sid = g["site"].T
+        sb = np.asarray(m.site_bodyid, dtype=np.int64)[sid]
+        mask = mmath.static_tensor(body_dof_mask(m)[:, sb].T, dev, d.qpos.dtype)
+        offset = d.site_xpos[:, t(sid)] - d.subtree_com[
+            :, t(np.asarray(m.body_rootid, dtype=np.int64)[sb])]
+        cdof = d.cdof[:, None]                                   # (B, 1, nv, 6)
+        jacp = (cdof[..., 3:] + mmath.cross(cdof[..., :3], offset[:, :, None])) \
+            * mask[None, :, :, None]
+        jacr = cdof[..., :3] * mask[None, :, :, None]
+        xmat = d.site_xmat[:, t(sid)]
+        wf = torch.einsum("bwij,wj->bwi", xmat, gear[t(i), :3])
+        wt = torch.einsum("bwij,wj->bwi", xmat, gear[t(i), 3:])
+        moment[:, t(i)] = (torch.einsum("bwvi,bwi->bwv", jacp, wf)
+                           + torch.einsum("bwvi,bwi->bwv", jacr, wt))
     return d.replace(actuator_length=length, actuator_moment=moment,
                      actuator_velocity=torch.einsum("buv,bv->bu", moment, d.qvel))
 
 
 def check_actuators(m: Model) -> None:
     """Raise NotImplementedError for actuators `transmission` and
-    `actuation` cannot run: any activation (na > 0), dynamics, a gain other
-    than fixed, a bias other than none or affine, transmissions other than
-    a hinge's or a slide's."""
+    `actuation` cannot run: muscles (dynamics, gain or bias) and
+    transmissions other than joints, tendons and sites."""
     _trn_meta(m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
               m.jnt_dofadr)
-    if m.na:
-        raise NotImplementedError("actuation: activation states (na > 0) are not "
-                                  "ported to the torch package")
-    for field, ok, enum in (("dyntype", (DynType.NONE,), DynType),
-                            ("gaintype", (GainType.FIXED,), GainType),
-                            ("biastype", (BiasType.NONE, BiasType.AFFINE), BiasType)):
-        bad = [v for v in getattr(m, "actuator_" + field) if v not in ok]
-        if bad:
-            raise NotImplementedError(f"actuation: {field} {enum(bad[0]).name.lower()} "
-                                      f"is not ported to the torch package")
+    for field, enum in (("dyntype", DynType), ("gaintype", GainType),
+                        ("biastype", BiasType)):
+        if any(v == int(enum.MUSCLE) for v in getattr(m, "actuator_" + field)):
+            raise NotImplementedError(f"actuation: {field} muscle is not ported to the "
+                                      f"torch package")
 
 
 @functools.lru_cache(maxsize=128)
@@ -531,44 +617,65 @@ def _act_clamp_meta(jnt_actfrclimited, jnt_dofadr):
 
 
 def actuation(m: Model, d: Data) -> Data:
-    """Actuator forces (mj_fwdActuation without activation): ctrl clamped to
-    ctrlrange where ctrllimited (unless CLAMPCTRL is disabled), force = gain
-    ctrl + bias, bias = biasprm[0] + biasprm[1] length + biasprm[2] velocity
-    where the bias is affine (position and velocity servos), clamped to
-    forcerange where forcelimited, qfrc_actuator = moment^T force clamped
-    to actuatorfrcrange at joints that limit it; zeros under
-    DisableBit.ACTUATION. What check_actuators refuses raises."""
+    """Actuator forces (mj_fwdActuation): ctrl clamped to ctrlrange where
+    ctrllimited (unless CLAMPCTRL is disabled); each activation's act_dot
+    (integrator: ctrl, filter and filterexact: (ctrl - act) / dynprm[0]),
+    the actuator's input its activation where it has one, else ctrl; force
+    = gain input + bias, gain fixed (gainprm[0]) or affine (gainprm[0] +
+    gainprm[1] length + gainprm[2] velocity), bias none or affine (biasprm
+    likewise), clamped to forcerange where forcelimited; qfrc_actuator =
+    moment^T force clamped to actuatorfrcrange at joints that limit it;
+    zeros under DisableBit.ACTUATION. What check_actuators refuses
+    raises."""
     if m.nu == 0:
         return d
     check_actuators(m)
     flags = m.opt.disableflags
     if flags & DisableBit.ACTUATION:
         return d.replace(qfrc_actuator=torch.zeros_like(d.qvel),
-                         actuator_force=torch.zeros_like(d.ctrl))
+                         actuator_force=torch.zeros_like(d.ctrl),
+                         act_dot=torch.zeros_like(d.act))
     dev = d.qpos.device
+
+    def mask(values):
+        return mmath.static_tensor(np.asarray(values), dev)
     ctrl = d.ctrl
     if not flags & DisableBit.CLAMPCTRL and any(m.actuator_ctrllimited):
-        lim = mmath.static_tensor(np.array(m.actuator_ctrllimited, dtype=bool), dev)
         rng = m.actuator_ctrlrange
-        ctrl = torch.where(lim, torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
-    force = m.actuator_gainprm[:, 0] * ctrl
+        ctrl = torch.where(mask(np.array(m.actuator_ctrllimited, dtype=bool)),
+                           torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
+    inp, act_dot = ctrl, d.act_dot
+    if m.na:
+        dyn = np.asarray(m.actuator_dyntype)
+        adr = np.asarray(m.actuator_actadr)
+        has = adr >= 0
+        a_g = d.act[:, mask(np.where(has, adr, 0))]
+        inp = torch.where(mask(has), a_g, ctrl)
+        ad = torch.where(mask(dyn == int(DynType.INTEGRATOR)), ctrl,
+                         (ctrl - a_g) / torch.clamp(m.actuator_dynprm[:, 0], min=mmath.MINVAL))
+        act_dot = torch.zeros_like(d.act)
+        act_dot[:, mask(adr[has])] = ad[:, mask(np.nonzero(has)[0])]
+    L, V = d.actuator_length, d.actuator_velocity
+    gp, bp = m.actuator_gainprm, m.actuator_biasprm
+    gain = gp[:, 0]
+    if any(t == int(GainType.AFFINE) for t in m.actuator_gaintype):
+        gain = torch.where(mask(np.array(m.actuator_gaintype) == int(GainType.FIXED)),
+                           gp[:, 0], gp[:, 0] + gp[:, 1] * L + gp[:, 2] * V)
+    force = gain * inp
     if any(t == int(BiasType.AFFINE) for t in m.actuator_biastype):
-        bp = m.actuator_biasprm
-        aff = mmath.static_tensor(np.array(m.actuator_biastype) == int(BiasType.AFFINE),
-                                  dev)
-        force = force + torch.where(aff, bp[:, 0] + bp[:, 1] * d.actuator_length
-                                    + bp[:, 2] * d.actuator_velocity, 0.0)
+        force = force + torch.where(mask(np.array(m.actuator_biastype) == int(BiasType.AFFINE)),
+                                    bp[:, 0] + bp[:, 1] * L + bp[:, 2] * V, 0.0)
     if any(m.actuator_forcelimited):
-        lim = mmath.static_tensor(np.array(m.actuator_forcelimited, dtype=bool), dev)
         rng = m.actuator_forcerange
-        force = torch.where(lim, torch.clamp(force, rng[:, 0], rng[:, 1]), force)
+        force = torch.where(mask(np.array(m.actuator_forcelimited, dtype=bool)),
+                            torch.clamp(force, rng[:, 0], rng[:, 1]), force)
     qfrc = torch.einsum("buv,bu->bv", d.actuator_moment, force)
     dofs, jnts = _act_clamp_meta(m.jnt_actfrclimited, m.jnt_dofadr)
     if dofs.size:
         dofs, jnts = mmath.static_tensor(dofs, dev), mmath.static_tensor(jnts, dev)
         rng = m.jnt_actfrcrange[jnts]
         qfrc[:, dofs] = torch.clamp(qfrc[:, dofs], rng[:, 0], rng[:, 1])
-    return d.replace(actuator_force=force, qfrc_actuator=qfrc)
+    return d.replace(actuator_force=force, qfrc_actuator=qfrc, act_dot=act_dot)
 
 
 def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,9 @@ bytes, each after its length as 8 little-endian bytes). The arrays are the
 integrated state of _STATE_FIELDS, then the state of the server's
 generator (the port's counterpart of the JAX batch's per-env keys, so that
 a resumed run draws the same plugin and control noise), then the plugins'
-states. Activations (`act`) are not stored: the port compiles no model
-with activation state. A blob of the JAX package's native codec is
-refused.
+states. The actuators' activations (`act`) are integrated state and are
+stored, as the JAX checkpoint stores them. A blob of the JAX package's
+native codec is refused.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-_STATE_FIELDS = ("time", "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
+_STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qfrc_applied", "xfrc_applied",
                  "eq_active", "mocap_pos", "mocap_quat", "qacc_warmstart")
 _GENERATOR = "__generator"
 _MAGIC = b"PYFB"

@@ -8,12 +8,16 @@ BASELINE config 5's PILE: `--world PILE --nenv 512 --con-topk 64
 humanoid bench: `--world HUMANOID --nenv 1024 --con-topk 48`.
 
 `--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE,
-SENSORS, ARM7) or models/humanoid.py (HUMANOID). SENSORS is served with a
+SENSORS, ARM7), models/humanoid.py (HUMANOID) or tests/torch_problems.py
+(PANDA_PICK, TENDON_ACT). SENSORS is served with a
 SensorsPlugin and bench_config3's three noise models (bench.py:160-189),
 as BASELINE config 3 runs it; ARM7 as BASELINE config 4 runs it
 (bench.py:192-206): the weld on, bench_config4's ctrl, with a
 MocapPlugin and a RosControlPlugin (POSITION_PID on j4-j6), the target
-0.59 m from the end effector, as chip_smoke.py's phase 20 serves it.
+0.59 m from the end effector, as chip_smoke.py's phase 20 serves it;
+PANDA_PICK as chip_smoke.py's phase 30b: each env at its seeded grasp pose
+(tests/torch_problems.panda_states, set_qpos), the gripper open through
+the warm-up steps and closed on the box for the timed ones.
 
 Steps `MujocoServer(world, nenv, pair_topk=..., con_topk=...)` (on the
 card; --ls-iterations replaces the model's line-search iterations) through
@@ -28,6 +32,7 @@ the same number under torch.profiler, and prints:
 - host time per step of each stage of the general path (smooth position,
   collision, the three sensor stages, the velocity stage's com_vel,
   passive and rne, actuation, smooth acceleration, efc rows, solve, Euler,
+  inside the position stage the tendons and the transmission,
   inside them the broadphase's top-k (`_topk_pairs`) and the active-contact
   top-k (`_deepest`),
   the sensors plugin's last stage, the mocap and ros_control plugins'
@@ -64,12 +69,14 @@ from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin  # no
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin  # noqa: E402
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer  # noqa: E402
 _THREADS = torch.get_num_threads()
+import tests.torch_problems as problems  # noqa: E402
 from tests.torch_problems import ARM7_CTRL, SENSORS_NOISE  # noqa: E402
 
 torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
 WARMUP = 64
-STAGES = ((smooth, "fwd_position_smooth"), (collision, "collide"),
+STAGES = ((smooth, "fwd_position_smooth"), (smooth, "tendon"), (smooth, "transmission"),
+          (collision, "collide"),
           (narrowphase, "_topk_pairs"), (efc, "_deepest"),
           (sensor, "sensor_pos"), (smooth, "com_vel"), (smooth, "passive"),
           (smooth, "rne"),
@@ -145,10 +152,11 @@ def main(argv=None) -> int:
     for mod, name in STAGES:
         setattr(mod, name, _labelled(getattr(mod, name), f"stage:{_label(mod, name)}"))
 
-    xml = getattr(worlds, args.world, None) or getattr(humanoid, args.world, None)
+    xml = (getattr(worlds, args.world, None) or getattr(humanoid, args.world, None)
+           or getattr(problems, args.world, None))
     if not isinstance(xml, str):
-        sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py or "
-                 f"models/humanoid.py")
+        sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py, "
+                 f"models/humanoid.py or tests/torch_problems.py")
     plugins = {"SENSORS": [SensorsPlugin()],
                "ARM7": [MocapPlugin(), RosControlPlugin({"joints": {
                    j: {"method": "POSITION_PID", "pid": [20.0, 1.0, 0.5, 5.0],
@@ -168,7 +176,15 @@ def main(argv=None) -> int:
         assert srv.set_ctrl(ARM7_CTRL).success
         assert srv.set_mocap_state(MocapState(["mocap_target"],
                                               [Pose([0.35, 0.15, 0.85])])).success
+    if args.world == "PANDA_PICK":
+        qpos, _, ctrl = problems.panda_states(srv._m64, args.nenv, seed=22)
+        qpos[:, 7:9] = 0.04
+        for k in range(args.nenv):
+            assert srv.set_qpos(qpos[k], env_id=k, zero_qvel=True).success
+        assert srv.set_ctrl(ctrl[0]).success
     srv.step(WARMUP)
+    if args.world == "PANDA_PICK":
+        assert srv.set_ctrl(list(ctrl[0, :7]) + [problems.PANDA_CLOSED]).success
     torch.cuda.synchronize()
     t = time.perf_counter()
     srv.step(args.steps)

@@ -266,14 +266,18 @@ def test_equalities_step_matches_jax():
 
 
 _BODY = ('<body name="b"><joint name="j" type="hinge"/><geom type="sphere" size="0.1"/>'
-         '</body>')
+         '<site name="s"/></body>')
+# "tendon_equality" and "general" keep the ids they had when they held a
+# tendon equality and a <general> with dynamics, which the port now
+# compiles; they hold a spatial tendon and a muscle gain, which still raise
 _RAISES = {
-    "tendon_equality": ('<equality><tendon tendon1="t"/></equality>', "tendon"),
+    "tendon_equality": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
+                        '<equality><tendon tendon1="t"/></equality>', "spatial"),
     "distance_equality": ('<equality><distance geom1="g" geom2="h"/></equality>',
                           "distance"),
     "unknown_body": ('<equality><weld body1="ghost"/></equality>', "ghost"),
-    "general": ('<actuator><general joint="j" dyntype="integrator"/></actuator>',
-                "general"),
+    "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>',
+                "gaintype muscle"),
     "muscle": ('<actuator><muscle joint="j"/></actuator>', "muscle"),
     "mocap_with_joint": ("", "mocap"),
 }
@@ -281,9 +285,9 @@ _RAISES = {
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_elements_raise(case):
-    """Tendon and distance equalities, an unknown body, `<general>` with
-    dynamics, muscles and a mocap body with a joint raise ValueError at
-    compile, naming what is wrong."""
+    """Spatial tendons, distance equalities, an unknown body, muscle gains,
+    muscles and a mocap body with a joint raise ValueError at compile,
+    naming what is wrong."""
     extra, match = _RAISES[case]
     body = _BODY.replace('name="b"', 'name="b" mocap="true"') if case.startswith(
         "mocap") else _BODY

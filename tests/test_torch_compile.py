@@ -42,15 +42,16 @@ def jax_model_to_numpy(jm):
     return fields, meta
 
 
-def assert_models_equal(pm, cm, tol=1e-12):
-    """Every field of the port's Model against the converted JAX Model."""
+def assert_models_equal(pm, cm, tol=1e-12, rtol=0.0):
+    """Every field of the port's Model against the converted JAX Model
+    (float fields within atol tol plus rtol of their size)."""
     for obj_p, obj_c, cls, prefix in ((pm, cm, ptypes.Model, ""),
                                       (pm.opt, cm.opt, ptypes.Option, "opt.")):
         for name in ptypes.array_fields(cls):
             a, b = getattr(obj_p, name), getattr(obj_c, name)
             assert a.shape == b.shape, f"{prefix}{name}: {a.shape} vs {b.shape}"
             if b.is_floating_point():
-                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
                                            atol=tol, err_msg=prefix + name)
             else:
                 assert torch.equal(a.to(b.dtype), b), prefix + name
@@ -138,10 +139,11 @@ def test_model_to_casts_floats_only():
                  "mesh",
                  id='<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody>'
                     '</mujoco>-cylinder'),
-    # the case keeps the id it had when it held a <velocity> servo, which
-    # the port now compiles; an <intvelocity> (an activation) still raises
+    # the case keeps the id it had when it held a <velocity> servo, and
+    # then an <intvelocity>, which the port now compiles; a <muscle> still
+    # raises
     pytest.param('<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
-                 '<actuator><intvelocity joint="j"/></actuator></mujoco>', "actuator",
+                 '<actuator><muscle joint="j"/></actuator></mujoco>', "actuator",
                  id='<mujoco><worldbody><body><joint name="j"/></body></worldbody>'
                     '<actuator><velocity joint="j"/></actuator></mujoco>-actuator'),
 ])

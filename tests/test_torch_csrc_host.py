@@ -24,11 +24,13 @@ import torch
 from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
+from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
 from tests.torch_problems import (BOX_BIN, BOXES_DAMPED, CAPSULE_CONDIM6, MIXED_BASE,
-                                  MIXED_KINDS, PEGS, box_bin_states, box_cluster,
-                                  fused_states, pegs_states, random_problem)
+                                  MIXED_KINDS, PEGS, TENDON_ACT, box_bin_states, box_cluster,
+                                  fused_states, pegs_states, random_problem,
+                                  tendon_act_states)
 
 HARNESS = Path(__file__).resolve().parent / "csrc_host_harness.cpp"
 NENV = 8
@@ -93,6 +95,35 @@ def test_group_newton_body_matches_plain(harness, tmp_path, group, nv, niter, nl
     if niter == 32:
         by_warp = trips[0].reshape(-1, per_warp)
         assert bool((by_warp.max(1).values > by_warp.min(1).values).any()), by_warp
+
+
+@pytest.mark.parametrize("group", [8, 16])
+def test_group_newton_body_on_tendon_act_rows(harness, tmp_path, group):
+    """K2's body on TENDON_ACT's model-made rows (float32, 8 seeded envs:
+    the tendon equality, the friction-loss rows of a dof and a tendon, the
+    ball's and the tendon's limit rows, 7 condim-3 contacts; nv 6, 26
+    rows), each row kind active in some env, against solve_batched_plain
+    at rtol / atol 2e-3, as the synthetic rows above."""
+    m = mjcf.load_model_from_string(TENDON_ACT, dtype=torch.float32)
+    qpos, qvel, act, ctrl = (torch.from_numpy(a.astype(np.float32))
+                             for a in tendon_act_states(NENV, seed=31))
+    d = fwd.make_data(m, NENV).replace(qpos=qpos, qvel=qvel, act=act, ctrl=ctrl)
+    d = collision.collide(m, smooth.fwd_position_smooth(m, d))
+    d = smooth.fwd_acceleration_smooth(m, smooth.actuation(m, smooth.fwd_velocity_smooth(m, d)))
+    e = efc.make_efc(m, d)
+    kinds, base = e.kinds, tuple(zip(e.con_base, e.con_dim))
+    assert kinds[:5] == ("eq", "fri", "fri", "lim", "lim") and len(kinds) == 26
+    assert bool(e.active[:, 3:5].any(0).all()) and bool(e.con_active.any())
+    p = dict(J=e.J, aref=e.aref, D=e.D, floss=e.frictionloss, active=e.active,
+             mu=e.con_mu, M=d.qM, a_s=d.qacc_smooth,
+             ws=torch.from_numpy(0.1 * np.random.default_rng(31).normal(
+                 size=(NENV, m.nv)).astype(np.float32)))
+    got = _run(harness, tmp_path, group, m.nv, kinds, base,
+               {k: v.numpy() for k, v in p.items()})
+    want = solver_tpu.solve_batched_plain(kinds, base, m.nv, 32, 8, 1e-8, True, **p)
+    for name, a, b in zip(("qacc", "qfrc", "f_rows"), got, want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=2e-3, atol=2e-3,
+                                   err_msg=f"G {group} TENDON_ACT {name}")
 
 
 # (nv, rows, contacts, envs): BOXES, PENDULUM, the maxima with cones and

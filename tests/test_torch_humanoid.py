@@ -206,47 +206,52 @@ def test_limited_pendulum_step_float64():
 
 
 _RAISES = {
-    # a position servo compiles now; on a ball joint its transmission raises
-    "position": ('<actuator><position joint="j" kp="10"/></actuator>',
-                 NotImplementedError, "ball joint transmission"),
-    "general": ('<actuator><general joint="j" gainprm="3"/></actuator>', ValueError,
-                "general"),
-    "tendon": ('<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>'
-               '<actuator><motor tendon="t"/></actuator>', ValueError, "tendon"),
-    "ball_limit": ("", NotImplementedError, "ball"),
+    # each case keeps the id it had when it held a feature the port now
+    # runs (a servo on a ball joint, <general>, a fixed tendon, a ball
+    # joint's limit) and holds one that still raises
+    "position": ("", ValueError, "mesh"),
+    "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>', ValueError,
+                "muscle"),
+    "tendon": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
+               '<actuator><motor tendon="t"/></actuator>', ValueError, "spatial"),
+    "ball_limit": ('<option integrator="implicitfast"/>', NotImplementedError,
+                   "integrator IMPLICITFAST"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_features_raise(case):
-    """Other actuators and transmissions raise ValueError at compile; a
-    limited ball joint and a servo on a ball joint NotImplementedError from
-    make_plan; each names what is missing."""
+    """Mesh geoms, muscle gains and spatial tendons raise ValueError at
+    compile; the implicitfast integrator of
+    Menagerie's arm files NotImplementedError from make_plan; each names
+    what is missing."""
     extra, exc, match = _RAISES[case]
     joint = {"ball_limit": '<joint name="j" type="ball" range="0 0.5"/>',
-             "position": '<joint name="j" type="ball"/>'}.get(
+             "position": '<joint name="j" type="ball"/><geom type="mesh" mesh="m"/>'}.get(
                  case, '<joint name="j" type="hinge"/>')
-    xml = (f'<mujoco><worldbody><body>{joint}<geom type="sphere" size="0.1"/></body>'
-           f"</worldbody>{extra}</mujoco>")
+    xml = (f'<mujoco>{extra if case == "ball_limit" else ""}<worldbody><body>{joint}'
+           f'<geom type="sphere" size="0.1"/><site name="s"/></body></worldbody>'
+           f'{"" if case == "ball_limit" else extra}</mujoco>')
     with pytest.raises(exc, match=match):
         fwd.make_plan(mjcf.load_model_from_string(xml))
 
 
 def test_jax_compiled_position_actuator_raises():
     """A model compiled elsewhere (the JAX package) with a <position>
-    actuator converts and plans on the general route (its affine bias is
-    ported); one whose servo adds an activation (<intvelocity>: an
-    integrator, na = 1) or an affine gain (<damper>) converts, and the port
-    refuses to step it by name."""
+    actuator converts and plans on the general route, and so do one whose
+    servo adds an activation (<intvelocity>: an integrator, na = 1) and
+    one with an affine gain (<damper>); one with a <muscle> converts, and
+    the port refuses to step it by name."""
     def converted(act):
         xml = ('<mujoco><worldbody><body><joint name="j"/><geom type="sphere" '
                f'size="0.1"/></body></worldbody><actuator>{act}</actuator></mujoco>')
         return model_from_numpy(*jax_model_to_numpy(jmjcf.load_model_from_string(xml)))
     assert fwd.make_plan(converted('<position joint="j" kp="10"/>')) == fwd.GeneralPlan()
-    with pytest.raises(NotImplementedError, match="activation"):
-        fwd.make_plan(converted('<intvelocity joint="j" kp="10"/>'))
-    with pytest.raises(NotImplementedError, match="gaintype affine"):
-        fwd.make_plan(converted('<damper joint="j" kv="1"/>'))
+    m = converted('<intvelocity joint="j" kp="10"/>')
+    assert m.na == 1 and fwd.make_plan(m) == fwd.GeneralPlan()
+    assert fwd.make_plan(converted('<damper joint="j" kv="1"/>')) == fwd.GeneralPlan()
+    with pytest.raises(NotImplementedError, match="muscle"):
+        fwd.make_plan(converted('<muscle joint="j" lengthrange="0.5 1.5"/>'))
 
 
 def test_set_ctrl_and_humanoid_server():

@@ -503,3 +503,263 @@ def pegs_states(m, nenv: int, seed: int):
         qpos[sel, :3] = b + d * (hi - depth[sel])[:, None]
     qpos[:, 3:] = quat
     return qpos.astype(np.float32), (0.3 * rng.normal(size=(nenv, 6))).astype(np.float32)
+
+
+# a Panda-style arm with a tendon-coupled parallel gripper, after MuJoCo
+# Menagerie's franka_emika_panda/panda.xml: its link offsets, joint ranges,
+# inertials (the diagonal of each fullinertia), armature, damping,
+# actuators and the `split` tendon; primitive geoms stand in for the
+# meshes. Added to panda.xml: frictionloss 0.1 on the arm's joints, the
+# tendon's limit, the floor and a free 5 cm box of 0.1 kg. Only the hand,
+# the finger pads, the box and the floor collide (contype / conaffinity);
+# the pads not with each other. The fingers' equality spells out solimp's
+# last two values (MuJoCo's defaults), which panda.xml leaves implied.
+_PANDA_JOINT = 'armature="0.1" damping="1" frictionloss="0.1"'
+_PANDA_LINKS = (
+    # name, body attributes, joint range, inertial pos, mass, diaginertia,
+    # stand-in capsule
+    ("link1", 'pos="0 0 0.333"', "-2.8973 2.8973", "0.003875 0.002081 -0.04762",
+     4.970684, "0.70337 0.70661 0.009117", "0 0 -0.15 0 0 0.05"),
+    ("link2", 'quat="1 -1 0 0"', "-1.7628 1.7628", "-0.003141 -0.02872 0.003495",
+     0.646926, "0.007962 0.02811 0.025995", "0 0 0 0 -0.316 0"),
+    ("link3", 'pos="0 -0.316 0" quat="1 1 0 0"', "-2.8973 2.8973",
+     "0.027518 0.039252 -0.066502", 3.228604, "0.037242 0.036155 0.01083",
+     "0 0 -0.1 0.0825 0 0"),
+    ("link4", 'pos="0.0825 0 0" quat="1 1 0 0"', "-3.0718 -0.0698",
+     "-0.05317 0.104419 0.027454", 3.587895, "0.025853 0.019552 0.028323",
+     "0 0 0 -0.0825 0.384 0"),
+    ("link5", 'pos="-0.0825 0.384 0" quat="1 -1 0 0"', "-2.8973 2.8973",
+     "-0.011953 0.041065 -0.038437", 1.225946, "0.035549 0.029474 0.008627",
+     "0 0 -0.2 0 0 0"),
+    ("link6", 'quat="1 1 0 0"', "-0.0175 3.7525", "0.060149 -0.014117 -0.010517",
+     1.666555, "0.001964 0.004354 0.005433", "0 0 0 0.088 0 0"),
+    ("link7", 'pos="0.088 0 0" quat="1 1 0 0"', "-2.8973 2.8973",
+     "0.010517 -0.004252 0.061597", 0.735522, "0.012516 0.010027 0.004815",
+     "0 0 0 0 0 0.08"),
+)
+_PANDA_GAINS = (4500, 4500, 3500, 3500, 2000, 2000, 2000)
+
+
+def _panda() -> str:
+    hand = """
+<body name="hand" pos="0 0 0.107" quat="0.9238795 0 0 -0.3826834">
+  <inertial pos="-0.01 0 0.03" mass="0.73" diaginertia="0.001 0.0025 0.0017"/>
+  <geom name="hand" type="box" pos="0 0 0.03" size="0.02 0.1 0.025"/>
+  <site name="tcp" pos="0 0 0.1034"/>
+  <body name="left_finger" pos="0 0 0.0584">
+    <inertial pos="0 0 0" mass="0.015" diaginertia="2.375e-06 2.375e-06 7.5e-07"/>
+    <joint name="finger_joint1" type="slide" axis="0 1 0" range="0 0.04" armature="0.1"
+           damping="1"/>
+    <geom name="left_pad" type="box" pos="0 0.006 0.032" size="0.008 0.006 0.022"
+          contype="2" conaffinity="1"/>
+  </body>
+  <body name="right_finger" pos="0 0 0.0584" quat="0 0 0 1">
+    <inertial pos="0 0 0" mass="0.015" diaginertia="2.375e-06 2.375e-06 7.5e-07"/>
+    <joint name="finger_joint2" type="slide" axis="0 1 0" range="0 0.04" armature="0.1"
+           damping="1"/>
+    <geom name="right_pad" type="box" pos="0 0.006 0.032" size="0.008 0.006 0.022"
+          contype="2" conaffinity="1"/>
+  </body>
+</body>"""
+    body = hand
+    for k, (name, attrs, rng, ipos, mass, inertia, capsule) in reversed(
+            list(enumerate(_PANDA_LINKS))):
+        body = (f'<body name="{name}" {attrs}>'
+                f'<inertial pos="{ipos}" mass="{mass}" diaginertia="{inertia}"/>'
+                f'<joint name="joint{k + 1}" axis="0 0 1" range="{rng}" {_PANDA_JOINT}/>'
+                f'<geom type="capsule" fromto="{capsule}" size="0.05" contype="0" '
+                f'conaffinity="0"/>{body}</body>')
+    servos = "".join(
+        f'<general name="actuator{k + 1}" joint="joint{k + 1}" gainprm="{kp}" '
+        f'biastype="affine" biasprm="0 -{kp} -{kp // 10}" ctrlrange="{_PANDA_LINKS[k][2]}" '
+        f'forcerange="{"-87 87" if k < 4 else "-12 12"}"/>'
+        for k, kp in enumerate(_PANDA_GAINS))
+    return f"""
+<mujoco model="panda_pick">
+  <option timestep="0.002" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.1"/>
+    <body name="link0">
+      <inertial pos="-0.041018 -0.00014 0.049974" mass="0.629769"
+                diaginertia="0.00315 0.00388 0.004285"/>
+      <geom type="capsule" fromto="0 0 0 0 0 0.2" size="0.06" contype="0" conaffinity="0"/>
+      {body}
+    </body>
+    <body name="box" pos="0.5 0 0.025">
+      <freejoint/>
+      <geom name="box" type="box" size="0.025 0.025 0.025" mass="0.1"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="split" limited="true" range="0 0.04">
+      <joint joint="finger_joint1" coef="0.5"/>
+      <joint joint="finger_joint2" coef="0.5"/>
+    </fixed>
+  </tendon>
+  <equality>
+    <joint joint1="finger_joint1" joint2="finger_joint2" solref="0.005 1"
+           solimp="0.95 0.99 0.001 0.5 2"/>
+  </equality>
+  <actuator>
+    {servos}
+    <general name="actuator8" tendon="split" ctrlrange="0 255" forcerange="-100 100"
+             gainprm="0.01568627451 0 0" biastype="affine" biasprm="0 -100 -10"/>
+  </actuator>
+</mujoco>
+"""
+
+
+PANDA_PICK = _panda()
+# the gripper's ctrl open and closed (actuator8: 0.0157 ctrl - 100 split)
+PANDA_OPEN, PANDA_CLOSED = 255.0, 0.0
+# panda.xml's `home` keyframe, where the grasp search starts
+_PANDA_HOME = (0.0, 0.0, 0.0, -1.57079, 0.0, 1.57079, -0.7853)
+# where the pads' midpoint is put: over the box's resting place, 1 cm above
+# the box's center (the pads' lower ends 1.3 cm over the floor)
+PANDA_GRASP = (0.5, 0.0, 0.035)
+
+
+def _panda_pose(m, q):
+    """The pads' midpoint (B, 3), the hand's x, y and z axes (B, 3) each and
+    the box's geom index, from arm poses q (B, 7), fingers closed."""
+    from mujoco_ros_pkgs_tpu_torch.ops import smooth
+
+    qpos = m.qpos0.double().cpu().expand(q.shape[0], -1).clone()
+    qpos[:, :7] = torch.as_tensor(q, dtype=torch.float64)
+    m64 = m.to(device="cpu", dtype=torch.float64)
+    kin = smooth.kinematics(m64, qpos)
+    pads = [m.geom(n) for n in ("left_pad", "right_pad")]
+    mid = kin.geom_xpos[:, pads].mean(1)
+    R = kin.xmat[:, m.body("hand")]
+    return mid.numpy(), R[..., 0].numpy(), R[..., 1].numpy(), R[..., 2].numpy()
+
+
+def panda_grasp(m):
+    """The arm's pose (7,) that puts the pads' midpoint at PANDA_GRASP with
+    the hand pointing down: damped least squares from panda.xml's home
+    pose on the model's own kinematics, by finite differences (float64)."""
+    q = np.array(_PANDA_HOME)
+    lo, hi = (m.jnt_range[:7, k].double().cpu().numpy() for k in (0, 1))
+
+    def residual(qs):
+        mid, _, _, z = _panda_pose(m, qs)
+        return np.concatenate([mid - PANDA_GRASP, z - (0, 0, -1)], 1)
+    for _ in range(60):
+        r = residual(q[None])[0]
+        dq = 1e-6 * np.eye(7)
+        Jac = ((residual(q + dq) - r) / 1e-6).T
+        q = np.clip(q - np.linalg.solve(Jac.T @ Jac + 1e-6 * np.eye(7), Jac.T @ r),
+                    lo + 1e-3, hi - 1e-3)
+    assert np.abs(residual(q[None])).max() < 1e-6, residual(q[None])
+    return q
+
+
+def panda_states(m, nenv: int, seed: int):
+    """Seeded float64 PANDA_PICK states: qpos (nenv, 16), qvel (nenv, 15),
+    ctrl (nenv, 8). The arm at panda_grasp's pose with each joint moved by
+    N(0, 0.005) rad, the box resting on the floor between the pads (its
+    center under their midpoint, turned with the hand), the arm's qvel
+    N(0, 0.05); ctrl the grasp pose, the gripper open. Each finger's
+    opening: every fourth env open past the 0.04 limit (and the tendon's)
+    by U(0, 0.002), every fourth short of it by U(0, 0.003), and the odd
+    envs closed on the box (pads up to 1 mm into it)."""
+    rng = np.random.default_rng(seed)
+    grasp = panda_grasp(m)
+    q = grasp + 0.005 * rng.normal(size=(nenv, 7))
+    mid, x, _, _ = _panda_pose(m, q)
+    yaw = np.arctan2(x[:, 1], x[:, 0])
+    k = np.arange(nenv) % 4
+    u = rng.uniform(size=nenv)
+    opening = np.select([k == 0, k == 2], [0.04 + 0.002 * u, 0.04 - 0.003 * u],
+                        0.025 - 0.001 * u)
+    qpos = np.zeros((nenv, 16))
+    qpos[:, :7] = q
+    qpos[:, 7:9] = opening[:, None]
+    qpos[:, 9:11] = mid[:, :2]
+    qpos[:, 11] = 0.025
+    qpos[:, 12], qpos[:, 15] = np.cos(yaw / 2), np.sin(yaw / 2)
+    qvel = np.zeros((nenv, 15))
+    qvel[:, :7] = 0.05 * rng.normal(size=(nenv, 7))
+    ctrl = np.tile(np.append(grasp, PANDA_OPEN), (nenv, 1))
+    return qpos, qvel, ctrl
+
+
+# a companion of PANDA_PICK for K2 (nv 6, at most 64 rows): a ball joint
+# (limited) on a hinge chain over a plane, two fixed tendons (t1 limited,
+# with friction loss, a spring with a deadband and damping) coupled by a
+# tendon equality with a quadratic polycoef, a site thruster (the site
+# transmission of quadrotor models such as Menagerie's Skydio X2), an
+# <intvelocity>, a <damper> and a <general> with filterexact dynamics and a
+# clamped activation on the tendon
+TENDON_ACT = """
+<mujoco model="tendon_act">
+  <option timestep="0.002" cone="elliptic"/>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.1"/>
+    <body name="base" pos="0 0 0.35">
+      <joint name="ball" type="ball" range="0 0.5" damping="0.05"/>
+      <geom type="capsule" fromto="0 0 0 0 0 -0.15" size="0.04" contype="1" conaffinity="0"/>
+      <body name="l1" pos="0 0 -0.15">
+        <joint name="h1" type="hinge" axis="0 1 0" damping="0.1" frictionloss="0.05"/>
+        <geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.035" contype="1" conaffinity="0"/>
+        <body name="l2" pos="0.2 0 0">
+          <joint name="h2" type="hinge" axis="0 1 0" damping="0.1"/>
+          <geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.03" contype="1" conaffinity="0"/>
+          <body name="l3" pos="0.2 0 0">
+            <joint name="h3" type="hinge" axis="1 0 0" damping="0.02"/>
+            <geom name="tip" type="sphere" size="0.04" contype="1" conaffinity="0"/>
+            <site name="thrust" pos="0 0 0.04" zaxis="0 0.3 1"/>
+          </body>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="t1" limited="true" range="-0.4 0.4" frictionloss="0.2" stiffness="3"
+           damping="0.2" springlength="-0.1 0.1">
+      <joint joint="h1" coef="1"/>
+      <joint joint="h2" coef="-0.5"/>
+    </fixed>
+    <fixed name="t2">
+      <joint joint="h2" coef="1"/>
+      <joint joint="h3" coef="0.3"/>
+    </fixed>
+  </tendon>
+  <equality>
+    <tendon tendon1="t2" tendon2="t1" polycoef="0.05 0.4 0.3 0 0" solref="0.02 1"/>
+  </equality>
+  <actuator>
+    <general name="thruster" site="thrust" gear="0 0 1 0 0 0.1" ctrlrange="0 6"/>
+    <intvelocity name="iv" joint="h3" kp="5" actrange="-1 1"/>
+    <damper name="damp" joint="h2" kv="0.5" ctrlrange="0 1"/>
+    <general name="filt" tendon="t1" dyntype="filterexact" dynprm="0.05" gainprm="2"
+             biastype="affine" biasprm="0 -1 -0.1" ctrlrange="-1 1" actlimited="true"
+             actrange="-0.5 0.5"/>
+  </actuator>
+</mujoco>
+"""
+
+
+def tendon_act_states(nenv: int, seed: int):
+    """Seeded float64 TENDON_ACT states: qpos (nenv, 7), qvel (nenv, 6),
+    act (nenv, 2), ctrl (nenv, 4). The ball tilted by up to 0.6 rad about
+    a random horizontal axis (past its 0.5 limit in some envs), the hinges
+    bent by U(-0.7, 0.7) (the tip on or into the floor and t1 past its
+    range in some), random velocities, activations and ctrl (some past
+    their ranges)."""
+    rng = np.random.default_rng(seed)
+    angle = rng.uniform(0.0, 0.6, size=nenv)
+    axis = np.zeros((nenv, 3))
+    axis[:, :2] = rng.normal(size=(nenv, 2))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    qpos = np.zeros((nenv, 7))
+    qpos[:, 0] = np.cos(angle / 2)
+    qpos[:, 1:4] = axis * np.sin(angle / 2)[:, None]
+    qpos[:, 4:7] = rng.uniform(-0.7, 0.7, size=(nenv, 3))
+    qvel = 0.5 * rng.normal(size=(nenv, 6))
+    act = rng.uniform(-0.7, 0.7, size=(nenv, 2))
+    ctrl = np.stack([rng.uniform(0, 7, nenv), rng.uniform(-1, 1, nenv),
+                     rng.uniform(-0.2, 1.2, nenv), rng.uniform(-1.2, 1.2, nenv)], 1)
+    return qpos, qvel, act, ctrl
