@@ -223,11 +223,25 @@ Phases (any failure raises; the exit code is then not 0):
      n = 15 on its Hessian by graph replay with plain, cholesky +
      cholesky_solve and bound, K2 on TENDON_ACT's rows by graph replay
      with plain and bound.
+ 31. the other integrators and solvers, each path (a-e) 1 and 5 steps
+     with the kernels against their plain versions at phase 8's
+     tolerances (where envs are past them, both held against the float64
+     step: hold_field), every step's K1 / K2 / K3 launches as a8_launches
+     says, its server's env-steps/s and launches a step, fwd.step ms: (a)
+     PANDA_PICK_IF (implicitfast) at PANDA_NENV, the server as phase 30b
+     with the envs holding the box beside Euler's count; (b) PENDULUM RK4
+     at NENV (K1 4, K2 4 a step); (c) HUMANOID implicit and (d) HUMANOID
+     CG at HUMANOID_NENV; (e) SENSORS PGS at SENSORS_NENV with the sensors
+     plugin, A8_STEPS server steps (2 if one step takes over
+     PGS_STEP_LIMIT_S), K1 on PGS's envs x rows systems of n 7 timed; (f)
+     BOXES's server on K3, an RK4 edit by name (K1 and K2 four times a
+     step), Euler and K3 again.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
-`humanoid`, `sensors`, `arm7` and `panda` objects and K2's `sensors` and
-`tendon_act` objects: their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
+`humanoid`, `sensors`, `arm7`, `panda` and `a8` (phase 31's paths a-e)
+objects and K2's `sensors`, `tendon_act` and `a8_pendulum_rk4` objects:
+their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
 sweeps launch through the kernels' own wrappers with the width rule
@@ -266,7 +280,7 @@ from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 _THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
                                   FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS,
-                                  PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PEGS,
+                                  PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF, PEGS,
                                   PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
                                   TENDON_ACT, arm7_states, box_bin_states, box_cluster,
                                   humanoid_states, panda_states, pegs_states, pile_heap,
@@ -326,7 +340,7 @@ BIN_GENERAL_STEPS = 20
 # bench.py NENV // 2), its server's steps and the step at which its gripper
 # closes; TENDON_ACT's batch (K2's rows)
 PANDA_NENV = 2048
-PANDA_STEPS = 500
+PANDA_STEPS = 250
 PANDA_CLOSE_AT = 100
 TENDON_NENV = 4096
 # operations (a multiply-add counts 2) of one pair's narrowphase, once per
@@ -1170,15 +1184,20 @@ def pile_states(m, nenv, seed):
 
 
 @contextlib.contextmanager
-def newton_trips():
-    """Record (the Newton trips each env took, the trips the batch ran, the
-    host syncs) of every general Newton solve inside the block."""
-    log, saved = [], solver.newton
-    solver.newton = lambda m, d, e: saved(m, d, e, trips=log)
+def solver_trips(name):
+    """Record (the trips each env took, the trips the batch ran, the host
+    syncs) of every solve by solver.<name> (newton, cg, pgs) in the block."""
+    log, saved = [], getattr(solver, name)
+    setattr(solver, name, lambda m, d, e: saved(m, d, e, trips=log))
     try:
         yield log
     finally:
-        solver.newton = saved
+        setattr(solver, name, saved)
+
+
+def newton_trips():
+    """solver_trips of the general Newton."""
+    return solver_trips("newton")
 
 
 def group_slots(m):
@@ -2966,8 +2985,9 @@ def tendon_act_vs_plain(card):
     return static, args, max(err, max(errs.values()))
 
 
-def panda_main_path(card):
-    """30b: MujocoServer(PANDA_PICK, nenv=PANDA_NENV) on the default device:
+def panda_main_path(card, xml=PANDA_PICK, tag="30b PANDA main path"):
+    """30b: MujocoServer(PANDA_PICK, nenv=PANDA_NENV) (or xml: phase 31a's
+    PANDA_PICK_IF) on the default device:
     each env put at its seeded grasp pose by set_qpos (the fingers open),
     set_ctrl of the grasp pose with the gripper open, PANDA_CLOSE_AT steps,
     then set_ctrl with the gripper closed and the rest of PANDA_STEPS
@@ -2977,7 +2997,7 @@ def panda_main_path(card):
     to about the box's width, 2-3 cm)."""
     zero_counts()
     t0 = time.perf_counter()
-    srv = MujocoServer(PANDA_PICK, nenv=PANDA_NENV)
+    srv = MujocoServer(xml, nenv=PANDA_NENV)
     assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
     qpos, _, ctrl = panda_states(mjcf.load_model_from_string(PANDA_PICK), PANDA_NENV, seed=22)
     qpos[:, 7:9] = 0.04
@@ -3016,7 +3036,7 @@ def panda_main_path(card):
            "env_steps_per_s": PANDA_NENV * PANDA_STEPS / t_step,
            "newton_trips_per_env": float(per_env.mean()),
            "newton_trips_per_batch_step": ran / PANDA_STEPS, "held_envs": int(held.sum())}
-    print(f"[30b PANDA main path] server step({PANDA_STEPS}) of PANDA_PICK x {PANDA_NENV}, "
+    print(f"[{tag}] server step({PANDA_STEPS}) x {PANDA_NENV}, "
           f"the gripper closed after {PANDA_CLOSE_AT}: {t_step:.3f}s wall, "
           f"{out['env_steps_per_s']:.4g} env-steps/s; launches {launches} a run, per step K1 "
           f"{out['launches_per_step']:.3f} (2 + the batch's {ran / PANDA_STEPS:.3f} Newton "
@@ -3090,6 +3110,302 @@ def panda_timing(card, m, plan, d, static, args):
           f"cholesky + cholesky_solve {out['library_ms']:.4f} ms; bound "
           f"{out['bound'][0]:.5f} ms ({out['bound'][1]}) ({card})", flush=True)
     return out, k2_timing(card, "TENDON_ACT rows", static, args)
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the other integrators and solvers (implicitfast, implicit, RK4,
+# CG, PGS)
+# ---------------------------------------------------------------------------
+
+def with_option(xml, **opt):
+    """xml with attributes added to its <option>."""
+    return xml.replace("<option ", "<option " + "".join(
+        f'{k}="{v}" ' for k, v in opt.items()), 1)
+
+
+PENDULUM_RK4 = with_option(worlds.PENDULUM, integrator="RK4")
+HUMANOID_IMPLICIT = with_option(HUMANOID, integrator="implicit")
+HUMANOID_CG = with_option(HUMANOID, solver="CG")
+SENSORS_PGS = with_option(worlds.SENSORS, solver="PGS")
+# the server's steps of each path (PANDA_PICK_IF as phase 30b)
+A8_STEPS = {"b": 30, "c": 20, "d": 20, "e": 5}
+# a PGS server step past this many seconds cuts path e's server to 2 steps
+PGS_STEP_LIMIT_S = 10.0
+
+
+def a8_launches(path, ran):
+    """(K1, K2, K3) launches of one step of a path whose solver ran `ran`
+    trips: a PANDA_PICK_IF the mass matrix, implicitfast's solve and one K1
+    per Newton trip; b four forward calls of K1 and K2 each; c the mass
+    matrix and the Newton trips (implicit's LU is the library's); d the
+    mass matrix, CG's first M^-1 grad, one per CG trip and Euler's damping
+    solve; e the mass matrix, PGS's M^-1 J^T over every row and its final
+    M^-1 J^T f."""
+    return {"a": (2 + ran, 0, 0), "b": (4, 4, 0), "c": (1 + ran, 0, 0),
+            "d": (3 + ran, 0, 0), "e": (3, 0, 0)}[path]
+
+
+def hold_field(label, got, want, x64, rtol, atol):
+    """got (kernels) against want (plain versions) at rtol / atol; where
+    envs are past it, both held against x64 (the float64 step) by
+    held_against_f64 in units of atol + rtol |x64| (phase 8's tolerances
+    lie below what float32 resolves on these paths: the PGS sweep's
+    saturation and stopping tests sit at float32's rounding). Returns the
+    max abs difference to plain."""
+    over = ((got - want).abs() > atol + rtol * want.abs()).any(-1)
+    if bool(over.any()):
+        held = held_against_f64(label, got, want, x64, atol + rtol * x64.abs())
+        print(f"[31 {label}] {int(over.sum())} envs past rtol {rtol:g} / atol {atol:g} of "
+              f"plain; against float64 worst env {held[1]:.3f}, 99th percentile "
+              f"{held[3]:.3f} (plain float32 {held[0]:.3f}, {held[2]:.3f})", flush=True)
+    return float((got - want).abs().max())
+
+
+def a8_vs_plain(path, label, xml, d, solver_name):
+    """1 and 5 steps of the path's seeded batch d through fwd.step with the
+    kernels and with their plain versions at phase 8's tolerances (qpos
+    rtol 1e-5 / atol 1e-6, qvel and qacc rtol / atol 1e-4 after 1 step,
+    qpos atol 1e-4 after 5), each field held against the float64 step
+    (hold_field; the float64 steps run only where envs are past them);
+    the launches of every step as a8_launches says."""
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan(), plan
+    dk = dp = d
+    after, per_step = {}, []
+    t0 = time.perf_counter()
+    for k in range(1, 6):
+        zero_counts()
+        with solver_trips(solver_name) as lk:
+            dk = fwd.step(m, dk, plan)
+        torch.cuda.synchronize()
+        launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                    kernels.step_fused.launches)
+        ran = sum(r for _, r, _ in lk)
+        assert launches == a8_launches(path, ran), f"{label}: launches {launches}, trips {ran}"
+        per_step.append(launches)
+        with plain_versions():
+            dp = fwd.step(m, dp, plan)
+        after[k] = (dk, dp)
+    torch.cuda.synchronize()
+    x64 = {}
+
+    def float64_after(k):
+        """The plain float64 step's Data after k steps from d."""
+        if k not in x64:
+            m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
+            dd = data_as(d, torch.float64)
+            with plain_versions():
+                for _ in range(k):
+                    dd = fwd.step(m64, dd)
+            x64[k] = dd
+        return x64[k]
+    errs = {}
+    for k, field, rtol, atol in ((1, "qpos", 1e-5, 1e-6), (1, "qvel", 1e-4, 1e-4),
+                                 (1, "qacc", 1e-4, 1e-4), (5, "qpos", 0.0, 1e-4)):
+        got, want = (getattr(x, field) for x in after[k])
+        if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
+            errs[f"{field}_{k}"] = hold_field(
+                f"{label} {field} {k} step{'s' if k > 1 else ''}", got, want,
+                getattr(float64_after(k), field), rtol, atol)
+        else:
+            errs[f"{field}_{k}"] = float((got - want).abs().max())
+    assert all(bool(torch.isfinite(t).all()) for t in (dk.qpos, dk.qvel, dk.qacc))
+    print(f"[31{path} {label} vs plain] nenv={d.qpos.shape[0]}: launches per step (K1, K2, "
+          f"K3) {per_step}; " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f"; {time.perf_counter() - t0:.1f}s", flush=True)
+    return m, plan, max(errs.values())
+
+
+def a8_server(path, label, xml, nenv, nsteps, solver_name, setup=None, **kw):
+    """MujocoServer(xml, nenv) on the default device, setup(srv) first, then
+    nsteps steps timed by the host's clock: env-steps/s, the launches a
+    step as a8_launches says from the solver's trips, finite."""
+    zero_counts()
+    srv = MujocoServer(xml, nenv=nenv, unpause=False, **kw)
+    assert srv.device.type == "cuda" and srv._plan == fwd.GeneralPlan()
+    if setup is not None:
+        setup(srv)
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with solver_trips(solver_name) as log:
+        assert srv.step(nsteps).success
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    ran = sum(r for _, r, _ in log)
+    base = a8_launches(path, 0)
+    want = (base[0] * nsteps + (a8_launches(path, 1)[0] - base[0]) * ran,
+            base[1] * nsteps, base[2] * nsteps)
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    assert launches == want, f"{label} server: launches {launches}, expected {want}"
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc,
+                                                       d.qfrc_constraint))
+    out = {"nenv": nenv, "steps": nsteps, "env_steps_per_s": nenv * nsteps / wall,
+           "wall_s": wall, "k1_per_step": launches[0] / nsteps,
+           "k2_per_step": launches[1] / nsteps, "k3_per_step": launches[2] / nsteps,
+           "solver_trips_per_step": ran / nsteps}
+    print(f"[31{path} {label} server] step({nsteps}) x {nenv}: {wall:.3f}s wall, "
+          f"{out['env_steps_per_s']:.4g} env-steps/s; per step K1 {out['k1_per_step']:.3f}, "
+          f"K2 {out['k2_per_step']:.3f}, K3 {out['k3_per_step']:.3f}; solver trips of the "
+          f"batch per step {out['solver_trips_per_step']:.3f}", flush=True)
+    return srv, out
+
+
+def a8_step_ms(m, plan, d, nsteps):
+    """fwd.step ms of d by CUDA events (nsteps steps after one of warm-up)."""
+    def run(n):
+        dd = d
+        for _ in range(n):
+            dd = fwd.step(m, dd, plan)
+    return time_ms(lambda: run(nsteps), 1, warmup=1) / nsteps
+
+
+def a8_panda(card, euler_held):
+    """31a: PANDA_PICK_IF at PANDA_NENV envs: kernels against plain; the
+    server as phase 30b (panda_main_path) with the envs holding the box,
+    beside Euler's count of phase 30b (printed, not held); fwd.step ms."""
+    mk = mjcf.load_model_from_string(PANDA_PICK_IF, dtype=torch.float32).to("cuda")
+    d = panda_data(mk, PANDA_NENV, seed=21)
+    m, plan, err = a8_vs_plain("a", "PANDA_PICK_IF", PANDA_PICK_IF, d, "newton")
+    assert m.opt.integrator == 3
+    run = panda_main_path(card, PANDA_PICK_IF, "31a PANDA_PICK_IF server")
+    out = {"nenv": PANDA_NENV, "steps": PANDA_STEPS, "env_steps_per_s": run["env_steps_per_s"],
+           "k1_per_step": run["launches_per_step"], "k2_per_step": 0.0, "k3_per_step": 0.0,
+           "solver_trips_per_step": run["newton_trips_per_batch_step"],
+           "held_envs": run["held_envs"], "held_envs_euler": euler_held, "max_abs_err": err,
+           "step_ms": a8_step_ms(m, plan, d, 5)}
+    print(f"[31a PANDA_PICK_IF] box held between the pads in {out['held_envs']} envs on "
+          f"implicitfast, {euler_held} on Euler (phase 30b); fwd.step {out['step_ms']:.4f} ms "
+          f"({card})", flush=True)
+    return out
+
+
+def a8_pendulum(card):
+    """31b: PENDULUM with RK4 at NENV envs: kernels against plain (K1 4, K2 4
+    a step), the server, fwd.step ms."""
+    mk = mjcf.load_model_from_string(PENDULUM_RK4, dtype=torch.float32).to("cuda")
+    qpos, qvel = pendulum_states(NENV, seed=1)
+    d = fwd.make_data(mk, NENV).replace(qpos=qpos, qvel=qvel)
+    m, plan, err = a8_vs_plain("b", "PENDULUM RK4", PENDULUM_RK4, d, "newton")
+    _, out = a8_server("b", "PENDULUM RK4", PENDULUM_RK4, NENV, A8_STEPS["b"], "newton")
+    out.update(max_abs_err=err, step_ms=a8_step_ms(m, plan, d, 5))
+    print(f"[31b PENDULUM RK4 timing] fwd.step {out['step_ms']:.4f} ms at {NENV} envs "
+          f"({card})", flush=True)
+    return out
+
+
+def a8_humanoid(card, path, label, xml, solver_name):
+    """31c / 31d: HUMANOID (implicit, or CG at the model's 20 iterations) at
+    HUMANOID_NENV envs from seeded states with the feet in the floor
+    (humanoid_states, dropped 0.11 m) and hinges past their limits:
+    kernels against plain, the server with phase 14's seeded ctrl,
+    fwd.step ms."""
+    mk = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    qpos, qvel, ctrl = (torch.from_numpy(a.astype(np.float32)).cuda() for a in
+                        humanoid_states(mk, HUMANOID_NENV, seed=2, drop=0.11))
+    d = fwd.make_data(mk, HUMANOID_NENV).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+    m, plan, err = a8_vs_plain(path, label, xml, d, solver_name)
+
+    def setup(srv):
+        rng = np.random.default_rng(9)
+        assert srv.set_ctrl(rng.uniform(-1.2, 1.2, 21)).success
+    _, out = a8_server(path, label, xml, HUMANOID_NENV, A8_STEPS[path], solver_name, setup)
+    out.update(max_abs_err=err, step_ms=a8_step_ms(m, plan, d, 3))
+    print(f"[31{path} {label} timing] fwd.step {out['step_ms']:.4f} ms at {HUMANOID_NENV} "
+          f"envs ({card})", flush=True)
+    return out
+
+
+def a8_sensors(card):
+    """31e: SENSORS with PGS at SENSORS_NENV envs: kernels against plain,
+    the server (the sensors plugin with three noise models) from the same
+    seeded states for A8_STEPS steps, 2 if a step takes over
+    PGS_STEP_LIMIT_S; K1 on PGS's B nefc
+    systems of n = 7 (M^-1 J^T) timed: graph replay, one call at a time,
+    plain, cholesky + cholesky_solve and the bound."""
+    mk = mjcf.load_model_from_string(SENSORS_PGS, dtype=torch.float32).to("cuda")
+    d = sensors_data(mk, SENSORS_NENV, seed=11)
+    m, plan, err = a8_vs_plain("e", "SENSORS PGS", SENSORS_PGS, d, "pgs")
+    t0 = time.perf_counter()
+    fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    nsteps = A8_STEPS["e"] if one <= PGS_STEP_LIMIT_S else 2
+    print(f"[31e SENSORS PGS] one fwd.step {one:.2f}s: the server runs {nsteps} steps",
+          flush=True)
+
+    def setup(srv):
+        """The seeded states of the comparison (the probe's corners on the
+        floor in most envs), put by set_qpos one env at a time."""
+        assert srv.register_noise_models(list(SENSORS_NOISE)).success
+        qpos, _ = sensors_states(SENSORS_NENV, seed=11)
+        for k in range(SENSORS_NENV):
+            assert srv.set_qpos(qpos[k], env_id=k, zero_qvel=True).success
+    _, out = a8_server("e", "SENSORS PGS", SENSORS_PGS, SENSORS_NENV, nsteps, "pgs", setup,
+                       plugins=[SensorsPlugin()], seed=5)
+    assert out["solver_trips_per_step"] > 3, "the PGS server swept no contact"
+    solves = captured_solves(m, d, plan)
+    assert len(solves) == 3, len(solves)
+    H, g = solves[1]
+    rows = H.shape[0] // SENSORS_NENV
+    assert H.shape == (SENSORS_NENV * rows, 7, 7) and rows == 24, H.shape
+    err = max(err, close("K1 SENSORS PGS M^-1 J^T", linalg_tpu.psd_solve(H, g),
+                         linalg_tpu.psd_solve_plain(H, g), 1e-2, 1e-2))
+    out.update(max_abs_err=err, step_ms=one * 1e3, rows=rows,
+               k1_rows={"n": 7, "systems": H.shape[0],
+                        "graph_ms": graph_ms(lambda: linalg_tpu.psd_solve(H, g), 100),
+                        "ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 20),
+                        "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 3),
+                        "library_ms": time_ms(lambda: library_solve(H, g), 20),
+                        "bound_ms": k1_bound(H.shape[0], 7)[0],
+                        "bound_by": k1_bound(H.shape[0], 7)[1]})
+    k = out["k1_rows"]
+    print(f"[31e K1 PGS] n=7 on {k['systems']} systems ({SENSORS_NENV} envs x {rows} rows): "
+          f"{k['graph_ms']:.4f} ms by graph replay, {k['ms']:.4f} one call at a time; plain "
+          f"{k['plain_ms']:.4f} ms; cholesky + cholesky_solve {k['library_ms']:.4f} ms; bound "
+          f"{k['bound_ms']:.5f} ms ({k['bound_by']}); one PGS fwd.step {one:.3f}s ({card})",
+          flush=True)
+    return out
+
+
+def a8_boxes(card):
+    """31f: MujocoServer(BOXES, nenv=NENV) on K3; an RK4 edit by name moves
+    it to the general route (K1 and K2 four times a step, K3 never), Euler
+    brings K3 back; 10 steps each, finite."""
+    srv = MujocoServer(worlds.BOXES, nenv=NENV, unpause=False)
+    counts = {}
+    for label, edit in (("fused", None), ("RK4", {"integrator": "rk4"}),
+                        ("Euler", {"integrator": "Euler"})):
+        if edit:
+            assert srv.set_physics_properties(edit).success, edit
+        zero_counts()
+        assert srv.step(10).success
+        torch.cuda.synchronize()
+        counts[label] = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                         kernels.step_fused.launches)
+        assert bool(torch.isfinite(srv.d.qpos).all())
+    assert counts == {"fused": (0, 0, 10), "RK4": (40, 40, 0), "Euler": (0, 0, 10)}, counts
+    assert isinstance(srv._plan, step_tpu.Plan)
+    print(f"[31f BOXES edits] {NENV} envs, 10 steps each, launches (K1, K2, K3): {counts} "
+          f"({card})", flush=True)
+    return counts
+
+
+def a8_phase(card, euler_held):
+    """Phase 31: paths a-f; returns {path: results}."""
+    t0 = time.perf_counter()
+    out = {"a_panda_implicitfast": a8_panda(card, euler_held),
+           "b_pendulum_rk4": a8_pendulum(card),
+           "c_humanoid_implicit": a8_humanoid(card, "c", "HUMANOID implicit",
+                                              HUMANOID_IMPLICIT, "newton"),
+           "d_humanoid_cg": a8_humanoid(card, "d", "HUMANOID CG", HUMANOID_CG, "cg"),
+           "e_sensors_pgs": a8_sensors(card),
+           "f_boxes_edits": a8_boxes(card)}
+    print(f"[31] phase 31 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
 
 
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
@@ -3277,6 +3593,9 @@ def main():
                   "newton_trips_mean": float(tt["trips"].mean())}
     print(f"[30] phase 30 in {time.perf_counter() - t0r:.1f}s", flush=True)
 
+    # phase 31: the other integrators and solvers
+    a8 = a8_phase(card, panda["held_envs"])
+
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
         np.savez("chip_smoke_out/k3_x_envs.npz", **t3["saved"])
@@ -3290,10 +3609,13 @@ def main():
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
-             panda=panda),
+             panda=panda, a8={k: v for k, v in a8.items() if k != "f_boxes_edits"},
+             a8_boxes_launches=a8["f_boxes_edits"]),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
-             sensors=t2["sensors"], tendon_act=tendon_act)]}))
+             sensors=t2["sensors"], tendon_act=tendon_act,
+             a8_pendulum_rk4={k: a8["b_pendulum_rk4"][k] for k in (
+                 "k2_per_step", "env_steps_per_s", "step_ms")})]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

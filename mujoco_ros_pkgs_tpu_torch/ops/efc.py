@@ -11,8 +11,9 @@ per limited tendon, then elliptic cones of condim 1/3/4/6 and pyramidal
 facets, every slot of the contact set a row block (inactive rows masked),
 in libmujoco's row order so the rows compare 1:1 with the JAX package's.
 All tensors are batch-first; the row layout is static and shared by the
-batch. With m.con_topk, a cone group the general Newton takes is built at
-each env's K deepest slots only (Efc.cb), their canonical rows per env.
+batch. With m.con_topk, a cone group the general Newton or CG takes is
+built at each env's K deepest slots only (Efc.cb), their canonical rows
+per env.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core.types import Data, DisableBit, EqType, JointType, Model
+from mujoco_ros_pkgs_tpu_torch.core.types import (Data, DisableBit, EqType, JointType, Model,
+                                                   SolverType)
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.ops import smooth, solver, solver_tpu
 from mujoco_ros_pkgs_tpu_torch.ops.narrowphase import slot_meta
@@ -479,8 +481,10 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     contact rows of every slot of d.contact (None without rows). Contact slots are grouped by
     (condim, dynamic). With m.con_topk = K, an elliptic cone group of more
     than K slots is built at each env's K deepest slots only (Efc.cb), when
-    the rows go to the general Newton; the fused solver (solver_tpu.supports)
-    takes every row, as the JAX package's TPU route does."""
+    the rows go to the general Newton or to CG; the fused solver
+    (solver_tpu.supports) takes every row, as the JAX package's TPU route
+    does, and PGS works on the flat rows, which the JAX package builds at
+    every slot."""
     _check_rows(m)
     if m.opt.disableflags & DisableBit.CONSTRAINT:
         return None
@@ -492,6 +496,7 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     nlim = len(jnts) + len(ltens)
     c = d.contact
     B, dtype, dev, nv = d.qpos.shape[0], d.qpos.dtype, d.qpos.device, m.nv
+    solver_id = int(m.opt.solver)
     pyramidal = m.opt.cone == 0
     slots = []
     if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
@@ -516,7 +521,8 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
     con_mu = c.friction[:, sel]
     con_act = c.dist[:, sel] < c.includemargin[:, sel]
     ktop = int(m.con_topk)
-    if ktop and solver_tpu.supports_rows(kinds, con_dim, nv):
+    if solver_id == SolverType.PGS or (solver_id == SolverType.NEWTON
+                                       and solver_tpu.supports_rows(kinds, con_dim, nv)):
         ktop = 0
 
     gb = np.asarray(m.geom_bodyid, dtype=np.int64)

@@ -6,12 +6,16 @@ routes, chosen once per model by `make_plan`:
 - the fused route (ops/step_tpu.py) for single-free-body models it
   supports, one launch of the K3 kernel per step on CUDA;
 - the general route: `forward` (smooth dynamics, collision, contact rows,
-  the Newton solve) then `euler`, with the K1 kernel for the mass-matrix
-  and damping solves on CUDA; the Newton solve runs the K2 kernel where it
-  takes the system (nv <= 16, at most 64 rows: PENDULUM) and otherwise the
-  general Newton of ops/solver.py, whose Hessian solves run K1 (PILE:
-  nv 72, 783 rows; 192 with con_topk=64). Past nv = 96 every solve takes
-  the library Cholesky (linalg_tpu.solve), as the JAX package's XLA solve.
+  the constraint solve) then the model's integrator: `euler`, `implicitfast`
+  (K1 on the damped matrix), `implicit` (d qfrc_bias / d qvel by
+  forward-mode AD, an LU solve) or `rk4` (four forward calls a step). The
+  K1 kernel runs the mass-matrix and damping solves on CUDA; a Newton
+  solve runs the K2 kernel where it takes the system (nv <= 16, at most 64
+  rows: PENDULUM) and otherwise the general Newton of ops/solver.py, whose
+  Hessian solves run K1 (PILE: nv 72, 783 rows; 192 with con_topk=64); CG
+  and PGS (ops/solver.py) run K1 for their M^-1 solves. Past nv = 96
+  every solve takes the library Cholesky (linalg_tpu.solve), as the JAX
+  package's XLA solve.
   The broadphase (pair_topk) and active-contact (con_topk) compactions
   run on the general route; pair_topk refuses the fused route.
 
@@ -27,9 +31,9 @@ mocap bodies and connect, weld, joint and tendon equality rows (ARM7: nv
 hook after the passive forces, pure functions of (m, d) or, with a hook
 state, of (m, d, hstate) returning (d, hstate). Any hook forces the
 general route, as in the JAX package. What neither route covers raises
-NotImplementedError from make_plan: other integrators, other sensor
-types, muscles, spatial tendons, fluid, CG and PGS and collision routines
-the port lacks.
+NotImplementedError from make_plan: other sensor types, muscles, spatial
+tendons, fluid (and with it the fluid term of the implicit integrators'
+derivative) and collision routines the port lacks.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad as fwAD
 
 from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    Data, DisableBit, DynType, IntegratorType, JointType, Model, SensorType, SolverType,
+    BiasType, Data, DisableBit, DynType, GainType, IntegratorType, JointType, Model,
+    SensorType,
 )
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
@@ -220,6 +226,164 @@ def euler(m: Model, d: Data) -> Data:
 
 
 # ---------------------------------------------------------------------------
+# implicitfast, implicit and RK4
+# ---------------------------------------------------------------------------
+
+def _qderiv_smooth(m: Model, d: Data) -> torch.Tensor:
+    """d (qfrc_passive + qfrc_actuator) / d qvel (B, nv, nv), the terms of
+    mjd_smooth_vel that implicitfast and implicit share: joint damping,
+    tendon damping through ten_J^T ten_J, and the affine actuators'
+    dgain input + dbias through moment^T (dfdv moment), with ctrl clamped
+    as actuation clamps it and the activation as input where an actuator
+    has dynamics. The fluid derivative is not ported (check_general)."""
+    dtype = d.qpos.dtype
+    dev = d.qpos.device
+    qD = -torch.diag_embed(m.dof_damping.to(dtype)).expand(d.qvel.shape[0], -1, -1)
+    if m.ntendon:
+        qD = qD - torch.einsum("btv,t,btw->bvw", d.ten_J, m.tendon_damping.to(dtype), d.ten_J)
+    if m.nu:
+        ctrl = d.ctrl
+        if not m.opt.disableflags & DisableBit.CLAMPCTRL:
+            rng = m.actuator_ctrlrange
+            ctrl = torch.where(
+                mmath.static_tensor(np.array(m.actuator_ctrllimited, dtype=bool), dev),
+                torch.clamp(ctrl, rng[:, 0], rng[:, 1]), ctrl)
+        inp = ctrl
+        dyn = np.asarray(m.actuator_dyntype)
+        if (dyn != int(DynType.NONE)).any():
+            adr = np.where(dyn != int(DynType.NONE), np.asarray(m.actuator_actadr), 0)
+            inp = torch.where(mmath.static_tensor(dyn != int(DynType.NONE), dev),
+                              d.act[:, mmath.static_tensor(adr, dev)], ctrl)
+        dgain = torch.where(mmath.static_tensor(
+            np.asarray(m.actuator_gaintype) == int(GainType.AFFINE), dev),
+            m.actuator_gainprm[:, 2], 0.0)
+        dbias = torch.where(mmath.static_tensor(
+            np.asarray(m.actuator_biastype) == int(BiasType.AFFINE), dev),
+            m.actuator_biasprm[:, 2], 0.0)
+        dfdv = dgain * inp + dbias                                    # (B, nu)
+        qD = qD + d.actuator_moment.mT @ (dfdv[..., None] * d.actuator_moment)
+    return qD
+
+
+@functools.lru_cache(maxsize=128)
+def _qderiv_sparsity_meta(body_parentid, body_dofnum, body_dofadr, dof_simple, nv,
+                          simple_truncate):
+    """The structural mask of libmujoco's sparse qDeriv (the JAX package's
+    rule, pinned there against libmujoco): entries only for pairs of dofs
+    on one chain to the root, so a fixed tendon's damping between two trees
+    is dropped; implicitfast, which stores its matrix in qM's sparsity,
+    also drops every off-diagonal entry of a 'simple' dof (dof_simple);
+    implicit keeps the ancestor pairs alone."""
+    nbody = len(body_parentid)
+    amask = np.zeros((nv, nv), dtype=bool)
+    body_dofs = [list(range(body_dofadr[b], body_dofadr[b] + body_dofnum[b]))
+                 for b in range(nbody)]
+    for b in range(nbody):
+        chain = []
+        p = b
+        while p != 0:
+            chain = body_dofs[p] + chain
+            p = body_parentid[p]
+        for x, i in enumerate(chain):
+            amask[i, chain[:x + 1]] = True
+    mask = amask | amask.T
+    if simple_truncate and dof_simple:
+        simple = np.zeros(nv, dtype=bool)
+        simple[list(dof_simple)] = True
+        offdiag = ~np.eye(nv, dtype=bool)
+        mask = mask & ~(offdiag & (simple[:, None] | simple[None, :]))
+    return mask
+
+
+def qderiv_sparsity(m: Model, simple_truncate: bool) -> np.ndarray:
+    """(nv, nv) bool: the entries of qDeriv libmujoco stores
+    (_qderiv_sparsity_meta)."""
+    return _qderiv_sparsity_meta(m.body_parentid, m.body_dofnum, m.body_dofadr,
+                                 m.dof_simple, m.nv, simple_truncate)
+
+
+def implicitfast(m: Model, d: Data) -> Data:
+    """mj_implicit's fast variant: solve (M - h qD) qacc = qfrc_smooth +
+    qfrc_constraint with qD = _qderiv_smooth masked by qderiv_sparsity
+    (simple dofs truncated), the matrix symmetrised; the solve is K1 up to
+    nv = 96 (linalg_tpu.solve)."""
+    dtype = d.qpos.dtype
+    h = m.opt.timestep.to(dtype)
+    qD = _qderiv_smooth(m, d) * mmath.static_tensor(
+        qderiv_sparsity(m, simple_truncate=True), d.qpos.device, dtype)
+    A = d.qM - h * qD
+    A = 0.5 * (A + A.mT)
+    return _advance(m, d, linalg_tpu.solve(A, d.qfrc_smooth + d.qfrc_constraint))
+
+
+def bias_jacobian(m: Model, d: Data) -> torch.Tensor:
+    """d qfrc_bias / d qvel (B, nv, nv) by forward-mode AD through com_vel
+    and rne, over B nv copies of the batch in one pass, copy (b, j) with
+    the unit tangent e_j. qfrc_bias is quadratic in qvel, so the tangent
+    is exact (the JAX package's jax.jacfwd of the same two stages)."""
+    B, nv = d.qvel.shape
+
+    def rep(t):
+        return t.repeat_interleave(nv, 0)
+    tangent = torch.eye(nv, dtype=d.qvel.dtype, device=d.qvel.device).repeat(B, 1)
+    with fwAD.dual_level():
+        dd = d.replace(qpos=rep(d.qpos), qvel=fwAD.make_dual(rep(d.qvel), tangent),
+                       cdof=rep(d.cdof), cinert=rep(d.cinert))
+        jac = fwAD.unpack_dual(smooth.rne(m, smooth.com_vel(m, dd)).qfrc_bias).tangent
+    return jac.view(B, nv, nv).mT
+
+
+def implicit(m: Model, d: Data) -> Data:
+    """mj_implicit: as implicitfast with d qfrc_bias / d qvel folded in
+    (bias_jacobian), masked by the ancestor pairs alone (no truncation),
+    and the matrix, not symmetric, solved by LU (torch.linalg.solve_ex,
+    the JAX package's jnp.linalg.solve; no Pallas kernel there)."""
+    dtype = d.qpos.dtype
+    h = m.opt.timestep.to(dtype)
+    mask = mmath.static_tensor(qderiv_sparsity(m, simple_truncate=False), d.qpos.device,
+                               dtype)
+    A = d.qM - h * ((_qderiv_smooth(m, d) - bias_jacobian(m, d)) * mask)
+    qacc = torch.linalg.solve_ex(A, d.qfrc_smooth + d.qfrc_constraint)[0]
+    return _advance(m, d, qacc)
+
+
+_RK4_A = np.array([[0.5, 0, 0], [0, 0.5, 0], [0, 0, 1.0]])
+_RK4_B = np.array([1 / 6, 1 / 3, 1 / 3, 1 / 6])
+
+
+def rk4(m: Model, d: Data, control_hook: Hook = None, passive_hook: Hook = None,
+        hstate=None):
+    """mj_RungeKutta(4) from d, stage 0's forward already done: three more
+    forward calls (the hooks and their state threaded through each), then
+    qpos, qvel, act and time from the weighted stages. The rest of the
+    returned Data is stage 0's (its qacc, contacts, sensordata and warm
+    start), as in the JAX package. Returns (d, hstate) when hstate is given."""
+    stateful = hstate is not None
+    h = m.opt.timestep.to(d.qpos.dtype)
+    d0 = d
+    qvels, qaccs, act_dots = [d.qvel], [d.qacc], [d.act_dot]
+    for i in range(3):
+        a = _RK4_A[i]
+        dqvel = sum(float(a[j]) * qvels[j] for j in range(i + 1))
+        dqacc = sum(float(a[j]) * qaccs[j] for j in range(i + 1))
+        dact = sum(float(a[j]) * act_dots[j] for j in range(i + 1))
+        di = d0.replace(qpos=integrate_pos(m, d0.qpos, dqvel, h), qvel=d0.qvel + h * dqacc,
+                        act=d0.act + h * dact if m.na else d0.act,
+                        time=d0.time + float(np.sum(_RK4_A[i])) * h)
+        out = forward(m, di, control_hook, passive_hook, hstate)
+        di, hstate = out if stateful else (out, hstate)
+        qvels.append(di.qvel)
+        qaccs.append(di.qacc)
+        act_dots.append(di.act_dot)
+    Fv = sum(float(_RK4_B[j]) * qvels[j] for j in range(4))
+    Fa = sum(float(_RK4_B[j]) * qaccs[j] for j in range(4))
+    Fd = sum(float(_RK4_B[j]) * act_dots[j] for j in range(4))
+    d = d0.replace(qpos=integrate_pos(m, d0.qpos, Fv, h), qvel=d0.qvel + h * Fa,
+                   act=d0.act + h * Fd if m.na else d0.act, time=d0.time + h)
+    return (d, hstate) if stateful else d
+
+
+# ---------------------------------------------------------------------------
 # routes and the step
 # ---------------------------------------------------------------------------
 
@@ -236,9 +400,9 @@ def _not_ported(what: str):
 
 def check_general(m: Model) -> None:
     """Raise NotImplementedError for what the general route cannot step, and
-    ValueError for a geom pair with no ported narrowphase routine."""
-    if m.opt.integrator != int(IntegratorType.EULER):
-        _not_ported(f"integrator {IntegratorType(m.opt.integrator).name}")
+    ValueError for a geom pair with no ported narrowphase routine. Every
+    integrator (Euler, RK4, implicit, implicitfast) and every solver
+    (Newton, CG, PGS) steps here."""
     for st in m.sensor_type:
         if st not in SENSOR_DIM:
             _not_ported(f"sensor type {SensorType(st).name.lower()}")
@@ -250,8 +414,6 @@ def check_general(m: Model) -> None:
         narrowphase.check_pairs(m)
     if constraint._has_constraints(m):
         efc._check_rows(m)
-        if m.opt.solver != int(SolverType.NEWTON):
-            _not_ported("the CG and PGS solvers")
 
 
 def make_plan(m: Model) -> Plan:
@@ -269,7 +431,9 @@ def step(m: Model, d: Data, plan: Optional[Plan] = None, control_hook: Hook = No
          passive_hook: Hook = None, hstate=None):
     """mj_step of the whole batch. A `plan` from make_plan(m) may be made
     once and reused across steps. A hook or a hook state forces the general
-    route; returns (d, hstate) when hstate is given, else d."""
+    route, which runs forward and then m.opt.integrator's update (RK4 runs
+    three more forward calls and sets no warm start of its own); returns
+    (d, hstate) when hstate is given, else d."""
     plan = plan if plan is not None else make_plan(m)
     stateful = hstate is not None
     hooked = control_hook is not None or passive_hook is not None or stateful
@@ -279,5 +443,14 @@ def step(m: Model, d: Data, plan: Optional[Plan] = None, control_hook: Hook = No
         check_general(m)
     out = forward(m, d, control_hook, passive_hook, hstate)
     d, hstate = out if stateful else (out, hstate)
-    d = euler(m, d.replace(qacc_warmstart=d.qacc))
+    integrator = m.opt.integrator
+    if integrator == int(IntegratorType.RK4):
+        return rk4(m, d, control_hook, passive_hook, hstate)
+    d = d.replace(qacc_warmstart=d.qacc)
+    if integrator == int(IntegratorType.IMPLICIT):
+        d = implicit(m, d)
+    elif integrator == int(IntegratorType.IMPLICITFAST):
+        d = implicitfast(m, d)
+    else:
+        d = euler(m, d)
     return (d, hstate) if stateful else d

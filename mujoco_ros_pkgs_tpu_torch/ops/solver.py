@@ -16,7 +16,12 @@ dispatches as the JAX package's `solve` does for Newton:
   size K (per-env rows, Cones) and their forces scattered back to
   the canonical rows, a dropped slot's rows at exactly 0.
 
-CG and PGS raise NotImplementedError.
+`cg` (`_solve_cg_jnp`: Polak-Ribiere+ nonlinear CG in the M^-1 metric, on
+the Newton's row views and line search, M^-1 grad by K1 once per trip) and
+`pgs` (`_solve_pgs_jnp`: dual projected Gauss-Seidel on the Delassus
+matrix J M^-1 J^T + diag(R), whose M^-1 J^T is K1 on B nefc systems) are
+the other two solvers; neither goes to K2, and PGS works on the flat rows
+(efc.make_efc does not compact them).
 """
 
 from __future__ import annotations
@@ -34,20 +39,24 @@ from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL
 
 # the bracket grid of the line search, evaluated in one pass
 _GRID = (0.0625, 0.25, 0.5, 1.0, 2.0, 4.0, 16.0)
-# points of each polish pass
+# points of each polish pass, as fractions of the bracket
 _POLISH_POINTS = 8
+_POLISH = np.linspace(0.0, 1.0, _POLISH_POINTS)
 # the Newton loop asks the card whether every env has converged once every
 # SYNC_EVERY trips (one host sync each), not after every trip
 SYNC_EVERY = 3
 
 
 def solve(m: Model, d: Data, efc) -> Data:
-    """The Newton solve of efc's rows (ops/efc.Efc) from d.qacc_smooth and
-    d.qacc_warmstart; sets qacc, qfrc_constraint, efc_force_contact (the
-    row forces) and qacc_warmstart (the solution)."""
-    if int(m.opt.solver) != int(SolverType.NEWTON):
-        raise NotImplementedError("solver: only the Newton solver is ported to "
-                                  "the torch package (CG and PGS are not)")
+    """The constraint solve of efc's rows (ops/efc.Efc) by m.opt.solver from
+    d.qacc_smooth and d.qacc_warmstart; sets qacc, qfrc_constraint,
+    efc_force_contact (the row forces) and qacc_warmstart (the solution).
+    CG and PGS are chosen before the fused Newton's gate, as in the JAX
+    package: K2 takes Newton alone."""
+    if int(m.opt.solver) == int(SolverType.CG):
+        return cg(m, d, efc)
+    if int(m.opt.solver) == int(SolverType.PGS):
+        return pgs(m, d, efc)
     if not solver_tpu.supports(efc, m.nv):
         return newton(m, d, efc)
     niter, nls = solver_tpu.trip_counts(m)
@@ -289,6 +298,110 @@ def _tmatvec(A, y):
     return torch.einsum("b...n,b...->bn", A, y)
 
 
+def _polish_passes(m: Model) -> int:
+    """Polish passes of the line search: one up to ls_iterations = 8, else
+    two (max(2, ls_iterations) as the JAX package counts them)."""
+    return 1 if max(2, int(m.opt.ls_iterations)) <= _POLISH_POINTS else 2
+
+
+def _line_search(simple: _Simple, cones, jar, us, v, vs, gMd, dMd, npass):
+    """The step alpha (B,) along a direction whose row images are v (simple
+    rows) and vs (cone groups), from phi'(alpha) = gMd + alpha dMd - f(jar +
+    alpha v) . v: the 7-point grid in one pass, `npass` passes of 8 points
+    tightening the bracket, then a secant step on the monotone phi'."""
+    dtype, dev = jar.dtype, jar.device
+    grid = mmath.static_tensor(_GRID, dev, dtype)
+    frac = mmath.static_tensor(_POLISH, dev, dtype)
+
+    def dphi(alpha):
+        """phi'(alpha) at alpha (B, K), the alpha axis on the rows."""
+        fa = _simple_forces(simple, jar[:, None] + alpha[..., None] * v[:, None], False)[0]
+        d1 = gMd[:, None] + alpha * dMd[:, None] - (fa * v[:, None]).sum(-1)
+        for g, u, vc in zip(cones, us, vs):
+            f_c = _cone_forces(g, u[:, None] + alpha[..., None, None] * vc[:, None],
+                               False)[0]
+            d1 = d1 - (f_c * vc[:, None]).sum((-1, -2))
+        return d1
+
+    d1_grid = dphi(grid.expand(jar.shape[0], -1))
+    neg = d1_grid < 0
+    lo = torch.where(neg, grid, torch.zeros_like(grid)).amax(-1)
+    hi = torch.where(neg, grid[-1], grid).amin(-1)
+    hi = torch.maximum(hi, lo)
+    d1_lo = torch.where(neg.any(-1), torch.where(neg, d1_grid, -torch.inf).amax(-1), -1.0)
+    d1_hi = torch.where((~neg).any(-1), torch.where(~neg, d1_grid, torch.inf).amin(-1), 1.0)
+    for _ in range(npass):
+        pts = lo[:, None] + (hi - lo)[:, None] * frac
+        d1s = dphi(pts)
+        n_neg = (d1s < 0).sum(-1)
+        lo_i = torch.clamp(n_neg - 1, 0, _POLISH_POINTS - 1)[:, None]
+        hi_i = torch.clamp(n_neg, 0, _POLISH_POINTS - 1)[:, None]
+        some, short = n_neg > 0, n_neg < _POLISH_POINTS
+        new_lo = torch.where(some, pts.gather(1, lo_i)[:, 0], lo)
+        new_hi = torch.where(short, pts.gather(1, hi_i)[:, 0], hi)
+        d1_lo = torch.where(some, d1s.gather(1, lo_i)[:, 0], d1_lo)
+        d1_hi = torch.where(short, d1s.gather(1, hi_i)[:, 0], d1_hi)
+        lo, hi = new_lo, torch.maximum(new_hi, new_lo)
+    # secant finish on the monotone derivative
+    denom = d1_hi - d1_lo
+    big = torch.abs(denom) > MINVAL
+    alpha = torch.where(big, lo - d1_lo * (hi - lo)
+                        / torch.where(big, denom, torch.ones_like(denom)), 0.5 * (lo + hi))
+    return torch.minimum(torch.maximum(alpha, lo), hi)
+
+
+def _jar(simple: _Simple, cones, x):
+    """The rows' jar at qacc x: simple rows (B, ns) and each cone group's
+    (B, C, dim)."""
+    return (_matvec(simple.J, x) - simple.aref, [_matvec(g.J, x) - g.aref for g in cones])
+
+
+def _cost(M, a_s, simple: _Simple, cones, x):
+    """The primal objective 0.5 (x - a_s)^T M (x - a_s) + the rows' cost
+    (B,) at qacc x."""
+    jar, us = _jar(simple, cones, x)
+    cost = _simple_forces(simple, jar, False)[2]
+    for g, u in zip(cones, us):
+        cost = cost + _cone_forces(g, u, False)[2]
+    x_a = x - a_s
+    return 0.5 * (_matvec(M, x_a) * x_a).sum(-1) + cost
+
+
+def _start(m: Model, d: Data, simple: _Simple, cones):
+    """The primal solvers' start: qacc_smooth, or, unless WARMSTART is
+    disabled, the warm start in the envs where its cost is lower."""
+    a_s = d.qacc_smooth
+    if m.opt.disableflags & DisableBit.WARMSTART:
+        return a_s
+    ws = d.qacc_warmstart
+    better = _cost(d.qM, a_s, simple, cones, ws) < _cost(d.qM, a_s, simple, cones, a_s)
+    return torch.where(better[:, None], ws, a_s)
+
+
+def _gradient(M, a_s, simple: _Simple, cones, x, jar, us):
+    """M (x - a_s) - J^T f(jar) (B, nv), the objective's gradient at x."""
+    grad = _matvec(M, x - a_s) - _tmatvec(simple.J, _simple_forces(simple, jar, False)[0])
+    for g, u in zip(cones, us):
+        grad = grad - _tmatvec(g.J, _cone_forces(g, u, False)[0])
+    return grad
+
+
+def _row_forces(efc, sp: _Split, simple: _Simple, cones, x):
+    """qfrc_constraint (B, nv) and the flat row forces (B, nefc) at qacc x,
+    a compacted group's forces scattered to its canonical rows (a dropped
+    slot's rows stay 0)."""
+    jar, us = _jar(simple, cones, x)
+    f_s = _simple_forces(simple, jar, False)[0]
+    qfrc = _tmatvec(simple.J, f_s)
+    f_flat = torch.zeros(efc.J.shape[:2], dtype=x.dtype, device=x.device)
+    f_flat[:, sp.simple] = f_s
+    for g, u in zip(cones, us):
+        f_c = _cone_forces(g, u, False)[0]
+        qfrc = qfrc + _tmatvec(g.J, f_c)
+        _put_rows(f_flat, g.idx, f_c)
+    return qfrc, f_flat
+
+
 def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
            stats: Optional[dict] = None) -> Data:
     """The Newton solve of a batch of any size (mj_solNewton; the JAX
@@ -310,32 +423,11 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
     nv = m.nv
     sp, simple, cones = _views(efc)
     has_simple = simple.J.shape[1] > 0
-
-    def jar_of(x):
-        return _matvec(simple.J, x) - simple.aref
-
-    def us_of(x):
-        return [_matvec(g.J, x) - g.aref for g in cones]
-
-    def cost_at(x):
-        cost = _simple_forces(simple, jar_of(x), False)[2]
-        for g, u in zip(cones, us_of(x)):
-            cost = cost + _cone_forces(g, u, False)[2]
-        x_a = x - a_s
-        return 0.5 * (_matvec(M, x_a) * x_a).sum(-1) + cost
-
-    if m.opt.disableflags & DisableBit.WARMSTART:
-        x = a_s
-    else:
-        ws = d.qacc_warmstart
-        x = torch.where((cost_at(ws) < cost_at(a_s))[:, None], ws, a_s)
+    x = _start(m, d, simple, cones)
 
     niter = int(m.opt.iterations)
-    nls = max(2, int(m.opt.ls_iterations))
-    npass = 1 if nls <= _POLISH_POINTS else 2
+    npass = _polish_passes(m)
     tol = m.opt.tolerance.to(dtype)
-    grid = mmath.static_tensor(_GRID, dev, dtype)
-    frac = mmath.static_tensor(np.linspace(0.0, 1.0, _POLISH_POINTS), dev, dtype)
     eye = 1e-12 * torch.eye(nv, dtype=dtype, device=dev)
     scale = torch.clamp(torch.abs(_matvec(M, a_s)).sum(-1), min=MINVAL)
     done = torch.isnan(x).any(-1)
@@ -343,8 +435,7 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
     ran = syncs = 0
 
     while ran < niter:
-        jar = jar_of(x)
-        us = us_of(x)
+        jar, us = _jar(simple, cones, x)
         f_s, w_s, _ = _simple_forces(simple, jar, True)
         cw = [_cone_forces(g, u, True) for g, u in zip(cones, us)]
         xs = x - a_s
@@ -370,45 +461,7 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
         gMd = (Mdx * xs).sum(-1)
         dMd = (Mdx * dx).sum(-1)
 
-        def dphi(alpha):
-            """phi'(alpha) at alpha (B, K), the alpha axis on the rows."""
-            fa = _simple_forces(simple, jar[:, None] + alpha[..., None] * v[:, None],
-                                False)[0]
-            d1 = gMd[:, None] + alpha * dMd[:, None] - (fa * v[:, None]).sum(-1)
-            for g, u, vc in zip(cones, us, vs):
-                f_c = _cone_forces(g, u[:, None] + alpha[..., None, None] * vc[:, None],
-                                   False)[0]
-                d1 = d1 - (f_c * vc[:, None]).sum((-1, -2))
-            return d1
-
-        d1_grid = dphi(grid.expand(x.shape[0], -1))
-        neg = d1_grid < 0
-        lo = torch.where(neg, grid, torch.zeros_like(grid)).amax(-1)
-        hi = torch.where(neg, grid[-1], grid).amin(-1)
-        hi = torch.maximum(hi, lo)
-        d1_lo = torch.where(neg.any(-1), torch.where(neg, d1_grid, -torch.inf).amax(-1),
-                            -1.0)
-        d1_hi = torch.where((~neg).any(-1),
-                            torch.where(~neg, d1_grid, torch.inf).amin(-1), 1.0)
-        for _ in range(npass):
-            pts = lo[:, None] + (hi - lo)[:, None] * frac
-            d1s = dphi(pts)
-            n_neg = (d1s < 0).sum(-1)
-            lo_i = torch.clamp(n_neg - 1, 0, _POLISH_POINTS - 1)[:, None]
-            hi_i = torch.clamp(n_neg, 0, _POLISH_POINTS - 1)[:, None]
-            some, short = n_neg > 0, n_neg < _POLISH_POINTS
-            new_lo = torch.where(some, pts.gather(1, lo_i)[:, 0], lo)
-            new_hi = torch.where(short, pts.gather(1, hi_i)[:, 0], hi)
-            d1_lo = torch.where(some, d1s.gather(1, lo_i)[:, 0], d1_lo)
-            d1_hi = torch.where(short, d1s.gather(1, hi_i)[:, 0], d1_hi)
-            lo, hi = new_lo, torch.maximum(new_hi, new_lo)
-        # secant finish on the monotone derivative
-        denom = d1_hi - d1_lo
-        big = torch.abs(denom) > MINVAL
-        alpha = torch.where(big, lo - d1_lo * (hi - lo)
-                            / torch.where(big, denom, torch.ones_like(denom)),
-                            0.5 * (lo + hi))
-        alpha = torch.minimum(torch.maximum(alpha, lo), hi)
+        alpha = _line_search(simple, cones, jar, us, v, vs, gMd, dMd, npass)
 
         # phi'(0) = <grad, dx> bounds the improvement of this trip
         improved_est = -0.5 * alpha * (grad * dx).sum(-1)
@@ -422,23 +475,278 @@ def newton(m: Model, d: Data, efc, trips: Optional[list] = None,
             if bool(done.all()):
                 break
 
-    jar = jar_of(x)
-    f_s = _simple_forces(simple, jar, False)[0]
-    qfrc = _tmatvec(simple.J, f_s)
-    f_flat = torch.zeros(efc.J.shape[:2], dtype=dtype, device=dev)
-    f_flat[:, sp.simple] = f_s
-    for g, u in zip(cones, us_of(x)):
-        f_c = _cone_forces(g, u, False)[0]
-        qfrc = qfrc + _tmatvec(g.J, f_c)
-        _put_rows(f_flat, g.idx, f_c)     # a dropped slot's rows stay 0
+    qfrc, f_flat = _row_forces(efc, sp, simple, cones, x)
     if trips is not None:
         trips.append((taken, ran, syncs))
     if stats is not None:
         stats.update(iterations=taken,
                      grad_norm=torch.linalg.vector_norm(_matvec(M, x - a_s) - qfrc, dim=-1),
-                     cost=cost_at(x))
+                     cost=_cost(M, a_s, simple, cones, x))
     return d.replace(qacc=x, qfrc_constraint=qfrc, efc_force_contact=f_flat,
                      qacc_warmstart=x)
+
+
+# ---------------------------------------------------------------------------
+# CG and PGS (the JAX package's _solve_cg_jnp and _solve_pgs_jnp)
+# ---------------------------------------------------------------------------
+
+def cg(m: Model, d: Data, efc, trips: Optional[list] = None) -> Data:
+    """Polak-Ribiere+ nonlinear CG with the M^-1 metric on the Newton's
+    objective (mj_solCG; the JAX package's `_solve_cg_jnp`): the Newton's
+    row views (compacted cone groups included), start and line search;
+    M^-1 grad by linalg_tpu.solve (K1 on CUDA up to n = 96) once at the
+    start and once per trip; a direction that is not a descent restarts
+    at -M^-1 grad. An env stops when a trip's estimated improvement falls
+    below tolerance times its scale or its gradient below tolerance, and
+    stays frozen while others run; the card is asked whether every env has
+    stopped once every SYNC_EVERY trips. If `trips` is a list, (the trips
+    each env took (B,), the trips the batch ran, the host syncs) is
+    appended."""
+    a_s, M = d.qacc_smooth, d.qM
+    dev = a_s.device
+    sp, simple, cones = _views(efc)
+    x = _start(m, d, simple, cones)
+    niter = int(m.opt.iterations)
+    npass = _polish_passes(m)
+    tol = m.opt.tolerance.to(a_s.dtype)
+    scale = torch.clamp(torch.abs(_matvec(M, a_s)).sum(-1), min=MINVAL)
+    grad = _gradient(M, a_s, simple, cones, x, *_jar(simple, cones, x))
+    Mg = linalg_tpu.solve(M, grad)
+    p = -Mg
+    done = torch.isnan(x).any(-1)
+    taken = torch.zeros(x.shape[0], dtype=torch.int64, device=dev)
+    ran = syncs = 0
+    while ran < niter:
+        jar, us = _jar(simple, cones, x)
+        v = _matvec(simple.J, p)
+        vs = [_matvec(g.J, p) for g in cones]
+        Mp = _matvec(M, p)
+        alpha = _line_search(simple, cones, jar, us, v, vs, (Mp * (x - a_s)).sum(-1),
+                             (Mp * p).sum(-1), npass)
+        x_n = x + alpha[:, None] * p
+        grad_n = _gradient(M, a_s, simple, cones, x_n, *_jar(simple, cones, x_n))
+        Mg_n = linalg_tpu.solve(M, grad_n)
+        beta = torch.clamp((grad_n * (Mg_n - Mg)).sum(-1)
+                           / torch.clamp((grad * Mg).sum(-1), min=MINVAL), min=0.0)
+        p_n = -Mg_n + beta[:, None] * p
+        p_n = torch.where(((p_n * grad_n).sum(-1) < 0)[:, None], p_n, -Mg_n)
+        improved_est = -0.5 * alpha * (grad * p).sum(-1)
+        new_done = (done | (improved_est < tol * scale)
+                    | ((grad_n * grad_n).sum(-1) < tol * tol))
+        keep = done[:, None]
+        x, grad, Mg, p = (torch.where(keep, old, new) for old, new in
+                          ((x, x_n), (grad, grad_n), (Mg, Mg_n), (p, p_n)))
+        taken = taken + (~done).long()
+        done = new_done
+        ran += 1
+        if ran % SYNC_EVERY == 0 and ran < niter:
+            syncs += 1
+            if bool(done.all()):
+                break
+    qfrc, f_flat = _row_forces(efc, sp, simple, cones, x)
+    if trips is not None:
+        trips.append((taken, ran, syncs))
+    return d.replace(qacc=x, qfrc_constraint=qfrc, efc_force_contact=f_flat,
+                     qacc_warmstart=x)
+
+
+def _m_inv_rows(M, J):
+    """M^-1 J_r^T for every row r of J (B, nefc, nv) -> (B, nefc, nv): one
+    batch of B nefc systems of n = nv with M repeated over the rows
+    (linalg_tpu.solve: K1 on CUDA up to n = 96)."""
+    B, nefc, nv = J.shape
+    Mr = M[:, None].expand(B, nefc, nv, nv).reshape(B * nefc, nv, nv)
+    return linalg_tpu.solve(Mr, J.reshape(B * nefc, nv)).view(B, nefc, nv)
+
+
+# the QCQP's multiplier bracket: 24 doublings (by 4) from 1, then 48
+# bisections, taken as 8 rounds of 64ths of the bracket (6 bisections each)
+_DOUBLINGS, _BISECTIONS, _SPLIT_BITS = 24, 48, 6
+_BRACKET = 4.0 ** np.arange(_DOUBLINGS + 1)
+_SPLIT = np.arange(1, 2 ** _SPLIT_BITS) / 2 ** _SPLIT_BITS
+
+
+def _qcqp(Ab, bb, mus, r):
+    """min 0.5 x^T Ab x + bb^T x subject to sum (x_i / mus_i)^2 <= r^2, per
+    env: Ab (B, k, k), bb, mus (B, k), r (B,). The unconstrained solution
+    where it is inside, else at the ellipsoid's multiplier lam, bracketed by
+    doubling (hi = 4^j from 1, 24 times, while the violation g(hi) > 0) and
+    narrowed by 48 bisections, as the JAX package's fixed trips do; 0 where
+    r <= 0. Each x(lam) is torch.linalg.solve_ex (LU, the JAX package's
+    jnp.linalg.solve), batched over the lams of a pass: the doublings' hi
+    is the first 4^j, j < 24, with g(4^j) <= 0, else 4^24, all 24 solved at
+    once; the bisections run as 8 rounds that evaluate g at the 63 interior
+    64ths of the bracket and keep the 64th where g changes sign. The points
+    are those 6 halvings visit (dyadic, exact in float64) and g decreases
+    in lam, so the bracket is the 48 sequential halvings'."""
+    Dm = torch.diag_embed(1.0 / (mus * mus))
+
+    def x_of(lam):
+        """x at each lam (B, P): (B, P, k)."""
+        A = Ab.unsqueeze(-3) + lam[..., None, None] * Dm.unsqueeze(-3)
+        return torch.linalg.solve_ex(A, -bb.unsqueeze(-2).expand(A.shape[:-1]))[0]
+
+    def over(lam):
+        """Where the violation at lam (B, P) is positive: sum (x / mus)^2 > r^2."""
+        return ((x_of(lam) / mus.unsqueeze(-2)) ** 2).sum(-1) > (r * r)[:, None]
+
+    dev, dtype = r.device, r.dtype
+    x0 = x_of(torch.zeros_like(r)[:, None])[:, 0]
+    inside = ((x0 / mus) ** 2).sum(-1) <= r * r
+    out = over(mmath.static_tensor(_BRACKET[:_DOUBLINGS], dev, dtype).expand(r.shape[0], -1))
+    first = torch.where(out.all(-1), _DOUBLINGS, (~out).long().argmax(-1))
+    hi = mmath.static_tensor(_BRACKET, dev, dtype)[first]
+    lo = torch.zeros_like(r)
+    split = mmath.static_tensor(_SPLIT, dev, dtype)
+    for _ in range(_BISECTIONS // _SPLIT_BITS):
+        pts = torch.cat([lo[:, None], lo[:, None] + (hi - lo)[:, None] * split,
+                         hi[:, None]], -1)                        # (B, 65)
+        n = over(pts[:, 1:-1]).sum(-1, keepdim=True)               # points with g > 0
+        lo, hi = pts.gather(1, n)[:, 0], pts.gather(1, n + 1)[:, 0]
+    x = torch.where(inside[:, None], x0, x_of((0.5 * (lo + hi))[:, None])[:, 0])
+    return torch.where((r > 0)[:, None], x, torch.zeros_like(x))
+
+
+@functools.lru_cache(maxsize=64)
+def _pgs_layout(kinds, con_base, con_dim):
+    """The PGS sweep's static layout: the rows the scalar sweep visits (every
+    row but the 'con' rows, a condim-1 contact's row among them, whose force
+    stays at its start as in the JAX package), the equality and friction-loss
+    masks, and the elliptic contacts of condim > 1 grouped by condim in
+    condim order: (dim, contact indices, first rows)."""
+    k = np.array(kinds)
+    by_dim: dict = {}
+    for ci, (base, dim) in enumerate(zip(con_base, con_dim)):
+        if dim > 1:
+            by_dim.setdefault(dim, []).append((ci, base))
+    groups = tuple((dim, tuple(c for c, _ in items), tuple(b for _, b in items))
+                   for dim, items in sorted(by_dim.items()))
+    return (tuple(np.flatnonzero(k != "con").tolist()), k == "eq", k == "fri", k == "con",
+            groups)
+
+
+def pgs(m: Model, d: Data, efc, trips: Optional[list] = None,
+        stats: Optional[dict] = None) -> Data:
+    """Dual projected Gauss-Seidel (mj_solPGS; the JAX package's
+    `_solve_pgs_jnp`) on min 0.5 f^T A f + f^T b, A = J M^-1 J^T + diag(R),
+    b = J qacc_smooth - aref, over the flat rows: equality rows free,
+    friction-loss rows boxed to +-frictionloss, limit, pyramidal and
+    condim-1 rows nonnegative, elliptic contacts in their friction cone.
+    One sweep: each simple row's clamped scalar step in canonical order,
+    then each elliptic contact, condim groups in order: a step along the
+    cone's ray where its friction is saturated (t >= fn - 1e-12), else a
+    scalar step of the normal, then the tangential QCQP at the new normal
+    force (_qcqp). The start: 0 with WARMSTART disabled, else the soft-model
+    forces at the warm start. An env stops when a sweep improves the dual
+    cost by less than tolerance times its scale (or at once on a NaN start)
+    and stays frozen; the card is asked once every SYNC_EVERY sweeps. A row
+    that no env updates and a contact active in no env keep their forces
+    (0 for the contact) without their steps: the batch's rows and contacts
+    are read once a solve (one host sync). M^-1 J^T and the final qacc =
+    qacc_smooth + M^-1 J^T f are K1 on CUDA (linalg_tpu.solve). `trips` as
+    in `cg`. If `stats` is a dict, it gets `saturation_margin` (B,): the
+    least |t - (fn - 1e-12)| / fn of an active contact's saturation test
+    over the solve, where a relative margin near the float's epsilon means
+    that rounding decided the branch."""
+    a_s, M, J = d.qacc_smooth, d.qM, efc.J
+    dtype, dev = a_s.dtype, a_s.device
+    B, nefc, nv = J.shape
+    A = J @ _m_inv_rows(M, J).mT + torch.diag_embed(efc.R)
+    b = _matvec(J, a_s) - efc.aref
+    rows, is_eq, is_fri, is_con, groups = _pgs_layout(efc.kinds, efc.con_base, efc.con_dim)
+    big = float(np.finfo(np.float32).max)
+    eq_fri = mmath.static_tensor(is_eq | is_fri, dev)
+    fri = mmath.static_tensor(is_fri, dev)
+    lo = torch.where(eq_fri, -big, 0.0).to(dtype).expand(B, nefc)
+    lo = torch.where(fri, -efc.frictionloss, lo)
+    hi = torch.where(fri, efc.frictionloss, big)
+    upd = ~mmath.static_tensor(is_con, dev) & efc.active
+    diagA = torch.diagonal(A, dim1=-2, dim2=-1)
+    live = torch.cat([upd.any(0), efc.con_active.any(0)]).tolist()
+    rows = [i for i in rows if live[i]]
+    cone_groups = []
+    for dim, cis, bases in groups:
+        cist = mmath.static_tensor(cis, dev)
+        mus = torch.clamp(efc.con_mu[:, cist][..., :dim - 1], min=MINVAL)
+        cone_groups.append([(base, mmath.static_tensor(np.arange(base, base + dim), dev),
+                             mus[:, k], efc.con_active[:, ci])
+                            for k, (ci, base) in enumerate(zip(cis, bases))
+                            if live[nefc + ci]])
+    margin = torch.full((B,), torch.inf, dtype=dtype, device=dev)
+
+    def sweep(f):
+        nonlocal margin
+        f = f.clone()
+        for i in rows:
+            f_old = f[:, i]
+            res = (A[:, i] * f).sum(-1) + b[:, i]
+            fi = torch.minimum(torch.maximum(f_old - res / diagA[:, i], lo[:, i]), hi[:, i])
+            fi = torch.where(upd[:, i], fi, f_old)
+            f[:, i] = f_old + (fi - f_old)
+        for contacts in cone_groups:
+            for base, it, mus, act in contacts:
+                fb = f[:, it]
+                fn, ft = fb[:, 0], fb[:, 1:]
+                Ar = A[:, it]                                      # (B, dim, nefc)
+                res = _matvec(Ar, f) + b[:, it]
+                t = torch.sqrt(torch.clamp(((ft / mus) ** 2).sum(-1), min=MINVAL ** 2))
+                saturated = (t >= fn - 1e-12) & (t > MINVAL)
+                if stats is not None:
+                    gap = torch.abs(t - (fn - 1e-12)) / torch.clamp(torch.abs(fn), min=MINVAL)
+                    margin = torch.minimum(margin, torch.where(act, gap, torch.inf))
+                u_t = ft / t[:, None]
+                Au = Ar[:, 0] + torch.einsum("bk,bkn->bn", u_t, Ar[:, 1:])
+                uAu = Au[:, base] + (u_t * Au[:, it[1:]]).sum(-1)
+                num = res[:, 0] + (u_t * res[:, 1:]).sum(-1)
+                fn_ray = torch.clamp(fn - num / torch.clamp(uAu, min=MINVAL), min=0.0)
+                ft_ray = ft * (fn_ray / torch.clamp(fn, min=MINVAL))[:, None]
+                fn_gs = torch.clamp(fn - res[:, 0] / Ar[:, 0, base], min=0.0)
+                fn_new = torch.where(saturated, fn_ray, fn_gs)
+                f[:, it] = torch.cat([fn_new[:, None],
+                                      torch.where(saturated[:, None], ft_ray, ft)], -1)
+                Ab = Ar[:, 1:][:, :, it[1:]]
+                other = _matvec(Ar[:, 1:], f) - _matvec(Ab, f[:, it[1:]])
+                ft_new = _qcqp(Ab, b[:, it[1:]] + other, mus, fn_new)
+                fb_new = torch.cat([fn_new[:, None], ft_new], -1)
+                f[:, it] = torch.where(act[:, None], fb_new, torch.zeros_like(fb_new))
+        return f
+
+    def cost(f):
+        return 0.5 * (f * _matvec(A, f)).sum(-1) + (f * b).sum(-1)
+
+    if m.opt.disableflags & DisableBit.WARMSTART:
+        f = torch.zeros_like(b)
+    else:
+        f = forces_and_weights(efc, _matvec(J, d.qacc_warmstart) - efc.aref)[0]
+        f = torch.where(efc.active, f, torch.zeros_like(f))
+    niter = int(m.opt.iterations)
+    tol = m.opt.tolerance.to(dtype)
+    scale = torch.clamp(torch.abs(_matvec(M, a_s)).sum(-1), min=MINVAL)
+    prev = cost(f)
+    done = torch.isnan(f).any(-1)
+    taken = torch.zeros(B, dtype=torch.int64, device=dev)
+    ran = syncs = 0
+    while ran < niter:
+        f_n = sweep(f)
+        c = cost(f_n)
+        new_done = done | (prev - c < tol * scale)
+        f = torch.where(done[:, None], f, f_n)
+        prev = torch.where(done, prev, c)
+        taken = taken + (~done).long()
+        done = new_done
+        ran += 1
+        if ran % SYNC_EVERY == 0 and ran < niter:
+            syncs += 1
+            if bool(done.all()):
+                break
+    qfrc = _tmatvec(J, f)
+    qacc = a_s + linalg_tpu.solve(M, qfrc)
+    if trips is not None:
+        trips.append((taken, ran, syncs))
+    if stats is not None:
+        stats["saturation_margin"] = margin
+    return d.replace(qacc=qacc, qfrc_constraint=qfrc, efc_force_contact=f,
+                     qacc_warmstart=qacc)
 
 
 def solve_stats(m: Model, d: Data) -> dict:

@@ -28,9 +28,9 @@ The control plane mirrors the reference's services and Step action
   row buffer), a body's mass with its derived constants. Each edit is made
   on the served model's float64 master copy, which is cast to the batch's
   device and dtype and planned anew (ops/forward.make_plan), so that the
-  fused route's packed parameters follow it. An edit the port cannot step
-  (another integrator, fluid) fails and leaves model, plan and batch as
-  they were;
+  fused route's packed parameters follow it (an integrator or solver edit
+  moves a fused model to the general route and back). An edit the port
+  cannot step (fluid) fails and leaves model, plan and batch as they were;
 - eval mode: every mutating call checks the admin hash (callbacks.cpp:
   213-223), and the constructor refuses eval mode without one;
 - the lock discipline: one lock guards the batch, the model and the
@@ -975,14 +975,30 @@ class MujocoServer:
                    disableflags=int(o.disableflags))
         return out
 
+    def _opt_enum(self, field: str, value) -> int:
+        """An enum option by value or by name, any case, as MJCF spells it
+        ("implicitfast", "RK4", "Newton") or as get_physics_properties
+        returns it; ValueError naming the choices otherwise."""
+        e = self._OPT_ENUMS[field]
+        if isinstance(value, str):
+            name = value.strip().upper()
+            if name not in e.__members__:
+                raise ValueError(f"{field} {value!r}: one of "
+                                 f"{', '.join(e.__members__)}")
+            return int(e[name])
+        return int(e(int(value)))
+
     def set_physics_properties(self, props: dict, admin_hash: str = "") -> ServiceResult:
         """Edit the model's options on a running server: array fields
         (timestep, gravity, ...), enums by name or value (integrator, cone,
-        solver) and integers (iterations, ls_iterations, disableflags). A
-        cone change rebuilds the row-force buffer (pyramidal facets and
-        elliptic blocks differ in rows). An option the port cannot step
-        (an integrator other than Euler, CG or PGS, fluid) fails and leaves
-        the model as it was."""
+        solver: _opt_enum) and integers (iterations, ls_iterations,
+        disableflags). A cone change rebuilds the row-force buffer
+        (pyramidal facets and elliptic blocks differ in rows). Every
+        integrator and solver steps on the general route; the fused route
+        (K3) takes Euler and Newton alone, so an edit away from them leaves
+        it and an edit back returns to it. An option the port cannot step
+        (fluid: density, viscosity, wind) fails and leaves the model as it
+        was."""
         err = self._check_hash(admin_hash)
         if err:
             return err
@@ -1000,8 +1016,7 @@ class MujocoServer:
                         upd[k] = torch.as_tensor(
                             np.asarray(v, dtype=np.float64).reshape(tuple(cur.shape)))
                     elif k in self._OPT_ENUMS:
-                        e = self._OPT_ENUMS[k]
-                        upd[k] = int(e[v.upper()] if isinstance(v, str) else e(int(v)))
+                        upd[k] = self._opt_enum(k, v)
                     else:
                         upd[k] = int(v)
             except (KeyError, ValueError) as exc:

@@ -208,23 +208,22 @@ def test_limited_pendulum_step_float64():
 _RAISES = {
     # each case keeps the id it had when it held a feature the port now
     # runs (a servo on a ball joint, <general>, a fixed tendon, a ball
-    # joint's limit) and holds one that still raises
+    # joint's limit, then the implicitfast integrator) and holds one that
+    # still raises
     "position": ("", ValueError, "mesh"),
     "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>', ValueError,
                 "muscle"),
     "tendon": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
                '<actuator><motor tendon="t"/></actuator>', ValueError, "spatial"),
-    "ball_limit": ('<option integrator="implicitfast"/>', NotImplementedError,
-                   "integrator IMPLICITFAST"),
+    "ball_limit": ('<option density="1.2"/>', NotImplementedError, "fluid"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_features_raise(case):
     """Mesh geoms, muscle gains and spatial tendons raise ValueError at
-    compile; the implicitfast integrator of
-    Menagerie's arm files NotImplementedError from make_plan; each names
-    what is missing."""
+    compile; fluid (a density in <option>) NotImplementedError from
+    make_plan; each names what is missing."""
     extra, exc, match = _RAISES[case]
     joint = {"ball_limit": '<joint name="j" type="ball" range="0 0.5"/>',
              "position": '<joint name="j" type="ball"/><geom type="mesh" mesh="m"/>'}.get(

@@ -22,9 +22,15 @@ tests/test_torch_general._to_port. One JAX model is loaded, in float64
   within 1e-9 and qacc within 1e-6 of each field's scale after 1 and 5
   steps;
 - MujocoServer(PANDA_PICK) on the CPU: set_ctrl of nu 8, the gripper
-  closed by its tendon.
+  closed by its tendon;
+- PANDA_PICK_IF (panda.xml's own integrator, implicitfast, edited on
+  both models): one step through fwd.step against jax.vmap(fwd.step),
+  qpos and qvel within 1e-9, qacc within 1e-6 of each field's scale, and
+  not Euler's step; the simple dofs that implicitfast's mask truncates
+  are the JAX compile's.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -42,14 +48,14 @@ from mujoco_ros_pkgs_tpu.ops import smooth as jsmooth
 
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.core.convert import model_from_numpy
-from mujoco_ros_pkgs_tpu_torch.core.types import TrnType
+from mujoco_ros_pkgs_tpu_torch.core.types import IntegratorType, TrnType
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _to_port
-from tests.torch_problems import (PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, panda_grasp,
-                                  panda_states)
+from tests.torch_problems import (PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF,
+                                  panda_grasp, panda_states)
 
 NENV = 4
 
@@ -176,3 +182,27 @@ def test_panda_grasp_pose_and_server():
         assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc, d.ten_length))
         lengths.append(d.ten_length[:, 0].clone())
     assert bool((lengths[0] > 0.005).all()) and bool((lengths[1] < lengths[0]).all()), lengths
+
+
+def test_panda_pick_if_step_matches_jax():
+    """PANDA_PICK_IF: PANDA_PICK with integrator="implicitfast" (both
+    models edited; the XML of tests/torch_problems.PANDA_PICK_IF compiles
+    to it), one float64 step from seeded grasp states on both sides'
+    general Newton, qpos and qvel within 1e-9, qacc within 1e-6 of each
+    field's scale; the servos' velocity terms make it differ from Euler's
+    step; dof_simple, whose off-diagonals implicitfast's mask drops, is
+    the JAX compile's."""
+    jm, pm, _ = _models()
+    i = int(IntegratorType.IMPLICITFAST)
+    jm = jm.replace(opt=jm.opt.replace(integrator=i))
+    euler, pm = pm, dataclasses.replace(pm, opt=dataclasses.replace(pm.opt, integrator=i))
+    assert mjcf.load_model_from_string(PANDA_PICK_IF).opt.integrator == i
+    assert pm.dof_simple == tuple(int(v) for v in jm.dof_simple) and pm.dof_simple
+    assert fwd.make_plan(pm) == fwd.GeneralPlan()
+    jd = _batch(seed=6)
+    pd = _to_port(jd)
+    jd = jax.jit(jax.vmap(lambda d: jfwd.step(jm, d)))(jd)
+    got = fwd.step(pm, pd)
+    for field, tol in (("qpos", 1e-9), ("qvel", 1e-9), ("qacc", 1e-6)):
+        _close(f"panda implicitfast {field}", getattr(got, field), getattr(jd, field), tol)
+    assert float((fwd.step(euler, pd).qvel - got.qvel).abs().max()) > 1e-6

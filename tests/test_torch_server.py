@@ -77,10 +77,10 @@ def test_reload_bad_model_keeps_serving(srv):
     assert not res.success and res.status_message
     assert srv.get_loading_request_state().value == 0
     assert srv.get_body_state("box").pose.position[2] < 0.2
-    # a model the port cannot step yet fails cleanly as well (the
-    # implicitfast integrator; a ball joint's limit, which this case held
-    # before, steps now)
-    res = srv.reload(worlds.PENDULUM.replace('<option ', '<option integrator="implicitfast" ', 1))
+    # a model the port cannot step yet fails cleanly as well (fluid; a ball
+    # joint's limit and the implicitfast integrator, which this case held
+    # before, step now)
+    res = srv.reload(worlds.PENDULUM.replace('<option ', '<option density="1.2" ', 1))
     assert not res.success and "not ported" in res.status_message
     assert srv.step(1).success
     # and a good one replaces the old

@@ -306,15 +306,14 @@ class _GeomWatcher(MujocoPlugin):
 
 
 def test_unported_edits_fail_and_leave_the_served_model():
-    """An integrator other than Euler, fluid, a geom type the port does not
-    collide, or a model the general route cannot step fails with the
-    served model, its float64 master, the plan and the batch untouched; a
-    geom edit that succeeds tells the plugins (on_geom_changed)."""
+    """Fluid (density, viscosity), a geom type the port does not collide,
+    or a model the general route cannot step fails with the served model,
+    its float64 master, the plan and the batch untouched; a geom edit that
+    succeeds tells the plugins (on_geom_changed)."""
     watcher = _GeomWatcher()
     srv = MujocoServer(worlds.BOXES, nenv=2, device="cpu", plugins=[watcher])
     before = (srv.m, srv._m64, srv._plan, srv.d)
-    for props in ({"integrator": "RK4"}, {"integrator": "implicitfast"},
-                  {"density": 1.2}, {"viscosity": 0.1}, {"solver": "CG"}):
+    for props in ({"density": 1.2}, {"viscosity": 0.1}):
         res = srv.set_physics_properties(props)
         assert not res.success and "NotImplementedError" in res.status_message, props
         assert (srv.m, srv._m64, srv._plan, srv.d) == before
@@ -375,3 +374,45 @@ def test_fused_plan_follows_every_edit(monkeypatch):
     torch.testing.assert_close(dv, torch.full_like(dv, 3.0 / 1.5 * 0.001), rtol=1e-5, atol=1e-7)
     assert srv.clear_body_wrenches().success
     assert srv.step(1).success and calls == [1]
+
+
+def test_integrator_edit_leaves_the_fused_plan_and_euler_returns():
+    """BOXES in float32 on the CPU, on the fused route: an RK4 edit by name
+    moves it to the general route, where a server step equals fwd.step of
+    the edited model from the same batch (RK4's four forward calls) bit for
+    bit, and so do CG and PGS edits by name; an unknown name fails and
+    changes nothing; Euler and Newton bring the fused plan back, whose step
+    equals the fused step's plain version."""
+    srv = MujocoServer(worlds.BOXES, nenv=3, device="cpu")
+    q = np.array([0.02, -0.01, 0.095, 0.99, 0.05, -0.1, 0.0])
+    q[3:] /= np.linalg.norm(q[3:])
+    assert isinstance(srv._plan, step_tpu.Plan) and srv.set_qpos(q).success
+
+    def steps_as_fwd_step():
+        d = srv.d
+        want = fwd.step(srv.m, d)
+        assert srv.step(1).success
+        for f in ("qpos", "qvel", "qacc", "qacc_warmstart", "time"):
+            torch.testing.assert_close(getattr(srv.d, f), getattr(want, f), rtol=0, atol=0)
+    assert srv.set_physics_properties({"integrator": "rk4"}).success
+    assert srv._plan == fwd.GeneralPlan()
+    assert srv.get_physics_properties()["integrator"] == "RK4"
+    steps_as_fwd_step()
+    for solver in ("CG", " pgs "):
+        assert srv.set_physics_properties({"solver": solver}).success
+        assert srv._plan == fwd.GeneralPlan()
+        steps_as_fwd_step()
+    assert srv.get_physics_properties()["solver"] == "PGS"
+    before = (srv.m, srv._m64, srv._plan)
+    res = srv.set_physics_properties({"integrator": "midpoint"})
+    assert not res.success and "IMPLICITFAST" in res.status_message
+    assert (srv.m, srv._m64, srv._plan) == before
+    assert srv.set_physics_properties({"integrator": "Euler", "solver": "Newton"}).success
+    plan = srv._plan
+    assert isinstance(plan, step_tpu.Plan)
+    d = srv.d
+    want = step_tpu.step_batched_plain(srv.m, d.qpos, d.qvel, d.qacc_warmstart,
+                                       plan.params, plan.idx)
+    assert srv.step(1).success
+    for got, w in zip((srv.d.qpos, srv.d.qvel, srv.d.qacc), want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)

@@ -121,14 +121,17 @@ def test_supports_is_the_jax_gate():
         assert solver_tpu.supports(e, nv) == jsolver_tpu.supports(e, nv), (dims, nrows, nv)
 
 
-def test_solve_semantics_of_the_general_path():
+def test_solve_semantics_of_the_general_path(monkeypatch):
     """ops/solver.py takes _solve_dispatch_tpu's trip counts (iterations
     truncated to 32 with a warning, max(2, min(ls_iterations, 24) // 3)
-    polish steps) and raises for what the kernel does not take."""
+    polish steps), and a CG model's rows, which the kernel would take under
+    Newton, go to solver.cg before the kernel's gate, as the JAX package
+    sends CG and PGS to their own solvers."""
     import dataclasses
     from mujoco_ros_pkgs_tpu_torch.core import mjcf
     from mujoco_ros_pkgs_tpu_torch.core.types import SolverType
     from mujoco_ros_pkgs_tpu_torch.models import worlds
+    from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth
     from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
     from mujoco_ros_pkgs_tpu_torch.ops import solver
     m = mjcf.load_model_from_string(worlds.PENDULUM, dtype=torch.float32)
@@ -138,11 +141,17 @@ def test_solve_semantics_of_the_general_path():
                                                            ls_iterations=3))
     assert solver_tpu.trip_counts(short) == (5, 2)
     cg = dataclasses.replace(m, opt=dataclasses.replace(m.opt, solver=int(SolverType.CG)))
-    with pytest.raises(NotImplementedError, match="CG"):
-        fwd.make_plan(cg)
-    d = fwd.make_data(m, 2)
-    with pytest.raises(NotImplementedError, match="Newton"):
-        solver.solve(cg, d, None)
+    assert fwd.make_plan(cg) == fwd.GeneralPlan()
+    d = collision.collide(cg, smooth.fwd_position_smooth(cg, fwd.make_data(cg, 2)))
+    d = smooth.fwd_acceleration_smooth(cg, smooth.fwd_velocity_smooth(cg, d))
+    e = efc.make_efc(cg, d)
+    assert solver_tpu.supports(e, cg.nv)
+    want = solver.cg(cg, d, e)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CG model reached the fused Newton")
+    monkeypatch.setattr(solver_tpu, "solve_batched", refuse)
+    assert torch.equal(solver.solve(cg, d, e).qacc, want.qacc)
 
 
 def test_newton_trips_are_reported():

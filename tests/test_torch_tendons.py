@@ -23,12 +23,13 @@ among them). One JAX model is loaded, in float64 (module-scope cache).
   switched off) against `_solve_jnp`, 1 and 5 steps, qpos, qvel and act
   at 1e-9, qacc at 1e-6; and one step through K2's plain version, the
   route make_plan gives, against `_solve_jnp` (another Newton on the same
-  rows);
+  rows); 1 and 3 steps on implicitfast (every term of its qDeriv);
 - spatial tendons and muscles still raise by name; a CPU server serves
   nu 4 with set_ctrl, zeroes act on reset and resumes a checkpoint with
   act in it bit for bit.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -46,7 +47,8 @@ from mujoco_ros_pkgs_tpu.ops import smooth as jsmooth
 
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.core.convert import model_from_numpy
-from mujoco_ros_pkgs_tpu_torch.core.types import DynType, EqType, GainType, TrnType
+from mujoco_ros_pkgs_tpu_torch.core.types import (DynType, EqType, GainType,
+                                                   IntegratorType, TrnType)
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth, solver_tpu
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
@@ -195,6 +197,31 @@ def test_tendon_act_k2_plain_step_matches_jax():
         pd = fwd.step(pm, pd)
     for field, tol in (("qpos", 1e-8), ("qvel", 1e-8), ("qacc", 1e-6)):
         _close(f"tendon_act K2 plain {field}", getattr(pd, field), getattr(jd, field), tol)
+
+
+def test_tendon_act_implicitfast_steps_match_jax(monkeypatch):
+    """TENDON_ACT on implicitfast (both models edited), the general Newton
+    on both sides: 1 and 3 steps against jax.vmap(fwd.step) in float64,
+    qpos, qvel and act within 1e-9, qacc within 1e-6. Its qDeriv holds
+    every term of _qderiv_smooth: joint damping, t1's damping through
+    ten_J, the damper's affine gain (its ctrl clamped), the intvelocity's
+    and the filterexact general's activations as their input and the
+    general's affine bias."""
+    _no_k2(monkeypatch)
+    jm, pm, _ = _models()
+    i = int(IntegratorType.IMPLICITFAST)
+    jm = jm.replace(opt=jm.opt.replace(integrator=i))
+    pm = dataclasses.replace(pm, opt=dataclasses.replace(pm.opt, integrator=i))
+    jstep = jax.jit(jax.vmap(lambda d: jfwd.step(jm, d)))
+    jd = _batch(seed=4)
+    pd = _to_port(jd)
+    for k in range(1, 4):
+        jd, pd = jstep(jd), fwd.step(pm, pd)
+        if k in (1, 3):
+            for field, tol in (("qpos", 1e-9), ("qvel", 1e-9), ("act", 1e-9),
+                               ("qacc", 1e-6)):
+                _close(f"tendon_act implicitfast {field} after {k}", getattr(pd, field),
+                       getattr(jd, field), tol)
 
 
 _RAISES = {

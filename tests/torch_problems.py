@@ -685,6 +685,55 @@ def panda_states(m, nenv: int, seed: int):
     return qpos, qvel, ctrl
 
 
+# PANDA_PICK on panda.xml's own integrator, implicitfast (Menagerie's arm
+# files set it): its <general> servos' velocity terms (biasprm[2] = -kp / 10)
+# are integrated implicitly
+PANDA_PICK_IF = PANDA_PICK.replace('<option timestep="0.002" cone="elliptic"/>',
+                                   '<option timestep="0.002" cone="elliptic" '
+                                   'integrator="implicitfast"/>')
+assert PANDA_PICK_IF != PANDA_PICK
+
+# the implicit integrators' worlds (after tests/test_integrators_geoms.py):
+# two damped hinges with a position and a velocity servo, no contacts
+TWO_HINGE = """<mujoco>
+<option timestep="0.002" integrator="implicitfast"><flag contact="disable"/></option>
+<compiler angle="radian"/>
+<worldbody><body pos="0 0 1">
+<joint name="j0" type="hinge" axis="0 1 0" damping="2"/>
+<geom type="capsule" fromto="0 0 0 0.4 0 0" size="0.04"/>
+<body pos="0.4 0 0"><joint name="j1" type="hinge" axis="0 1 0" damping="1"/>
+<geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"/></body>
+</body></worldbody>
+<actuator>
+  <position joint="j0" kp="30" kv="6"/>
+  <velocity joint="j1" kv="2"/>
+</actuator></mujoco>"""
+# a fast-spinning box on a ball joint with a hinged arm: the gyroscopic
+# terms make implicit and implicitfast differ (qvel GYRO_QVEL0)
+GYRO = """<mujoco><option timestep="0.004" integrator="implicit">
+<flag contact="disable"/></option>
+<compiler angle="radian"/>
+<worldbody><body pos="0 0 1"><joint name="b" type="ball" damping="0.01"/>
+<geom type="box" size="0.3 0.05 0.02" mass="1"/>
+<body pos="0.3 0 0"><joint name="h" type="hinge" axis="0 0 1" damping="0.01"/>
+<geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.02"/></body>
+</body></worldbody></mujoco>"""
+GYRO_QVEL0 = (25.0, 3.0, 1.0, 8.0)
+# two single-hinge trees coupled by a damped fixed tendon: libmujoco's
+# qDeriv holds no entry between the trees, so the coupling is dropped
+CROSS_TREE_TENDON = """<mujoco>
+<option timestep="0.002" integrator="implicitfast"/>
+<compiler angle="radian"/>
+<worldbody>
+<body pos="0 0 1"><joint name="a" type="hinge" axis="0 1 0"/>
+<geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"/></body>
+<body pos="1 0 1"><joint name="b" type="hinge" axis="0 1 0"/>
+<geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"/></body>
+</worldbody>
+<tendon><fixed damping="2"><joint joint="a" coef="1"/>
+<joint joint="b" coef="-1"/></fixed></tendon></mujoco>"""
+
+
 # a companion of PANDA_PICK for K2 (nv 6, at most 64 rows): a ball joint
 # (limited) on a hinge chain over a plane, two fixed tendons (t1 limited,
 # with friction loss, a spring with a deadband and damping) coupled by a
