@@ -236,10 +236,27 @@ Phases (any failure raises; the exit code is then not 0):
      PGS_STEP_LIMIT_S), K1 on PGS's envs x rows systems of n 7 timed; (f)
      BOXES's server on K3, an RK4 edit by name (K1 and K2 four times a
      step), Euler and K3 again.
+ 32. mesh and height-field worlds (tests/torch_problems): MESH_PILE
+     (PILE's bin and stack of hulls, wedges, cylinders and ellipsoids: MPR,
+     plane_convex, a rangefinder; con_topk 64 as PILE5) at MESH_PILE_NENV
+     and TERRAIN (the humanoid bench on a height field: hfield_pair, a
+     rangefinder on the torso) at TERRAIN_NENV: (a) one general step of
+     seeded states with the kernels against the plain versions (the
+     contacts, every row and the rangefinder at 1e-6 / 1e-5; qpos rtol 1e-5 / atol
+     1e-6, qvel rtol 1e-4 / atol 1e-4, qacc rtol / atol 1e-3, each held
+     against the float64 step by hold_field where envs are past it), the
+     collision and sensor stages counted for host syncs (none allowed);
+     (b) the server: load_keyframe("drop"), P32_STEPS steps by the wall
+     clock (env-steps/s; K1 1, 2 with TERRAIN's joint damping, + the
+     batch's Newton trips a step, K2 and K3 0), torch's kernel launches a step (torch.profiler, 2 steps), host
+     syncs a step (torch.cuda.set_sync_debug_mode, 5 steps), active
+     contacts per env, finite; (c) fwd.step ms by CUDA events; the phase's
+     seconds.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
-`humanoid`, `sensors`, `arm7`, `panda` and `a8` (phase 31's paths a-e)
+`humanoid`, `sensors`, `arm7`, `panda`, `a8` (phase 31's paths a-e) and
+`p32` (phase 32's worlds)
 objects and K2's `sensors`, `tendon_act` and `a8_pendulum_rk4` objects:
 their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
@@ -259,6 +276,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -270,7 +288,7 @@ from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
-from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, smooth, solver, solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, sensor, smooth, solver, solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
@@ -279,13 +297,14 @@ from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 
 _THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
-                                  FULL_BASE, FULL_KINDS, MIXED_BASE, MIXED_KINDS,
+                                  FULL_BASE, FULL_KINDS, MESH_PILE, MESH_PILE_NENV,
+                                  MIXED_BASE, MIXED_KINDS, TERRAIN, TERRAIN_NENV,
                                   PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF, PEGS,
                                   PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
                                   TENDON_ACT, arm7_states, box_bin_states, box_cluster,
                                   humanoid_states, panda_states, pegs_states, pile_heap,
-                                  random_problem, sensors_states, solve_cost,
-                                  tendon_act_states)
+                                  mesh_pile_heap, random_problem, sensors_states,
+                                  solve_cost, tendon_act_states, terrain_states)
 
 torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
@@ -3145,7 +3164,7 @@ def a8_launches(path, ran):
             "d": (3 + ran, 0, 0), "e": (3, 0, 0)}[path]
 
 
-def hold_field(label, got, want, x64, rtol, atol):
+def hold_field(label, got, want, x64, rtol, atol, tag="31"):
     """got (kernels) against want (plain versions) at rtol / atol; where
     envs are past it, both held against x64 (the float64 step) by
     held_against_f64 in units of atol + rtol |x64| (phase 8's tolerances
@@ -3155,7 +3174,7 @@ def hold_field(label, got, want, x64, rtol, atol):
     over = ((got - want).abs() > atol + rtol * want.abs()).any(-1)
     if bool(over.any()):
         held = held_against_f64(label, got, want, x64, atol + rtol * x64.abs())
-        print(f"[31 {label}] {int(over.sum())} envs past rtol {rtol:g} / atol {atol:g} of "
+        print(f"[{tag} {label}] {int(over.sum())} envs past rtol {rtol:g} / atol {atol:g} of "
               f"plain; against float64 worst env {held[1]:.3f}, 99th percentile "
               f"{held[3]:.3f} (plain float32 {held[0]:.3f}, {held[2]:.3f})", flush=True)
     return float((got - want).abs().max())
@@ -3408,6 +3427,184 @@ def a8_phase(card, euler_held):
     return out
 
 
+# phase 32: the server's steps of each world, con_topk of each (MESH_PILE as
+# BASELINE config 5's PILE5), the seed of the compared states
+P32_STEPS = 50
+P32 = {"MESH_PILE": (MESH_PILE, MESH_PILE_NENV, 64), "TERRAIN": (TERRAIN, TERRAIN_NENV, 0)}
+
+
+def host_syncs(fn):
+    """fn() and the host syncs it made: the synchronizing CUDA calls that
+    torch.cuda.set_sync_debug_mode reports (an .item(), a device-to-host
+    copy, a nonzero), one warning each; the source lines that made them
+    are printed."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    found = [w for w in caught if "synchroniz" in str(w.message)]
+    where = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in found})
+    if found:
+        print(f"[syncs] {len(found)} host syncs at {', '.join(where[:12])}", flush=True)
+    return out, len(found)
+
+
+def torch_launches(fn):
+    """The CUDA kernel launches fn() makes (torch.profiler's runtime calls
+    named cudaLaunchKernel*), or None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))
+    return n or None
+
+
+def p32_data(label, m, nenv, seed):
+    """Seeded states of a phase 32 world on the card: MESH_PILE's turned
+    heaps (mesh_pile_heap), TERRAIN's humanoids in the terrain
+    (terrain_states, with their ctrl)."""
+    d = fwd.make_data(m, nenv)
+    if label == "MESH_PILE":
+        qpos, qvel = mesh_pile_heap(m, nenv, seed)
+        return d.replace(qpos=torch.from_numpy(qpos).float().cuda(),
+                         qvel=torch.from_numpy(qvel).float().cuda())
+    qpos, qvel, ctrl = terrain_states(m, nenv, seed)
+    return d.replace(**{k: torch.from_numpy(v).float().cuda()
+                        for k, v in (("qpos", qpos), ("qvel", qvel), ("ctrl", ctrl))})
+
+
+def p32_vs_plain(label, xml, nenv, con_topk):
+    """32a: one general step of seeded states with the kernels and with
+    their plain versions: the contacts (dist, pos, frame), every efc row
+    and the rangefinder equal (nothing before the solver launches a
+    kernel); qpos, qvel, qacc at phase 8's tolerances, held against the
+    float64 step where envs are past them (the contacts and rows at 1e-6
+    and 1e-5: the same ops on the same poses); the collision and the
+    sensor position stage make no host sync."""
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32, con_topk=con_topk).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and not step_tpu.supports(m), label
+    d = p32_data(label, m, nenv, seed=31)
+    pos_stage = smooth.fwd_position_smooth(m, d)
+    sensor.sensor_pos(m, collision.collide(m, pos_stage))   # the index tensors, made once
+    collided, syncs_col = host_syncs(lambda: collision.collide(m, pos_stage))
+    _, syncs_sen = host_syncs(lambda: sensor.sensor_pos(m, collided))
+    assert syncs_col == 0 and syncs_sen == 0, f"{label}: host syncs {syncs_col}, {syncs_sen}"
+    zero_counts()
+    with newton_trips() as log:
+        dk = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    k1 = kernels.psd_solve.launches
+    ran = sum(r for _, r, _ in log)
+    base = 1 + int(m.has_damping)       # the mass matrix, Euler's damping solve
+    assert (k1, kernels.newton_solve.launches, kernels.step_fused.launches) == (base + ran, 0, 0)
+    with plain_versions():
+        dp = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    errs = {}
+    for name in ("dist", "pos", "frame", "includemargin"):
+        errs[name] = close(f"{label} contact {name}", getattr(dk.contact, name),
+                           getattr(dp.contact, name), 1e-6, 1e-6)
+    # the rows the solve took: made from each path's forward (the step's
+    # Data holds the integrated qvel)
+    ek = efc.make_efc(m, fwd.forward(m, d))
+    with plain_versions():
+        ep = efc.make_efc(m, fwd.forward(m, d))
+    for name in ("J", "D", "R", "aref", "pos"):
+        errs["efc_" + name] = close(f"{label} efc {name}", getattr(ek, name),
+                                    getattr(ep, name), 1e-5, 1e-5)
+    errs["sensordata"] = close(f"{label} sensordata", dk.sensordata, dp.sensordata, 1e-6, 1e-6)
+    rng = dk.sensordata[:, m.sensor_adr[m.sensor("range")]]
+    assert bool(torch.isfinite(rng).all()) and bool((rng > 0).any()), label
+    x64 = {}
+
+    def float64_step():
+        if not x64:
+            m64 = mjcf.load_model_from_string(xml, dtype=torch.float64,
+                                              con_topk=con_topk).to("cuda")
+            with plain_versions():
+                x64["d"] = fwd.step(m64, data_as(d, torch.float64))
+        return x64["d"]
+    for field, rtol, atol in (("qpos", 1e-5, 1e-6), ("qvel", 1e-4, 1e-4),
+                              ("qacc", 1e-3, 1e-3)):
+        got, want = getattr(dk, field), getattr(dp, field)
+        if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
+            errs[field] = hold_field(f"{label} {field}", got, want,
+                                     getattr(float64_step(), field), rtol, atol, tag="32")
+        else:
+            errs[field] = float((got - want).abs().max())
+    assert all(bool(torch.isfinite(t).all()) for t in (dk.qpos, dk.qvel, dk.qacc))
+    active = dk.contact.dist < dk.contact.includemargin
+    print(f"[32a {label} vs plain] nenv={nenv}: K1 {k1} ({base} + {ran} Newton trips); active "
+          f"contacts per env mean {float(active.sum(1).float().mean()):.2f}; host syncs in "
+          f"collision {syncs_col}, in the sensor position stage {syncs_sen}; "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    return m, plan, d, max(errs.values())
+
+
+def p32_server(label, xml, nenv, con_topk):
+    """32b: MujocoServer(xml, nenv) on the card from its "drop" keyframe:
+    P32_STEPS steps by the wall clock with K1 1 (2 with joint damping) +
+    the batch's Newton trips a step, K2 and K3 0; torch's kernel launches a step over 2 steps, host
+    syncs a step over 5; active contacts per env; finite."""
+    srv = MujocoServer(xml, nenv=nenv, unpause=False, con_topk=con_topk)
+    assert srv.device.type == "cuda" and srv._plan == fwd.GeneralPlan()
+    assert srv.load_keyframe("drop").success
+    np.testing.assert_allclose(srv.d.qpos[0].cpu().numpy(), srv._m64.key_qpos[0].numpy(),
+                               rtol=0, atol=1e-6)
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with newton_trips() as log:
+        assert srv.step(P32_STEPS).success
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    ran = sum(r for _, r, _ in log)
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    base = 1 + int(srv.m.has_damping)    # the mass matrix, Euler's damping solve
+    assert launches == (base * P32_STEPS + ran, 0, 0), f"{label} server: launches {launches}"
+    n_launch = torch_launches(lambda: srv.step(2))
+    _, syncs = host_syncs(lambda: srv.step(5))
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc,
+                                                       d.sensordata))
+    active = d.contact.dist < d.contact.includemargin
+    out = {"nenv": nenv, "steps": P32_STEPS, "wall_s": wall,
+           "env_steps_per_s": nenv * P32_STEPS / wall,
+           "k1_per_step": launches[0] / P32_STEPS, "newton_trips_per_step": ran / P32_STEPS,
+           "torch_launches_per_step": None if n_launch is None else n_launch / 2,
+           "host_syncs_per_step": syncs / 5,
+           "active_contacts_per_env": float(active.sum(1).float().mean())}
+    print(f"[32b {label} server] load_keyframe('drop'), step({P32_STEPS}) x {nenv}: "
+          f"{wall:.3f}s wall, {out['env_steps_per_s']:.4g} env-steps/s; per step K1 "
+          f"{out['k1_per_step']:.3f} ({base} + {out['newton_trips_per_step']:.3f} Newton trips), "
+          f"K2 0, K3 0; torch kernel launches per step {out['torch_launches_per_step']}; "
+          f"host syncs per step {out['host_syncs_per_step']:.3f}; active contacts per env "
+          f"{out['active_contacts_per_env']:.2f}; finite", flush=True)
+    return out
+
+
+def p32_phase(card):
+    """Phase 32: MESH_PILE and TERRAIN, a-c each; returns {world: results}."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, (xml, nenv, con_topk) in P32.items():
+        m, plan, d, err = p32_vs_plain(label, xml, nenv, con_topk)
+        run = p32_server(label, xml, nenv, con_topk)
+        run.update(max_abs_err=err, con_topk=con_topk, step_ms=a8_step_ms(m, plan, d, 3))
+        print(f"[32c {label} timing] fwd.step {run['step_ms']:.4f} ms at {nenv} envs ({card})",
+              flush=True)
+        out[label] = run
+    print(f"[32] phase 32 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -3595,6 +3792,8 @@ def main():
 
     # phase 31: the other integrators and solvers
     a8 = a8_phase(card, panda["held_envs"])
+    # phase 32: mesh and height-field worlds
+    p32 = p32_phase(card)
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -3610,7 +3809,7 @@ def main():
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
              panda=panda, a8={k: v for k, v in a8.items() if k != "f_boxes_edits"},
-             a8_boxes_launches=a8["f_boxes_edits"]),
+             a8_boxes_launches=a8["f_boxes_edits"], p32=p32),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
              sensors=t2["sensors"], tendon_act=tendon_act,

@@ -4,7 +4,8 @@ Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
 port parses (mocap bodies; fixed tendons; actuators with their activation
 layout; connect, weld, joint and tendon equalities; sites; the sensors of
-SENSOR_DIM); integer columns become static tuples.
+SENSOR_DIM; mesh hulls and height fields; cameras; keyframes; <contact>
+excludes and pairs); integer columns become static tuples.
 """
 
 from __future__ import annotations
@@ -293,8 +294,66 @@ def _actuators(acts):
         actuator_names=tuple(a.name for a in acts))
 
 
+def _assets(meshes, hfields):
+    """Mesh and height-field columns: the hulls' vertices in one (nmesh,
+    max_vert, 3) block, each padded by repeating its first vertex; the
+    grids in one (nhfield, max_nrow, max_ncol) block, zero-padded."""
+    if meshes:
+        maxv = max(mv.verts.shape[0] for mv in meshes)
+        vert = np.stack([np.concatenate([mv.verts, np.tile(mv.verts[:1],
+                                                           (maxv - mv.verts.shape[0], 1))])
+                         for mv in meshes])
+    else:
+        vert = np.zeros((0, 0, 3))
+    if hfields:
+        data = np.zeros((len(hfields), max(h.nrow for h in hfields),
+                         max(h.ncol for h in hfields)))
+        for k, h in enumerate(hfields):
+            data[k, :h.nrow, :h.ncol] = h.data
+    else:
+        data = np.zeros((0, 0, 0))
+    return dict(
+        nmesh=len(meshes), mesh_vertnum=tuple(mv.verts.shape[0] for mv in meshes),
+        mesh_names=tuple(mv.name for mv in meshes), mesh_vert=_t(vert),
+        nhfield=len(hfields), hfield_nrow=tuple(h.nrow for h in hfields),
+        hfield_ncol=tuple(h.ncol for h in hfields),
+        hfield_names=tuple(h.name for h in hfields),
+        hfield_size=_t([h.size for h in hfields], 4), hfield_data=_t(data))
+
+
+def _keyframes(keys, qpos0, nv, na, nu, nmocap):
+    """Keyframe columns (mjModel.key_*): each <key>'s values over qpos0,
+    zeros and identity mocap quaternions."""
+    nkey = len(keys)
+    cols = dict(key_time=np.zeros(nkey), key_qpos=np.tile(qpos0, (nkey, 1)),
+                key_qvel=np.zeros((nkey, nv)), key_act=np.zeros((nkey, na)),
+                key_ctrl=np.zeros((nkey, nu)), key_mpos=np.zeros((nkey, 3 * nmocap)),
+                key_mquat=np.tile(np.array([1.0, 0, 0, 0]), (nkey, nmocap)))
+    for k, e in enumerate(keys):
+        cols["key_time"][k] = float(e.get("time", "0"))
+        for attr in ("qpos", "qvel", "act", "ctrl", "mpos", "mquat"):
+            if e.get(attr) is not None:
+                v = np.array([float(x) for x in e.get(attr).split()])
+                arr = cols["key_" + attr]
+                if v.size > arr.shape[1]:
+                    raise ValueError(f"key '{e.get('name', '')}': {attr} has {v.size} "
+                                     f"values, the model {arr.shape[1]}")
+                arr[k, :v.size] = v
+    return dict(nkey=nkey, key_names=tuple(e.get("name", "") for e in keys),
+                **{k: _t(v) for k, v in cols.items()})
+
+
+def _cameras(cams):
+    return dict(ncam=len(cams), cam_bodyid=tuple(c.bodyid for c in cams),
+                cam_names=tuple(c.name for c in cams),
+                cam_pos=_t([c.pos for c in cams], 3),
+                cam_quat=_t([c.quat for c in cams], 4),
+                cam_fovy=_t([c.fovy for c in cams]))
+
+
 def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
-             eqs=(), tendons=()) -> types.Model:
+             eqs=(), tendons=(), meshes=(), hfields=(), cams=(), keys=(),
+             excludes=(), explicit_pairs=()) -> types.Model:
     nbody, njnt, ngeom, nu = len(bodies), len(jnts), len(geoms), len(acts)
     nsite, neq = len(sites), len(eqs)
 
@@ -379,7 +438,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         geom_bodyid=tuple(g.bodyid for g in geoms),
         body_weldid=tuple(body_weldid),
         body_parentid=tuple(body_parentid),
-        filterparent=filterparent, excludes=(), explicit_pairs=(),
+        filterparent=filterparent, excludes=excludes, explicit_pairs=explicit_pairs,
         collision_mode=opt["collision_mode"])
 
     scols, nsensordata = _sensors(sensors, {
@@ -449,7 +508,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         geom_conaffinity=tuple(g.conaffinity for g in geoms),
         geom_condim=tuple(g.condim for g in geoms),
         geom_priority=tuple(g.priority for g in geoms),
-        geom_dataid=(-1,) * ngeom,
+        geom_dataid=tuple(g.dataid for g in geoms),
         geom_size=_t([g.size for g in geoms], 3),
         geom_rbound=_t([g.rbound for g in geoms]),
         geom_pos=_t([g.pos for g in geoms], 3),
@@ -492,8 +551,12 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
             np.stack([b.ipos for b in bodies]),
             np.stack([b.iquat for b in bodies])),
         collision_pairs=ordered, ncon_max=ncon_max,
+        pair_exclude=tuple(excludes), pair_explicit=tuple(explicit_pairs),
         collision_mode=opt["collision_mode"],
-        **_tendons(tendons), **_actuators(acts),
+        **_tendons(tendons), **_actuators(acts), **_assets(meshes, hfields),
+        **_cameras(cams),
+        **_keyframes(keys, qpos0, nv, sum(a.dyntype != int(types.DynType.NONE) for a in acts),
+                     nu, nmocap),
     )
 
     from mujoco_ros_pkgs_tpu_torch.core import constants

@@ -3,17 +3,29 @@
 Counterpart of mujoco_ros_pkgs_tpu/core/mjcf.py, kept numpy-for-numpy so the
 two compile a model to the same numbers. Supported elements:
 
-- `<option>` (with `<flag>`), `<compiler>` (angle, eulerseq, autolimits,
-  inertiafromgeom, boundmass, boundinertia), `<default>` classes;
-- `<worldbody>` static geoms and sites and nested `<body>` with `<joint>`,
-  `<freejoint>`, `<site>` and `<inertial>`; `mocap="true"` on a joint-less
-  child of the world;
-- geom types plane, sphere, capsule, ellipsoid, cylinder and box (a
-  capsule or a cylinder also by `fromto`), with mass or
-  density, friction, condim, priority, solmix, solref, solimp, margin, gap,
-  contype and conaffinity;
+- `<include file=...>` anywhere (spliced before parsing, paths relative to
+  the model's directory, nested up to 16 deep), and repeated top-level
+  sections, merged into the first;
+- `<option>` (with `<flag>`; `collision="all|predefined|dynamic"`),
+  `<compiler>` (angle, eulerseq, autolimits, inertiafromgeom, boundmass,
+  boundinertia, meshdir), `<default>` classes;
+- `<asset>` with `<mesh>` (inline `vertex=`, or a binary or ASCII STL, OBJ
+  or legacy MSH file; `scale`), compiled to its convex hull in the hull's
+  principal frame, and `<hfield>` (inline `elevation=`, MuJoCo's binary
+  file or a PNG, decoded by utils/png.py), its data normalised to [0, 1];
+  `<texture>` and `<material>` are visual and ignored;
+- `<worldbody>` static geoms, sites and cameras and nested `<body>` with
+  `<joint>`, `<freejoint>`, `<site>`, `<camera>` and `<inertial>`;
+  `mocap="true"` on a joint-less child of the world;
+- geom types plane, sphere, capsule, ellipsoid, cylinder, box (a capsule or
+  a cylinder also by `fromto`), mesh (the geom frame folds in the hull's
+  centre and principal axes, mass and inertia from its volume) and hfield,
+  with mass or density, friction, condim, priority, solmix, solref, solimp,
+  margin, gap, contype and conaffinity;
 - sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
   or `fromto`, `<default><site>` classes;
+- `<contact>` with `<exclude body1 body2>` and `<pair geom1 geom2>`;
+- `<keyframe>` with `<key>` (time, qpos, qvel, act, ctrl, mpos, mquat);
 - `<tendon>` with `<fixed>` tendons (joint entries with coef; limited,
   range, margin, solreflimit, solimplimit, stiffness, damping,
   frictionloss, springlength) and their `<default>` classes;
@@ -30,15 +42,17 @@ two compile a model to the same numbers. Supported elements:
 - `<sensor>` of the types in core/assemble.SENSOR_DIM, with `cutoff` and
   `noise`.
 
-Anything else (cameras, muscles, spatial tendons, other sensor types,
-contact pairs, assets, mesh and height-field geoms, fluid shapes) raises
-ValueError naming the feature, rather than being dropped silently.
+Anything else (muscles, spatial tendons, other sensor types, mesh-fitting
+(`mesh=` on a geom that is not a mesh), a `<pair>`'s own contact
+parameters, fluid shapes, gravcomp) raises ValueError naming the feature,
+rather than being dropped silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional
 
@@ -55,7 +69,18 @@ _SOLREF = (0.02, 1.0)
 _SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
 _TOP_LEVEL = ("option", "compiler", "default", "worldbody", "tendon", "actuator",
-              "sensor", "equality", "size", "visual", "statistic")
+              "sensor", "equality", "size", "visual", "statistic", "asset", "contact",
+              "keyframe")
+# sections whose repeats (hand-written or made by <include>) merge by
+# appending their children to the first; attribute-bearing singletons merge
+# their attributes, the later winning (libmujoco's repeated sections)
+_MERGE_SECTIONS = ("worldbody", "asset", "contact", "tendon", "actuator",
+                   "sensor", "equality", "default", "keyframe", "custom")
+_ATTR_SECTIONS = ("compiler", "option", "size", "visual", "statistic")
+_ASSETS = ("mesh", "hfield", "texture", "material")
+# a <pair>'s own contact parameters, which the JAX package does not read
+_PAIR_PARAMS = ("condim", "friction", "solref", "solimp", "solreffriction", "margin",
+                "gap")
 _ACTUATORS = ("motor", "position", "velocity", "intvelocity", "damper", "general")
 _DEFAULT_TAGS = ("joint", "geom", "site", "tendon", "equality") + _ACTUATORS
 _EQUALITIES = ("connect", "weld", "joint", "tendon")
@@ -63,9 +88,10 @@ _DYNTYPES = {"none": DynType.NONE, "integrator": DynType.INTEGRATOR,
              "filter": DynType.FILTER, "filterexact": DynType.FILTEREXACT}
 _GAINTYPES = {"fixed": GainType.FIXED, "affine": GainType.AFFINE}
 _BIASTYPES = {"none": BiasType.NONE, "affine": BiasType.AFFINE}
-_GEOM_TYPES = {"plane": GeomType.PLANE, "sphere": GeomType.SPHERE,
-               "capsule": GeomType.CAPSULE, "ellipsoid": GeomType.ELLIPSOID,
-               "cylinder": GeomType.CYLINDER, "box": GeomType.BOX}
+_GEOM_TYPES = {"plane": GeomType.PLANE, "hfield": GeomType.HFIELD,
+               "sphere": GeomType.SPHERE, "capsule": GeomType.CAPSULE,
+               "ellipsoid": GeomType.ELLIPSOID, "cylinder": GeomType.CYLINDER,
+               "box": GeomType.BOX, "mesh": GeomType.MESH}
 _JOINT_TYPES = {"free": JointType.FREE, "ball": JointType.BALL,
                 "slide": JointType.SLIDE, "hinge": JointType.HINGE}
 
@@ -137,7 +163,9 @@ class _Compiler:
         self.inertiafromgeom = "auto"
         self.boundmass = 0.0
         self.boundinertia = 0.0
+        self.meshdir = ""
         if e is not None:
+            self.meshdir = e.get("meshdir", "")
             self.angle = e.get("angle", self.angle)
             self.eulerseq = e.get("eulerseq", self.eulerseq)
             self.autolimits = _attr_b(e, "autolimits", self.autolimits)
@@ -359,7 +387,9 @@ def _geom_inertia_diag(gtype: int, size: np.ndarray, mass: float) -> np.ndarray:
 
 
 def _geom_rbound(gtype: int, size: np.ndarray) -> float:
-    if gtype == GeomType.PLANE:
+    """Bounding radius from the type and size (a mesh geom's compile takes
+    its hull's instead; this one serves size edits)."""
+    if gtype in (GeomType.PLANE, GeomType.HFIELD):
         return 0.0
     if gtype == GeomType.SPHERE:
         return size[0]
@@ -369,7 +399,179 @@ def _geom_rbound(gtype: int, size: np.ndarray) -> float:
         return float(np.sqrt(size[0] ** 2 + size[1] ** 2))
     if gtype == GeomType.ELLIPSOID:
         return float(np.max(size))
-    return float(np.linalg.norm(size))     # box
+    if gtype == GeomType.BOX:
+        return float(np.linalg.norm(size))
+    return float(np.max(size))
+
+
+# ---------------------------------------------------------------------------
+# mesh and height-field assets
+# ---------------------------------------------------------------------------
+
+class _Mesh:
+    """A mesh asset as collision sees it: the convex hull of its vertices,
+    centred at the hull's centre of mass and rotated into its principal
+    axes (mjCMesh::Compile); each geom that names it folds that (com,
+    quat) into its own frame. Collision reads the hull's vertices alone
+    (ops/gjk.py's support function)."""
+
+    def __init__(self, name: str, raw_verts: np.ndarray):
+        from scipy.spatial import ConvexHull, QhullError
+        if raw_verts.shape[0] < 4:
+            raise ValueError(f"mesh '{name}': need >=4 vertices")
+        try:
+            hull = ConvexHull(raw_verts)
+        except QhullError as e:
+            raise ValueError(
+                f"mesh '{name}': degenerate vertex set (convex hull failed: "
+                f"{str(e).splitlines()[0]})") from e
+        pts = hull.points
+        # orient each simplex outward by qhull's facet normal
+        tris = []
+        for simplex, eq in zip(hull.simplices, hull.equations):
+            a, b, c = pts[simplex]
+            n = np.cross(b - a, c - a)
+            tris.append(simplex if np.dot(n, eq[:3]) >= 0 else simplex[[0, 2, 1]])
+        vol, com, I_full = _poly_mass_properties(pts, np.asarray(tris))
+        if vol <= 1e-12:
+            raise ValueError(f"mesh '{name}': degenerate (volume {vol})")
+        w, vecs = np.linalg.eigh(I_full)
+        if np.linalg.det(vecs) < 0:
+            vecs[:, 2] = -vecs[:, 2]
+        local = (pts[hull.vertices] - com) @ vecs       # R^T (v - com)
+        self.name = name
+        self.verts = local
+        self.com = com
+        self.quat = _mat_to_quat(vecs)
+        self.volume = float(vol)
+        self.inertia_unit = np.maximum(w, 0.0)   # unit density, about the com
+        self.rbound = float(np.max(np.linalg.norm(local, axis=1)))
+        self.aabb_half = np.max(np.abs(local), axis=0)
+
+
+def _poly_mass_properties(verts: np.ndarray, tris: np.ndarray):
+    """(volume, com, unit-density inertia about the com) of a closed
+    polyhedron, by signed tetrahedra about the origin."""
+    a, b, c = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    v = np.einsum("ij,ij->i", a, np.cross(b, c)) / 6.0       # signed volumes
+    vol = v.sum()
+    com = (v[:, None] * (a + b + c) / 4.0).sum(0) / vol
+    # second moments over the tetrahedra: V/20 (aa' + bb' + cc' + ss'), s = a+b+c
+    s = a + b + c
+    C = np.einsum("i,ij,ik->jk", v / 20.0, a, a)
+    C += np.einsum("i,ij,ik->jk", v / 20.0, b, b)
+    C += np.einsum("i,ij,ik->jk", v / 20.0, c, c)
+    C += np.einsum("i,ij,ik->jk", v / 20.0, s, s)
+    C -= vol * np.outer(com, com)
+    return vol, com, np.trace(C) * np.eye(3) - C
+
+
+def _load_mesh_vertices(path: str) -> np.ndarray:
+    """The vertices of a binary or ASCII STL, an OBJ or a legacy MSH file."""
+    ext = os.path.splitext(path)[1].lower()
+    with open(path, "rb") as f:
+        data = f.read()
+    if ext == ".obj":
+        verts = []
+        for line in data.decode("utf-8", errors="replace").splitlines():
+            t = line.split()
+            if len(t) >= 4 and t[0] == "v":
+                verts.append([float(t[1]), float(t[2]), float(t[3])])
+        return np.asarray(verts)
+    if ext == ".msh":
+        nvert = int(np.frombuffer(data[:4], dtype=np.int32)[0])
+        off = 16  # the nvert, nnormal, ntexcoord and nface headers
+        return np.frombuffer(data[off:off + 12 * nvert],
+                             dtype=np.float32).reshape(nvert, 3).astype(np.float64)
+    # STL: binary where the size matches the triangle count of its header
+    if len(data) >= 84:
+        ntri = int(np.frombuffer(data[80:84], dtype=np.uint32)[0])
+        if len(data) == 84 + 50 * ntri:
+            raw = np.frombuffer(data[84:], dtype=np.uint8).reshape(ntri, 50)
+            tris = raw[:, 12:48].copy().view(np.float32).reshape(ntri, 9)
+            return tris.reshape(-1, 3).astype(np.float64)
+    verts = []
+    for line in data.decode("utf-8", errors="replace").splitlines():
+        t = line.split()
+        if len(t) == 4 and t[0] == "vertex":
+            verts.append([float(t[1]), float(t[2]), float(t[3])])
+    return np.asarray(verts)
+
+
+class _HField:
+    """A height-field asset: its elevation grid normalised to [0, 1]
+    (mjCHField::Compile)."""
+
+    def __init__(self, name: str, size: np.ndarray, nrow: int, ncol: int,
+                 data: Optional[np.ndarray]):
+        if nrow < 2 or ncol < 2:
+            raise ValueError(f"hfield '{name}': need nrow,ncol >= 2")
+        if data is None:
+            data = np.zeros((nrow, ncol))
+        if np.asarray(data).size != nrow * ncol:
+            raise ValueError(f"hfield '{name}': {np.asarray(data).size} elevation values "
+                             f"for nrow {nrow} x ncol {ncol}")
+        data = np.asarray(data, dtype=np.float64).reshape(nrow, ncol)
+        lo, hi = data.min(), data.max()
+        data = (data - lo) / (hi - lo) if hi - lo > 1e-15 else np.zeros_like(data)
+        self.name = name
+        self.size = np.asarray(size, dtype=np.float64)
+        self.nrow, self.ncol = nrow, ncol
+        self.data = data
+
+
+def _load_hfield_file(path: str):
+    """(nrow, ncol, data) of a PNG (its gray values) or of MuJoCo's binary
+    height field (int32 nrow, ncol, then float32 data)."""
+    from mujoco_ros_pkgs_tpu_torch.utils import png
+    if os.path.splitext(path)[1].lower() == ".png":
+        arr = png.luminance(png.read(path)).astype(np.float64)
+        return arr.shape[0], arr.shape[1], arr
+    with open(path, "rb") as f:
+        raw = f.read()
+    nrow, ncol = np.frombuffer(raw[:8], dtype=np.int32)
+    data = np.frombuffer(raw[8:8 + 4 * nrow * ncol], dtype=np.float32)
+    return int(nrow), int(ncol), data.reshape(int(nrow), int(ncol)).astype(np.float64)
+
+
+def _asset_name(e: ET.Element) -> str:
+    return e.get("name") or os.path.splitext(os.path.basename(e.get("file", "")))[0]
+
+
+def _parse_assets(root: ET.Element, base_dir: str, comp: "_Compiler"):
+    """({name: _Mesh}, {name: _HField}) of the <asset> section, in order."""
+    meshes: Dict[str, _Mesh] = {}
+    hfields: Dict[str, _HField] = {}
+    asset = root.find("asset")
+    if asset is None:
+        return meshes, hfields
+    for e in asset:
+        if e.tag not in _ASSETS:
+            raise ValueError(f"<asset> <{e.tag}> is not supported by the torch port")
+    for e in asset.iter("mesh"):
+        name, file = _asset_name(e), e.get("file", "")
+        scale = _attr_f(e, "scale", [1.0, 1.0, 1.0], n=3)
+        if e.get("vertex") is not None:
+            raw = _floats(e.get("vertex")).reshape(-1, 3)
+        elif file:
+            raw = _load_mesh_vertices(os.path.join(base_dir, comp.meshdir, file))
+        else:
+            raise ValueError(f"mesh '{name}': neither file nor vertex data")
+        meshes[name] = _Mesh(name, raw * scale)
+    for e in asset.iter("hfield"):
+        name, file = _asset_name(e), e.get("file", "")
+        size = _attr_f(e, "size", None, n=4)
+        if size is None:
+            raise ValueError(f"hfield '{name}': size attribute required")
+        if e.get("elevation") is not None:      # inline grid, row-major
+            nrow, ncol = int(e.get("nrow", "0")), int(e.get("ncol", "0"))
+            data = _floats(e.get("elevation"))
+        elif file:
+            nrow, ncol, data = _load_hfield_file(os.path.join(base_dir, comp.meshdir, file))
+        else:
+            nrow, ncol, data = int(e.get("nrow", "0")), int(e.get("ncol", "0")), None
+        hfields[name] = _HField(name, size, nrow, ncol, data)
+    return meshes, hfields
 
 
 class _Body:
@@ -397,27 +599,74 @@ class _Spec:
 
 def load_model(path: str, dtype=None, pair_topk: int = 0,
                con_topk: int = 0) -> types.Model:
-    """Load and compile an MJCF file (mj_loadXML analogue)."""
+    """Load and compile an MJCF file (mj_loadXML analogue); includes and
+    asset files resolve against its directory."""
     with open(path) as f:
         xml = f.read()
-    return load_model_from_string(xml, dtype=dtype, pair_topk=pair_topk,
-                                  con_topk=con_topk)
+    return load_model_from_string(xml, dtype=dtype, base_dir=os.path.dirname(path),
+                                  pair_topk=pair_topk, con_topk=con_topk)
 
 
-def load_model_from_string(xml: str, dtype=None, pair_topk: int = 0,
-                           con_topk: int = 0) -> types.Model:
+def load_model_from_string(xml: str, dtype=None, base_dir: str = ".",
+                           pair_topk: int = 0, con_topk: int = 0) -> types.Model:
     """Compile an MJCF string to a float64 CPU Model (cast with `dtype`),
-    with the broadphase (pair_topk) and active-contact (con_topk)
-    compaction capacities set (types.Model; 0 = off)."""
+    with includes and asset files resolved against `base_dir` and the
+    broadphase (pair_topk) and active-contact (con_topk) compaction
+    capacities set (types.Model; 0 = off)."""
     root = ET.fromstring(xml)
     if root.tag != "mujoco":
         raise ValueError(f"expected <mujoco> root, got <{root.tag}>")
+    _expand_includes(root, base_dir)
+    _merge_repeated_sections(root)
     for child in root:
         if child.tag not in _TOP_LEVEL:
             raise ValueError(f"<{child.tag}> is not supported by the torch port")
-    m = dataclasses.replace(_compile(root), pair_topk=int(pair_topk),
+    m = dataclasses.replace(_compile(root, base_dir), pair_topk=int(pair_topk),
                             con_topk=int(con_topk))
     return m.to(dtype=dtype) if dtype is not None else m
+
+
+def _expand_includes(elem: ET.Element, base_dir: str, depth: int = 0) -> None:
+    """Splice <include file=.../> elements in place: the included file's
+    root children replace the element, paths resolve against base_dir (the
+    main model's directory), includes nest up to 16 deep."""
+    if depth > 16:
+        raise ValueError("<include> nesting too deep (cycle?)")
+    i = 0
+    while i < len(elem):
+        ch = elem[i]
+        if ch.tag == "include":
+            fname = ch.get("file")
+            if not fname:
+                raise ValueError("<include> requires a file attribute")
+            path = fname if os.path.isabs(fname) else os.path.join(base_dir, fname)
+            try:
+                inc = ET.parse(path).getroot()
+            except (OSError, ET.ParseError) as exc:
+                raise ValueError(f"<include file='{fname}'>: {exc}") from exc
+            _expand_includes(inc, base_dir, depth + 1)
+            elem.remove(ch)
+            for j, sub in enumerate(list(inc)):
+                elem.insert(i + j, sub)
+            i += len(inc)
+        else:
+            _expand_includes(ch, base_dir, depth)
+            i += 1
+
+
+def _merge_repeated_sections(root: ET.Element) -> None:
+    """Fold repeated top-level sections into their first occurrence."""
+    seen: Dict[str, ET.Element] = {}
+    for ch in list(root):
+        t = ch.tag
+        if t in seen and t in _MERGE_SECTIONS + _ATTR_SECTIONS:
+            if t in _ATTR_SECTIONS:
+                seen[t].attrib.update(ch.attrib)
+            for sub in list(ch):
+                seen[t].append(sub)
+            root.remove(ch)
+        else:
+            seen[t] = ch
 
 
 def _parse_option(oe: Optional[ET.Element]) -> dict:
@@ -465,15 +714,17 @@ def _parse_option(oe: Optional[ET.Element]) -> dict:
     return opt
 
 
-def _compile(root: ET.Element) -> types.Model:
+def _compile(root: ET.Element, base_dir: str) -> types.Model:
     comp = _Compiler(root.find("compiler"))
     defaults_tree = _collect_defaults(root)
     opt = _parse_option(root.find("option"))
+    meshes, hfields = _parse_assets(root, base_dir, comp)
 
     bodies: List[_Body] = []
     jnts: List[_Spec] = []
     geoms: List[_Spec] = []
     sites: List[_Spec] = []
+    cams: List[_Spec] = []
     world = _Body()
     world.name = "world"
     bodies.append(world)
@@ -532,9 +783,6 @@ def _compile(root: ET.Element) -> types.Model:
         if gt not in _GEOM_TYPES:
             raise ValueError(f"geom '{g.name}': type '{gt}' is not supported "
                              f"by the torch port")
-        for attr in ("mesh", "hfield"):
-            if e.get(attr):
-                raise ValueError(f"geom '{g.name}': {attr} geoms are not supported")
         if e.get("fluidshape", "none") != "none":
             raise ValueError(f"geom '{g.name}': fluidshape is not supported")
         g.type = int(_GEOM_TYPES[gt])
@@ -558,10 +806,39 @@ def _compile(root: ET.Element) -> types.Model:
             g.pos = 0.5 * (a + b)
             g.quat = _z2quat(b - a)
             g.size[1] = np.linalg.norm(b - a) / 2.0
-        vol = _geom_volume(g.type, g.size)
+        # geom_dataid: the hfield's or the mesh's index in its table
+        g.dataid, g.inertia_diag, mesh = -1, None, None
+        hfield_name, mesh_name = e.get("hfield", ""), e.get("mesh", "")
+        if g.type == GeomType.HFIELD or hfield_name:
+            if g.type != GeomType.HFIELD:
+                raise ValueError(f"geom '{g.name}': hfield attr requires type='hfield'")
+            if hfield_name not in hfields:
+                raise ValueError(f"geom '{g.name}': undefined hfield '{hfield_name}'")
+            g.dataid = list(hfields).index(hfield_name)
+            g.size = hfields[hfield_name].size[:3].copy()
+        if mesh_name:
+            if g.type != GeomType.MESH:
+                raise ValueError(f"geom '{g.name}': mesh-fitting (mesh attr with "
+                                 f"type != mesh) is not supported")
+            if mesh_name not in meshes:
+                raise ValueError(f"geom '{g.name}': undefined mesh '{mesh_name}' "
+                                 f"(no such <asset> mesh)")
+            # fold the hull's (com, principal quat) into the geom frame
+            mesh = meshes[mesh_name]
+            g.dataid = list(meshes).index(mesh_name)
+            g.pos = np.asarray(g.pos, dtype=np.float64) + _quat_rot(mesh.com, g.quat)
+            g.quat = _quat_mul(g.quat, mesh.quat)
+            g.size = mesh.aabb_half.copy()
+        elif g.type == GeomType.MESH:
+            raise ValueError(f"geom '{g.name}': type mesh without mesh attr")
+        vol = mesh.volume if mesh is not None else _geom_volume(g.type, g.size)
         g.mass = (float(e.get("mass")) if e.get("mass") is not None
                   else float(e.get("density", "1000")) * vol)
-        g.rbound = _geom_rbound(g.type, g.size)
+        if mesh is not None:
+            g.inertia_diag = mesh.inertia_unit * (g.mass / mesh.volume)
+            g.rbound = mesh.rbound
+        else:
+            g.rbound = _geom_rbound(g.type, g.size)
         geoms.append(g)
         return len(geoms) - 1
 
@@ -579,6 +856,15 @@ def _compile(root: ET.Element) -> types.Model:
             st.pos = 0.5 * (a + b)
             st.quat = _z2quat(b - a)
         sites.append(st)
+
+    def parse_camera(e, bodyid):
+        c = _Spec()
+        c.name = e.get("name", "")
+        c.bodyid = bodyid
+        c.pos = _attr_f(e, "pos", [0, 0, 0])
+        c.quat = _orientation(e, comp)
+        c.fovy = float(e.get("fovy", "45"))     # degrees whatever the angle unit
+        cams.append(c)
 
     def parse_tendon(e, i):
         """A <fixed> tendon: its joint entries (joint id, coef) and its
@@ -743,6 +1029,8 @@ def _compile(root: ET.Element) -> types.Model:
                 b.geoms.append(parse_geom(child, bclass, bid))
             elif child.tag == "site":
                 parse_site(child, bclass, bid)
+            elif child.tag == "camera":
+                parse_camera(child, bid)
             elif child.tag == "body":
                 walk_body(child, bid, bclass)
             elif child.tag == "inertial":
@@ -772,6 +1060,8 @@ def _compile(root: ET.Element) -> types.Model:
             world.geoms.append(parse_geom(child, "main", 0))
         elif child.tag == "site":
             parse_site(child, "main", 0)
+        elif child.tag == "camera":
+            parse_camera(child, 0)
         elif child.tag == "body":
             walk_body(child, 0, "main")
         else:
@@ -791,7 +1081,8 @@ def _compile(root: ET.Element) -> types.Model:
             for gi in b.geoms:
                 g = geoms[gi]
                 R = _quat_to_mat(g.quat)
-                I_g = np.diag(_geom_inertia_diag(g.type, g.size, g.mass))
+                I_g = np.diag(g.inertia_diag if g.inertia_diag is not None
+                              else _geom_inertia_diag(g.type, g.size, g.mass))
                 d = g.pos - com
                 full += (R @ I_g @ R.T
                          + g.mass * (np.dot(d, d) * np.eye(3) - np.outer(d, d)))
@@ -817,5 +1108,41 @@ def _compile(root: ET.Element) -> types.Model:
                              f"supported by the torch port")
     eqs = [parse_equality(e, i) for ee in root.iter("equality")
            for i, e in enumerate(ee)]
+    excludes, explicit = _parse_contact(root, [b.name for b in bodies],
+                                        [g.name for g in geoms])
+    keys = [k for ke in root.iter("keyframe") for k in ke]
+    for k in keys:
+        if k.tag != "key":
+            raise ValueError(f"<keyframe> <{k.tag}> is not supported (only <key>)")
     return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
-                    sites, sensors, eqs, tendons)
+                    sites, sensors, eqs, tendons, meshes=list(meshes.values()),
+                    hfields=list(hfields.values()), cams=cams, keys=keys,
+                    excludes=excludes, explicit_pairs=explicit)
+
+
+def _parse_contact(root: ET.Element, body_names, geom_names):
+    """<contact>: the <exclude> body pairs (sorted, as a set) and the
+    <pair> geom pairs (in order), by name."""
+    def index(kind, names, e, key):
+        name = e.get(key)
+        if name not in names:
+            raise ValueError(f"<contact> <{e.tag}>: unknown {kind} '{name}'")
+        return names.index(name)
+
+    excludes, explicit = set(), []
+    for ce in root.iter("contact"):
+        for pe in ce:
+            if pe.tag == "exclude":
+                excludes.add((index("body", body_names, pe, "body1"),
+                              index("body", body_names, pe, "body2")))
+            elif pe.tag == "pair":
+                own = [a for a in _PAIR_PARAMS if pe.get(a) is not None]
+                if own or pe.get("class") is not None:
+                    raise ValueError(f"<contact> <pair>: its own contact parameters "
+                                     f"({', '.join(own) or 'class'}) are not supported")
+                explicit.append((index("geom", geom_names, pe, "geom1"),
+                                 index("geom", geom_names, pe, "geom2")))
+            else:
+                raise ValueError(f"<contact> <{pe.tag}> is not supported "
+                                 f"(only <exclude> and <pair>)")
+    return tuple(sorted(excludes)), tuple(explicit)

@@ -2,10 +2,10 @@
 
 PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
 port runs today (world + free/ball/hinge/slide joint trees, mocap bodies,
-primitive geoms, contacts, joint and tendon limits, friction loss, connect /
-weld / joint / tendon equality constraints, fixed tendons, actuators with
-activation states on joint, tendon and site transmissions, sites and
-sensors).
+primitive, mesh and height-field geoms, contacts, joint and tendon limits,
+friction loss, connect / weld / joint / tendon equality constraints, fixed
+tendons, actuators with activation states on joint, tendon and site
+transmissions, sites and sensors, cameras and keyframes).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -250,6 +250,10 @@ class Model:
     nwrap: int = 0
     nsensor: int = 0
     nsensordata: int = 0
+    nkey: int = 0
+    nmesh: int = 0
+    nhfield: int = 0
+    ncam: int = 0
 
     opt: Option = None
 
@@ -322,6 +326,21 @@ class Model:
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
 
+    # ---- meshes: convex hulls in their principal frame, padded to the
+    # largest hull by repeating the first vertex (ops/gjk.py's support is an
+    # argmax over vertices, unaffected by the repeats) ----
+    mesh_vertnum: Tuple[int, ...] = ()
+    mesh_names: Tuple[str, ...] = ()
+    mesh_vert: torch.Tensor = _array()        # (nmesh, max_vert, 3)
+
+    # ---- height fields: elevation grids normalised to [0, 1], world height
+    # data * size[2] above the field frame's base (ops/hfield.py) ----
+    hfield_nrow: Tuple[int, ...] = ()
+    hfield_ncol: Tuple[int, ...] = ()
+    hfield_names: Tuple[str, ...] = ()
+    hfield_size: torch.Tensor = _array()      # (nhfield, 4) rx, ry, top_z, bottom_z
+    hfield_data: torch.Tensor = _array()      # (nhfield, max_nrow, max_ncol)
+
     # ---- equality constraints (eq_data: connect anchor (0:3) and anchor
     # in body2 at qpos0 (3:6); weld anchor (0:3), relpose pos (3:6) and quat
     # (6:10), torquescale (10); joint polycoef (0:5)) ----
@@ -357,6 +376,13 @@ class Model:
     site_pos: torch.Tensor = _array()         # (nsite, 3)
     site_quat: torch.Tensor = _array()        # (nsite, 4)
 
+    # ---- cameras (compiled; nothing renders them yet) ----
+    cam_bodyid: Tuple[int, ...] = ()
+    cam_names: Tuple[str, ...] = ()
+    cam_pos: torch.Tensor = _array()          # (ncam, 3)
+    cam_quat: torch.Tensor = _array()         # (ncam, 4)
+    cam_fovy: torch.Tensor = _array()         # (ncam,) degrees
+
     # ---- actuators ----
     actuator_trntype: Tuple[int, ...] = ()
     actuator_dyntype: Tuple[int, ...] = ()
@@ -387,6 +413,16 @@ class Model:
     sensor_cutoff: torch.Tensor = _array()    # (nsensor,)
     sensor_noise: torch.Tensor = _array()     # (nsensor,)
 
+    # ---- keyframes (<keyframe><key>; unset entries are qpos0 and zeros,
+    # mocap quaternions identity) ----
+    key_time: torch.Tensor = _array()         # (nkey,)
+    key_qpos: torch.Tensor = _array()         # (nkey, nq)
+    key_qvel: torch.Tensor = _array()         # (nkey, nv)
+    key_act: torch.Tensor = _array()          # (nkey, na)
+    key_ctrl: torch.Tensor = _array()         # (nkey, nu)
+    key_mpos: torch.Tensor = _array()         # (nkey, 3 nmocap)
+    key_mquat: torch.Tensor = _array()        # (nkey, 4 nmocap)
+
     # ---- names ----
     name: str = ""
     body_names: Tuple[str, ...] = ()
@@ -397,6 +433,7 @@ class Model:
     sensor_names: Tuple[str, ...] = ()
     eq_names: Tuple[str, ...] = ()
     tendon_names: Tuple[str, ...] = ()
+    key_names: Tuple[str, ...] = ()
 
     # ---- static structure flags (decided at compile) ----
     dof_floss_adr: Tuple[int, ...] = ()       # dofs with frictionloss > 0
@@ -408,6 +445,8 @@ class Model:
     # ---- collision pair table ----
     collision_pairs: Tuple[Tuple[int, int], ...] = ()
     ncon_max: int = 0
+    # <contact>: <exclude> body pairs and <pair> geom pairs, kept so that the
+    # table can be rebuilt when a geom's type changes
     pair_exclude: Tuple[Tuple[int, int], ...] = ()
     pair_explicit: Tuple[Tuple[int, int], ...] = ()
     collision_mode: str = "all"

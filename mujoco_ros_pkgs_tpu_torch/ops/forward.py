@@ -32,8 +32,10 @@ hook after the passive forces, pure functions of (m, d) or, with a hook
 state, of (m, d, hstate) returning (d, hstate). Any hook forces the
 general route, as in the JAX package. What neither route covers raises
 NotImplementedError from make_plan: other sensor types, muscles, spatial
-tendons, fluid (and with it the fluid term of the implicit integrators'
-derivative) and collision routines the port lacks.
+tendons and fluid (and with it the fluid term of the implicit integrators'
+derivative). Every geom pair collides on the general route: MPR pairs,
+meshes and height fields (ops/gjk.py, ops/hfield.py) keep a model off the
+fused route.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from mujoco_ros_pkgs_tpu_torch.core.types import (
 from mujoco_ros_pkgs_tpu_torch.ops import collision, constraint, efc
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
-from mujoco_ros_pkgs_tpu_torch.ops import sensor, smooth, step_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import sensor, sensor_impl, smooth, step_tpu
 
 # (m, d) -> d, or (m, d, hstate) -> (d, hstate) when a hook state is threaded
 Hook = Optional[Callable[..., Any]]
@@ -399,10 +401,9 @@ def _not_ported(what: str):
 
 
 def check_general(m: Model) -> None:
-    """Raise NotImplementedError for what the general route cannot step, and
-    ValueError for a geom pair with no ported narrowphase routine. Every
-    integrator (Euler, RK4, implicit, implicitfast) and every solver
-    (Newton, CG, PGS) steps here."""
+    """Raise NotImplementedError for what the general route cannot step.
+    Every integrator (Euler, RK4, implicit, implicitfast), every solver
+    (Newton, CG, PGS) and every geom pair of the pair table steps here."""
     for st in m.sensor_type:
         if st not in SENSOR_DIM:
             _not_ported(f"sensor type {SensorType(st).name.lower()}")
@@ -410,20 +411,22 @@ def check_general(m: Model) -> None:
     smooth.check_tendons(m)
     if m.has_fluid:
         _not_ported("fluid")
-    if m.ncon_max and not m.opt.disableflags & DisableBit.CONTACT:
-        narrowphase.check_pairs(m)
     if constraint._has_constraints(m):
         efc._check_rows(m)
 
 
 def make_plan(m: Model) -> Plan:
     """The route `step` takes for this model and what it needs: the fused
-    route's packed params and kernel metadata, or the general route.
-    Raises NotImplementedError for a model the port cannot step (ValueError
-    for a geom pair without a ported narrowphase routine)."""
+    route's packed params and kernel metadata, or the general route (whose
+    rangefinders' mesh faces are computed here, so that no step copies the
+    hulls to the host). Raises NotImplementedError for a model the port
+    cannot step."""
     if step_tpu.supports(m):
         return step_tpu.make_plan(m)
     check_general(m)
+    if SensorType.RANGEFINDER in m.sensor_type:
+        for did in range(m.nmesh):
+            sensor_impl.hull_faces(m, did)
     return GeneralPlan()
 
 

@@ -4,12 +4,13 @@ Counterpart of mujoco_ros_pkgs_tpu/ops/narrowphase.py. The slot layout
 (which contact of which geom pair lands in which slot) must be identical to
 the JAX package's, because contact rows are compared with it row by row.
 The dispatch table names every routine the JAX package has, so the pair
-table and capacities agree for any model; the routines the port implements
-are the twelve analytic primitives of ops/narrowphase_soa.py (SOA_FNS).
-A pair that needs another routine (MPR's `convex_pair` for a cylinder
-against a capsule, a box or a cylinder, or an ellipsoid against anything
-but a plane; meshes; height fields) raises ValueError naming the pair
-(`check_pairs`, which forward.make_plan and `collide` call).
+table and capacities agree for any model: the twelve analytic primitives
+of ops/narrowphase_soa.py (SOA_FNS); MPR (ops/gjk.convex_pair) for a
+cylinder against a capsule, a box or a cylinder, an ellipsoid against
+anything but a plane, and a mesh against anything but a plane; a plane
+against a mesh's hull (ops/gjk.plane_convex); a height field against
+anything but a plane (ops/hfield.hfield_pair). Every MPR pair of the
+model, whatever its group, runs in one batched MPR call per step.
 
 Per-pair parameter mixing mirrors mj_contactParam (priority, solmix,
 solref/solimp blending, elementwise-max friction).
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.core.types import Contact, Data, GeomType, Model
+from mujoco_ros_pkgs_tpu_torch.ops import gjk, hfield
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa as soa
 from mujoco_ros_pkgs_tpu_torch.ops.math import MINVAL, static_tensor
 
@@ -56,28 +58,11 @@ for _i, _t1 in enumerate(_CONVEX):
     for _t2 in _CONVEX[_i:]:
         _DISPATCH.setdefault((_t1, _t2), Routine("convex_pair", 4))
 _DISPATCH.setdefault((GeomType.PLANE, GeomType.MESH), Routine("plane_convex", 4))
-for _t2, _cap in ((GeomType.SPHERE, 1), (GeomType.CAPSULE, 2),
-                  (GeomType.ELLIPSOID, 1), (GeomType.CYLINDER, 4),
-                  (GeomType.BOX, 4), (GeomType.MESH, 4)):
+for _t2, _cap in hfield.HFIELD_NCON.items():
     _DISPATCH.setdefault((GeomType.HFIELD, _t2), Routine("hfield_pair", _cap))
 
 # capacity table consumed by the compiler (core/assemble.py)
 PAIR_NCON = {k: r.cap for k, r in _DISPATCH.items()}
-
-
-def check_pairs(m: Model) -> None:
-    """Raise ValueError for the first collision pair whose routine is not one
-    of the port's primitives (narrowphase_soa.SOA_FNS), naming its geoms."""
-    for g1, g2 in m.collision_pairs:
-        t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
-        name = _DISPATCH[(t1, t2)].name
-        if name not in soa.SOA_FNS:
-            names = [m.geom_names[g] if g < len(m.geom_names) and m.geom_names[g]
-                     else f"#{g}" for g in (g1, g2)]
-            raise ValueError(
-                f"geom pair '{names[0]}' ({t1.name.lower()}) / '{names[1]}' "
-                f"({t2.name.lower()}) needs the narrowphase routine {name}, "
-                "which is not ported to the torch package")
 
 
 def _pair_condim(m: Model, g1: int, g2: int) -> int:
@@ -261,21 +246,57 @@ def _topk_pairs(m: Model, d: Data, grp):
     return static_tensor(grp["g1s"], dev)[sel], static_tensor(grp["g2s"], dev)[sel]
 
 
+def _hull(m: Model, did: int, dtype) -> torch.Tensor:
+    """Mesh did's hull vertices (V, 3), without the padding."""
+    return m.mesh_vert[did, :m.mesh_vertnum[did]].to(dtype)
+
+
+def _mpr_all(m: Model, d: Data, jobs):
+    """Every MPR group's pairs in one ops/gjk.convex_pair call: jobs are
+    (i1, i2 (B, P) geom ids, t1, t2, did1, did2); returns the (dist, pos,
+    frame) of each job, (B, P * 4, ...)."""
+    dtype = d.qpos.dtype
+    i1 = torch.cat([j[0] for j in jobs], 1)
+    i2 = torch.cat([j[1] for j in jobs], 1)
+    cols = [(j[2], j[3], j[4], j[5]) for j in jobs for _ in range(j[0].shape[1])]
+    t1s, t2s, did1s, did2s = zip(*cols)
+
+    def verts(dids):
+        if not m.nmesh:
+            return None
+        return m.mesh_vert[static_tensor(np.maximum(dids, 0), d.qpos.device)].to(dtype)[None]
+
+    def geom(idx):
+        return (m.geom_size.to(dtype)[idx],
+                torch.take_along_dim(d.geom_xpos, idx[..., None], 1),
+                torch.take_along_dim(d.geom_xmat, idx[..., None, None], 1))
+    s1, x1, r1 = geom(i1)
+    s2, x2, r2 = geom(i2)
+    di, po, fr = gjk.convex_pair(t1s, t2s, s1, x1, r1, s2, x2, r2, verts(did1s), verts(did2s))
+    B, out, at = d.qpos.shape[0], [], 0
+    for j in jobs:
+        P = j[0].shape[1]
+        out.append((di[:, at:at + P].reshape(B, P * 4), po[:, at:at + P].reshape(B, P * 4, 3),
+                    fr[:, at:at + P].reshape(B, P * 4, 3, 3)))
+        at += P
+    return out
+
+
 def collide(m: Model, d: Data) -> Data:
-    """Every pair of the pair table through its primitive; the contacts
-    land in the canonical slot order (slot_meta). Each pair group runs its
-    primitive once over (envs, pairs) component tensors; a compacted group
-    (m.pair_topk) runs it on each env's K most-overlapping pairs, gathered
-    per env, into its dynamic slots."""
+    """Every pair of the pair table through its routine; the contacts land
+    in the canonical slot order (slot_meta). Each analytic, plane-mesh or
+    height-field group runs its routine once over (envs, pairs) tensors,
+    and the MPR groups all together in one call; a compacted group
+    (m.pair_topk) runs on each env's K most-overlapping pairs, gathered per
+    env, into its dynamic slots."""
     dtype = d.qpos.dtype
     B = d.qpos.shape[0]
     dev = d.qpos.device
-    dists, poss, frames, params, dest, dyn_pairs = ([] for _ in range(6))
+    dists, poss, frames, params, dest, dyn_pairs, jobs = ([] for _ in range(7))
     for grp in pair_groups(m):
         cap = grp["cap"]
-        name = _DISPATCH[grp["key"][1:3]].name
-        if name not in soa.SOA_FNS:
-            check_pairs(m)      # raises, naming the pair
+        _, t1, t2, did1, did2, _ = grp["key"]
+        name = _DISPATCH[(t1, t2)].name
         if grp["topk"]:
             i1, i2 = _topk_pairs(m, d, grp)                  # (B, K) per env
             P = grp["topk"]
@@ -294,19 +315,37 @@ def collide(m: Model, d: Data) -> Data:
             r1, r2 = d.geom_xmat[:, i1], d.geom_xmat[:, i2]
         friction5, solref, solimp, margin, gap = _contact_params_vec(
             m, i1 if grp["topk"] else grp["g1s"], i2 if grp["topk"] else grp["g2s"], dtype)
-        di, po, fr = soa.SOA_FNS[name](
-            _vec(x1), _mat(r1), tuple(m.geom_size[i1].to(dtype).unbind(-1)),
-            _vec(x2), _mat(r2), tuple(m.geom_size[i2].to(dtype).unbind(-1)))
-        # (B, P, cap) pair-major, as the JAX package's (P, cap) reshape
-        dists.append(torch.stack(di, -1).reshape(B, P * cap))
-        poss.append(torch.stack([torch.stack(p, -1) for p in po], -2)
-                    .reshape(B, P * cap, 3))
-        frames.append(torch.stack([_stack_mat(f) for f in fr], -3)
-                      .reshape(B, P * cap, 3, 3))
         # per-pair parameters: (P * cap, ...) of a static group, (B, K * cap,
         # ...) of a compacted one
         params.append([t.repeat_interleave(cap, dim=1 if grp["topk"] else 0)
                        for t in (margin - gap, friction5, solref, solimp)])
+        size2 = m.geom_size[i2].to(dtype)
+        if name == "convex_pair":
+            # filled in after the loop, by one MPR call for every such group
+            jobs.append((len(dists), i1.expand(B, P), i2.expand(B, P), t1, t2, did1, did2))
+            for parts in (dists, poss, frames):
+                parts.append(None)
+            continue
+        if name == "plane_convex":
+            di, po, fr = gjk.plane_convex(r1[..., 2], x1, x2, r2, _hull(m, did2, dtype))
+        elif name == "hfield_pair":
+            di, po, fr = hfield.hfield_pair(
+                m, did1, t2, x1, r1, x2, r2, size2, m.geom_rbound[i2].to(dtype),
+                _hull(m, did2, dtype) if t2 == GeomType.MESH else None)
+        else:
+            di, po, fr = soa.SOA_FNS[name](
+                _vec(x1), _mat(r1), tuple(m.geom_size[i1].to(dtype).unbind(-1)),
+                _vec(x2), _mat(r2), tuple(size2.unbind(-1)))
+            di = torch.stack(di, -1)
+            po = torch.stack([torch.stack(p, -1) for p in po], -2)
+            fr = torch.stack([_stack_mat(f) for f in fr], -3)
+        # (B, P, cap) pair-major, as the JAX package's (P, cap) reshape
+        dists.append(di.reshape(B, P * cap))
+        poss.append(po.reshape(B, P * cap, 3))
+        frames.append(fr.reshape(B, P * cap, 3, 3))
+    if jobs:
+        for job, (di, po, fr) in zip(jobs, _mpr_all(m, d, [j[1:] for j in jobs])):
+            dists[job[0]], poss[job[0]], frames[job[0]] = di, po, fr
     perm = static_tensor(np.argsort(np.concatenate(dest)), dev)
     geom1, geom2, dims = slot_meta(m)
 

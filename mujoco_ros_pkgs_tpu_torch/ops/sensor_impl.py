@@ -8,7 +8,9 @@ whole batch (tensors (B, ...)); the values go into d.sensordata as ground
 truth, and noise and cutoff scaling are the sensors plugin's
 (plugins/sensors.py), as the JAX package splits them.
 
-The JAX semantics are copied as they are, including `_rne_post`'s
+Rangefinder rays meet every geom type: primitives analytically
+(`ray_local`), meshes by their hull's triangles, height fields by a march
+and a bisection. The JAX semantics are copied as they are, including `_rne_post`'s
 cfrc_int, which accumulates each subtree's inertial and bias forces but
 leaves out contact and constraint forces.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.spatial import ConvexHull
 
 from mujoco_ros_pkgs_tpu_torch.core.types import Data, GeomType, Model, ObjType, SensorType
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
@@ -131,8 +134,10 @@ def _shift_z(t, dz):
 def ray_local(gt: int, size: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Distance along a ray to a primitive in the geom's local frame
     (t = R^T (origin - p), v = R^T dir, both (..., 3); size (3,)), +inf on a
-    miss. Plane (finite where its size is), sphere, capsule and box: the
-    geom types the port compiles."""
+    miss: a plane (finite where its size is), sphere, capsule, box,
+    cylinder (side and caps) or ellipsoid (the unit sphere's quadratic in
+    the scaled frame). A mesh or a height field, whose rays need the model
+    (_ray_geom), gets +inf here, as from the JAX function."""
     if gt == int(GeomType.PLANE):
         denom = v[..., 2]
         ok_den = denom.abs() > 1e-12
@@ -158,8 +163,122 @@ def ray_local(gt: int, size: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> 
             tmin = torch.maximum(tmin, torch.minimum(t1, t2))
             tmax = torch.minimum(tmax, torch.maximum(t1, t2))
         return torch.where(tmax >= tmin, tmin, _INF)
-    raise NotImplementedError(f"rays against {GeomType(gt).name} geoms are not ported "
-                              f"to the torch package")
+    if gt == int(GeomType.CYLINDER):
+        best = _ray_cylinder_side(t, v, size[0], size[1])
+        ok_den = v[..., 2].abs() > 1e-12
+        vz = torch.where(ok_den, v[..., 2], 1e-12)
+        for sgn in (1.0, -1.0):           # the cap disks at z = +-h
+            dc = (sgn * size[1] - t[..., 2]) / vz
+            p = t + dc[..., None] * v
+            ok = ok_den & (dc >= 0) & (p[..., 0] ** 2 + p[..., 1] ** 2 <= size[0] ** 2)
+            best = torch.minimum(best, torch.where(ok, dc, _INF))
+        return best
+    if gt == int(GeomType.ELLIPSOID):
+        ts, vs = t / size, v / size
+        a = (vs * vs).sum(-1)
+        b = (ts * vs).sum(-1)
+        disc = b * b - a * ((ts * ts).sum(-1) - 1.0)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        a_safe = torch.clamp(a, min=1e-12)
+        d1, d2 = (-b - sq) / a_safe, (-b + sq) / a_safe
+        dist = torch.where(d1 >= 0, d1, d2)
+        return torch.where((disc >= 0) & (dist >= 0), dist, _INF)
+    return torch.full_like(t[..., 0], _INF)
+
+
+# triangulated hull faces of each mesh, by the model's vertex tensor (kept
+# alive in the entry, so that its id stays its own) and the mesh id
+_HULL_FACES: dict = {}
+
+
+def hull_faces(m: Model, did: int) -> torch.Tensor:
+    """The triangulated faces (F, 3) int64 of mesh did's hull, on the
+    model's device: computed on the host once per model tensor and mesh
+    (forward.make_plan asks first, so that no step waits for the copy)."""
+    key = (id(m.mesh_vert), did)
+    hit = _HULL_FACES.get(key)
+    if hit is None:
+        verts = m.mesh_vert[did, :m.mesh_vertnum[did]].detach().cpu().double().numpy()
+        faces = torch.as_tensor(ConvexHull(verts).simplices.astype(np.int64),
+                                device=m.mesh_vert.device)
+        if len(_HULL_FACES) >= 64:
+            _HULL_FACES.pop(next(iter(_HULL_FACES)))
+        hit = _HULL_FACES[key] = (m.mesh_vert, faces)
+    return hit[1]
+
+
+def _ray_triangles(t, v, tri):
+    """Moller-Trumbore over triangles tri (F, 3, 3) for rays t, v (B, 3):
+    the nearest hit (B,), +inf on a miss."""
+    v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    h = mmath.cross(v[:, None], e2)                       # (B, F, 3)
+    a = (e1 * h).sum(-1)
+    a_safe = torch.where(a.abs() > 1e-12, a, 1e-12)
+    s = t[:, None] - v0
+    u = (s * h).sum(-1) / a_safe
+    q = mmath.cross(s, e1)
+    w = (v[:, None] * q).sum(-1) / a_safe
+    dist = (e2 * q).sum(-1) / a_safe
+    ok = (a.abs() > 1e-12) & (u >= 0) & (w >= 0) & (u + w <= 1) & (dist >= 0)
+    return torch.where(ok, dist, _INF).amin(-1)
+
+
+_HF_MARCH_STEPS = 64
+_HF_REFINE_STEPS = 10
+
+
+def _ray_hfield(m: Model, hid: int, t, v):
+    """Rays t, v (B, 3) against height field hid's bilinear surface: the ray
+    clipped to the field's box, marched in fixed steps to bracket the first
+    crossing, then bisected (fixed trip counts; mj_ray's prism walk is data
+    dependent)."""
+    from mujoco_ros_pkgs_tpu_torch.ops.hfield import sample_height
+    size = m.hfield_size[hid].to(t.dtype)     # rx, ry, top, bottom
+    lo = torch.stack([-size[0], -size[1], -size[3]])
+    hi = torch.stack([size[0], size[1], size[2]])
+    tmin = torch.zeros_like(t[:, 0])
+    tmax = torch.full_like(t[:, 0], 1e9)
+    for ax in range(3):
+        va = torch.where(v[:, ax].abs() > 1e-12, v[:, ax], 1e-12)
+        t1, t2 = (lo[ax] - t[:, ax]) / va, (hi[ax] - t[:, ax]) / va
+        tmin = torch.maximum(tmin, torch.minimum(t1, t2))
+        tmax = torch.minimum(tmax, torch.maximum(t1, t2))
+    miss_box = tmax < tmin
+
+    def above(s):     # whether the ray's point at parameter s is above the surface
+        p = t[:, None] + s[..., None] * v[:, None]
+        z, _, _ = sample_height(m, hid, p[..., 0], p[..., 1])
+        return p[..., 2] >= z
+
+    frac = torch.linspace(0.0, 1.0, _HF_MARCH_STEPS, dtype=t.dtype, device=t.device)
+    ss = tmin[:, None] + (tmax - tmin)[:, None] * frac            # (B, S)
+    below = ~above(ss)
+    first = torch.argmax(below.to(torch.int8), -1)               # the first sample below
+    any_cross = below.any(-1)
+    hit_entry = any_cross & below[:, 0]                          # started below: hit at entry
+    s_lo = torch.take_along_dim(ss, torch.clamp(first - 1, min=0)[:, None], 1)[:, 0]
+    s_lo = torch.where(first > 0, s_lo, ss[:, 0])
+    s_hi = torch.take_along_dim(ss, first[:, None], 1)[:, 0]
+    for _ in range(_HF_REFINE_STEPS):
+        mid = 0.5 * (s_lo + s_hi)
+        ab = above(mid[:, None])[:, 0]
+        s_lo, s_hi = torch.where(ab, mid, s_lo), torch.where(ab, s_hi, mid)
+    dist = torch.where(hit_entry, ss[:, 0], 0.5 * (s_lo + s_hi))
+    return torch.where(any_cross & ~miss_box, dist, _INF)
+
+
+def _ray_geom(m: Model, g: int, t, v):
+    """Rays in geom g's local frame (t, v (B, 3)) against it: +inf on a
+    miss. Every geom type: meshes by their hull's triangles, height fields
+    by _ray_hfield, the rest by ray_local."""
+    gt = m.geom_type[g]
+    if gt == int(GeomType.MESH):
+        did = m.geom_dataid[g]
+        verts = m.mesh_vert[did, :m.mesh_vertnum[did]].to(t.dtype)
+        return _ray_triangles(t, v, verts[hull_faces(m, did)])
+    if gt == int(GeomType.HFIELD):
+        return _ray_hfield(m, m.geom_dataid[g], t, v)
+    return ray_local(gt, m.geom_size[g].to(t.dtype), t, v)
 
 
 def _rangefinder(m: Model, d: Data, site: int) -> torch.Tensor:
@@ -173,8 +292,7 @@ def _rangefinder(m: Model, d: Data, site: int) -> torch.Tensor:
         if m.geom_bodyid[g] == body:
             continue
         R = d.geom_xmat[:, g]
-        best = torch.minimum(best, ray_local(m.geom_type[g], m.geom_size[g],
-                                             _tmv(R, origin - d.geom_xpos[:, g]),
+        best = torch.minimum(best, _ray_geom(m, g, _tmv(R, origin - d.geom_xpos[:, g]),
                                              _tmv(R, direction)))
     return torch.where(torch.isinf(best), -1.0, best)
 

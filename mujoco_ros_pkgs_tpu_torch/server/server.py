@@ -18,7 +18,8 @@ The control plane mirrors the reference's services and Step action
   `set_speed`, `measured_slowdown`), the sim-time stream
   (`subscribe_clock`), pause, reset, shutdown;
 - state: control (`set_ctrl`, and Ornstein-Uhlenbeck control noise inside
-  every step), joint positions (`set_qpos`), body state (`set_body_state`,
+  every step), joint positions (`set_qpos`), keyframes (`load_keyframe`
+  into every env, `save_keyframe` from one), body state (`set_body_state`,
   poses in static TF frames), wrenches (`apply_body_wrench`), equality
   parameters, the plugins' services (noise models, sensor outputs, mocap
   targets), a float parameter store;
@@ -42,8 +43,8 @@ randomness, and the control noise's, comes from the server's
 torch.Generator on the batch's device, seeded by `seed` and re-seeded by
 `reset`. Checkpoints: server/checkpoint.py.
 
-Not ported yet: rendering and cameras, keyframes, saving the model, the
-distributed plane and the native state codec.
+Not ported yet: rendering (the model's cameras are compiled), saving the
+model, the distributed plane and the native state codec.
 """
 
 from __future__ import annotations
@@ -81,10 +82,10 @@ STATUS_LOADING = 1
 
 CHUNK = 64          # substeps of `step` and of the unbound physics loop per chunk
 ACTION_CHUNK = 16   # substeps of the Step action per feedback
-# geom types a geom may be set to: those the port compiles (core/mjcf.py)
-# and collides with every other one (a cylinder or an ellipsoid needs MPR
-# against some, ops/narrowphase.check_pairs)
-SETTABLE_GEOM_TYPES = (GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE, GeomType.BOX)
+# geom types a geom may be set to: the primitives (a mesh or a height field
+# needs its asset)
+SETTABLE_GEOM_TYPES = (GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
+                       GeomType.ELLIPSOID, GeomType.CYLINDER, GeomType.BOX)
 
 
 class AdminHashError(PermissionError):
@@ -647,6 +648,64 @@ class MujocoServer:
             self.d = self.d.replace(qpos=qpos, qvel=qvel)
             self._needs_forward = True
         return ServiceResult(True, "")
+
+    def load_keyframe(self, key, admin_hash: str = "") -> ServiceResult:
+        """The viewer's load_key (viewer.cpp:1671-1690): keyframe `key` (its
+        name or index) into every env: time, qpos, qvel, and act, ctrl and
+        the mocap poses where the model has them."""
+        err = self._check_hash(admin_hash)
+        if err:
+            return err
+        m = self._m64
+        if isinstance(key, str):
+            if key not in m.key_names:
+                return ServiceResult(False, f"keyframe '{key}' not found")
+            key = m.key_names.index(key)
+        if not 0 <= key < m.nkey:
+            return ServiceResult(False, f"keyframe index {key} out of range")
+        with self._lock:
+            d = self.d
+
+            def bcast(row, *shape):
+                t = row.reshape(shape).to(d.qpos.device, d.qpos.dtype)
+                return t.expand((self.nenv,) + shape).clone()
+            upd = dict(time=bcast(m.key_time[key]), qpos=bcast(m.key_qpos[key], m.nq),
+                       qvel=bcast(m.key_qvel[key], m.nv))
+            if m.na:
+                upd["act"] = bcast(m.key_act[key], m.na)
+            if m.nu:
+                upd["ctrl"] = bcast(m.key_ctrl[key], m.nu)
+            if m.nmocap:
+                upd["mocap_pos"] = bcast(m.key_mpos[key], m.nmocap, 3)
+                upd["mocap_quat"] = bcast(m.key_mquat[key], m.nmocap, 4)
+            self.d = d.replace(**upd)
+            self._needs_forward = True
+        return ServiceResult(True, "")
+
+    def save_keyframe(self, key: int, env_id: int = 0, admin_hash: str = "") -> ServiceResult:
+        """The viewer's save_key: env env_id's state into keyframe slot
+        `key` of the served model (time, qpos, qvel, and act, ctrl and the
+        mocap poses where the model has them)."""
+        err = self._check_hash(admin_hash)
+        if err:
+            return err
+        m = self._m64
+        if not 0 <= key < m.nkey:
+            return ServiceResult(False, f"keyframe index {key} out of range")
+        if self._envs(env_id) is None:
+            return ServiceResult(False, f"bad env_id {env_id}")
+        with self._lock:
+            d, upd = self.d, {}
+            fields = [("time", d.time), ("qpos", d.qpos), ("qvel", d.qvel)]
+            fields += [("act", d.act)] if m.na else []
+            fields += [("ctrl", d.ctrl)] if m.nu else []
+            fields += [("mpos", d.mocap_pos), ("mquat", d.mocap_quat)] if m.nmocap else []
+            for name, batched in fields:
+                arr = getattr(m, "key_" + name).clone()
+                arr[key] = batched[env_id].reshape(arr[key].shape).to("cpu", arr.dtype)
+                upd["key_" + name] = arr
+            res = self._edit_model(dataclasses.replace(m, **upd))
+        return res or ServiceResult(True, "")
 
     def _env_slice(self, env_id: int):
         """The batch's state of one env, as a batch of one (every tensor of

@@ -132,11 +132,17 @@ def test_model_to_casts_floats_only():
 
 
 @pytest.mark.parametrize("xml,feature", [
-    ('<mujoco><worldbody><body><camera name="c"/></body></worldbody></mujoco>', "camera"),
-    # the case keeps the id it had when it held a cylinder, which the port
-    # now compiles; a mesh geom still raises
-    pytest.param('<mujoco><worldbody><geom type="mesh" mesh="m"/></worldbody></mujoco>',
-                 "mesh",
+    # the case keeps the id it had when it held a camera, which the port now
+    # compiles; gravcomp still raises
+    pytest.param('<mujoco><worldbody><body gravcomp="1"><geom size="0.1"/></body>'
+                 '</worldbody></mujoco>', "gravcomp",
+                 id='<mujoco><worldbody><body><camera name="c"/></body></worldbody>'
+                    '</mujoco>-camera'),
+    # the case keeps the id it had when it held a cylinder, and then a mesh
+    # geom, which the port now compiles; mesh-fitting still raises
+    pytest.param('<mujoco><asset><mesh name="m" vertex="0 0 0 1 0 0 0 1 0 0 0 1"/></asset>'
+                 '<worldbody><geom type="box" mesh="m"/></worldbody></mujoco>',
+                 "mesh-fitting",
                  id='<mujoco><worldbody><geom type="cylinder" size="1 1"/></worldbody>'
                     '</mujoco>-cylinder'),
     # the case keeps the id it had when it held a <velocity> servo, and

@@ -207,10 +207,10 @@ def test_limited_pendulum_step_float64():
 
 _RAISES = {
     # each case keeps the id it had when it held a feature the port now
-    # runs (a servo on a ball joint, <general>, a fixed tendon, a ball
-    # joint's limit, then the implicitfast integrator) and holds one that
-    # still raises
-    "position": ("", ValueError, "mesh"),
+    # runs (a servo on a ball joint, then a mesh geom, <general>, a fixed
+    # tendon, a ball joint's limit, then the implicitfast integrator) and
+    # holds one that still raises
+    "position": ("", ValueError, "fluidshape"),
     "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>', ValueError,
                 "muscle"),
     "tendon": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
@@ -221,12 +221,13 @@ _RAISES = {
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_features_raise(case):
-    """Mesh geoms, muscle gains and spatial tendons raise ValueError at
+    """Fluid shapes, muscle gains and spatial tendons raise ValueError at
     compile; fluid (a density in <option>) NotImplementedError from
     make_plan; each names what is missing."""
     extra, exc, match = _RAISES[case]
     joint = {"ball_limit": '<joint name="j" type="ball" range="0 0.5"/>',
-             "position": '<joint name="j" type="ball"/><geom type="mesh" mesh="m"/>'}.get(
+             "position": '<joint name="j" type="ball"/><geom type="sphere" size="0.1" '
+                         'fluidshape="ellipsoid"/>'}.get(
                  case, '<joint name="j" type="hinge"/>')
     xml = (f'<mujoco>{extra if case == "ball_limit" else ""}<worldbody><body>{joint}'
            f'<geom type="sphere" size="0.1"/><site name="s"/></body></worldbody>'

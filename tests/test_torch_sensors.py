@@ -16,7 +16,12 @@ per dtype (module-scope caches).
   holds qacc there: another Newton on the same rows); rays of the
   rangefinder that hit and that miss;
 - ray_local against the JAX function on seeded rays, plane (finite and
-  infinite), sphere, capsule and box, at 1e-12;
+  infinite), sphere, capsule, box, cylinder and ellipsoid, and the rays
+  against a hull's triangles and a height field (sensor_impl._ray_geom,
+  in a world of that one geom), at 1e-12;
+- SENSORS with a cylinder under the probe that collides with nothing
+  (ROADMAP C11's world): the rangefinder meets it; 1 float64 step
+  against jax.vmap(fwd.step), sensordata at 1e-12, qpos and qvel at 1e-9;
 - one float32 fwd.step against jax.vmap(fwd.step) at
   tests/test_torch_general.py's tolerances, sensordata at qvel's;
 - the plugin's noise arithmetic: apply_noise fed the normals the JAX
@@ -130,26 +135,88 @@ _RAY_GEOMS = {"plane": (GeomType.PLANE, (0.8, 0.6, 1.0)),
               "plane_infinite": (GeomType.PLANE, (0.0, 0.0, 1.0)),
               "sphere": (GeomType.SPHERE, (0.4, 0.0, 0.0)),
               "capsule": (GeomType.CAPSULE, (0.2, 0.5, 0.0)),
-              "box": (GeomType.BOX, (0.3, 0.5, 0.2))}
+              "box": (GeomType.BOX, (0.3, 0.5, 0.2)),
+              "cylinder": (GeomType.CYLINDER, (0.3, 0.5, 0.0)),
+              "ellipsoid": (GeomType.ELLIPSOID, (0.4, 0.3, 0.6)),
+              "mesh": (GeomType.MESH, None),
+              "hfield": (GeomType.HFIELD, None)}
+# the one-geom worlds of the rays that read the model: a 12-point hull and
+# a 6 x 5 height field, 1 m across
+_RAY_WORLDS = {
+    "mesh": """<mujoco><asset><mesh name="m" vertex="{}"/></asset>
+      <worldbody><geom type="mesh" mesh="m"/></worldbody></mujoco>""".format(" ".join(
+        f"{x:.6g}" for x in (np.random.default_rng(3).normal(size=(12, 3)) * 0.4).ravel())),
+    "hfield": """<mujoco><asset><hfield name="h" nrow="6" ncol="5" size="0.9 0.7 0.4 0.2"
+      elevation="{}"/></asset><worldbody><geom type="hfield" hfield="h"/></worldbody>
+      </mujoco>""".format(" ".join(
+        f"{x:.6g}" for x in np.random.default_rng(4).uniform(size=30)))}
 
 
 @pytest.mark.parametrize("name", sorted(_RAY_GEOMS))
 def test_ray_local_matches_jax(name):
     """ray_local on 256 seeded rays from origins around the geom in random
     directions, against the JAX function, float64, at 1e-12 (a miss is
-    +inf on both sides); some hit and some miss."""
+    +inf on both sides); some hit and some miss. A mesh or a height field
+    takes _ray_geom on a world of that geom alone (the JAX function
+    unjitted: it reads the hull's vertices with np.asarray)."""
     gt, size = _RAY_GEOMS[name]
     rng = np.random.default_rng(int(gt) + 7)
     t = rng.uniform(-1.2, 1.2, size=(256, 3))
     v = rng.normal(size=(256, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
-    got = sensor_impl.ray_local(int(gt), torch.tensor(size, dtype=torch.float64),
-                                torch.from_numpy(t), torch.from_numpy(v)).numpy()
-    want = np.asarray(jax.vmap(lambda a, b: jsensor_impl.ray_local(
-        int(gt), jnp.asarray(size), a, b))(jnp.asarray(t), jnp.asarray(v)))
+    if name in _RAY_WORLDS:
+        pm = mjcf.load_model_from_string(_RAY_WORLDS[name])
+        jm = jmjcf.load_model_from_string(_RAY_WORLDS[name])
+        got = sensor_impl._ray_geom(pm, 0, torch.from_numpy(t), torch.from_numpy(v)).numpy()
+        jd = jfwd.make_data(jm).replace(geom_xpos=jnp.zeros((1, 3)),
+                                        geom_xmat=jnp.eye(3)[None])
+        want = np.asarray(jax.vmap(lambda a, b: jsensor_impl._ray_geom(jm, jd, 0, a, b))(
+            jnp.asarray(t), jnp.asarray(v)))
+    else:
+        got = sensor_impl.ray_local(int(gt), torch.tensor(size, dtype=torch.float64),
+                                    torch.from_numpy(t), torch.from_numpy(v)).numpy()
+        want = np.asarray(jax.vmap(lambda a, b: jsensor_impl.ray_local(
+            int(gt), jnp.asarray(size), a, b))(jnp.asarray(t), jnp.asarray(v)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     hit = np.isfinite(got)
     assert hit.any() and not hit.all(), hit.mean()
+
+
+# ROADMAP C11's world: SENSORS with a cylinder under the probe that
+# collides with nothing, which only the rangefinder sees
+SENSORS_POST = worlds.SENSORS.replace(
+    '<geom name="ground" type="plane" size="5 5 1"/>',
+    '<geom name="ground" type="plane" size="5 5 1"/>\n    <geom name="post" type="cylinder" '
+    'pos="0 0 0.1" size="0.3 0.1" contype="0" conaffinity="0"/>')
+
+
+def test_rangefinder_on_a_cylinder_steps_as_jax():
+    """SENSORS_POST (ROADMAP C11): the cylinder adds no collision pair; one
+    float64 fwd.step against jax.vmap(fwd.step) from sensors_states: the
+    position- and velocity-stage sensordata at 1e-12 (the rangefinder
+    meets the post's cap), the acceleration stage's at 1e-6 (another
+    Newton on the same rows, as test_forward_matches_jax_float64 holds
+    them), qpos and qvel at 1e-9."""
+    assert SENSORS_POST != worlds.SENSORS
+    pm = mjcf.load_model_from_string(SENSORS_POST)
+    jm = jmjcf.load_model_from_string(SENSORS_POST)
+    post = pm.geom("post")
+    assert pm.geom_type[post] == int(GeomType.CYLINDER)
+    assert len(pm.collision_pairs) == 3 and all(post not in p for p in pm.collision_pairs)
+    qpos, qvel = sensors_states(NENV, seed=3)
+    jd = _jax_batch(jm, qpos, qvel, jnp.float64)
+    pd = fwd.step(pm, _to_port(jd))
+    jd = jax.jit(jax.vmap(lambda d: jfwd.step(jm, d)))(jd)
+    for names, tol in ((SENSORS_POS_VEL, 1e-12), (_ACC, 1e-6)):
+        for name in names:
+            np.testing.assert_allclose(_sensor(pm, pd.sensordata, name),
+                                       _sensor(pm, jd.sensordata, name),
+                                       rtol=tol, atol=tol, err_msg=name)
+    for field in ("qpos", "qvel"):
+        np.testing.assert_allclose(getattr(pd, field).numpy(), np.asarray(getattr(jd, field)),
+                                   rtol=1e-9, atol=1e-9, err_msg=field)
+    rng = _sensor(pm, pd.sensordata, "range")[:, 0]
+    assert ((rng > 0) & (rng < 0.3)).any(), rng
 
 
 def test_step_matches_jax_float32():

@@ -306,10 +306,11 @@ class _GeomWatcher(MujocoPlugin):
 
 
 def test_unported_edits_fail_and_leave_the_served_model():
-    """Fluid (density, viscosity), a geom type the port does not collide,
-    or a model the general route cannot step fails with the served model,
-    its float64 master, the plan and the batch untouched; a geom edit that
-    succeeds tells the plugins (on_geom_changed)."""
+    """Fluid (density, viscosity), a geom type a geom cannot be set to (a
+    mesh needs its asset), or a model the general route cannot step fails
+    with the served model, its float64 master, the plan and the batch
+    untouched; a geom edit that succeeds tells the plugins
+    (on_geom_changed)."""
     watcher = _GeomWatcher()
     srv = MujocoServer(worlds.BOXES, nenv=2, device="cpu", plugins=[watcher])
     before = (srv.m, srv._m64, srv._plan, srv.d)
@@ -317,8 +318,8 @@ def test_unported_edits_fail_and_leave_the_served_model():
         res = srv.set_physics_properties(props)
         assert not res.success and "NotImplementedError" in res.status_message, props
         assert (srv.m, srv._m64, srv._plan, srv.d) == before
-    cyl = msgs.GeomProperties(name="box", type=int(msgs.GeomTypeMsg.CYLINDER))
-    assert not srv.set_geom_properties(cyl, set_type=True).success
+    mesh = msgs.GeomProperties(name="box", type=int(msgs.GeomTypeMsg.MESH))
+    assert not srv.set_geom_properties(mesh, set_type=True).success
     assert (srv.m, srv._m64, srv._plan, srv.d) == before and watcher.changed == []
     props = srv.get_geom_properties("box")
     props.friction_slide = 0.4

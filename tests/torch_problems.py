@@ -6,6 +6,10 @@ Importing it caps torch's intra-op threads at TORCH_THREADS for a test
 process (the suite runs several workers on one machine, each of which
 would otherwise start a thread per core); chip_smoke.py sets its own."""
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -812,3 +816,177 @@ def tendon_act_states(nenv: int, seed: int):
     ctrl = np.stack([rng.uniform(0, 7, nenv), rng.uniform(-1, 1, nenv),
                      rng.uniform(-0.2, 1.2, nenv), rng.uniform(-1.2, 1.2, nenv)], 1)
     return qpos, qvel, act, ctrl
+
+
+def _fmt(a) -> str:
+    return " ".join(f"{x:.6g}" for x in np.ravel(a))
+
+
+# MESH_PILE: PILE's walled bin and stack (BASELINE config 5's scene) with
+# its 12 bodies in turn a 20-point hull drawn on a 5 cm ellipsoid, a wedge
+# (a 6-vertex triangular prism), a cylinder and an ellipsoid; pb0 and pb4
+# do not collide (<exclude>), pg11 collides with the floor alone (contype 2
+# and an explicit <pair>). Every MPR pair type (mesh-mesh of each pair of
+# meshes, mesh-cylinder, cylinder-cylinder, ellipsoid against all, the
+# walls' boxes against all), plane_convex and the analytic plane pairs; a
+# rangefinder on a world site looks down into the bin. It starts from
+# <key name="drop">: each body over its place of the stack's 4 x 3 grid,
+# 7 to 10 cm over the floor, turned by a seeded rotation.
+_HULL20 = np.random.default_rng(16).normal(size=(20, 3))
+_HULL20 = _HULL20 / np.linalg.norm(_HULL20, axis=1, keepdims=True) * (0.05, 0.04, 0.035)
+_WEDGE = ((-0.05, -0.04, -0.03), (0.05, -0.04, -0.03), (-0.05, -0.04, 0.03),
+          (-0.05, 0.04, -0.03), (0.05, 0.04, -0.03), (-0.05, 0.04, 0.03))
+_MESH_PILE_GEOMS = ('type="mesh" mesh="hull20"', 'type="mesh" mesh="wedge"',
+                    'type="cylinder" size="0.04 0.05"',
+                    'type="ellipsoid" size="0.05 0.04 0.035"')
+
+
+def _mesh_pile() -> str:
+    bodies = []
+    for i in range(12):
+        own = ' contype="2" conaffinity="2"' if i == 11 else ""
+        bodies.append(
+            f"""    <body name="pb{i}" pos="{0.22*(i%4)-0.33:.2f} {0.22*(i//4)-0.22:.2f} {0.12+0.11*i:.2f}">
+      <freejoint/>
+      <geom name="pg{i}" {_MESH_PILE_GEOMS[i % 4]} mass="0.3"
+            friction="0.8 0.005 0.0001"{own}/>
+    </body>""")
+    rng = np.random.default_rng(17)
+    qpos = []
+    for i in range(12):
+        q = rng.normal(size=4)
+        qpos += [0.22 * (i % 4) - 0.33, 0.22 * (i // 4) - 0.22, 0.07 + 0.01 * (i % 4),
+                 *(q / np.linalg.norm(q))]
+    head, tail = worlds.PILE.split("  </worldbody>")
+    head = head[:head.index('    <body name="pb0"')]
+    head = head.replace('iterations="12"', 'iterations="12" ls_iterations="8"')
+    head = head.replace('model="pile_bench"', 'model="mesh_pile"')
+    head = head.replace("  <worldbody>\n", f"""  <asset>
+    <mesh name="hull20" vertex="{_fmt(_HULL20)}"/>
+    <mesh name="wedge" vertex="{_fmt(_WEDGE)}"/>
+  </asset>
+  <worldbody>
+    <site name="rf" pos="0.05 0.03 1.5" zaxis="0 0 -1"/>
+""")
+    return (head + "\n".join(bodies) + "\n  </worldbody>" + tail.replace("</mujoco>", f"""  <contact>
+    <exclude body1="pb0" body2="pb4"/>
+    <pair geom1="pg11" geom2="ground"/>
+  </contact>
+  <sensor>
+    <rangefinder name="range" site="rf"/>
+  </sensor>
+  <keyframe>
+    <key name="drop" qpos="{_fmt(qpos)}"/>
+  </keyframe>
+</mujoco>"""))
+
+
+MESH_PILE = _mesh_pile()
+MESH_PILE_NENV = 512
+
+
+def mesh_pile_heap(m, nenv: int, seed: int):
+    """pile_heap's heaps turned: each body at a seeded random orientation,
+    alternately 3 and 8 cm over the floor, so that hulls, cylinders and
+    ellipsoids lie in the floor and in each other (float64 qpos, qvel)."""
+    qpos, qvel = pile_heap(m, nenv, seed)
+    rng = np.random.default_rng(seed + 1)
+    nb = m.nq // 7
+    qpos = qpos.reshape(nenv, nb, 7)
+    q = rng.normal(size=(nenv, nb, 4))
+    qpos[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    qpos[..., 2] = 0.03 + 0.05 * (np.arange(nb) % 2)
+    return qpos.reshape(nenv, 7 * nb), qvel
+
+
+# TERRAIN: HUMANOID at its bench's batch on a 32 x 32 height field (20 m x
+# 20 m, 0.3 m high, 0.1 m deep) in place of its floor, the elevation a
+# seeded sum of waves and noise; the feet and limbs meet it through
+# hfield_pair (a capsule 2 contacts, a sphere 1, a box 4), a rangefinder on
+# the torso looks down at it; <key name="drop"> holds the humanoid's feet 2
+# cm over the terrain at the centre
+def _terrain() -> str:
+    from mujoco_ros_pkgs_tpu_torch.models import humanoid
+    rng = np.random.default_rng(18)
+    u = np.linspace(0.0, 2.0 * np.pi, 32)
+    elev = (np.sin(2.0 * u)[:, None] * np.cos(3.0 * u)[None, :]
+            + 0.3 * rng.uniform(-1.0, 1.0, (32, 32)))
+    xml = humanoid.HUMANOID.replace('model="humanoid_bench"', 'model="terrain"')
+    xml = xml.replace('    <geom name="floor" type="plane" size="20 20 1"/>',
+                      '    <geom name="floor" type="hfield" hfield="terrain"/>')
+    xml = xml.replace("  <worldbody>", f"""  <asset>
+    <hfield name="terrain" nrow="32" ncol="32" size="10 10 0.3 0.1"
+            elevation="{_fmt(elev)}"/>
+  </asset>
+  <worldbody>""")
+    xml = xml.replace('      <freejoint name="root"/>', '''      <freejoint name="root"/>
+      <site name="rf" pos="0 0 -0.1" zaxis="0 0 -1"/>''')
+    # the feet hang 0.105 m over z = 0 at the model's start (torso 1.3 m):
+    # the key holds them 2 cm over the terrain's highest point within a
+    # cell of the centre, so that they land within some 0.1 s
+    norm = (elev - elev.min()) / (elev.max() - elev.min())
+    top = 0.3 * float(norm[14:18, 14:18].max())
+    key = np.zeros(7 + 21)
+    key[:7] = (0.0, 0.0, 1.3 - 0.105 + top + 0.02, 1.0, 0.0, 0.0, 0.0)
+    return xml.replace("</mujoco>", f"""  <sensor>
+    <rangefinder name="range" site="rf"/>
+  </sensor>
+  <keyframe>
+    <key name="drop" qpos="{_fmt(key)}"/>
+  </keyframe>
+</mujoco>""")
+
+
+TERRAIN = _terrain()
+TERRAIN_NENV = 1024
+
+
+# XLA's CPU backend contracts a multiply and an add into one FMA where the
+# host has FMA instructions, so a jitted JAX function rounds otherwise than
+# the same ops one at a time; MPR's discrete portal updates amplify that to
+# 1e-8 in a contact's depth (the JAX package's own jit against its eager
+# evaluation). Under this flag the jitted JAX package equals its op-by-op
+# evaluation, which is what the port computes.
+JAX_REFERENCE_XLA_FLAGS = "--xla_cpu_max_isa=AVX"
+
+
+def run_jax_reference(module: str, out_path, timeout: float = 900.0) -> dict:
+    """Run `python -m <module> <out_path>` from the repo's root in a process
+    of its own, with JAX on the CPU in float64 and JAX_REFERENCE_XLA_FLAGS
+    (a flag that must be set before XLA starts, so not in a test process
+    that shares JAX with other tests); returns the arrays it saved with
+    np.savez."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="1",
+               XLA_FLAGS=JAX_REFERENCE_XLA_FLAGS,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    subprocess.run([sys.executable, "-m", module, str(out_path)], cwd=root, env=env,
+                   check=True, timeout=timeout)
+    with np.load(out_path) as f:
+        return dict(f)
+
+
+def terrain_states(m, nenv: int, seed: int):
+    """humanoid_states for TERRAIN's compiled `m` (qpos, qvel, ctrl): the
+    humanoid at a seeded place within 4 m of the field's centre, lowered
+    until its lowest geom reaches 2 cm below the terrain's height under
+    that geom's centre, so that a foot or a limb is in the terrain."""
+    from mujoco_ros_pkgs_tpu_torch.ops import smooth
+    from mujoco_ros_pkgs_tpu_torch.ops.hfield import sample_height
+    qpos, qvel, ctrl = humanoid_states(m, nenv, seed)
+    rng = np.random.default_rng(seed + 1)
+    qpos[:, :2] = rng.uniform(-4.0, 4.0, size=(nenv, 2))
+    m64 = m.to("cpu", torch.float64)
+    kin = smooth.kinematics(m64, torch.from_numpy(qpos))
+    xpos, zrow = kin.geom_xpos[:, 1:], kin.geom_xmat[:, 1:, 2].abs()   # |R[2, :]|
+    size = m64.geom_size[1:]
+    # each geom's reach below its centre: a sphere's radius, a capsule's
+    # radius and its axis's drop, a box's half sizes along the vertical
+    reach = torch.stack([size[:, 0].expand(nenv, -1),
+                         size[:, 0] + size[:, 1] * zrow[..., 2], (size * zrow).sum(-1)], -1)
+    kind = torch.tensor([{2: 0, 3: 1, 6: 2}[t] for t in m.geom_type[1:]])
+    reach = torch.take_along_dim(reach, kind[None, :, None].expand(nenv, -1, 1), -1)[..., 0]
+    z, _, _ = sample_height(m64, 0, xpos[..., 0], xpos[..., 1])
+    clearance = (xpos[..., 2] - reach - z).min(1).values
+    qpos[:, 2] -= clearance.numpy() + 0.02
+    return qpos, qvel, ctrl
