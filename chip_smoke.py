@@ -252,11 +252,36 @@ Phases (any failure raises; the exit code is then not 0):
      syncs a step (torch.cuda.set_sync_debug_mode, 5 steps), active
      contacts per env, finite; (c) fwd.step ms by CUDA events; the phase's
      seconds.
+ 33. the server's cameras (tests/torch_problems): MESH_PILE_CAM at
+     MESH_PILE_NENV with con_topk 64 (`overview` at the reference's default
+     stream, RGB 720 x 480 of env 0; `overview_px`, RGB, depth and
+     segmentation at 64 x 64 of every env) and TERRAIN_CAM at TERRAIN_NENV
+     (`ego` on the torso, RGB and depth at 64 x 64 of every env), each
+     from its "drop" keyframe: (b) host syncs a step while no stream is
+     live equal those of the same server built without cam_config (2
+     steps after 1); env-steps/s with no live stream (P33_IDLE_STEPS) and
+     with every stream subscribed over P33_STEPS steps, half by `step`,
+     half by the physics loop: the frames each stream delivers equal what
+     its frequency gives at the world's timestep (expected_frames), K1
+     launches 1 (2 damped) + the batch's Newton trips a step, K2 and K3
+     0, the state finite; render ms a frame per stream by CUDA events,
+     peak device memory, host syncs a step with live streams; (a) each
+     pixel stream rendered in float32 and from the same kinematics in
+     float64 (MESH_PILE_CAM with a sphere marker): seg equal on 99% of the
+     pixels at least, depth within 1e-4 + 1e-4 |depth| where the seg
+     agrees, rgb within 1e-3 where a pixel and its four neighbours agree;
+     the shares printed per geom type seen; (c) MESH_PILE_CAM: screenshot
+     of env 0 at 720 x 480 decoded equal to the render; start_watch(port=0)
+     on 127.0.0.1: /frame.png decodes, select at the centre pixel hits a
+     pile body, perturb drags it in env 0 (against env 1, its unperturbed
+     twin), clear_perturb, stop_watch; save_xml then reload: one step from
+     one state equal, bit for bit, to the original model's; the phase's
+     seconds.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
-`humanoid`, `sensors`, `arm7`, `panda`, `a8` (phase 31's paths a-e) and
-`p32` (phase 32's worlds)
+`humanoid`, `sensors`, `arm7`, `panda`, `a8` (phase 31's paths a-e),
+`p32` (phase 32's worlds) and `p33` (phase 33's servers with cameras)
 objects and K2's `sensors`, `tendon_act` and `a8_pendulum_rk4` objects:
 their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
@@ -283,6 +308,7 @@ import torch
 
 from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
+from mujoco_ros_pkgs_tpu_torch.core.types import GeomType
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
@@ -293,12 +319,16 @@ from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
+from mujoco_ros_pkgs_tpu_torch.render import camera as rcam
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
+from mujoco_ros_pkgs_tpu_torch.utils import png
 
 _THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
-                                  FULL_BASE, FULL_KINDS, MESH_PILE, MESH_PILE_NENV,
-                                  MIXED_BASE, MIXED_KINDS, TERRAIN, TERRAIN_NENV,
+                                  FULL_BASE, FULL_KINDS, MESH_PILE, MESH_PILE_CAM,
+                                  MESH_PILE_CAM_CONFIG, MESH_PILE_NENV,
+                                  MIXED_BASE, MIXED_KINDS, TERRAIN, TERRAIN_CAM,
+                                  TERRAIN_CAM_CONFIG, TERRAIN_NENV,
                                   PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF, PEGS,
                                   PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
                                   TENDON_ACT, arm7_states, box_bin_states, box_cluster,
@@ -340,15 +370,15 @@ PILE_NENV = 512
 # the nv = 102 world's batch and the steps that settle its heaps (phase 26)
 WIDE_NENV = 256
 WIDE_SETTLE = 60
-COMPACT_STEPS = 100
+COMPACT_STEPS = 60
 SETTLE_STEPS = 100
 HUMANOID_CON_TOPK = 48
 # the seeds of ROADMAP C7's K1 float64 margins (phase 27)
 C7_SEEDS = (1, 2, 3, 4, 6)
 # the server's control plane (phase 28): the CLI's steps, the physics loop's
 # seconds unbound and paced, a checkpoint's continuation
-CLI_STEPS = 300
-LOOP_SECONDS = 10
+CLI_STEPS = 150
+LOOP_SECONDS = 6
 CKPT_STEPS = 50
 # K3's pair primitives (phase 29): BOX_BIN's server batch (BASELINE config
 # 2's), its steps on K3 and on the general route
@@ -3429,7 +3459,7 @@ def a8_phase(card, euler_held):
 
 # phase 32: the server's steps of each world, con_topk of each (MESH_PILE as
 # BASELINE config 5's PILE5), the seed of the compared states
-P32_STEPS = 50
+P32_STEPS = 25
 P32 = {"MESH_PILE": (MESH_PILE, MESH_PILE_NENV, 64), "TERRAIN": (TERRAIN, TERRAIN_NENV, 0)}
 
 
@@ -3602,6 +3632,282 @@ def p32_phase(card):
               flush=True)
         out[label] = run
     print(f"[32] phase 32 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
+# phase 33: the served worlds with cameras (world, nenv, con_topk, cam_config);
+# P33_STEPS steps with live streams (half by step, half by the physics loop)
+P33_STEPS = 200
+P33_IDLE_STEPS = 5
+P33 = {"MESH_PILE_CAM": (MESH_PILE_CAM, MESH_PILE_NENV, 64, MESH_PILE_CAM_CONFIG),
+       "TERRAIN_CAM": (TERRAIN_CAM, TERRAIN_NENV, 0, TERRAIN_CAM_CONFIG)}
+P33_WATCH = (480, 320)          # start_watch's image
+P33_PERTURB_STEPS = 8
+
+
+def expected_frames(stream, t0, dt, nsteps):
+    """The frames a stream's throttle (offscreen_camera.cpp:159-163) gives
+    over nsteps steps of dt from sim time t0, asked after every step."""
+    last, n = stream.last_pub_time, 0
+    for k in range(1, nsteps + 1):
+        t = t0 + k * dt
+        if t - last >= 1.0 / stream.frequency - 1e-9:
+            last, n = t, n + 1
+    return n
+
+
+def timed_renders(srv):
+    """Wrap every stream's render_now in CUDA events: {stream: [ms, ...]}."""
+    times = {}
+    for name, stream in srv.render_manager.streams.items():
+        def timed(m, d, markers=(), inner=stream.render_now, log=times.setdefault(name, [])):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(m, d, markers)
+            end.record()
+            end.synchronize()
+            log.append(start.elapsed_time(end))
+            return out
+        stream.render_now = timed
+    return times
+
+
+def p33_server(label, xml, nenv, con_topk, cfg):
+    """33b: the server with its streams (see the docstring); returns the
+    server, its frames by stream and the readings."""
+    plain = MujocoServer(xml, nenv=nenv, unpause=False, con_topk=con_topk)
+    assert plain.load_keyframe("drop").success and plain.step(1).success
+    _, syncs_plain = host_syncs(lambda: plain.step(2))
+    del plain
+    torch.cuda.empty_cache()
+    srv = MujocoServer(xml, nenv=nenv, unpause=False, con_topk=con_topk, cam_config=cfg)
+    assert srv.device.type == "cuda" and srv._plan == fwd.GeneralPlan()
+    rm = srv.render_manager
+    assert srv.load_keyframe("drop").success and srv.step(1).success
+    _, syncs_idle = host_syncs(lambda: srv.step(2))
+    assert not rm.live and all(s.frame_count == 0 for s in rm.streams.values())
+    assert syncs_idle == syncs_plain, f"{label}: host syncs {syncs_idle} (cam_config, no " \
+                                      f"live stream) against {syncs_plain} (no cam_config)"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(P33_IDLE_STEPS).success
+    torch.cuda.synchronize()
+    rate_idle = nenv * P33_IDLE_STEPS / (time.perf_counter() - t1)
+
+    frames = {name: [] for name in rm.streams}
+    for name in rm.streams:
+        rm.subscribe(name, frames[name].append)
+    render_ms = timed_renders(srv)
+    t0, dt, half = float(srv.d.time[0]), srv._dt, P33_STEPS // 2
+    want = {name: expected_frames(s, t0, dt, P33_STEPS) for name, s in rm.streams.items()}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with newton_trips() as log:
+        _, syncs_live = host_syncs(lambda: srv.step(half))
+        with srv._lock:
+            srv.num_steps_until_exit = P33_STEPS - half
+            srv.paused = False
+        srv.start_physics_loop()
+        loop = srv._physics_thread
+        loop.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    assert not loop.is_alive() and srv.physics_error is None, srv.physics_error
+    with srv._lock:
+        srv.paused = True
+    ran = sum(r for _, r, _ in log)
+    base = 1 + int(srv.m.has_damping)    # the mass matrix, Euler's damping solve
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    assert launches == (base * P33_STEPS + ran, 0, 0), f"{label}: launches {launches}"
+    got = {name: len(v) for name, v in frames.items()}
+    assert got == want, f"{label}: frames {got}, the streams' frequency gives {want}"
+    assert abs(float(srv.d.time[0]) - (t0 + P33_STEPS * dt)) < 0.5 * dt
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc))
+    for name, msgs in frames.items():
+        s, last = rm.streams[name], msgs[-1]
+        for key, arr in last.items():
+            if isinstance(arr, np.ndarray):
+                assert arr.shape[:3] == (len(s.env_ids), s.height, s.width), (name, key)
+                assert np.isfinite(arr).all(), (name, key)
+    out = {"nenv": nenv, "steps": P33_STEPS, "wall_s": wall,
+           "env_steps_per_s": nenv * P33_STEPS / wall, "env_steps_per_s_idle": rate_idle,
+           "k1_per_step": launches[0] / P33_STEPS, "newton_trips_per_step": ran / P33_STEPS,
+           "frames": got, "render_ms": {k: float(np.mean(v)) for k, v in render_ms.items()},
+           "render_ms_max": {k: float(np.max(v)) for k, v in render_ms.items()},
+           "render_share": sum(map(sum, render_ms.values())) / 1e3 / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "host_syncs_per_step_idle": syncs_idle / 2, "host_syncs_per_step_plain": syncs_plain / 2,
+           "host_syncs_per_step_live": syncs_live / half}
+    print(f"[33b {label} server] {nenv} envs, {P33_STEPS} steps ({half} by step, "
+          f"{P33_STEPS - half} by the physics loop) with live streams: {wall:.3f}s wall, "
+          f"{out['env_steps_per_s']:.6g} env-steps/s; with no live stream "
+          f"{rate_idle:.6g} ({P33_IDLE_STEPS} steps); frames {got} (the frequency's {want}); "
+          f"render ms a frame {out['render_ms']} (max {out['render_ms_max']}), the renders "
+          f"{out['render_share']:.4f} of the wall; K1 "
+          f"{out['k1_per_step']:.3f} a step ({base} + {out['newton_trips_per_step']:.3f} Newton "
+          f"trips), K2 0, K3 0; peak device memory {out['peak_gib']:.3f} GiB; host syncs a "
+          f"step: no cam_config {syncs_plain / 2:.3f}, no live stream {syncs_idle / 2:.3f}, "
+          f"live streams {out['host_syncs_per_step_live']:.3f}; finite", flush=True)
+    return srv, out
+
+
+def p33_precision(label, srv, name, markers=()):
+    """33a: stream `name` rendered in float32 and, from the same
+    kinematics, in float64; the shares of agreeing pixels, also by geom
+    type (markers count as their own type)."""
+    s = srv.render_manager.streams[name]
+    m, d = srv.m, srv.d
+    m64 = srv._m64.to("cuda", torch.float64)
+    d64 = d.replace(**{k: getattr(d, k).double()
+                       for k in ("qpos", "xpos", "xmat", "geom_xpos", "geom_xmat")})
+    mk64 = tuple(dataclasses.replace(k, pos=k.pos.double(), size=k.size.double()) for k in markers)
+    rgb, depth, seg = rcam.render(m, d, s.cam_id, s.width, s.height, markers, s.env_ids)
+    rgb64, depth64, seg64 = rcam.render(m64, d64, s.cam_id, s.width, s.height, mk64, s.env_ids)
+    same = seg == seg64
+    agree = same.clone()                 # the pixel and its four neighbours
+    agree[:, 1:] &= same[:, :-1]
+    agree[:, :-1] &= same[:, 1:]
+    agree[:, :, 1:] &= same[:, :, :-1]
+    agree[:, :, :-1] &= same[:, :, 1:]
+    depth_ok = (depth.double() - depth64).abs() <= 1e-4 + 1e-4 * depth64.abs()
+    rgb_ok = ((rgb.double() - rgb64).abs() <= 1e-3).all(-1)
+
+    def share(ok, where):
+        """(pixels where ok, pixels) over `where`, as exact counts."""
+        return int((ok & where).sum()), int(where.sum())
+    counts = {"seg": share(same, torch.ones_like(same)), "depth": share(depth_ok, same),
+              "rgb": share(rgb_ok, agree)}
+    shares = {k: a / b if b else 1.0 for k, (a, b) in counts.items()}
+    kinds = {-1: "background", **{g: GeomType(t).name.lower() for g, t in enumerate(m.geom_type)},
+             **{m.ngeom + k: "marker " + GeomType(mk.gtype).name.lower()
+                for k, mk in enumerate(markers)}}
+    by_type = {}
+    ids = seg64.unique().tolist()
+    for g in ids:
+        by_type.setdefault(kinds[g], []).append(g)
+    types = {}
+    for kind, gs in sorted(by_type.items()):
+        px = torch.isin(seg64, torch.tensor(gs, device=seg64.device))
+        seg_ok, depth_n = share(same, px), share(depth_ok, px & same)
+        types[kind] = {"pixels": seg_ok[1], "pixels_float32": int(torch.isin(
+                           seg, torch.tensor(gs, device=seg.device)).sum()),
+                       "seg": seg_ok[0] / seg_ok[1], "depth_ok": depth_n[0],
+                       "depth_of": depth_n[1]}
+    print(f"[33a {label} {name}] float32 against float64 over {seg.numel()} pixels: seg "
+          f"{shares['seg']:.6f}, depth {shares['depth']:.6f} (of the agreeing pixels), rgb "
+          f"{shares['rgb']:.6f} (of the pixels whose four neighbours agree); by type {types}",
+          flush=True)
+    assert (shares["seg"] >= 0.99 and counts["depth"][0] == counts["depth"][1]
+            and counts["rgb"][0] == counts["rgb"][1]), f"{label} {name}: {counts}"
+    for kind, t in types.items():     # every type seen in float64 is seen in float32
+        assert t["pixels_float32"] > 0 and t["depth_ok"] == t["depth_of"], \
+            f"{label} {name} {kind}: {t}"
+    return {"shares": shares, "types": types}
+
+
+def p33_post(port, name, body):
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/api/{name}",
+                                 data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def p33_viewer(label, srv, tmp):
+    """33c: screenshot, the watch with select and perturb, save_xml and
+    reload (see the docstring)."""
+    import urllib.request
+    out = {}
+    m = srv.m
+    cid = m.cam_names.index("overview")
+    path = os.path.join(tmp, "overview.png")
+    assert srv.screenshot("overview", path, env_id=0, width=720, height=480).success
+    _, d1 = srv._view(0)
+    rgb, _, _ = rcam.render(m, d1, cid, 720, 480)
+    want = np.clip(rgb[0].double().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+    shot = png.read(path)
+    assert shot.shape == (480, 720, 3) and np.array_equal(shot, want), f"{label} screenshot"
+
+    w, h = P33_WATCH
+    res = srv.start_watch(port=0, cam_name="overview", width=w, height=h)
+    assert res.success, res.status_message
+    port = int(res.status_message)
+    try:
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/frame.png", timeout=300) as r:
+            frame = png.decode(r.read())
+        out["watch_frame_s"] = time.perf_counter() - t1
+        assert frame.shape == (h, w, 3) and frame.std() > 1.0
+        sel = p33_post(port, "select", {"x": w / 2, "y": h / 2, "env_id": 0})
+        assert sel["success"] and sel["geom"] >= 0 and sel["body_name"].startswith("pb"), sel
+        body = sel["body_name"]
+        r = p33_post(port, "perturb", {"body": body, "x": w / 2 + 80, "y": h / 2,
+                                       "dist": sel["dist"], "env_id": 0})
+        assert r["success"], r
+        b = m.body(body)
+        assert float(srv.d.xfrc_applied[0, b, :3].norm()) > 0
+        assert float(srv.d.xfrc_applied[1, b].abs().max()) == 0.0
+        assert srv.step(P33_PERTURB_STEPS).success
+        pos = [srv.get_body_state(body, e).pose.position for e in (0, 1)]
+        moved = float(np.linalg.norm(pos[0] - pos[1]))
+        assert moved > 1e-3, f"{label}: perturb moved {body} {moved} m"
+        assert p33_post(port, "clear_perturb", {"body": body})["success"]
+        assert float(srv.d.xfrc_applied.abs().max()) == 0.0
+    finally:
+        assert srv.stop_watch().success
+    out.update(select=sel["body_name"], perturb_force=r["force"], moved_m=moved)
+
+    path = os.path.join(tmp, "saved.xml")
+    assert srv.save_xml(path).status_message == path
+    with srv._lock:
+        d0 = srv.d
+    steps = []
+    for reload in (False, False, True):
+        if reload:
+            assert srv.reload(path).success
+        with srv._lock:
+            srv.d = d0
+        assert srv.step(1).success
+        steps.append(srv.d)
+    fields = ("qpos", "qvel", "act", "qacc", "qacc_warmstart", "efc_force_contact", "time")
+    same_model = [f for f in fields if not torch.equal(getattr(steps[0], f), getattr(steps[1], f))]
+    reloaded = [f for f in fields if not torch.equal(getattr(steps[0], f), getattr(steps[2], f))]
+    assert not same_model, f"{label}: one step of one model is not reproducible: {same_model}"
+    assert not reloaded, f"{label}: the reloaded model steps otherwise: {reloaded}"
+    print(f"[33c {label} viewer] screenshot 720 x 480 of env 0 equal to the render; watch "
+          f"/frame.png {w} x {h} in {out['watch_frame_s']:.3f}s, select at the centre: "
+          f"{sel['body_name']} ({sel['geom_name']}) at {sel['dist']:.4f} m, perturb moved it "
+          f"{moved:.4g} m from its twin in {P33_PERTURB_STEPS} steps; save_xml + reload: one "
+          f"step equal bit for bit ({', '.join(fields)})", flush=True)
+    return out
+
+
+def p33_phase(card):
+    """Phase 33: the servers' cameras, b then a (on b's state) then c
+    (MESH_PILE_CAM); returns {world: results}."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, (xml, nenv, con_topk, cfg) in P33.items():
+        srv, run = p33_server(label, xml, nenv, con_topk, cfg)
+        if label == "MESH_PILE_CAM":
+            ball = rcam.RenderMarker(pos=torch.tensor([0.0, 0.0, 0.35], device="cuda"),
+                                     size=torch.tensor([0.06, 0.0, 0.0], device="cuda"),
+                                     rgba=torch.tensor([0.9, 0.9, 0.1, 1.0], device="cuda"))
+            run["precision"] = p33_precision(label, srv, "overview_px", (ball,))
+            with tempfile.TemporaryDirectory() as tmp:
+                run["viewer"] = p33_viewer(label, srv, tmp)
+        else:
+            run["precision"] = p33_precision(label, srv, "ego")
+        print(f"[33 {label}] ({card})", flush=True)
+        out[label] = run
+        del srv
+        torch.cuda.empty_cache()
+    print(f"[33] phase 33 in {time.perf_counter() - t0:.1f}s", flush=True)
     return out
 
 
@@ -3794,6 +4100,8 @@ def main():
     a8 = a8_phase(card, panda["held_envs"])
     # phase 32: mesh and height-field worlds
     p32 = p32_phase(card)
+    # phase 33: the server's cameras
+    p33 = p33_phase(card)
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -3809,7 +4117,7 @@ def main():
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
              panda=panda, a8={k: v for k, v in a8.items() if k != "f_boxes_edits"},
-             a8_boxes_launches=a8["f_boxes_edits"], p32=p32),
+             a8_boxes_launches=a8["f_boxes_edits"], p32=p32, p33=p33),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
              sensors=t2["sensors"], tendon_act=tendon_act,

@@ -519,6 +519,7 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         geom_solimp=_t([g.solimp for g in geoms], 5),
         geom_margin=_t([g.margin for g in geoms]),
         geom_gap=_t([g.gap for g in geoms]),
+        geom_rgba=_t([g.rgba for g in geoms], 4),
         eq_type=tuple(eq_type), eq_obj1id=tuple(q.obj1id for q in eqs),
         eq_obj2id=tuple(q.obj2id for q in eqs),
         eq_active0=tuple(q.active for q in eqs),

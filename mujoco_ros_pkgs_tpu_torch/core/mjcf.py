@@ -21,7 +21,7 @@ two compile a model to the same numbers. Supported elements:
   a cylinder also by `fromto`), mesh (the geom frame folds in the hull's
   centre and principal axes, mass and inertia from its volume) and hfield,
   with mass or density, friction, condim, priority, solmix, solref, solimp,
-  margin, gap, contype and conaffinity;
+  margin, gap, contype, conaffinity and rgba (the renderer's albedo);
 - sites: name, pos, orientation (quat, axisangle, euler, zaxis, xyaxes)
   or `fromto`, `<default><site>` classes;
 - `<contact>` with `<exclude body1 body2>` and `<pair geom1 geom2>`;
@@ -798,6 +798,7 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         g.solimp = _attr_f(e, "solimp", _SOLIMP)
         g.margin = float(e.get("margin", "0"))
         g.gap = float(e.get("gap", "0"))
+        g.rgba = _attr_f(e, "rgba", [0.5, 0.5, 0.5, 1.0], n=4)
         g.pos = _attr_f(e, "pos", [0, 0, 0])
         g.quat = _orientation(e, comp)
         if e.get("fromto") is not None:

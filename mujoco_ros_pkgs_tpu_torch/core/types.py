@@ -325,6 +325,7 @@ class Model:
     geom_solimp: torch.Tensor = _array()      # (ngeom, 5)
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
+    geom_rgba: torch.Tensor = _array()        # (ngeom, 4) the renderer's albedo
 
     # ---- meshes: convex hulls in their principal frame, padded to the
     # largest hull by repeating the first vertex (ops/gjk.py's support is an
@@ -376,7 +377,7 @@ class Model:
     site_pos: torch.Tensor = _array()         # (nsite, 3)
     site_quat: torch.Tensor = _array()        # (nsite, 4)
 
-    # ---- cameras (compiled; nothing renders them yet) ----
+    # ---- cameras (fixed to a body; render/camera.py ray-casts them) ----
     cam_bodyid: Tuple[int, ...] = ()
     cam_names: Tuple[str, ...] = ()
     cam_pos: torch.Tensor = _array()          # (ncam, 3)

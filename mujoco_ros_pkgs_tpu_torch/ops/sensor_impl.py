@@ -250,7 +250,11 @@ def _ray_hfield(m: Model, hid: int, t, v):
         z, _, _ = sample_height(m, hid, p[..., 0], p[..., 1])
         return p[..., 2] >= z
 
-    frac = torch.linspace(0.0, 1.0, _HF_MARCH_STEPS, dtype=t.dtype, device=t.device)
+    # i / (n - 1) as jnp.linspace rounds it (torch.linspace takes its upper
+    # half from the end: other last bits, and a sample on the surface may
+    # fall on the other side of it)
+    frac = (torch.arange(_HF_MARCH_STEPS, dtype=t.dtype, device=t.device)
+            * (1.0 / (_HF_MARCH_STEPS - 1)))
     ss = tmin[:, None] + (tmax - tmin)[:, None] * frac            # (B, S)
     below = ~above(ss)
     first = torch.argmax(below.to(torch.int8), -1)               # the first sample below

@@ -16,6 +16,9 @@ Hook order inside one step (SURVEY.md section 3.2):
     control(m, d, ps)               - mjcb_control: before actuation
     passive(m, d, ps)               - mjcb_passive: after the passive forces
     last_stage(m, d, ps, generator) - after integration, once per step
+and, outside the step, render_callback(m, d, sim_time) before the camera
+streams render (runRenderCbs, callbacks.cpp:145-150): the markers it returns
+are drawn in the next frames.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ class MujocoPlugin:
     def on_geom_changed(self, m: Model, geom_id: int) -> None:
         """Called after set_geom_properties edited geom `geom_id` of the
         served model m (the reference's onGeomChanged, plugin_utils.h:135)."""
+
+    def render_callback(self, m: Model, d: Data, sim_time: float) -> Optional[list]:
+        """Visual-only markers (render/camera.RenderMarker) for the next
+        offscreen frames, as the reference's plugins add mjvGeoms to the
+        scene (plugin_utils.h:97-135); None or [] for none."""
+        return None
 
 
 class PluginRegistry:
@@ -122,3 +131,11 @@ class PluginRegistry:
 
     def last_stage_hook(self):
         return self._compose("last_stage")
+
+    def run_render_callbacks(self, m: Model, d: Data, sim_time: float) -> list:
+        """runRenderCbs (callbacks.cpp:145-150): the markers every ready
+        plugin gives for the next offscreen render, in registration order."""
+        markers = []
+        for p in self.cb_ready:
+            markers.extend(p.render_callback(m, d, sim_time) or ())
+        return markers

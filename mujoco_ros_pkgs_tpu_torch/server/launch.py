@@ -4,7 +4,8 @@ Usage:
     python -m mujoco_ros_pkgs_tpu_torch.server.launch --modelfile world.xml \
         --nenv 4096 --num-steps 1000 [--device cpu] [--config plugins.json] \
         [--realtime 0.5] [--ctrl-noise-std 0.05 --ctrl-noise-rate 0.1] \
-        [--eval-mode --admin-hash H] [--pair-topk 24] [--con-topk 64]
+        [--eval-mode --admin-hash H] [--pair-topk 24] [--con-topk 64] \
+        [--png-dir frames/] [--watch-port 8080 [--watch-host 127.0.0.1]]
 
 Counterpart of mujoco_ros_pkgs_tpu/server/launch.py for what the port
 serves: loads the model (waiting for the file with --wait-for-model),
@@ -12,7 +13,10 @@ the plugins and initial joint states of a --config file (JSON, or YAML where
 pyyaml is installed: `MujocoPlugins`, a list of {type: sensors | mocap |
 ros_control, ...} entries, as the reference's rosparam array,
 plugin_utils.cpp:41-64; `initial_joint_positions`,
-`initial_joint_velocities`), starts the physics-loop thread and prints
+`initial_joint_velocities`; `cam_config`, the camera streams as
+MujocoServer takes them), writes every stream's frames as PNGs with
+--png-dir, serves the live view with --watch-port (0: any free port; the
+address is printed), starts the physics-loop thread and prints
 `sim_time=` lines to stderr about once a second and at the end. Exits 0
 when --num-steps steps are done or on SIGINT, 1 when the physics loop died
 (`FATAL: physics loop died`), 2 when the model fails to load.
@@ -61,7 +65,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="time constant of the ctrl noise, seconds")
     ap.add_argument("--config", default="",
                     help="JSON (or YAML) config: MujocoPlugins, "
-                         "initial_joint_positions, initial_joint_velocities")
+                         "initial_joint_positions, initial_joint_velocities, "
+                         "cam_config/<name>/{stream_type,frequency,width,height,"
+                         "use_segid,env_ids,png_dir}")
+    ap.add_argument("--png-dir", default="",
+                    help="write every camera stream's frames as PNGs here (the "
+                         "viewer's screenshot path, viewer.cpp:2231-2245)")
+    ap.add_argument("--watch-port", type=int, default=-1,
+                    help="serve a live HTTP view of env 0 with the viewer's "
+                         "controls on this port (0 = any free port; needs a "
+                         "model camera)")
+    ap.add_argument("--watch-host", default="127.0.0.1",
+                    help="the live view's bind address (loopback by default, as "
+                         "the viewer's window is local; 0.0.0.0 exposes it)")
     ap.add_argument("--pair-topk", type=int, default=0,
                     help="broadphase compaction: narrowphase only the K most-"
                          "overlapping pairs of a large pair group (0 = off)")
@@ -132,6 +148,9 @@ def main(argv=None) -> int:
                       f"{args.wait_for_model:.0f}s", file=sys.stderr)
                 return 2
             time.sleep(0.1)
+    cam_config = dict(cfg.get("cam_config", {}))
+    if args.png_dir:    # "*": applied to every camera
+        cam_config["*"] = {**cam_config.get("*", {}), "png_dir": args.png_dir}
     try:
         srv = MujocoServer(
             model, nenv=args.nenv, device=args.device, eval_mode=args.eval_mode,
@@ -141,7 +160,7 @@ def main(argv=None) -> int:
             initial_joint_velocities=cfg.get("initial_joint_velocities", {}),
             plugins=make_plugins(cfg), ctrl_noise_std=args.ctrl_noise_std,
             ctrl_noise_rate=args.ctrl_noise_rate,
-            pair_topk=args.pair_topk, con_topk=args.con_topk)
+            pair_topk=args.pair_topk, con_topk=args.con_topk, cam_config=cam_config)
     except (ValueError, NotImplementedError, SyntaxError, OSError) as exc:
         print(f"FATAL: model failed to load: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 2
@@ -161,6 +180,11 @@ def main(argv=None) -> int:
               f"slowdown={sim / max(time.perf_counter() - wall0, 1e-9):.2f}x "
               f"paused={srv.paused}", file=sys.stderr, flush=True)
 
+    if args.watch_port >= 0:
+        res = srv.start_watch(port=args.watch_port, host=args.watch_host)
+        print("live view: " + (f"http://{args.watch_host}:{res.status_message}/"
+                               if res.success else res.status_message),
+              file=sys.stderr, flush=True)
     srv.start_physics_loop()
     last = time.perf_counter()
     while (not stop["flag"] and srv.num_steps_until_exit != 0
@@ -170,6 +194,8 @@ def main(argv=None) -> int:
             last = time.perf_counter()
             report()
     srv.stop_physics_loop()
+    if srv._watch is not None:
+        srv.stop_watch()
     report()
     if srv.physics_error is not None:
         print(f"FATAL: physics loop died: {srv.physics_error!r}", file=sys.stderr)

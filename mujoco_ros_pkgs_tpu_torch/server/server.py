@@ -43,8 +43,23 @@ randomness, and the control noise's, comes from the server's
 torch.Generator on the batch's device, seeded by `seed` and re-seeded by
 `reset`. Checkpoints: server/checkpoint.py.
 
-Not ported yet: rendering (the model's cameras are compiled), saving the
-model, the distributed plane and the native state codec.
+Cameras and the viewer's deliverables without a window:
+
+- offscreen streams (render/offscreen.py, configured by `cam_config`),
+  rendered on the batch's device after every chunk of `step` and of the
+  physics loop, the plugins' markers first; a stream nobody takes costs
+  nothing (no render, no read of the clock), and while one is live a chunk
+  ends where the next frame is due, so that frames come at the stream's
+  frequency;
+- each camera's TF frames (`<cam>_link` live, `<cam>_optical_frame`
+  static: `camera_frames`, `static_transforms`, `lookup_transform`, and
+  poses given in them);
+- `screenshot`, the watch (server/watch.py: a motion-PNG view and the
+  control page with picking and drag perturbation; `start_watch`,
+  `stop_watch`) and `save_xml` (core/mjcf_writer.py).
+
+Not ported yet: `save_mjb` (libmujoco's compiler), the distributed plane
+and `serve_follower`, the native state codec.
 """
 
 from __future__ import annotations
@@ -74,6 +89,10 @@ from mujoco_ros_pkgs_tpu_torch.ops import step_tpu
 from mujoco_ros_pkgs_tpu_torch.plugins.base import MujocoPlugin, PluginRegistry
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
+from mujoco_ros_pkgs_tpu_torch.ops import smooth
+from mujoco_ros_pkgs_tpu_torch.render import camera as rcam
+from mujoco_ros_pkgs_tpu_torch.render.offscreen import OffscreenRenderManager
+from mujoco_ros_pkgs_tpu_torch.utils import png
 from mujoco_ros_pkgs_tpu_torch.utils.log import get_logger
 
 # operational status (get_loading_request_state, callbacks.cpp:72-87)
@@ -165,6 +184,10 @@ class MujocoServer:
         compiles (types.Model.pair_topk; 0 = every pair of the table runs).
       con_topk: active-contact compaction capacity (types.Model.con_topk;
         0 = the solver takes every contact slot).
+      cam_config: the camera streams, {camera name or "*" (every camera):
+        {stream_type, frequency, width, height, use_segid, env_ids,
+        png_dir}} (render/offscreen.py; the reference's
+        cam_config/<name>/...).
     """
 
     # attributes whose writes need the lock while the physics thread runs
@@ -177,7 +200,7 @@ class MujocoServer:
                  initial_joint_velocities: Optional[dict] = None,
                  plugins: Sequence[MujocoPlugin] = (), ctrl_noise_std: float = 0.0,
                  ctrl_noise_rate: float = 0.0, seed: int = 0, pair_topk: int = 0,
-                 con_topk: int = 0):
+                 con_topk: int = 0, cam_config: Optional[dict] = None):
         if eval_mode and not admin_hash:
             # mujoco_env.cpp:92-105: eval mode requires an admin hash
             raise AdminHashError("eval mode requires an admin hash")
@@ -212,6 +235,9 @@ class MujocoServer:
         self.ctrl_noise_std = float(ctrl_noise_std)
         self.ctrl_noise_rate = float(ctrl_noise_rate)
         self._plugins = list(plugins)
+        self._cam_config = dict(cam_config or {})
+        self._watch = None
+        self._watch_meta = None
         self._seed = int(seed)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self._seed)
@@ -264,8 +290,15 @@ class MujocoServer:
         self.pstates = self.registry.init_states(m, self.nenv)
         self._hooks = (self.registry.control_hook(), self.registry.passive_hook(),
                        self.registry.last_stage_hook())
+        # the camera streams, and each camera's optical frame: z forward, x
+        # right, y down (REP-103), as offscreen_camera.cpp:95-120 registers it
+        self.render_manager = OffscreenRenderManager(m, self._cam_config) if m.ncam else None
+        for name in m.cam_names:
+            self.register_static_transform(f"{name}_link", f"{name}_optical_frame",
+                                           quat=(0.5, -0.5, 0.5, -0.5))
         self._applied = False
         self._needs_forward = False
+        self._stale_kinematics = True      # make_data's batch: no forward pass yet
         self._status = STATUS_RUNNING
         self._load_error = ""
         quarantined = [p.__class__.__name__ for p in self.registry.plugins
@@ -369,7 +402,7 @@ class MujocoServer:
         if last:
             d, ps = last(m, d, ps, self._generator)
         # the caller holds the lock: no need for __setattr__'s check
-        self.__dict__.update(d=d, pstates=ps)
+        self.__dict__.update(d=d, pstates=ps, _stale_kinematics=False)
 
     def _run(self, nsteps: int, until: Optional[Callable[[], bool]] = None) -> int:
         """Up to nsteps steps of the batch under the lock, handed to a
@@ -388,15 +421,17 @@ class MujocoServer:
 
     def step(self, nsteps: int = 1) -> StepResult:
         """Step the paused batch nsteps times (callbacks.cpp:94-129), in
-        chunks of CHUNK substeps; rejected for nsteps <= 0 and while the
-        physics loop runs unpaused."""
+        chunks of CHUNK substeps (cut where a live stream's next frame is
+        due), the streams rendered after each; rejected for nsteps <= 0 and
+        while the physics loop runs unpaused."""
         if (not self.paused and self._physics_thread is not None) or nsteps <= 0:
             return StepResult(success=False)
         left = nsteps
         while left > 0:
-            chunk = min(left, CHUNK)
+            chunk = self._frame_cut(min(left, CHUNK))
             self._run(chunk)
             left -= chunk
+            self._render_offscreen()
         self._publish_clock()
         return StepResult(success=True)
 
@@ -436,6 +471,28 @@ class MujocoServer:
         t = self._step_thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=timeout)
+
+    def _frame_cut(self, chunk: int) -> int:
+        """chunk, cut to the steps until a live stream's next frame is due
+        (reads the clock only while a stream is live)."""
+        rm = self.render_manager
+        if rm is None or not rm.live:
+            return chunk
+        return min(chunk, rm.steps_until_due(self.sim_time, self._dt))
+
+    def _render_offscreen(self):
+        """Render the live camera streams (the render handshake inside the
+        reference's physics loop, mujoco_env.cpp:501-516), after the
+        plugins' render callbacks (runRenderCbs, callbacks.cpp:145-150): the
+        batch, the clock and the markers read under the lock, the frames
+        rendered outside it. Nothing is read while no stream is live."""
+        rm = self.render_manager
+        if rm is None or not rm.live:
+            return
+        with self._lock:
+            m, d, t = self.m, self._derived(self.d), self.sim_time
+            markers = self.registry.run_render_callbacks(m, d, t)
+        rm.render_all(m, d, t, markers)
 
     @property
     def sim_time(self) -> float:
@@ -485,14 +542,16 @@ class MujocoServer:
         """mj_forward of the whole batch (no hooks, no integration): derived
         state after a service edited the state or the model."""
         self.d = fwd.forward(self.m, self.d)
+        self._stale_kinematics = False
 
     def _physics_loop_inner(self):
         """physicsLoop (mujoco_env.cpp:436-639): chunks of CHUNK substeps when
-        unbound (cut short by a pause, a speed change or a stop), of one when
-        paced at realtime_factor (sim time against the wall clock, the
-        baseline reset on pause and on a speed change); while paused, a
-        forward pass when a service left derived state stale; the clock
-        after every chunk; stops at num_steps."""
+        unbound (cut short by a pause, a speed change, a stop or a live
+        stream's next frame), of one when paced at realtime_factor (sim time
+        against the wall clock, the baseline reset on pause and on a speed
+        change); while paused, a forward pass when a service left derived
+        state stale; the clock and the camera streams after every chunk;
+        stops at num_steps."""
         cpu_start = _time.perf_counter()
         sim_start = self.sim_time
         while not self._exit_request and self.num_steps_until_exit != 0:
@@ -510,11 +569,13 @@ class MujocoServer:
             chunk = CHUNK if self.realtime_factor < 0 else 1
             if self.num_steps_until_exit > 0:
                 chunk = min(chunk, self.num_steps_until_exit)
-            done = self._run(chunk, until=lambda: (self._exit_request or self.paused
-                                                   or self._speed_changed))
+            done = self._run(self._frame_cut(chunk),
+                             until=lambda: (self._exit_request or self.paused
+                                            or self._speed_changed))
             if self.num_steps_until_exit > 0:
                 self.num_steps_until_exit -= done
             self._publish_clock()
+            self._render_offscreen()
             elapsed_cpu = _time.perf_counter() - cpu_start
             elapsed_sim = self.sim_time - sim_start     # waits for the chunk
             if elapsed_cpu > 0:
@@ -579,6 +640,7 @@ class MujocoServer:
             return err
         with self._lock:
             self.d = fwd.make_data(self.m, self.nenv)
+            self._stale_kinematics = True
             self._apply_initial_joint_states()
             self.registry.reset_all(self.m, self.d)
             self.pstates = self.registry.init_states(self.m, self.nenv)
@@ -719,6 +781,29 @@ class MujocoServer:
         d = cut(self.d)
         return d.replace(contact=cut(d.contact))
 
+    def _derived(self, d):
+        """d with the kinematics and body velocities the cameras and the
+        picker read: as the last forward pass left them on the general
+        route, computed from qpos and qvel on the fused route (its kernel
+        writes the integrated state alone) and before the batch's first
+        step."""
+        if self._stale_kinematics or isinstance(self._plan, step_tpu.Plan):
+            d = smooth.com_vel(self.m, smooth.fwd_position_smooth(self.m, d))
+        return d
+
+    def _view(self, env_id: int, fresh: bool = False):
+        """(the served model, env env_id's state as a batch of one with its
+        kinematics: _derived), read under the lock; fresh: a forward pass of
+        the batch first where a service left derived state stale (the
+        watch's frames and picks see edits made while paused)."""
+        if not 0 <= env_id < self.nenv:
+            raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
+        with self._lock:
+            if fresh and self._needs_forward:
+                self._forward_batch()
+                self._needs_forward = False
+            return self.m, self._derived(self._env_slice(env_id))
+
     def get_solver_stats(self, env_id: int = 0) -> dict:
         """Solver and contact diagnostics of one env (the JAX server's
         get_solver_stats, the data behind the viewer's profiler figures):
@@ -828,7 +913,7 @@ class MujocoServer:
                     if fid not in ("", "world"):
                         # the tf2 lookup the reference makes before applying a
                         # PoseStamped (callbacks.cpp:298-302)
-                        fr = self._resolve_frame(fid)
+                        fr = self._resolve_frame(fid, env0)
                         if fr is None:
                             return ServiceResult(False, f"unknown TF frame '{fid}'")
                         fpos, fquat = (torch.as_tensor(a) for a in fr)
@@ -897,20 +982,44 @@ class MujocoServer:
         self._static_tf[child] = (parent, np.asarray(pos, dtype=np.float64),
                                   np.asarray(quat, dtype=np.float64))
 
-    def _resolve_frame(self, frame_id: str):
-        """World pose (pos, wxyz quat) of a named frame, chaining static
-        transforms parent-ward to 'world'; None if unknown."""
+    def static_transforms(self) -> dict:
+        """Every registered static transform: child -> (parent, pos, quat)."""
+        return dict(self._static_tf)
+
+    def lookup_transform(self, child: str):
+        """(parent, pos, quat) of a registered static frame, or None."""
+        return self._static_tf.get(child)
+
+    def _resolve_frame(self, frame_id: str, env_id: int = 0):
+        """World pose (pos, wxyz quat) of a named frame in env env_id:
+        static transforms chained parent-ward to 'world', a camera's live
+        `<cam>_link` frame (the tf2 lookup the reference makes before
+        applying a PoseStamped, callbacks.cpp:298-302); None if unknown."""
         if frame_id in ("", "world"):
             return np.zeros(3), np.array([1.0, 0.0, 0.0, 0.0])
-        if frame_id not in self._static_tf:
-            return None
-        parent, pos, quat = self._static_tf[frame_id]
-        base = self._resolve_frame(parent)
-        if base is None:
-            return None
-        bpos, bquat = (torch.as_tensor(a) for a in base)
-        wpos = bpos + mmath.rot_vec_quat(torch.as_tensor(pos), bquat)
-        return wpos.numpy(), mmath.quat_mul(bquat, torch.as_tensor(quat)).numpy()
+        if frame_id in self._static_tf:
+            parent, pos, quat = self._static_tf[frame_id]
+            base = self._resolve_frame(parent, env_id)
+            if base is None:
+                return None
+            bpos, bquat = (torch.as_tensor(a) for a in base)
+            wpos = bpos + mmath.rot_vec_quat(torch.as_tensor(pos), bquat)
+            return wpos.numpy(), mmath.quat_mul(bquat, torch.as_tensor(quat)).numpy()
+        if frame_id.endswith("_link") and frame_id[:-5] in self.m.cam_names:
+            return self.camera_frames(env_id)[frame_id]
+        return None
+
+    def camera_frames(self, env_id: int = 0) -> dict:
+        """The world pose (pos, wxyz quat; float64 numpy) of every camera's
+        `<cam>_link` frame in env env_id (the frames the reference
+        broadcasts, offscreen_camera.cpp:95-120)."""
+        m, d1 = self._view(env_id)
+        out = {}
+        for c, name in enumerate(m.cam_names):
+            pos, rot = rcam.cam_pose(m, d1, c)
+            out[f"{name}_link"] = (pos[0].double().cpu().numpy(),
+                                   mmath.mat_to_quat(rot[0]).double().cpu().numpy())
+        return out
 
     # ------------------------------------------------------------------
     # model edits
@@ -1229,3 +1338,248 @@ class MujocoServer:
             noisy = ps["noisy"][env_id].cpu().numpy()
             gt = None if (p.eval_mode or self.eval_mode) else ps["gt"][env_id].cpu().numpy()
         return noisy, gt
+
+    # ------------------------------------------------------------------
+    # the viewer's deliverables without a window (viewer.h:86-324):
+    # screenshot, the watch with picking and drag, the model saved
+    # ------------------------------------------------------------------
+
+    def _camera(self, cam_name: str):
+        """(camera id, None) of cam_name (the model's first camera when
+        empty), or (None, the failure)."""
+        if self.m.ncam == 0:
+            return None, ServiceResult(False, "model has no cameras")
+        name = cam_name or self.m.cam_names[0]
+        if name not in self.m.cam_names:
+            return None, ServiceResult(False, f"no camera named '{name}'")
+        return self.m.cam_names.index(name), None
+
+    def screenshot(self, cam_name: str = "", path: str = "", env_id: int = 0,
+                   width: int = 720, height: int = 480) -> ServiceResult:
+        """Render one camera of one env and write it as a PNG (the viewer's
+        screenshot, viewer.cpp:2231-2245): the state read under the lock,
+        rendered outside it on the batch's device."""
+        cid, err = self._camera(cam_name)
+        if err:
+            return err
+        if not 0 <= env_id < self.nenv:
+            return ServiceResult(False, f"bad env_id {env_id}")
+        m, d1 = self._view(env_id)
+        rgb, _, _ = rcam.render(m, d1, cid, width, height)
+        if path:
+            try:
+                png.write(path, rgb[0].cpu().numpy())
+            except OSError as exc:
+                return ServiceResult(False, str(exc))
+        return ServiceResult(True, path or "rendered (no path given)")
+
+    def start_watch(self, port: int = 0, cam_name: str = "", env_id: int = 0,
+                    fps: float = 10.0, width: int = 480, height: int = 320,
+                    host: str = "127.0.0.1") -> ServiceResult:
+        """A live view of env env_id over HTTP with the viewer's controls
+        (server/watch.py; the reference's viewer window, viewer.cpp RenderLoop
+        :2262-2383): the bound port in the message, browse to
+        http://host:port/. Binds the loopback address unless told otherwise
+        (the viewer's window is local)."""
+        from mujoco_ros_pkgs_tpu_torch.server.watch import WatchServer
+        if self._watch is not None:
+            return ServiceResult(False, f"watch already at :{self._watch.port}")
+        cid, err = self._camera(cam_name)
+        if err:
+            return err
+        if not 0 <= env_id < self.nenv:
+            return ServiceResult(False, f"bad env_id {env_id}")
+        self._watch_meta = (cid, width, height)
+
+        def frame():
+            m, d1 = self._view(env_id, fresh=True)
+            rgb, _, _ = rcam.render(m, d1, cid, width, height)
+            return np.clip(rgb[0].double().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+
+        try:
+            self._watch = WatchServer(frame, port=port, fps=fps, host=host,
+                                      control=self._watch_control())
+        except OSError as exc:
+            self._watch_meta = None
+            return ServiceResult(False, f"watch bind failed: {exc}")
+        return ServiceResult(True, str(self._watch.port))
+
+    def stop_watch(self) -> ServiceResult:
+        if self._watch is None:
+            return ServiceResult(False, "no watch running")
+        self._watch.stop()
+        self._watch = None
+        self._watch_meta = None
+        return ServiceResult(True, "")
+
+    def _watch_control(self) -> dict:
+        """The watch page's JSON endpoints (server/watch.py), each a call of
+        an existing service (the viewer's Sync editing opt, qpos and ctrl
+        under the physics mutex, viewer.cpp:1552-1871); the admin hash rides
+        in the body and the services check it."""
+
+        def res(r) -> dict:
+            return {"success": bool(r.success), "message": r.status_message}
+
+        def hash_of(b):
+            return b.get("admin_hash", "")
+
+        def env_of(b):
+            e = b.get("env_id")
+            return None if e is None else int(e)
+
+        def patched(b, field):
+            """The live vector of one env with entry b["index"] set (the
+            page's single-slider form), or b["values"]."""
+            if b.get("values") is not None or "index" not in b:
+                return b.get("values") if b.get("values") is not None else []
+            with self._lock:
+                base = getattr(self._env_slice(env_of(b) or 0), field)[0].double().cpu().numpy()
+            base[int(b["index"])] = float(b.get("value", 0.0))
+            return base.tolist()
+
+        def step(b):
+            r = self.step(int(b.get("n", 1)))
+            return {"success": bool(r.success),
+                    "message": "" if r.success else "rejected (running or bad n)"}
+
+        def keyframe(b):
+            act = b.get("action", "load")
+            if act == "load":
+                return res(self.load_keyframe(b.get("key", 0), admin_hash=hash_of(b)))
+            if act == "save":
+                return res(self.save_keyframe(int(b.get("key", 0)),
+                                              env_id=int(b.get("env_id", 0)),
+                                              admin_hash=hash_of(b)))
+            return {"success": False, "message": f"bad action '{act}'"}
+
+        def stats(b):
+            s = self.get_solver_stats()
+            s.update(paused=self.paused, realtime_factor=self.realtime_factor,
+                     physics=self.get_physics_properties())
+            return s
+
+        def aim(b, body: int):
+            """The watch camera's pick at pixel (x, y) of env env_id and, for
+            body `body`, the drag target at b["dist"] along the ray, the
+            body's origin and its world velocity there."""
+            cid, w, h = self._watch_meta
+            m, d1 = self._view(env_of(b) or 0, fresh=True)
+            x, y = float(b.get("x", 0)), float(b.get("y", 0))
+            t, g, point = rcam.pick(m, d1, cid, x, y, w, h)
+            origin, direction = rcam.pixel_ray(m, d1, cid, x, y, w, h)
+            target = origin + float(b.get("dist", 1.0)) * direction
+            xpos_b, cv = d1.xpos[:, body], d1.cvel[:, body]
+            vel = cv[:, 3:] + mmath.cross(cv[:, :3],
+                                          xpos_b - d1.subtree_com[:, m.body_rootid[body]])
+            host = [a[0].double().cpu().numpy() for a in (t, point, target, xpos_b, vel)]
+            return m, int(g[0]), host
+
+        def select(b):
+            """Screen-ray body selection (the viewer's mjv_select)."""
+            if self._watch_meta is None:
+                return {"success": False, "message": "no watch running"}
+            m, g, (t, point, _, _, _) = aim(b, 0)
+            out = {"success": True, "geom": g, "body": -1, "body_name": "", "geom_name": "",
+                   "dist": float(t) if g >= 0 else -1.0, "point": point.tolist()}
+            if g >= 0:
+                body = m.geom_bodyid[g]
+                out.update(body=body, body_name=m.body_names[body], geom_name=m.geom_names[g])
+            return out
+
+        def perturb(b):
+            """Drag: a mass-scaled spring toward the mouse ray at the grab
+            depth, damped by the body's velocity, set as the body's wrench
+            on every drag event (the viewer's mouse perturbation,
+            viewer.cpp:1451-1480); on the fused route the batch steps on the
+            general route while it is applied."""
+            if self._watch_meta is None:
+                return {"success": False, "message": "no watch running"}
+            name = b.get("body", "")
+            if name not in self.m.body_names:
+                return {"success": False, "message": f"no body '{name}'"}
+            body = self.m.body(name)
+            kp = float(b.get("kp", 100.0))
+            kv = 2.0 * math.sqrt(kp)
+            _, _, (_, _, target, xpos_b, vel) = aim(b, body)
+            f = float(self._m64.body_mass[body]) * (kp * (target - xpos_b) - kv * vel)
+            r = self.apply_body_wrench(name, force=f.tolist(), env_id=env_of(b),
+                                       admin_hash=hash_of(b))
+            return {**res(r), "force": f.tolist()}
+
+        def minfo(b):
+            """The model's actuators and joints with their ranges and one
+            env's ctrl and qpos (the viewer's slider panels, viewer.h:284-319)."""
+            m = self._m64
+            with self._lock:
+                d1 = self._env_slice(int(b.get("env_id", 0)))
+                ctrl = d1.ctrl[0].double().cpu().tolist()
+                qpos = d1.qpos[0].double().cpu().tolist()
+            acts = [{"name": n, "ctrlrange": m.actuator_ctrlrange[i].tolist(),
+                     "limited": bool(m.actuator_ctrllimited[i])}
+                    for i, n in enumerate(m.actuator_names)]
+            joints = [{"name": n, "type": int(m.jnt_type[i]), "qposadr": int(m.jnt_qposadr[i]),
+                       "range": m.jnt_range[i].tolist(), "limited": bool(m.jnt_limited[i])}
+                      for i, n in enumerate(m.jnt_names)]
+            return {"success": True, "nu": m.nu, "nq": m.nq, "actuators": acts,
+                    "joints": joints, "bodies": list(m.body_names), "ctrl": ctrl,
+                    "qpos": qpos}
+
+        return dict(
+            pause=lambda b: res(self.set_pause(bool(b.get("paused", True)),
+                                               admin_hash=hash_of(b))),
+            step=step,
+            reset=lambda b: res(self.reset(admin_hash=hash_of(b))),
+            speed=lambda b: res(self.set_speed(float(b.get("factor", -1.0)),
+                                               admin_hash=hash_of(b))),
+            keyframe=keyframe,
+            ctrl=lambda b: res(self.set_ctrl(patched(b, "ctrl"), env_id=env_of(b),
+                                             admin_hash=hash_of(b))),
+            qpos=lambda b: res(self.set_qpos(patched(b, "qpos"), env_id=env_of(b),
+                                             zero_qvel=bool(b.get("zero_qvel", False)),
+                                             admin_hash=hash_of(b))),
+            physics=lambda b: res(self.set_physics_properties(dict(b.get("props", {})),
+                                                              admin_hash=hash_of(b))),
+            wrench=lambda b: res(self.apply_body_wrench(
+                b.get("body", ""), force=b.get("force", (0.0, 0.0, 0.0)),
+                torque=b.get("torque", (0.0, 0.0, 0.0)), env_id=env_of(b),
+                admin_hash=hash_of(b))),
+            stats=stats, select=select, perturb=perturb,
+            clear_perturb=lambda b: res(self.apply_body_wrench(
+                b.get("body", ""), env_id=env_of(b), admin_hash=hash_of(b))),
+            minfo=minfo,
+            # the page's model upload (the viewer's drag-and-drop load,
+            # viewer.cpp:1520-1525)
+            reload=lambda b: res(self.reload(b.get("model", ""), admin_hash=hash_of(b))))
+
+    def save_xml(self, path: str, admin_hash: str = "") -> ServiceResult:
+        """Save the served model as MJCF (the viewer's save_xml,
+        mj_saveLastXML, viewer.cpp:1671-1690): the float64 master with every
+        edit made through the services, written by core/mjcf_writer.py, so
+        that reloading the file steps as the server does; where the writer
+        fails, the load-time source is saved instead (said in the
+        message)."""
+        err = self._check_hash(admin_hash)
+        if err:
+            return err
+        from mujoco_ros_pkgs_tpu_torch.core import mjcf_writer
+        note = path
+        try:
+            with self._lock:
+                xml = mjcf_writer.model_to_xml(self._m64)
+        except Exception as exc:   # noqa: BLE001 - any writer fault falls back
+            self._log.warning("the model writer failed (%s); saving the load-time source",
+                              exc)
+            xml, note = self._model_source, f"{path} (load-time source; the writer failed: {exc})"
+            if "<" not in xml:
+                try:
+                    with open(xml) as f:
+                        xml = f.read()
+                except OSError as exc2:
+                    return ServiceResult(False, str(exc2))
+        try:
+            with open(path, "w") as f:
+                f.write(xml)
+        except OSError as exc:
+            return ServiceResult(False, str(exc))
+        return ServiceResult(True, note)

@@ -1,10 +1,13 @@
-"""PNG decoding in the standard library (zlib), for height-field assets.
+"""PNG in the standard library (zlib): rendered frames out, height fields in.
 
 Copied from mujoco_ros_pkgs_tpu/utils/png.py, which the port does not
-import, and widened to every filter type (none, sub, up, average, Paeth) so
-that PNGs written by other tools load. Non-interlaced 8- and 16-bit gray,
-RGB and RGBA images decode; `luminance` reduces one to gray as PIL's
-convert("L") does.
+import. `encode` / `write` give that module's bytes exactly (filter type 0
+on every row, `zlib.compress(..., 6)`): camera frames, screenshots and the
+watch view (the reference writes its screenshots with lodepng,
+viewer.cpp:2231-2245). `decode` is widened to every filter type (none,
+sub, up, average, Paeth) so that PNGs written by other tools load.
+Non-interlaced 8- and 16-bit gray, RGB and RGBA images decode;
+`luminance` reduces one to gray as PIL's convert("L") does.
 """
 
 from __future__ import annotations
@@ -20,6 +23,57 @@ _SIG = b"\x89PNG\r\n\x1a\n"
 _GRAY = 0
 _RGB = 2
 _RGBA = 6
+
+
+def _chunk(tag: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + tag + payload
+            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+
+def encode(img: np.ndarray) -> bytes:
+    """An image array as PNG bytes:
+
+    - (H, W, 3) uint8, or float scaled by 255 and clipped -> RGB8;
+    - (H, W, 4) uint8 or float                          -> RGBA8;
+    - (H, W) uint8                                      -> GRAY8;
+    - (H, W) uint16, or float (metres: x 1000 to millimetres, clipped)
+                                                        -> GRAY16.
+    """
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] in (3, 4):
+        if img.dtype != np.uint8:
+            img = np.clip(np.nan_to_num(np.asarray(img, np.float64)) * 255.0,
+                          0, 255).astype(np.uint8)
+        color, depth = (_RGB if img.shape[2] == 3 else _RGBA), 8
+    elif img.ndim == 2:
+        if img.dtype == np.uint8:
+            color, depth = _GRAY, 8
+        else:
+            if img.dtype != np.uint16:
+                img = np.clip(np.nan_to_num(np.asarray(img, np.float64)) * 1000.0,
+                              0, 65535).astype(np.uint16)
+            color, depth = _GRAY, 16
+    else:
+        raise ValueError(f"unsupported image shape {img.shape}")
+    h, w = img.shape[:2]
+    if depth == 16:
+        raw, stride = img.astype(">u2").tobytes(), w * 2
+    else:
+        raw = np.ascontiguousarray(img).tobytes()
+        stride = w * (1 if img.ndim == 2 else img.shape[2])
+    lines = bytearray()
+    for r in range(h):          # filter type 0 (none) on every scanline
+        lines.append(0)
+        lines += raw[r * stride:(r + 1) * stride]
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
+    return (_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(bytes(lines), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode(img))
 
 
 def _paeth(a: int, b: int, c: int) -> int:

@@ -131,7 +131,12 @@ def test_port_imports_no_jax():
             "mujoco_ros_pkgs_tpu_torch.ops.constraint, "
             "mujoco_ros_pkgs_tpu_torch.server.checkpoint, "
             "mujoco_ros_pkgs_tpu_torch.server.launch, "
-            "mujoco_ros_pkgs_tpu_torch.utils.log; "
+            "mujoco_ros_pkgs_tpu_torch.utils.log, "
+            "mujoco_ros_pkgs_tpu_torch.utils.png, "
+            "mujoco_ros_pkgs_tpu_torch.render.camera, "
+            "mujoco_ros_pkgs_tpu_torch.render.offscreen, "
+            "mujoco_ros_pkgs_tpu_torch.server.watch, "
+            "mujoco_ros_pkgs_tpu_torch.core.mjcf_writer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mujoco_ros_pkgs_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -941,6 +941,60 @@ TERRAIN = _terrain()
 TERRAIN_NENV = 1024
 
 
+def look_at(pos, target) -> str:
+    """The wxyz quaternion (as MJCF text) of a camera at `pos` looking at
+    `target`: its -z along the view, x to the right, y up (the world's z up;
+    y up when looking straight down)."""
+    f = np.asarray(target, np.float64) - np.asarray(pos, np.float64)
+    f /= np.linalg.norm(f)
+    up = np.array([0.0, 0.0, 1.0]) if abs(f[2]) < 0.999 else np.array([0.0, 1.0, 0.0])
+    x = np.cross(f, up)
+    x /= np.linalg.norm(x)
+    rot = np.stack([x, np.cross(x, f), -f], axis=1)         # columns: the camera's axes
+    w = np.sqrt(max(1.0 + np.trace(rot), 1e-12)) / 2.0
+    if w > 1e-3:
+        q = np.array([w, (rot[2, 1] - rot[1, 2]) / (4 * w), (rot[0, 2] - rot[2, 0]) / (4 * w),
+                      (rot[1, 0] - rot[0, 1]) / (4 * w)])
+    else:                               # a half turn: from the largest diagonal
+        i = int(np.argmax(np.diag(rot)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        r = np.sqrt(1.0 + rot[i, i] - rot[j, j] - rot[k, k])
+        q = np.zeros(4)
+        q[0], q[1 + i] = (rot[k, j] - rot[j, k]) / (2 * r), r / 2
+        q[1 + j], q[1 + k] = (rot[j, i] + rot[i, j]) / (2 * r), (rot[k, i] + rot[i, k]) / (2 * r)
+    return _fmt(q / np.linalg.norm(q))
+
+
+# MESH_PILE_CAM and TERRAIN_CAM: the worlds above with cameras, which change
+# no physics. MESH_PILE_CAM: a world camera over the bin looking into it, at
+# pb6's place in the stack (the image's centre is on a body),
+# twice at one pose: `overview` for the reference's default stream (RGB,
+# 720 x 480, env 0) and `overview_px` for pixel observations of every env
+# (RGB, depth and segmentation at 64 x 64); its pixels meet the floor, the
+# walls' boxes, the hulls, cylinders and ellipsoids. TERRAIN_CAM: an `ego`
+# camera on the humanoid's torso looking down ahead of its feet (RGB and
+# depth of every env at 64 x 64): the height field, the legs' capsules and
+# the feet's boxes.
+_OVERVIEW = f'pos="0.11 -0.75 1.25" quat="{look_at((0.11, -0.75, 1.25), (0.11, 0.0, 0.03))}" fovy="60"'
+MESH_PILE_CAM = MESH_PILE.replace(
+    'model="mesh_pile"', 'model="mesh_pile_cam"').replace(
+    '    <site name="rf" pos="0.05 0.03 1.5" zaxis="0 0 -1"/>\n',
+    '    <site name="rf" pos="0.05 0.03 1.5" zaxis="0 0 -1"/>\n'
+    f'    <camera name="overview" {_OVERVIEW}/>\n'
+    f'    <camera name="overview_px" {_OVERVIEW}/>\n')
+MESH_PILE_CAM_CONFIG = {
+    "overview": {},
+    "overview_px": {"stream_type": "RGB|DEPTH|SEGMENTED", "width": 64, "height": 64,
+                    "env_ids": tuple(range(MESH_PILE_NENV))}}
+TERRAIN_CAM = TERRAIN.replace('model="terrain"', 'model="terrain_cam"').replace(
+    '      <site name="rf" pos="0 0 -0.1" zaxis="0 0 -1"/>\n',
+    '      <site name="rf" pos="0 0 -0.1" zaxis="0 0 -1"/>\n'
+    f'      <camera name="ego" pos="0.12 0 0.05" quat="{look_at((0.12, 0, 0.05), (0.8, 0, -1.2))}"'
+    ' fovy="75"/>\n')
+TERRAIN_CAM_CONFIG = {"ego": {"stream_type": "RGB|DEPTH", "width": 64, "height": 64,
+                              "env_ids": tuple(range(TERRAIN_NENV))}}
+
+
 # XLA's CPU backend contracts a multiply and an add into one FMA where the
 # host has FMA instructions, so a jitted JAX function rounds otherwise than
 # the same ops one at a time; MPR's discrete portal updates amplify that to
