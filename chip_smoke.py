@@ -277,12 +277,34 @@ Phases (any failure raises; the exit code is then not 0):
      twin), clear_perturb, stop_watch; save_xml then reload: one step from
      one state equal, bit for bit, to the original model's; the phase's
      seconds.
+ 34. spatial tendons, muscles, fluid and every sensor type
+     (tests/torch_problems): MUSCLE_ARM at MUSCLE_ARM_NENV (seven muscles,
+     six on spatial tendons wrapped on spheres and a cylinder, a sidesite
+     inside, a pulley, a limited tendon; the lengthrange probe at load; all
+     36 sensor types; the sensors plugin with P34_NOISE; K2's Newton) and
+     SWIMMER at SWIMMER_NENV (both fluid models, implicitfast): (b) the
+     server from the model's start: its load's seconds and the probe's,
+     P34_STEPS steps by the wall clock (env-steps/s), K1 2 and K2 1 a step,
+     K3 0, host syncs a step (5 steps), finite; (a) seeded states: K2 on the
+     world's rows against plain (1e-3, or held against float64 by
+     held_stage), K1 on every solve of one step against plain (1e-4 /
+     1e-5), one step with the kernels against plain (qpos, act rtol 1e-5 /
+     atol 1e-6, qvel 1e-4, qacc 1e-3, the position and velocity stages'
+     sensors 1e-4, the acceleration stage's 1e-3; where envs are past
+     them, held against the float64 step by hold_field), every sensor
+     finite, MUSCLE_ARM's touch 0 off contact and > 0 in most envs with the
+     fingertip's contact active, its limit forces non-zero in some envs;
+     (c) save_xml, reload (no probe), one step bit for bit; then fwd.step
+     ms by CUDA events, K1 on the mass matrix and K2 on the rows timed
+     (graph replay, one call at a time, plain, bound, cholesky +
+     cholesky_solve); the phase's seconds.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
 `humanoid`, `sensors`, `arm7`, `panda`, `a8` (phase 31's paths a-e),
-`p32` (phase 32's worlds) and `p33` (phase 33's servers with cameras)
-objects and K2's `sensors`, `tendon_act` and `a8_pendulum_rk4` objects:
+`p32` (phase 32's worlds), `p33` (phase 33's servers with cameras) and
+`p34` (phase 34's worlds) objects and K2's `sensors`, `tendon_act`,
+`a8_pendulum_rk4` and `p34` objects:
 their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
@@ -307,15 +329,16 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch import kernels
-from mujoco_ros_pkgs_tpu_torch.core import mjcf
+from mujoco_ros_pkgs_tpu_torch.core import lengthrange, mjcf
 from mujoco_ros_pkgs_tpu_torch.core.types import GeomType
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
 from mujoco_ros_pkgs_tpu_torch.ops import narrowphase_soa
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
-from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, sensor, smooth, solver, solver_tpu, step_tpu
-from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, sensor, sensor_impl, smooth, solver
+from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu, step_tpu
+from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose, SensorNoiseModel
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
@@ -327,7 +350,9 @@ _THREADS = torch.get_num_threads()
 from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRICTION,
                                   FULL_BASE, FULL_KINDS, MESH_PILE, MESH_PILE_CAM,
                                   MESH_PILE_CAM_CONFIG, MESH_PILE_NENV,
-                                  MIXED_BASE, MIXED_KINDS, TERRAIN, TERRAIN_CAM,
+                                  MIXED_BASE, MIXED_KINDS, MUSCLE_ARM, MUSCLE_ARM_NENV,
+                                  SWIMMER, SWIMMER_NENV, muscle_arm_states, swimmer_states,
+                                  TERRAIN, TERRAIN_CAM,
                                   TERRAIN_CAM_CONFIG, TERRAIN_NENV,
                                   PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF, PEGS,
                                   PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
@@ -360,7 +385,7 @@ SENSORS_STEPS = 200
 # ARM7 (BASELINE config 4, which bench.py:192-206 runs at NENV // 2 envs with
 # the weld on) and its server's steps (phase 20)
 ARM7_NENV = 2048
-ARM7_STEPS = 500
+ARM7_STEPS = 300
 # BASELINE config 5 (bench.py:210-237): PILE at 512 envs, Newton iterations
 # 12, ls_iterations 8, con_topk 64 (and pair_topk 24 in its broadphase cell);
 # the compacted servers' steps (phases 23, 24) and the settling transient's
@@ -389,7 +414,7 @@ BIN_GENERAL_STEPS = 20
 # bench.py NENV // 2), its server's steps and the step at which its gripper
 # closes; TENDON_ACT's batch (K2's rows)
 PANDA_NENV = 2048
-PANDA_STEPS = 250
+PANDA_STEPS = 200
 PANDA_CLOSE_AT = 100
 TENDON_NENV = 4096
 # operations (a multiply-add counts 2) of one pair's narrowphase, once per
@@ -1095,8 +1120,12 @@ def k2_args(static, args):
     meta = solver_tpu._meta_tensor(tuple(kinds), tuple(con_base), nv, niter, nls,
                                    bool(ws), args["J"].device)
     tol_t = torch.full((1,), tol, dtype=torch.float32, device=args["J"].device)
+    mu = args["mu"]
+    if mu.shape[1] == 0:     # no elliptic cone: the wrapper takes one unused row
+        mu = mu.new_zeros(mu.shape[0], 1, 5)
     return (meta, tol_t) + tuple(args[k].contiguous() for k in (
-        "J", "aref", "D", "floss", "active", "mu", "M", "a_s", "ws"))
+        "J", "aref", "D", "floss", "active")) + (mu.contiguous(),) + tuple(
+        args[k].contiguous() for k in ("M", "a_s", "ws"))
 
 
 # ---------------------------------------------------------------------------
@@ -3637,7 +3666,7 @@ def p32_phase(card):
 
 # phase 33: the served worlds with cameras (world, nenv, con_topk, cam_config);
 # P33_STEPS steps with live streams (half by step, half by the physics loop)
-P33_STEPS = 200
+P33_STEPS = 90
 P33_IDLE_STEPS = 5
 P33 = {"MESH_PILE_CAM": (MESH_PILE_CAM, MESH_PILE_NENV, 64, MESH_PILE_CAM_CONFIG),
        "TERRAIN_CAM": (TERRAIN_CAM, TERRAIN_NENV, 0, TERRAIN_CAM_CONFIG)}
@@ -3911,6 +3940,228 @@ def p33_phase(card):
     return out
 
 
+# phase 34: the physics tail and every sensor type (world, nenv); the
+# servers' steps by the wall clock
+P34_STEPS = 30
+P34 = {"MUSCLE_ARM": (MUSCLE_ARM, MUSCLE_ARM_NENV), "SWIMMER": (SWIMMER, SWIMMER_NENV)}
+P34_NOISE = (SensorNoiseModel("shoulder_quat", [0.0] * 3, [0.02] * 3, 0x7),
+             SensorNoiseModel("touch", [0.0], [0.1], 0x1))
+# (K1, K2, K3) launches a step: the mass matrix and Euler's damping solve
+# (MUSCLE_ARM) or implicitfast's solve (SWIMMER), and K2's Newton
+P34_LAUNCHES = (2, 1, 0)
+
+
+def p34_data(label, m, nenv, seed):
+    """Seeded states of a phase 34 world on the card: MUSCLE_ARM's
+    (muscle_arm_states: the fingertip on or just above the table, every
+    eighth elbow past its limit), SWIMMER's (swimmer_states)."""
+    d = fwd.make_data(m, nenv)
+    if label == "MUSCLE_ARM":
+        names, arrays = ("qpos", "qvel", "act", "ctrl"), muscle_arm_states(m, nenv, seed)
+    else:
+        names, arrays = ("qpos", "qvel", "ctrl"), swimmer_states(m, nenv, seed)
+    return d.replace(**{k: torch.from_numpy(v).float().cuda() for k, v in zip(names, arrays)})
+
+
+def p34_columns(m, stage):
+    """sensordata columns of the sensors of one stage ("pos", "vel", "acc",
+    as ops/sensor_impl places the types)."""
+    types = {"pos": sensor_impl.POS_TYPES, "vel": sensor_impl.VEL_TYPES,
+             "acc": sensor_impl.ACC_TYPES}[stage]
+    return [m.sensor_adr[i] + k for i in range(m.nsensor) if m.sensor_type[i] in types
+            for k in range(m.sensor_dim[i])]
+
+
+def p34_vs_plain(label, xml, nenv):
+    """34a: seeded states with the kernels and with their plain versions:
+    K2 on the world's own rows (phase 7's 1e-3, or, in envs past it, both
+    held against the float64 plain solve: held_stage), K1 on every solve of
+    one step (1e-4 / 1e-5, as phase 30a), one step (qpos, act rtol 1e-5 /
+    atol 1e-6, qvel 1e-4, qacc 1e-3; the position and velocity stages'
+    sensors 1e-4, the acceleration stage's 1e-3; each field held against
+    the float64 step by hold_field where envs are past it) with K1 and K2
+    as P34_LAUNCHES says; every sensor finite; MUSCLE_ARM's touch 0 where
+    the fingertip's contact is inactive and > 0 in most envs where it is
+    active, its limit and tendon-limit forces non-zero in some envs."""
+    m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    plan = fwd.make_plan(m)
+    assert plan == fwd.GeneralPlan() and not step_tpu.supports(m), label
+    d = p34_data(label, m, nenv, seed=34)
+    static, args = rows_problem(m, d, seed=34)
+    got = solver_tpu.solve_batched(*static, **args)
+    want = solver_tpu.solve_batched_plain(*static, **args)
+    x64s = solver_tpu.solve_batched_plain(*static, **{
+        k: v.double() if v.is_floating_point() else v for k, v in args.items()})
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got)
+    errs = {"k2": max(held_stage(f"34a {label} K2", name, a, b, c)
+                      for name, a, b, c in zip(("qacc", "qfrc", "f_rows"), got, want, x64s))}
+    solves = captured_solves(m, d, plan)
+    assert len(solves) == P34_LAUNCHES[0], len(solves)
+    for k, (H, g) in enumerate(solves):
+        errs[f"k1_{k}"] = close(f"34a {label} K1 solve {k}", linalg_tpu.psd_solve(H, g),
+                                linalg_tpu.psd_solve_plain(H, g), 1e-4, 1e-5)
+    zero_counts()
+    dk = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    assert launches == P34_LAUNCHES, f"{label}: launches {launches}"
+    with plain_versions():
+        dp = fwd.step(m, d, plan)
+    torch.cuda.synchronize()
+    x64 = {}
+
+    def float64_step():
+        if not x64:
+            m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
+            with plain_versions():
+                x64["d"] = fwd.step(m64, data_as(d, torch.float64))
+        return x64["d"]
+    checks = [("qpos", slice(None), 1e-5, 1e-6), ("qvel", slice(None), 1e-4, 1e-4),
+              ("qacc", slice(None), 1e-3, 1e-3)]
+    if m.na:
+        checks.append(("act", slice(None), 1e-5, 1e-6))
+    for stage, tol in (("pos", 1e-4), ("vel", 1e-4), ("acc", 1e-3)):
+        cols = p34_columns(m, stage)
+        if cols:
+            checks.append(("sensordata", cols, tol, tol, stage))
+    for field, cols, rtol, atol, *stage in checks:
+        name = f"{field}_{stage[0]}" if stage else field
+        got_f, want_f = getattr(dk, field)[:, cols], getattr(dp, field)[:, cols]
+        if bool(((got_f - want_f).abs() > atol + rtol * want_f.abs()).any()):
+            errs[name] = hold_field(f"{label} {name}", got_f, want_f,
+                                    getattr(float64_step(), field)[:, cols], rtol, atol,
+                                    tag="34a")
+        else:
+            errs[name] = float((got_f - want_f).abs().max())
+    assert all(bool(torch.isfinite(t).all()) for t in (dk.qpos, dk.qvel, dk.qacc,
+                                                       dk.sensordata))
+    note = ""
+    if label == "MUSCLE_ARM":
+        sd = dk.sensordata
+        touch = sd[:, m.sensor_adr[m.sensor("touch")]]
+        active = (dk.contact.dist < dk.contact.includemargin).any(1)
+        pressing = int((touch[active] > 0).sum())
+        assert bool(active.any()) and bool((touch[~active] == 0).all()), label
+        assert 2 * pressing >= int(active.sum()), (pressing, int(active.sum()))
+        lim = {n: int((sd[:, m.sensor_adr[m.sensor(n)]] != 0).sum())
+               for n in ("elbow_lim_frc", "ext_lim_frc")}
+        assert all(v > 0 for v in lim.values()), lim
+        note = (f"touch > 0 in {pressing} of the {int(active.sum())} envs with the "
+                f"fingertip's contact active, 0 in all {int((~active).sum())} without; envs "
+                f"with a limit force {lim}; ")
+    print(f"[34a {label} vs plain] nenv={nenv}: launches of one step (K1, K2, K3) "
+          f"{launches}; {note}" + " ".join(f"{k}={v:.3e}" for k, v in errs.items()),
+          flush=True)
+    return m, plan, d, static, args, solves, max(errs.values())
+
+
+def p34_server(label, xml, nenv):
+    """34b: MujocoServer(xml, nenv) on the card from the model's start
+    (MUSCLE_ARM with the sensors plugin and P34_NOISE): the load's seconds
+    and the lengthrange probe's among them; P34_STEPS steps by the wall
+    clock with K1 and K2 as P34_LAUNCHES says a step; host syncs a step
+    (over 5 steps); finite."""
+    lengthrange.LAST_PROBE_SECONDS = 0.0
+    kw = dict(plugins=[SensorsPlugin()], seed=34) if label == "MUSCLE_ARM" else {}
+    t0 = time.perf_counter()
+    srv = MujocoServer(xml, nenv=nenv, unpause=False, **kw)
+    load_s = time.perf_counter() - t0
+    probe_s = lengthrange.LAST_PROBE_SECONDS
+    assert srv.device.type == "cuda" and srv._plan == fwd.GeneralPlan()
+    assert (probe_s > 0) == (label == "MUSCLE_ARM"), (label, probe_s)
+    if kw:
+        assert srv.register_noise_models(list(P34_NOISE)).success
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert srv.step(P34_STEPS).success
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = (kernels.psd_solve.launches, kernels.newton_solve.launches,
+                kernels.step_fused.launches)
+    assert launches == tuple(P34_STEPS * k for k in P34_LAUNCHES), \
+        f"{label} server: launches {launches}"
+    _, syncs = host_syncs(lambda: srv.step(5))
+    d = srv.d
+    assert all(bool(torch.isfinite(t).all()) for t in (d.qpos, d.qvel, d.qacc, d.sensordata))
+    if kw:
+        noisy, gt = srv.sensor_outputs(0)
+        assert np.isfinite(noisy).all() and np.isfinite(gt).all()
+    out = {"nenv": nenv, "steps": P34_STEPS, "wall_s": wall, "load_s": load_s,
+           "probe_s": probe_s, "env_steps_per_s": nenv * P34_STEPS / wall,
+           "k1_per_step": launches[0] / P34_STEPS, "k2_per_step": launches[1] / P34_STEPS,
+           "host_syncs_per_step": syncs / 5}
+    print(f"[34b {label} server] load {load_s:.3f}s (lengthrange probe {probe_s:.3f}s), "
+          f"step({P34_STEPS}) x {nenv}: {wall:.3f}s wall, {out['env_steps_per_s']:.4g} "
+          f"env-steps/s; per step K1 {out['k1_per_step']:.3f}, K2 {out['k2_per_step']:.3f}, "
+          f"K3 0; host syncs per step {out['host_syncs_per_step']:.3f}; finite", flush=True)
+    return srv, out
+
+
+def p34_save_xml(label, srv, tmp):
+    """34c: save_xml, reload, and one step from one state equal, bit for
+    bit, to the original model's."""
+    path = os.path.join(tmp, f"{label}.xml")
+    assert srv.save_xml(path).status_message == path
+    with srv._lock:
+        d0 = srv.d
+    steps = []
+    for reload in (False, True):
+        if reload:
+            lengthrange.LAST_PROBE_SECONDS = 0.0
+            assert srv.reload(path).success
+            assert lengthrange.LAST_PROBE_SECONDS == 0.0, "the saved model probed again"
+        with srv._lock:
+            srv.d = d0
+        assert srv.step(1).success
+        steps.append(srv.d)
+    fields = ("qpos", "qvel", "act", "qacc", "efc_force_contact", "sensordata", "time")
+    differ = [f for f in fields if not torch.equal(getattr(steps[0], f), getattr(steps[1], f))]
+    assert not differ, f"{label}: the reloaded model steps otherwise: {differ}"
+    print(f"[34c {label}] save_xml + reload (no probe): one step equal bit for bit "
+          f"({', '.join(fields)})", flush=True)
+
+
+def p34_phase(card):
+    """Phase 34: MUSCLE_ARM and SWIMMER, b (the load with its probe comes
+    first), a, c, then K1 on the world's mass matrix and K2 on its rows
+    timed; returns ({world: K1's results}, {world: K2's results})."""
+    t0 = time.perf_counter()
+    k1_out, k2_out = {}, {}
+    for label, (xml, nenv) in P34.items():
+        srv, run = p34_server(label, xml, nenv)
+        m, plan, d, static, args, solves, err = p34_vs_plain(label, xml, nenv)
+        with tempfile.TemporaryDirectory() as tmp:
+            p34_save_xml(label, srv, tmp)
+        del srv
+        run.update(max_abs_err=err, step_ms=a8_step_ms(m, plan, d, 3))
+        H, g = solves[0]
+        n = H.shape[-1]
+        k1 = {"n": n, "graph_ms": graph_ms(lambda: linalg_tpu.psd_solve(H, g), 100),
+              "ms": time_ms(lambda: linalg_tpu.psd_solve(H, g), 20),
+              "plain_ms": time_ms(lambda: linalg_tpu.psd_solve_plain(H, g), 3),
+              "library_ms": time_ms(lambda: library_solve(H, g), 20),
+              "bound_ms": k1_bound(nenv, n)[0], "bound_by": k1_bound(nenv, n)[1]}
+        tk2 = k2_timing(card, f"34 {label}", static, args)
+        k2 = {"rows": len(static[0]), "nv": m.nv, "graph_ms": tk2["graph_ms"],
+              "ms": tk2["ms"], "plain_ms": tk2["plain_ms"], "bound_ms": tk2["bound"][0],
+              "bound_by": tk2["bound"][1], "group": tk2["group"],
+              "newton_trips_mean": float(tk2["trips"].mean())}
+        print(f"[34 {label} timing] fwd.step {run['step_ms']:.4f} ms at {nenv} envs; K1 at "
+              f"n = {n} on the mass matrix {k1['graph_ms']:.4f} ms by graph replay, "
+              f"{k1['ms']:.4f} one call at a time, plain {k1['plain_ms']:.4f}, cholesky + "
+              f"cholesky_solve {k1['library_ms']:.4f}, bound {k1['bound_ms']:.5f} "
+              f"({k1['bound_by']}); K2 on {k2['rows']} rows {k2['graph_ms']:.4f} ms by graph "
+              f"replay ({card})", flush=True)
+        k1_out[label] = dict(run, launches=run["k1_per_step"] * P34_STEPS, **k1)
+        k2_out[label] = dict(run, launches=run["k2_per_step"] * P34_STEPS, **k2)
+        torch.cuda.empty_cache()
+    print(f"[34] phase 34 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return k1_out, k2_out
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -4102,6 +4353,8 @@ def main():
     p32 = p32_phase(card)
     # phase 33: the server's cameras
     p33 = p33_phase(card)
+    # phase 34: spatial tendons, muscles, fluid and every sensor type
+    p34_k1, p34_k2 = p34_phase(card)
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -4117,10 +4370,10 @@ def main():
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
              panda=panda, a8={k: v for k, v in a8.items() if k != "f_boxes_edits"},
-             a8_boxes_launches=a8["f_boxes_edits"], p32=p32, p33=p33),
+             a8_boxes_launches=a8["f_boxes_edits"], p32=p32, p33=p33, p34=p34_k1),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
-             sensors=t2["sensors"], tendon_act=tendon_act,
+             sensors=t2["sensors"], tendon_act=tendon_act, p34=p34_k2,
              a8_pendulum_rk4={k: a8["b_pendulum_rk4"][k] for k in (
                  "k2_per_step", "env_steps_per_s", "step_ms")})]}))
     print(card)

@@ -2,10 +2,11 @@
 
 Second stage of the torch port's MJCF compiler (first stage: core/mjcf.py).
 Counterpart of mujoco_ros_pkgs_tpu/core/assemble.py for the elements the
-port parses (mocap bodies; fixed tendons; actuators with their activation
-layout; connect, weld, joint and tendon equalities; sites; the sensors of
-SENSOR_DIM; mesh hulls and height fields; cameras; keyframes; <contact>
-excludes and pairs); integer columns become static tuples.
+port parses (mocap bodies; fixed and spatial tendons; actuators with their
+activation layout and length ranges; connect, weld, joint and tendon
+equalities; sites; every sensor type; the geoms' fluid coefficients; mesh
+hulls and height fields; cameras; keyframes; <contact> excludes and
+pairs); integer columns become static tuples.
 """
 
 from __future__ import annotations
@@ -123,21 +124,38 @@ def _t(x, width=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=torch.float64)
 
 
-# the sensor types the port computes (ops/sensor_impl.py) and their widths
+# every sensor type (ops/sensor_impl.py) and its width
 SENSOR_DIM = {
-    SensorType.ACCELEROMETER: 3, SensorType.VELOCIMETER: 3, SensorType.GYRO: 3,
-    SensorType.FORCE: 3, SensorType.TORQUE: 3, SensorType.MAGNETOMETER: 3,
-    SensorType.RANGEFINDER: 1, SensorType.JOINTPOS: 1, SensorType.JOINTVEL: 1,
-    SensorType.FRAMEPOS: 3, SensorType.FRAMEQUAT: 4,
+    SensorType.TOUCH: 1, SensorType.ACCELEROMETER: 3, SensorType.VELOCIMETER: 3,
+    SensorType.GYRO: 3, SensorType.FORCE: 3, SensorType.TORQUE: 3,
+    SensorType.MAGNETOMETER: 3, SensorType.RANGEFINDER: 1,
+    SensorType.JOINTPOS: 1, SensorType.JOINTVEL: 1,
+    SensorType.TENDONPOS: 1, SensorType.TENDONVEL: 1,
+    SensorType.ACTUATORPOS: 1, SensorType.ACTUATORVEL: 1,
+    SensorType.ACTUATORFRC: 1, SensorType.BALLQUAT: 4, SensorType.BALLANGVEL: 3,
+    SensorType.JOINTLIMITPOS: 1, SensorType.JOINTLIMITVEL: 1,
+    SensorType.JOINTLIMITFRC: 1, SensorType.TENDONLIMITPOS: 1,
+    SensorType.TENDONLIMITVEL: 1, SensorType.TENDONLIMITFRC: 1,
+    SensorType.FRAMEPOS: 3, SensorType.FRAMEQUAT: 4, SensorType.FRAMEXAXIS: 3,
+    SensorType.FRAMEYAXIS: 3, SensorType.FRAMEZAXIS: 3,
+    SensorType.FRAMELINVEL: 3, SensorType.FRAMEANGVEL: 3,
+    SensorType.FRAMELINACC: 3, SensorType.FRAMEANGACC: 3,
+    SensorType.SUBTREECOM: 3, SensorType.SUBTREELINVEL: 3,
+    SensorType.SUBTREEANGMOM: 3, SensorType.CLOCK: 1,
 }
+# the object types the JAX compiler gives a sensor on a tendon or an actuator
+OBJ_TENDON = int(ObjType.UNKNOWN) + 100
+OBJ_ACTUATOR = int(ObjType.UNKNOWN) + 200
 _OBJ = {"body": ObjType.BODY, "xbody": ObjType.XBODY, "joint": ObjType.JOINT,
         "geom": ObjType.GEOM, "site": ObjType.SITE, "camera": ObjType.CAMERA}
 
 
 def _sensors(elems, names):
     """Sensor columns (mjModel.sensor_*): type, the object and reference
-    frame each reads, and its address and width in sensordata. `names`
-    maps "body", "joint", "geom" and "site" to the model's name lists."""
+    frame each reads (a tendon's object type OBJ_TENDON, an actuator's
+    OBJ_ACTUATOR), and its address and width in sensordata. `names` maps
+    "body", "joint", "geom", "site", "tendon" and "actuator" to the model's
+    name lists."""
     def index(sensor, kind, name):
         if name not in names[kind]:
             raise ValueError(f"sensor '{sensor}': unknown {kind} '{name}'")
@@ -167,6 +185,10 @@ def _sensors(elems, names):
             objtype, objid = ObjType.SITE, index(sname, "site", e.get("site"))
         elif e.get("joint") is not None:
             objtype, objid = ObjType.JOINT, index(sname, "joint", e.get("joint"))
+        elif e.get("tendon") is not None:
+            objtype, objid = OBJ_TENDON, index(sname, "tendon", e.get("tendon"))
+        elif e.get("actuator") is not None:
+            objtype, objid = OBJ_ACTUATOR, index(sname, "actuator", e.get("actuator"))
         elif e.get("body") is not None:
             objtype, objid = ObjType.BODY, index(sname, "body", e.get("body"))
         elif e.get("objtype") is not None:
@@ -238,19 +260,21 @@ def _equalities(eqs, bodies):
 
 
 def _tendons(tendons):
-    """Tendon and wrap columns (mjModel.tendon_*, wrap_*) of fixed tendons:
-    one JOINT wrap entry per joint, its coef in wrap_prm."""
-    adr, num, wtype, wobj, wprm = [], [], [], [], []
+    """Tendon and wrap columns (mjModel.tendon_*, wrap_*): each tendon's
+    wrap entries in order, their prm (a joint's coef, a geom's sidesite id
+    or -1, a pulley's divisor) in wrap_prm and, for the spatial path, the
+    sidesites and divisors as static columns."""
+    adr, wraps = [], []
     for t in tendons:
-        adr.append(len(wtype))
-        num.append(len(t.entries))
-        for j, coef in t.entries:
-            wtype.append(int(WrapType.JOINT))
-            wobj.append(j)
-            wprm.append(coef)
+        adr.append(len(wraps))
+        wraps.extend(t.wraps)
+    wtype = [w[0] for w in wraps]
+    wprm = [w[2] for w in wraps]
+    geom_kinds = (int(WrapType.SPHERE), int(WrapType.CYLINDER))
     return dict(
-        ntendon=len(tendons), nwrap=len(wtype), tendon_adr=tuple(adr),
-        tendon_num=tuple(num), tendon_limited=tuple(t.limited for t in tendons),
+        ntendon=len(tendons), nwrap=len(wraps), tendon_adr=tuple(adr),
+        tendon_num=tuple(len(t.wraps) for t in tendons),
+        tendon_limited=tuple(t.limited for t in tendons),
         tendon_range=_t([t.range for t in tendons], 2),
         tendon_solref_lim=_t([t.solref for t in tendons], 2),
         tendon_solimp_lim=_t([t.solimp for t in tendons], 5),
@@ -261,7 +285,10 @@ def _tendons(tendons):
         tendon_lengthspring=_t([t.lengthspring for t in tendons], 2),
         tendon_length0=_t(np.zeros(len(tendons))),
         tendon_invweight0=_t(np.zeros(len(tendons))),
-        wrap_type=tuple(wtype), wrap_objid=tuple(wobj), wrap_prm=_t(wprm),
+        wrap_type=tuple(wtype), wrap_objid=tuple(w[1] for w in wraps), wrap_prm=_t(wprm),
+        wrap_sidesite=tuple(int(p) if k in geom_kinds else -1 for k, p in zip(wtype, wprm)),
+        wrap_divisor=tuple(float(p) if k == int(WrapType.PULLEY) else 1.0
+                           for k, p in zip(wtype, wprm)),
         tendon_names=tuple(t.name for t in tendons),
         tendon_floss_adr=tuple(k for k, t in enumerate(tendons) if t.frictionloss > 0))
 
@@ -291,6 +318,8 @@ def _actuators(acts):
         actuator_forcerange=_t([a.forcerange for a in acts], 2),
         actuator_actrange=_t([a.actrange for a in acts], 2),
         actuator_gear=_t([a.gear for a in acts], 6),
+        actuator_lengthrange=_t([a.lengthrange for a in acts], 2),
+        actuator_acc0=_t(np.zeros(len(acts))),
         actuator_names=tuple(a.name for a in acts))
 
 
@@ -443,7 +472,8 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
 
     scols, nsensordata = _sensors(sensors, {
         "body": [b.name for b in bodies], "joint": [j.name for j in jnts],
-        "geom": [g.name for g in geoms], "site": [st.name for st in sites]})
+        "geom": [g.name for g in geoms], "site": [st.name for st in sites],
+        "tendon": [t.name for t in tendons], "actuator": [a.name for a in acts]})
 
     body_mocapid, nmocap = [-1] * nbody, 0
     for i, b in enumerate(bodies):
@@ -520,6 +550,8 @@ def assemble(name, bodies, jnts, geoms, acts, opt, sites=(), sensors=(),
         geom_margin=_t([g.margin for g in geoms]),
         geom_gap=_t([g.gap for g in geoms]),
         geom_rgba=_t([g.rgba for g in geoms], 4),
+        geom_fluid=_t([g.fluid for g in geoms], 12),
+        geom_fluid_active=tuple(int(g.fluid[0] > 0) for g in geoms),
         eq_type=tuple(eq_type), eq_obj1id=tuple(q.obj1id for q in eqs),
         eq_obj2id=tuple(q.obj2id for q in eqs),
         eq_active0=tuple(q.active for q in eqs),

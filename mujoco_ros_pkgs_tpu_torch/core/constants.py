@@ -1,9 +1,9 @@
 """Derived model constants needing dynamics at qpos0 (mj_setConst analogue).
 
 Counterpart of mujoco_ros_pkgs_tpu/core/constants.py: dof_invweight0,
-body_invweight0 and the fixed tendons' length0 and invweight0 (ten_J M^-1
-ten_J^T) from the port's own kinematics/com_pos/crb at qpos0, in the
-model's (float64, load-time) precision.
+body_invweight0, the tendons' length0 and invweight0 (ten_J M^-1 ten_J^T)
+and the actuators' acc0 (|M^-1 moment|) from the port's own position stage
+at qpos0, in the model's (float64, load-time) precision.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ def set_constants(m: Model) -> Model:
     qM = smooth.crb(m, cinert, cdof)[0]
     cdof, xipos, subtree_com = cdof[0], kin.xipos[0], subtree_com[0]
 
-    Minv = torch.linalg.inv(qM)
+    # inv_ex: a singular qM (a massless body) gives no error here, as in the
+    # JAX package, so that the compile can name what is wrong
+    Minv = torch.linalg.inv_ex(qM)[0]
     dof_invweight0 = torch.diagonal(Minv).clone()
     # libmujoco averages invweight0 within ball / free-joint dof groups
     for j in range(m.njnt):
@@ -49,8 +51,16 @@ def set_constants(m: Model) -> Model:
         inv.append(torch.stack([torch.trace(jacp.T @ Minv @ jacp) / 3.0,
                                 torch.trace(jacr.T @ Minv @ jacr) / 3.0]))
     updates = dict(dof_invweight0=dof_invweight0, body_invweight0=torch.stack(inv))
+    if m.ntendon or m.nu:
+        from mujoco_ros_pkgs_tpu_torch.ops import forward
+        d = smooth.fwd_position_smooth(m, forward.make_data(m, 1))
     if m.ntendon:
-        length, ten_J = smooth.fixed_tendons(m, m.qpos0[None])
-        updates.update(tendon_length0=length[0], tendon_invweight0=torch.einsum(
-            "ti,ij,tj->t", ten_J[0], Minv, ten_J[0]))
+        ten_J = d.ten_J[0]
+        updates.update(tendon_length0=d.ten_length[0], tendon_invweight0=torch.einsum(
+            "ti,ij,tj->t", ten_J, Minv, ten_J))
+    if m.nu:
+        # |M^-1 moment| of each actuator: a muscle's peak force is scale / acc0
+        # where its force parameter is negative
+        updates.update(actuator_acc0=torch.linalg.vector_norm(
+            d.actuator_moment[0] @ Minv, dim=1))
     return dataclasses.replace(m, **updates)

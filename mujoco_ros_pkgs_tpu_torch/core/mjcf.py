@@ -26,31 +26,39 @@ two compile a model to the same numbers. Supported elements:
   or `fromto`, `<default><site>` classes;
 - `<contact>` with `<exclude body1 body2>` and `<pair geom1 geom2>`;
 - `<keyframe>` with `<key>` (time, qpos, qvel, act, ctrl, mpos, mquat);
-- `<tendon>` with `<fixed>` tendons (joint entries with coef; limited,
+- `<tendon>` with `<fixed>` tendons (joint entries with coef) and
+  `<spatial>` tendons (`<site>`, `<geom>` with an optional `sidesite` on a
+  sphere or a cylinder, and `<pulley divisor>` entries), each with limited,
   range, margin, solreflimit, solimplimit, stiffness, damping,
-  frictionloss, springlength) and their `<default>` classes;
+  frictionloss, springlength and their `<default>` classes;
 - `<actuator>` with `<motor>`, `<position>` (kp, kv), `<velocity>` (kv),
   `<intvelocity>` (kp; an integrator activation), `<damper>` (kv; an
-  affine gain) and `<general>` (dyntype none / integrator / filter /
-  filterexact, gaintype fixed / affine, biastype none / affine, dynprm,
-  gainprm, biasprm) on a joint (any type), tendon or site transmission
-  (gear, ctrlrange, forcerange, actrange and their limited flags), and
-  their `<default>` classes;
+  affine gain), `<muscle>` (timeconst, tausmooth, range, force, scale,
+  lmin, lmax, vmax, fpmax, fvmax) and `<general>` (dyntype none /
+  integrator / filter / filterexact / muscle, gaintype fixed / affine /
+  muscle, biastype none / affine / muscle, dynprm, gainprm, biasprm) on a
+  joint (any type), tendon or site transmission (gear, ctrlrange,
+  forcerange, actrange and their limited flags, lengthrange: a muscle
+  without one has it computed at load, core/lengthrange.py), and their
+  `<default>` classes;
 - `<equality>` with `<connect>`, `<weld>`, `<joint>` and `<tendon>`
   (solref, solimp, active, anchor, relpose, torquescale, polycoef),
   `<default><equality>`;
-- `<sensor>` of the types in core/assemble.SENSOR_DIM, with `cutoff` and
+- the fluid medium (`<option density viscosity wind>`) and a primitive
+  geom's `fluidshape="ellipsoid"` with `fluidcoef`;
+- `<sensor>` of all 36 types (core/assemble.SENSOR_DIM), with `cutoff` and
   `noise`.
 
-Anything else (muscles, spatial tendons, other sensor types, mesh-fitting
-(`mesh=` on a geom that is not a mesh), a `<pair>`'s own contact
-parameters, fluid shapes, gravcomp) raises ValueError naming the feature,
-rather than being dropped silently.
+Anything else (mesh-fitting (`mesh=` on a geom that is not a mesh), a
+`<pair>`'s own contact parameters, fluidshape on a plane, height field or
+mesh, gravcomp) raises ValueError naming the feature, rather than being
+dropped silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import os
 import xml.etree.ElementTree as ET
@@ -58,11 +66,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from mujoco_ros_pkgs_tpu_torch.core import types
+from mujoco_ros_pkgs_tpu_torch.core import lengthrange, types
 from mujoco_ros_pkgs_tpu_torch.core.assemble import SENSOR_DIM, assemble
 from mujoco_ros_pkgs_tpu_torch.core.types import (
     BiasType, DynType, GainType, GeomType, IntegratorType, JointType, SensorType,
-    TrnType,
+    TrnType, WrapType,
 )
 
 _SOLREF = (0.02, 1.0)
@@ -81,13 +89,18 @@ _ASSETS = ("mesh", "hfield", "texture", "material")
 # a <pair>'s own contact parameters, which the JAX package does not read
 _PAIR_PARAMS = ("condim", "friction", "solref", "solimp", "solreffriction", "margin",
                 "gap")
-_ACTUATORS = ("motor", "position", "velocity", "intvelocity", "damper", "general")
+_ACTUATORS = ("motor", "position", "velocity", "intvelocity", "damper", "muscle",
+              "general")
 _DEFAULT_TAGS = ("joint", "geom", "site", "tendon", "equality") + _ACTUATORS
 _EQUALITIES = ("connect", "weld", "joint", "tendon")
 _DYNTYPES = {"none": DynType.NONE, "integrator": DynType.INTEGRATOR,
-             "filter": DynType.FILTER, "filterexact": DynType.FILTEREXACT}
-_GAINTYPES = {"fixed": GainType.FIXED, "affine": GainType.AFFINE}
-_BIASTYPES = {"none": BiasType.NONE, "affine": BiasType.AFFINE}
+             "filter": DynType.FILTER, "filterexact": DynType.FILTEREXACT,
+             "muscle": DynType.MUSCLE}
+_GAINTYPES = {"fixed": GainType.FIXED, "affine": GainType.AFFINE, "muscle": GainType.MUSCLE}
+_BIASTYPES = {"none": BiasType.NONE, "affine": BiasType.AFFINE, "muscle": BiasType.MUSCLE}
+# <muscle>'s parameters after its range (gainprm 2-8) and their defaults
+_MUSCLE_PRM = (("force", -1.0), ("scale", 200.0), ("lmin", 0.5), ("lmax", 1.6),
+               ("vmax", 1.5), ("fpmax", 1.3), ("fvmax", 1.2))
 _GEOM_TYPES = {"plane": GeomType.PLANE, "hfield": GeomType.HFIELD,
                "sphere": GeomType.SPHERE, "capsule": GeomType.CAPSULE,
                "ellipsoid": GeomType.ELLIPSOID, "cylinder": GeomType.CYLINDER,
@@ -402,6 +415,59 @@ def _geom_rbound(gtype: int, size: np.ndarray) -> float:
     if gtype == GeomType.BOX:
         return float(np.linalg.norm(size))
     return float(np.max(size))
+
+
+def _fluid_semiaxes(gtype: int, size: np.ndarray) -> np.ndarray:
+    """Equivalent-ellipsoid semiaxes of a primitive geom (a capsule's
+    include its caps, a box's are its half sizes)."""
+    if gtype == GeomType.SPHERE:
+        return np.array([size[0], size[0], size[0]])
+    if gtype == GeomType.CAPSULE:
+        return np.array([size[0], size[0], size[1] + size[0]])
+    if gtype == GeomType.CYLINDER:
+        return np.array([size[0], size[0], size[1]])
+    return np.asarray(size[:3], dtype=np.float64)
+
+
+@functools.lru_cache(maxsize=1)
+def _leggauss400():
+    """400-point Gauss-Legendre nodes and weights, made once (an eigenvalue
+    problem of order 400)."""
+    return np.polynomial.legendre.leggauss(400)
+
+
+def _fluid_kappa(a: float, b: float, c: float) -> float:
+    """Potential-flow added-mass factor of an ellipsoid moving along its
+    first semiaxis: the integral over l from 0 to infinity of
+    a b c / sqrt((a^2 + l)^3 (b^2 + l) (c^2 + l)), by 400-point
+    Gauss-Legendre under l = a^2 u / (1 - u) (2/3 for a sphere)."""
+    x, w = _leggauss400()
+    u = 0.5 * (x + 1.0)
+    lam = a * a * u / (1.0 - u)
+    dl = a * a / (1.0 - u) ** 2
+    f = a * b * c / np.sqrt((a * a + lam) ** 3 * (b * b + lam) * (c * c + lam))
+    return float(np.sum(f * dl * 0.5 * w))
+
+
+def _fluid_ellipsoid_coefs(semi: np.ndarray, coef: np.ndarray) -> np.ndarray:
+    """The 12 numbers of a geom's ellipsoid fluid model: [active,
+    blunt_drag, slender_drag, ang_drag, kutta_lift, magnus_lift,
+    virtual_mass (3), virtual_inertia (3)], from its equivalent ellipsoid's
+    semiaxes and fluidcoef (opt.density multiplies in at run time)."""
+    a, b, c = (float(x) for x in semi)
+    vol = 4.0 / 3.0 * np.pi * a * b * c
+    kx, ky, kz = _fluid_kappa(a, b, c), _fluid_kappa(b, c, a), _fluid_kappa(c, a, b)
+    vmass = [vol * k / max(1e-15, 2.0 - k) for k in (kx, ky, kz)]
+
+    def vinertia(d1, d2, k1, k2):
+        # the added moment of inertia about the axis normal to (d1, d2);
+        # zero where d1 == d2
+        num = (d1 * d1 - d2 * d2) ** 2 * (k2 - k1)
+        den = 2.0 * (d1 * d1 - d2 * d2) + (d1 * d1 + d2 * d2) * (k1 - k2)
+        return 0.0 if abs(den) < 1e-12 else vol / 5.0 * num / den
+
+    vin = [vinertia(b, c, ky, kz), vinertia(c, a, kz, kx), vinertia(a, b, kx, ky)]
+    return np.array([1.0, *np.asarray(coef, dtype=np.float64), *vmass, *vin])
 
 
 # ---------------------------------------------------------------------------
@@ -783,8 +849,10 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         if gt not in _GEOM_TYPES:
             raise ValueError(f"geom '{g.name}': type '{gt}' is not supported "
                              f"by the torch port")
-        if e.get("fluidshape", "none") != "none":
-            raise ValueError(f"geom '{g.name}': fluidshape is not supported")
+        fluidshape = e.get("fluidshape", "none")
+        if fluidshape not in ("none", "ellipsoid"):
+            raise ValueError(f"geom '{g.name}': unknown fluidshape='{fluidshape}' "
+                             f"(expected 'none' or 'ellipsoid')")
         g.type = int(_GEOM_TYPES[gt])
         g.bodyid = bodyid
         g.contype = int(e.get("contype", "1"))
@@ -840,6 +908,15 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
             g.rbound = mesh.rbound
         else:
             g.rbound = _geom_rbound(g.type, g.size)
+        # the ellipsoid fluid model's 12 numbers (mjCGeom::SetFluidCoefs)
+        g.fluid = np.zeros(12)
+        if fluidshape == "ellipsoid":
+            if g.type in (GeomType.PLANE, GeomType.HFIELD, GeomType.MESH):
+                raise ValueError(f"geom '{g.name}': fluidshape='ellipsoid' requires a "
+                                 f"primitive geom (sphere/capsule/cylinder/ellipsoid/box)")
+            g.fluid = _fluid_ellipsoid_coefs(
+                _fluid_semiaxes(g.type, g.size),
+                _attr_f(e, "fluidcoef", [0.5, 0.25, 1.5, 1.0, 1.0], n=5))
         geoms.append(g)
         return len(geoms) - 1
 
@@ -868,25 +945,56 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         cams.append(c)
 
     def parse_tendon(e, i):
-        """A <fixed> tendon: its joint entries (joint id, coef) and its
-        limit, spring, damping and friction-loss parameters, as the JAX
-        compiler reads them; a <spatial> tendon raises."""
+        """A <fixed> tendon (joint entries with their coef) or a <spatial>
+        one (site, geom with an optional sidesite, and pulley entries), as
+        its wrap entries (type, object id, prm: a joint's coef, a geom's
+        sidesite id or -1, a pulley's divisor), with its limit, spring,
+        damping and friction-loss parameters, as the JAX compiler reads
+        them."""
         name = e.get("name", "") or f"#{i}"
-        if e.tag != "fixed":
-            raise ValueError(f"tendon '{name}': <{e.tag}> tendons are not supported by "
-                             f"the torch port (only <fixed>)")
+        if e.tag not in ("fixed", "spatial"):
+            raise ValueError(f"tendon '{name}': <{e.tag}> is not a tendon (only <fixed> "
+                             f"and <spatial>)")
         e = _apply_defaults(e, defaults_tree.get(e.get("class", "main"),
                                                  defaults_tree["main"]), "tendon")
         t = _Spec()
         t.name = e.get("name", "")
         jnt_names = [j.name for j in jnts]
-        t.entries = []
+        site_names, geom_names = [st.name for st in sites], [g.name for g in geoms]
+        t.wraps = []
         for we in e:
-            if we.tag != "joint" or we.get("joint") not in jnt_names or we.get("coef") is None:
-                raise ValueError(f"tendon '{name}': a fixed tendon's entries are "
-                                 f"<joint joint=... coef=...> of named joints, got "
-                                 f"<{we.tag} {we.attrib}>")
-            t.entries.append((jnt_names.index(we.get("joint")), float(we.get("coef"))))
+            if e.tag == "fixed":
+                if (we.tag != "joint" or we.get("joint") not in jnt_names
+                        or we.get("coef") is None):
+                    raise ValueError(f"tendon '{name}': a fixed tendon's entries are "
+                                     f"<joint joint=... coef=...> of named joints, got "
+                                     f"<{we.tag} {we.attrib}>")
+                t.wraps.append((int(WrapType.JOINT), jnt_names.index(we.get("joint")),
+                                float(we.get("coef"))))
+            elif we.tag == "site":
+                if we.get("site") not in site_names:
+                    raise ValueError(f"tendon '{name}': unknown site '{we.get('site')}'")
+                t.wraps.append((int(WrapType.SITE), site_names.index(we.get("site")), 0.0))
+            elif we.tag == "geom":
+                if we.get("geom") not in geom_names:
+                    raise ValueError(f"tendon '{name}': unknown wrap geom "
+                                     f"'{we.get('geom')}'")
+                gid = geom_names.index(we.get("geom"))
+                kind = {GeomType.SPHERE: WrapType.SPHERE,
+                        GeomType.CYLINDER: WrapType.CYLINDER}.get(GeomType(geoms[gid].type))
+                if kind is None:
+                    raise ValueError(f"tendon '{name}': wrap geom '{we.get('geom')}' must "
+                                     f"be a sphere or cylinder")
+                side = we.get("sidesite")
+                if side is not None and side not in site_names:
+                    raise ValueError(f"tendon '{name}': unknown sidesite '{side}'")
+                t.wraps.append((int(kind), gid,
+                                float(site_names.index(side)) if side is not None else -1.0))
+            elif we.tag == "pulley":
+                t.wraps.append((int(WrapType.PULLEY), -1, float(we.get("divisor", "1"))))
+            else:
+                raise ValueError(f"tendon '{name}': <{we.tag}> is not a spatial tendon "
+                                 f"entry (only <site>, <geom> and <pulley>)")
         t.limited = limited(e, "limited", "range")
         t.range = _attr_f(e, "range", [0, 0])
         t.solref = _attr_f(e, "solreflimit", _SOLREF)
@@ -906,8 +1014,11 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         ctrl, no bias), <position> (gain kp, bias -kp length - kv
         velocity), <velocity> (gain kv, bias -kv velocity), <intvelocity>
         (an integrator activation, gain kp, bias -kp length), <damper>
-        (affine gain -kv velocity) or <general>, on a joint, tendon or site
-        transmission; muscles raise."""
+        (affine gain -kv velocity), <muscle> (muscle dynamics, gain and
+        bias with MJCF's defaults, ctrlrange 0 1 unless given) or
+        <general> (muscle types too), on a joint, tendon or site
+        transmission, with its lengthrange (0 0: a muscle's is computed at
+        load, core/lengthrange.py)."""
         name = e.get("name", "") or f"#{i}"
         if e.tag not in _ACTUATORS:
             raise ValueError(f"actuator '{name}': <{e.tag}> is not supported by the "
@@ -937,13 +1048,24 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         elif tag == "damper":
             a.gaintype = int(GainType.AFFINE)
             a.gainprm[:3] = [0.0, 0.0, -float(e.get("kv", "1"))]
+        elif tag == "muscle":
+            a.dyntype, a.gaintype, a.biastype = (int(DynType.MUSCLE), int(GainType.MUSCLE),
+                                                 int(BiasType.MUSCLE))
+            # a partial timeconst or range pads with zeros, as the JAX compiler reads it
+            for attr, prm, default in (("timeconst", a.dynprm, (0.01, 0.04)),
+                                       ("range", a.gainprm, (0.75, 1.05))):
+                v = _floats(e.get(attr)) if e.get(attr) is not None else np.array(default)
+                prm[:2] = np.concatenate([v, np.zeros(2)])[:2]
+            a.dynprm[2] = float(e.get("tausmooth", "0"))
+            for k, (attr, default) in enumerate(_MUSCLE_PRM, start=2):
+                a.gainprm[k] = float(e.get(attr, default))
+            a.biasprm[:9] = a.gainprm[:9]
+            if e.get("ctrlrange") is None:
+                e.set("ctrlrange", "0 1")
         elif tag == "general":
             for attr, table, key in (("dyntype", _DYNTYPES, "none"),
                                      ("gaintype", _GAINTYPES, "fixed"),
                                      ("biastype", _BIASTYPES, "none")):
-                if e.get(attr) == "muscle":
-                    raise ValueError(f"actuator '{name}': {attr} muscle is not supported "
-                                     f"by the torch port")
                 setattr(a, attr, int(_choice(e, attr, table, key)))
             for attr in ("dynprm", "gainprm", "biasprm"):
                 if e.get(attr) is not None:
@@ -963,6 +1085,7 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
         a.ctrlrange = _attr_f(e, "ctrlrange", [0, 0])
         a.forcerange = _attr_f(e, "forcerange", [0, 0])
         a.actrange = _attr_f(e, "actrange", [0, 0])
+        a.lengthrange = _attr_f(e, "lengthrange", [0, 0])
         for flag, rng in (("ctrllimited", "ctrlrange"), ("forcelimited", "forcerange"),
                           ("actlimited", "actrange")):
             setattr(a, flag, limited(e, flag, rng))
@@ -1106,7 +1229,7 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
     for e in sensors:
         if SensorType.__members__.get(e.tag.upper()) not in SENSOR_DIM:
             raise ValueError(f"sensor '{e.get('name', '')}': <{e.tag}> is not "
-                             f"supported by the torch port")
+                             f"a sensor type")
     eqs = [parse_equality(e, i) for ee in root.iter("equality")
            for i, e in enumerate(ee)]
     excludes, explicit = _parse_contact(root, [b.name for b in bodies],
@@ -1115,10 +1238,13 @@ def _compile(root: ET.Element, base_dir: str) -> types.Model:
     for k in keys:
         if k.tag != "key":
             raise ValueError(f"<keyframe> <{k.tag}> is not supported (only <key>)")
-    return assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
-                    sites, sensors, eqs, tendons, meshes=list(meshes.values()),
-                    hfields=list(hfields.values()), cams=cams, keys=keys,
-                    excludes=excludes, explicit_pairs=explicit)
+    m = assemble(root.get("model", ""), bodies, jnts, geoms, acts, opt,
+                 sites, sensors, eqs, tendons, meshes=list(meshes.values()),
+                 hfields=list(hfields.values()), cams=cams, keys=keys,
+                 excludes=excludes, explicit_pairs=explicit)
+    if lengthrange.needs_auto(m).any():
+        m = lengthrange.apply_auto_lengthrange(m)
+    return m
 
 
 def _parse_contact(root: ET.Element, body_names, geom_names):

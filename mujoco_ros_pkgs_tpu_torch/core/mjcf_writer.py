@@ -16,8 +16,10 @@ as MJCF that the port's compiler (core/mjcf.py) reads to the same model:
   (and the vertices turned so that the compiler's frame is the model's:
   `_mesh_vertices`);
 - height fields are inline elevation grids (already normalised);
-- sites, cameras, `<contact>` excludes and pairs, fixed tendons, actuators
-  (as `<general>`, whose parameters are the compiled ones), equalities,
+- geoms carry their fluidshape and fluidcoef;
+- sites, cameras, `<contact>` excludes and pairs, fixed and spatial
+  tendons, actuators (as `<general>`, whose parameters and lengthrange are
+  the compiled ones, so a muscle's probe does not run again), equalities,
   sensors and keyframes follow.
 
 Angles are written in radians (`<compiler angle="radian">`) and every
@@ -32,9 +34,10 @@ from xml.sax.saxutils import quoteattr
 
 import numpy as np
 
+from mujoco_ros_pkgs_tpu_torch.core.assemble import OBJ_ACTUATOR, OBJ_TENDON
 from mujoco_ros_pkgs_tpu_torch.core.mjcf import _Mesh, _quat_mul, _quat_rot
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    EqType, GeomType, JointType, Model, ObjType, SensorType, TrnType,
+    EqType, GeomType, JointType, Model, ObjType, SensorType, TrnType, WrapType,
 )
 
 _GEOM_NAMES = {int(t): t.name.lower() for t in GeomType}
@@ -44,13 +47,13 @@ _SOLVER_NAMES = {0: "PGS", 1: "CG", 2: "Newton"}
 _FLAGS = ("constraint", "equality", "frictionloss", "limit", "contact", "passive",
           "gravity", "clampctrl", "warmstart", "filterparent", "actuation", "refsafe",
           "sensor")
-_DYN_NAMES = {0: "none", 1: "integrator", 2: "filter", 3: "filterexact"}
-_GAIN_NAMES = {0: "fixed", 1: "affine"}
-_BIAS_NAMES = {0: "none", 1: "affine"}
+_DYN_NAMES = {0: "none", 1: "integrator", 2: "filter", 3: "filterexact", 4: "muscle"}
+_GAIN_NAMES = {0: "fixed", 1: "affine", 2: "muscle"}
+_BIAS_NAMES = {0: "none", 1: "affine", 2: "muscle"}
 _OBJ_NAMES = {int(ObjType.BODY): "body", int(ObjType.XBODY): "xbody",
               int(ObjType.JOINT): "joint", int(ObjType.GEOM): "geom",
               int(ObjType.SITE): "site"}
-_FRAME_SENSORS = (int(SensorType.FRAMEPOS), int(SensorType.FRAMEQUAT))
+_FRAME_SENSORS = tuple(range(int(SensorType.FRAMEPOS), int(SensorType.FRAMEANGACC) + 1))
 
 
 def _f(x) -> str:
@@ -157,6 +160,8 @@ def _geom(parent: _El, m: Model, g: int, folds: list) -> None:
         friction=_vec(m.geom_friction[g]), solmix=_f(m.geom_solmix[g]),
         solref=_vec(m.geom_solref[g]), solimp=_vec(m.geom_solimp[g]),
         margin=_f(m.geom_margin[g]), gap=_f(m.geom_gap[g]), rgba=_vec(m.geom_rgba[g]))
+    if m.geom_fluid_active[g]:
+        attrs.update(fluidshape="ellipsoid", fluidcoef=_vec(m.geom_fluid[g, 1:6]))
     pos, quat = m.geom_pos[g].double().numpy(), m.geom_quat[g].double().numpy()
     did = m.geom_dataid[g]
     if gt == int(GeomType.MESH) and folds[did] is None:
@@ -250,15 +255,28 @@ def _tendons(root: _El, m: Model) -> None:
     te = root.add("tendon")
     for t in range(m.ntendon):
         spring = m.tendon_lengthspring[t].double().numpy()
+        wraps = range(m.tendon_adr[t], m.tendon_adr[t] + m.tendon_num[t])
+        fixed = all(m.wrap_type[w] == int(WrapType.JOINT) for w in wraps)
         el = te.add(
-            "fixed", name=m.tendon_names[t] or None, limited=_tri(m.tendon_limited[t]),
+            "fixed" if fixed else "spatial", name=m.tendon_names[t] or None,
+            limited=_tri(m.tendon_limited[t]),
             range=_vec(m.tendon_range[t]), solreflimit=_vec(m.tendon_solref_lim[t]),
             solimplimit=_vec(m.tendon_solimp_lim[t]), margin=_f(m.tendon_margin[t]),
             stiffness=_f(m.tendon_stiffness[t]), damping=_f(m.tendon_damping[t]),
             frictionloss=_f(m.tendon_frictionloss[t]),
             springlength=None if (spring == -1.0).all() else _vec(spring))
-        for w in range(m.tendon_adr[t], m.tendon_adr[t] + m.tendon_num[t]):
-            el.add("joint", joint=m.jnt_names[m.wrap_objid[w]], coef=_f(m.wrap_prm[w]))
+        for w in wraps:
+            kind = m.wrap_type[w]
+            if kind == int(WrapType.JOINT):
+                el.add("joint", joint=m.jnt_names[m.wrap_objid[w]], coef=_f(m.wrap_prm[w]))
+            elif kind == int(WrapType.SITE):
+                el.add("site", site=m.site_names[m.wrap_objid[w]])
+            elif kind == int(WrapType.PULLEY):
+                el.add("pulley", divisor=_f(m.wrap_divisor[w]))
+            else:
+                side = m.wrap_sidesite[w]
+                el.add("geom", geom=m.geom_names[m.wrap_objid[w]],
+                       sidesite=m.site_names[side] if side >= 0 else None)
 
 
 def _actuators(root: _El, m: Model) -> None:
@@ -277,7 +295,8 @@ def _actuators(root: _El, m: Model) -> None:
             ctrlrange=_vec(m.actuator_ctrlrange[i]),
             forcelimited=_tri(m.actuator_forcelimited[i]),
             forcerange=_vec(m.actuator_forcerange[i]),
-            actlimited=_tri(m.actuator_actlimited[i]), actrange=_vec(m.actuator_actrange[i]))
+            actlimited=_tri(m.actuator_actlimited[i]), actrange=_vec(m.actuator_actrange[i]),
+            lengthrange=_vec(m.actuator_lengthrange[i]))
         if trn in (int(TrnType.JOINT), int(TrnType.JOINTINPARENT)):
             attrs["joint"] = m.jnt_names[tid]
         elif trn == int(TrnType.TENDON):
@@ -320,7 +339,8 @@ def _sensors(root: _El, m: Model) -> None:
     se = root.add("sensor")
     names = {int(ObjType.BODY): m.body_names, int(ObjType.XBODY): m.body_names,
              int(ObjType.JOINT): m.jnt_names, int(ObjType.GEOM): m.geom_names,
-             int(ObjType.SITE): m.site_names}
+             int(ObjType.SITE): m.site_names, OBJ_TENDON: m.tendon_names,
+             OBJ_ACTUATOR: m.actuator_names}
     for s in range(m.nsensor):
         st, ot, oid = m.sensor_type[s], m.sensor_objtype[s], m.sensor_objid[s]
         attrs = dict(name=m.sensor_names[s] or None, cutoff=_f(m.sensor_cutoff[s]),
@@ -328,7 +348,8 @@ def _sensors(root: _El, m: Model) -> None:
         if st in _FRAME_SENSORS:
             attrs.update(objtype=_OBJ_NAMES[ot], objname=names[ot][oid])
         elif oid >= 0:
-            key = "body" if ot == int(ObjType.XBODY) else _OBJ_NAMES[ot]
+            key = {int(ObjType.XBODY): "body", OBJ_TENDON: "tendon",
+                   OBJ_ACTUATOR: "actuator"}.get(ot) or _OBJ_NAMES[ot]
             attrs[key] = names[ot][oid]
         rt, rid = m.sensor_reftype[s], m.sensor_refid[s]
         if rid >= 0:

@@ -4,8 +4,9 @@ PyTorch counterpart of mujoco_ros_pkgs_tpu/core/types.py for the subset the
 port runs today (world + free/ball/hinge/slide joint trees, mocap bodies,
 primitive, mesh and height-field geoms, contacts, joint and tendon limits,
 friction loss, connect / weld / joint / tendon equality constraints, fixed
-tendons, actuators with activation states on joint, tendon and site
-transmissions, sites and sensors, cameras and keyframes).
+and spatial tendons, actuators with activation states and muscles on
+joint, tendon and site transmissions, fluid forces, sites and all 36
+sensor types, cameras and keyframes).
 Static topology stays plain Python ints and tuples; arrays are tensors.
 `Data` is batch-first: every field carries a leading env axis, and the step
 functions take the whole batch at once.
@@ -326,6 +327,11 @@ class Model:
     geom_margin: torch.Tensor = _array()      # (ngeom,)
     geom_gap: torch.Tensor = _array()         # (ngeom,)
     geom_rgba: torch.Tensor = _array()        # (ngeom, 4) the renderer's albedo
+    # the ellipsoid fluid model's 12 numbers per geom (active flag, the five
+    # fluidcoef, virtual mass (3), virtual inertia (3)); geom_fluid_active
+    # is column 0 as a static flag
+    geom_fluid: torch.Tensor = _array()       # (ngeom, 12)
+    geom_fluid_active: Tuple[int, ...] = ()
 
     # ---- meshes: convex hulls in their principal frame, padded to the
     # largest hull by repeating the first vertex (ops/gjk.py's support is an
@@ -353,8 +359,9 @@ class Model:
     eq_solimp: torch.Tensor = _array()        # (neq, 5)
     eq_data: torch.Tensor = _array()          # (neq, 11)
 
-    # ---- fixed tendons: tendon t sums wrap_prm[k] qpos[wrap_objid[k]] over
-    # its entries k in [tendon_adr[t], tendon_adr[t] + tendon_num[t]) ----
+    # ---- tendons: entries k in [tendon_adr[t], tendon_adr[t] + tendon_num[t]);
+    # a fixed tendon sums wrap_prm[k] qpos[wrap_objid[k]] over its joint
+    # entries, a spatial one walks its site, geom and pulley entries ----
     tendon_adr: Tuple[int, ...] = ()
     tendon_num: Tuple[int, ...] = ()
     tendon_limited: Tuple[int, ...] = ()
@@ -371,6 +378,8 @@ class Model:
     wrap_type: Tuple[int, ...] = ()
     wrap_objid: Tuple[int, ...] = ()
     wrap_prm: torch.Tensor = _array()             # (nwrap,) coef of each entry
+    wrap_sidesite: Tuple[int, ...] = ()           # a wrap geom's sidesite, else -1
+    wrap_divisor: Tuple[float, ...] = ()          # a pulley's divisor, else 1
 
     # ---- sites ----
     site_bodyid: Tuple[int, ...] = ()
@@ -402,6 +411,8 @@ class Model:
     actuator_forcerange: torch.Tensor = _array()  # (nu, 2)
     actuator_gear: torch.Tensor = _array()        # (nu, 6)
     actuator_actrange: torch.Tensor = _array()    # (nu, 2)
+    actuator_lengthrange: torch.Tensor = _array()  # (nu, 2) a muscle's length range
+    actuator_acc0: torch.Tensor = _array()        # (nu,) |M^-1 moment| at qpos0
 
     # ---- sensors ----
     sensor_type: Tuple[int, ...] = ()
@@ -571,7 +582,7 @@ class Data:
     actuator_force: torch.Tensor     # (B, nu)
     actuator_moment: torch.Tensor    # (B, nu, nv)
     act_dot: torch.Tensor            # (B, na)
-    # fixed tendons (position stage)
+    # tendons (position stage)
     ten_length: torch.Tensor         # (B, ntendon)
     ten_J: torch.Tensor              # (B, ntendon, nv)
     ten_velocity: torch.Tensor       # (B, ntendon)

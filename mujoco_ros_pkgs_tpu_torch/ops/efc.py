@@ -594,13 +594,18 @@ def make_efc(m: Model, d: Data) -> Optional[Efc]:
 
 def row_layout(m: Model) -> dict:
     """Static efc row layout (no Data needed) in assembly order: equality,
-    friction loss, joint and tendon limits, then the first row of each
-    contact slot, and the total row count."""
+    friction loss, joint and tendon limits (the row of each limited joint
+    and tendon: 'lim_jnt', 'lim_ten'), then the first row of each contact
+    slot, and the total row count."""
     flags = m.opt.disableflags
     nrow = 0
     if not flags & (DisableBit.CONSTRAINT | DisableBit.EQUALITY):
         nrow += sum(_EQ_ROWS.get(t, 1) for t in m.eq_type)
-    nrow += sum(map(len, _frictional(m))) + sum(map(len, _limited(m)))
+    nrow += sum(map(len, _frictional(m)))
+    jnts, tens = _limited(m)
+    lim_jnt = {j: nrow + k for k, j in enumerate(jnts)}
+    lim_ten = {t: nrow + len(jnts) + k for k, t in enumerate(tens)}
+    nrow += len(jnts) + len(tens)
     con_bases, con_nrows = [], []
     if m.ncon_max and not flags & (DisableBit.CONSTRAINT | DisableBit.CONTACT):
         pyramidal = m.opt.cone == 0
@@ -609,7 +614,7 @@ def row_layout(m: Model) -> dict:
             con_bases.append(nrow)
             con_nrows.append(nr)
             nrow += nr
-    return dict(con=con_bases, con_nrows=con_nrows,
+    return dict(lim_jnt=lim_jnt, lim_ten=lim_ten, con=con_bases, con_nrows=con_nrows,
                 pyramidal=(m.opt.cone == 0), nrow=nrow)
 
 

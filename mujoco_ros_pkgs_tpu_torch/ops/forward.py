@@ -23,19 +23,18 @@ The general route takes joint-limit rows of hinges, slides and ball
 joints, friction-loss rows of dofs and fixed tendons, tendon limits,
 joint-transmission motors (HUMANOID: nv 27, 21 limit rows, 21 motors),
 position and velocity servos, `<general>` / `<intvelocity>` / `<damper>`
-actuators with their activations (integrated by `_advance`) on joint,
-tendon and site transmissions, fixed tendons (PANDA_PICK's gripper),
-mocap bodies and connect, weld, joint and tendon equality rows (ARM7: nv
-7, a mocap-target weld, 100 rows), the sensors of core/assemble.SENSOR_DIM
-(SENSORS) and step hooks: a control hook before actuation and a passive
+and `<muscle>` actuators with their activations (integrated by `_advance`)
+on joint, tendon and site transmissions, fixed and spatial tendons
+(PANDA_PICK's gripper, MUSCLE_ARM's wrapped muscles), fluid forces of both
+models (SWIMMER, with their d / d qvel in the implicit integrators), mocap
+bodies and connect, weld, joint and tendon equality rows (ARM7: nv 7, a
+mocap-target weld, 100 rows), all 36 sensor types (SENSORS, MUSCLE_ARM,
+SWIMMER) and step hooks: a control hook before actuation and a passive
 hook after the passive forces, pure functions of (m, d) or, with a hook
 state, of (m, d, hstate) returning (d, hstate). Any hook forces the
-general route, as in the JAX package. What neither route covers raises
-NotImplementedError from make_plan: other sensor types, muscles, spatial
-tendons and fluid (and with it the fluid term of the implicit integrators'
-derivative). Every geom pair collides on the general route: MPR pairs,
-meshes and height fields (ops/gjk.py, ops/hfield.py) keep a model off the
-fused route.
+general route, as in the JAX package. Every geom pair collides on the
+general route: MPR pairs, meshes and height fields (ops/gjk.py,
+ops/hfield.py) keep a model off the fused route.
 """
 
 from __future__ import annotations
@@ -237,7 +236,8 @@ def _qderiv_smooth(m: Model, d: Data) -> torch.Tensor:
     tendon damping through ten_J^T ten_J, and the affine actuators'
     dgain input + dbias through moment^T (dfdv moment), with ctrl clamped
     as actuation clamps it and the activation as input where an actuator
-    has dynamics. The fluid derivative is not ported (check_general)."""
+    has dynamics, and where the model has a medium the fluid forces' d
+    qfrc_fluid / d qvel through com_vel (fluid_jacobian)."""
     dtype = d.qpos.dtype
     dev = d.qpos.device
     qD = -torch.diag_embed(m.dof_damping.to(dtype)).expand(d.qvel.shape[0], -1, -1)
@@ -264,6 +264,8 @@ def _qderiv_smooth(m: Model, d: Data) -> torch.Tensor:
             m.actuator_biasprm[:, 2], 0.0)
         dfdv = dgain * inp + dbias                                    # (B, nu)
         qD = qD + d.actuator_moment.mT @ (dfdv[..., None] * d.actuator_moment)
+    if m.has_fluid:
+        qD = qD + fluid_jacobian(m, d)
     return qD
 
 
@@ -335,6 +337,27 @@ def bias_jacobian(m: Model, d: Data) -> torch.Tensor:
     return jac.view(B, nv, nv).mT
 
 
+def fluid_jacobian(m: Model, d: Data) -> torch.Tensor:
+    """d qfrc_fluid / d qvel (B, nv, nv) by forward-mode AD through both
+    fluid models over B nv copies. cvel is linear in qvel, so copy (b, j)
+    takes its exact tangent, cdof_j on every body dof j moves
+    (body_dof_mask), with no pass through com_vel: the numbers of the JAX
+    package's jax.jacfwd through com_vel and the fluid models."""
+    B, nv = d.qvel.shape
+    mask = mmath.static_tensor(smooth.body_dof_mask(m), d.qpos.device, d.qpos.dtype)
+
+    def rep(t):
+        return t.repeat_interleave(nv, 0)
+    tangent = (mask[None, :, :, None] * d.cdof[:, :, None, :]).reshape(B * nv, m.nbody, 6)
+    with fwAD.dual_level():
+        dd = d.replace(cvel=fwAD.make_dual(rep(d.cvel), tangent),
+                       **{f: rep(getattr(d, f)) for f in (
+                           "qpos", "cdof", "xipos", "ximat", "subtree_com", "geom_xpos",
+                           "geom_xmat")})
+        jac = fwAD.unpack_dual(smooth.fluid_qfrc(m, dd)).tangent
+    return jac.view(B, nv, nv).mT
+
+
 def implicit(m: Model, d: Data) -> Data:
     """mj_implicit: as implicitfast with d qfrc_bias / d qvel folded in
     (bias_jacobian), masked by the ancestor pairs alone (no truncation),
@@ -401,16 +424,17 @@ def _not_ported(what: str):
 
 
 def check_general(m: Model) -> None:
-    """Raise NotImplementedError for what the general route cannot step.
-    Every integrator (Euler, RK4, implicit, implicitfast), every solver
-    (Newton, CG, PGS) and every geom pair of the pair table steps here."""
+    """Raise for what the general route cannot step: NotImplementedError
+    for a sensor type or a transmission it does not know, ValueError for a
+    malformed spatial tendon. Every integrator (Euler, RK4, implicit,
+    implicitfast), every solver (Newton, CG, PGS), every geom pair of the
+    pair table, spatial tendons, muscles, both fluid models and all 36
+    sensor types step here."""
     for st in m.sensor_type:
         if st not in SENSOR_DIM:
-            _not_ported(f"sensor type {SensorType(st).name.lower()}")
+            _not_ported(f"sensor type {st}")
     smooth.check_actuators(m)
     smooth.check_tendons(m)
-    if m.has_fluid:
-        _not_ported("fluid")
     if constraint._has_constraints(m):
         efc._check_rows(m)
 

@@ -1,12 +1,19 @@
 """Sensor evaluation over a batch: mj_sensorPos / mj_sensorVel / mj_sensorAcc.
 
-Counterpart of mujoco_ros_pkgs_tpu/ops/sensor_impl.py for the sensor types
-the port compiles (core/assemble.SENSOR_DIM): accelerometer, velocimeter,
-gyro, magnetometer, rangefinder, force, torque, jointpos, jointvel,
-framepos and framequat. Each sensor is one set of batched ops over the
-whole batch (tensors (B, ...)); the values go into d.sensordata as ground
-truth, and noise and cutoff scaling are the sensors plugin's
-(plugins/sensors.py), as the JAX package splits them.
+Counterpart of mujoco_ros_pkgs_tpu/ops/sensor_impl.py for all 36 sensor
+types (core/assemble.SENSOR_DIM), each at the stage the JAX package gives
+it. Position: framepos, framequat, the frame axes, jointpos, ballquat,
+tendonpos, actuatorpos, the joint and tendon limits' distances, subtreecom,
+magnetometer, rangefinder, clock. Velocity: velocimeter, gyro, jointvel,
+ballangvel, tendonvel, actuatorvel, framelinvel and frameangvel (relative
+to a reference frame where one is given), subtreelinvel, subtreeangmom,
+the limits' velocities. Acceleration: accelerometer, force, torque,
+framelinacc and frameangacc (from _rne_post's cacc), actuatorfrc, touch
+and the limits' forces (from the solver's row forces and efc.row_layout).
+Each sensor is one set of batched ops over the whole batch (tensors (B,
+...)); the values go into d.sensordata as ground truth, and noise and
+cutoff scaling are the sensors plugin's (plugins/sensors.py), as the JAX
+package splits them.
 
 Rangefinder rays meet every geom type: primitives analytically
 (`ray_local`), meshes by their hull's triangles, height fields by a march
@@ -16,6 +23,8 @@ leaves out contact and constraint forces.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -315,6 +324,15 @@ def _write(d: Data, vals) -> Data:
     return d.replace(sensordata=sd)
 
 
+def _frame_axis(st: int, mat: torch.Tensor) -> torch.Tensor:
+    return mat[..., st - int(SensorType.FRAMEXAXIS)]
+
+
+def _limit_dist(x, rng, margin):
+    """min(x - range[0], range[1] - x) - margin, the nearer side's distance."""
+    return torch.minimum(x - rng[0], rng[1] - x) - margin
+
+
 def sensor_pos(m: Model, d: Data) -> Data:
     vals = []
     for i in range(m.nsensor):
@@ -330,46 +348,225 @@ def sensor_pos(m: Model, d: Data) -> Data:
             if rid >= 0:
                 rq = mmath.mat_to_quat(_obj_pos_mat(d, rt, rid)[1])
                 val = mmath.quat_mul(mmath.quat_conj(rq), val)
+        elif st in _AXES:
+            val = _frame_axis(st, _obj_pos_mat(d, ot, oid)[1])
+            if rid >= 0:
+                val = _tmv(_obj_pos_mat(d, rt, rid)[1], val)
         elif st == int(SensorType.JOINTPOS):
             qadr = m.jnt_qposadr[oid]
             val = d.qpos[:, qadr:qadr + 1]
+        elif st == int(SensorType.BALLQUAT):
+            qadr = m.jnt_qposadr[oid]
+            val = mmath.normalize(d.qpos[:, qadr:qadr + 4])
+        elif st == int(SensorType.TENDONPOS):
+            val = d.ten_length[:, oid:oid + 1]
+        elif st == int(SensorType.ACTUATORPOS):
+            val = d.actuator_length[:, oid:oid + 1]
+        elif st == int(SensorType.JOINTLIMITPOS):
+            val = torch.clamp(_limit_dist(d.qpos[:, m.jnt_qposadr[oid]], m.jnt_range[oid],
+                                          m.jnt_margin[oid]), max=0.0)[:, None]
+        elif st == int(SensorType.TENDONLIMITPOS):
+            val = torch.clamp(_limit_dist(d.ten_length[:, oid], m.tendon_range[oid],
+                                          m.tendon_margin[oid]), max=0.0)[:, None]
+        elif st == int(SensorType.SUBTREECOM):
+            val = d.subtree_com[:, oid]
         elif st == int(SensorType.MAGNETOMETER):
             val = _tmv(d.site_xmat[:, oid], m.opt.magnetic.to(d.qpos.dtype))
         elif st == int(SensorType.RANGEFINDER):
             val = _rangefinder(m, d, oid)[:, None]
+        elif st == int(SensorType.CLOCK):
+            val = d.time[:, None]
         else:
             continue
         vals.append((m.sensor_adr[i], val))
     return _write(d, vals)
 
 
+def _obj_vel(m: Model, d: Data, objtype: int, objid: int):
+    """mj_objectVelocity of an object's origin in the world frame:
+    (angular, linear)."""
+    body = _obj_bodyid(m, objtype, objid)
+    cv = d.cvel[:, body]
+    ang = cv[:, :3]
+    pos = _obj_pos_mat(d, objtype, objid)[0]
+    return ang, cv[:, 3:] + mmath.cross(ang, pos - d.subtree_com[:, m.body_rootid[body]])
+
+
+def _obj_bodyid(m: Model, objtype: int, objid: int) -> int:
+    if objtype in (int(ObjType.BODY), int(ObjType.XBODY)):
+        return objid
+    if objtype == int(ObjType.SITE):
+        return m.site_bodyid[objid]
+    if objtype == int(ObjType.GEOM):
+        return m.geom_bodyid[objid]
+    raise ValueError(f"unsupported sensor objtype {objtype}")
+
+
+@functools.lru_cache(maxsize=256)
+def _subtree(body_parentid, root: int) -> np.ndarray:
+    """The bodies of root's subtree, root included (every body for the
+    world)."""
+    out = []
+    for b in range(root, len(body_parentid)):
+        p = b
+        while p > 0 and p != root:
+            p = body_parentid[p]
+        if p == root:
+            out.append(b)
+    return np.asarray(out, dtype=np.int64)
+
+
+def _com_vel(m: Model, d: Data, bodies: torch.Tensor):
+    """Angular velocity and the com's linear velocity of bodies (B, k, 3)."""
+    cv = d.cvel[:, bodies]
+    root = mmath.static_tensor(np.asarray(m.body_rootid, dtype=np.int64), d.qpos.device)
+    w = cv[..., :3]
+    return w, cv[..., 3:] + mmath.cross(w, d.xipos[:, bodies] - d.subtree_com[:, root[bodies]])
+
+
+def _limit_vel(m: Model, d: Data, st: int, oid: int) -> torch.Tensor:
+    """The limit row's velocity of a joint or tendon limit sensor: its
+    value's rate on the nearer side, 0 where the limit is not active."""
+    if st == int(SensorType.JOINTLIMITVEL):
+        x, rng, margin = d.qpos[:, m.jnt_qposadr[oid]], m.jnt_range[oid], m.jnt_margin[oid]
+        v = d.qvel[:, m.jnt_dofadr[oid]]
+    else:
+        x, rng, margin = d.ten_length[:, oid], m.tendon_range[oid], m.tendon_margin[oid]
+        v = (d.ten_J[:, oid] * d.qvel).sum(-1)
+    lo, hi = x - rng[0], rng[1] - x
+    vel = torch.where(lo < hi, 1.0, -1.0).to(v.dtype) * v
+    return torch.where(torch.minimum(lo, hi) < margin, vel, 0.0)
+
+
 def sensor_vel(m: Model, d: Data) -> Data:
     vals = []
+    dev = d.qpos.device
     for i in range(m.nsensor):
-        st, oid = m.sensor_type[i], m.sensor_objid[i]
+        st, ot, oid = m.sensor_type[i], m.sensor_objtype[i], m.sensor_objid[i]
+        rt, rid = m.sensor_reftype[i], m.sensor_refid[i]
         if st in (int(SensorType.VELOCIMETER), int(SensorType.GYRO)):
             ang, lin = _site_vel(m, d, oid)
             val = lin if st == int(SensorType.VELOCIMETER) else ang
         elif st == int(SensorType.JOINTVEL):
             vadr = m.jnt_dofadr[oid]
             val = d.qvel[:, vadr:vadr + 1]
+        elif st == int(SensorType.BALLANGVEL):
+            vadr = m.jnt_dofadr[oid]
+            val = d.qvel[:, vadr:vadr + 3]
+        elif st == int(SensorType.TENDONVEL):
+            val = d.ten_velocity[:, oid:oid + 1]
+        elif st == int(SensorType.ACTUATORVEL):
+            val = d.actuator_velocity[:, oid:oid + 1]
+        elif st in (int(SensorType.FRAMELINVEL), int(SensorType.FRAMEANGVEL)):
+            ang, lin = _obj_vel(m, d, ot, oid)
+            linear = st == int(SensorType.FRAMELINVEL)
+            val = lin if linear else ang
+            if rid >= 0:
+                # relative to the reference frame, in its axes
+                rang, rlin = _obj_vel(m, d, rt, rid)
+                rpos, rmat = _obj_pos_mat(d, rt, rid)
+                val = _tmv(rmat, lin - rlin - mmath.cross(
+                    rang, _obj_pos_mat(d, ot, oid)[0] - rpos) if linear else ang - rang)
+        elif st in (int(SensorType.SUBTREELINVEL), int(SensorType.SUBTREEANGMOM)):
+            bodies = mmath.static_tensor(_subtree(m.body_parentid, oid), dev)
+            w, v_com = _com_vel(m, d, bodies)
+            mass = m.body_mass[bodies].to(d.qpos.dtype)[:, None]
+            if st == int(SensorType.SUBTREELINVEL):
+                val = (mass * v_com).sum(1) / torch.clamp(m.body_subtreemass[oid],
+                                                          min=mmath.MINVAL)
+            else:
+                R = d.ximat[:, bodies]
+                Iw = torch.einsum("bkij,kj,bkj->bki", R, m.body_inertia[bodies],
+                                  _tmv(R, w))
+                val = (Iw + mass * mmath.cross(
+                    d.xipos[:, bodies] - d.subtree_com[:, oid:oid + 1], v_com)).sum(1)
+        elif st in (int(SensorType.JOINTLIMITVEL), int(SensorType.TENDONLIMITVEL)):
+            val = _limit_vel(m, d, st, oid)[:, None]
         else:
             continue
         vals.append((m.sensor_adr[i], val))
     return _write(d, vals)
 
 
+_AXES = (int(SensorType.FRAMEXAXIS), int(SensorType.FRAMEYAXIS), int(SensorType.FRAMEZAXIS))
 _RNE_POST_TYPES = (int(SensorType.ACCELEROMETER), int(SensorType.FORCE),
-                   int(SensorType.TORQUE))
+                   int(SensorType.TORQUE), int(SensorType.FRAMELINACC),
+                   int(SensorType.FRAMEANGACC))
+# the stage that computes each type, as the JAX package places them
+ACC_TYPES = frozenset(_RNE_POST_TYPES + (
+    int(SensorType.TOUCH), int(SensorType.ACTUATORFRC), int(SensorType.JOINTLIMITFRC),
+    int(SensorType.TENDONLIMITFRC)))
+VEL_TYPES = frozenset(int(t) for t in (
+    SensorType.VELOCIMETER, SensorType.GYRO, SensorType.JOINTVEL, SensorType.BALLANGVEL,
+    SensorType.TENDONVEL, SensorType.ACTUATORVEL, SensorType.FRAMELINVEL,
+    SensorType.FRAMEANGVEL, SensorType.SUBTREELINVEL, SensorType.SUBTREEANGMOM,
+    SensorType.JOINTLIMITVEL, SensorType.TENDONLIMITVEL))
+POS_TYPES = frozenset(int(t) for t in SensorType) - ACC_TYPES - VEL_TYPES
+
+
+@functools.lru_cache(maxsize=256)
+def _touch_meta(geom_bodyid, geom1, geom2, body, con, con_nrows, pyramidal, nrow):
+    """A touch sensor's static reading plan: the contact slots (static ones
+    on `body`, then every dynamic slot with its rank among the dynamic
+    slots), and each slot's rows in the solver's force vector, padded with
+    the index nrow (a row that reads 0)."""
+    static, dyn = [], []
+    rank = 0
+    for ci in range(min(len(geom1), len(con))):
+        if geom1[ci] == -2:
+            dyn.append((ci, rank))
+            rank += 1
+        elif geom1[ci] >= 0 and body in (geom_bodyid[geom1[ci]], geom_bodyid[geom2[ci]]):
+            static.append(ci)
+    slots = static + [ci for ci, _ in dyn]
+    width = max([con_nrows[ci] if pyramidal else 1 for ci in slots], default=1)
+    rows = np.full((len(slots), width), nrow, dtype=np.int64)
+    for k, ci in enumerate(slots):
+        n = con_nrows[ci] if pyramidal else 1
+        rows[k, :n] = con[ci] + np.arange(n)
+    return (np.asarray(slots, dtype=np.int64), len(static),
+            np.asarray([r for _, r in dyn], dtype=np.int64), rows)
+
+
+def _touch(m: Model, d: Data, site: int, layout: dict) -> torch.Tensor:
+    """The summed normal force (B,) of the active contacts of every slot
+    whose geoms touch the site's body: the normal row's force, or the sum
+    of a pyramidal cone's facet forces. 0 where the solver's forces are
+    shorter than the row layout, as in the JAX package."""
+    dev = d.qpos.device
+    body = m.site_bodyid[site]
+    c = d.contact
+    f = d.efc_force_contact
+    total = f.new_zeros(f.shape[0])
+    if f.shape[1] < layout["nrow"]:
+        return total
+    slots, nstatic, ranks, rows = _touch_meta(
+        m.geom_bodyid, c.geom1, c.geom2, body, tuple(layout["con"]),
+        tuple(layout["con_nrows"]), layout["pyramidal"], f.shape[1])
+    if not slots.size:
+        return total
+    frc = torch.cat([f, f.new_zeros(f.shape[0], 1)], 1)[:, mmath.static_tensor(rows, dev)].sum(-1)
+    ci = mmath.static_tensor(slots, dev)
+    hit = c.dist[:, ci] < c.includemargin[:, ci]
+    if ranks.size:
+        gb = mmath.static_tensor(np.asarray(m.geom_bodyid, dtype=np.int64), dev)
+        on_body = (gb[c.dyn_pair[:, mmath.static_tensor(ranks, dev)]] == body).any(-1)
+        hit = hit & torch.cat([torch.ones_like(hit[:, :nstatic]), on_body], 1)
+    return torch.where(hit, frc, 0.0).sum(1)
 
 
 def sensor_acc(m: Model, d: Data) -> Data:
-    if not any(t in _RNE_POST_TYPES for t in m.sensor_type):
+    if not any(t in ACC_TYPES for t in m.sensor_type):
         return d
-    cacc, cfrc_int = _rne_post(m, d)
+    from mujoco_ros_pkgs_tpu_torch.ops import efc as efc_mod
+
+    cacc = cfrc_int = None
+    if any(t in _RNE_POST_TYPES for t in m.sensor_type):
+        cacc, cfrc_int = _rne_post(m, d)
+    layout = efc_mod.row_layout(m)
     vals = []
     for i in range(m.nsensor):
-        st, oid = m.sensor_type[i], m.sensor_objid[i]
+        st, ot, oid = m.sensor_type[i], m.sensor_objtype[i], m.sensor_objid[i]
         if st == int(SensorType.ACCELEROMETER):
             val = _tmv(d.site_xmat[:, oid], _site_acc(m, d, cacc, oid)[0])
         elif st in (int(SensorType.FORCE), int(SensorType.TORQUE)):
@@ -378,6 +575,24 @@ def sensor_acc(m: Model, d: Data) -> Data:
                                       d.subtree_com[:, m.body_rootid[body]])
             val = _tmv(d.site_xmat[:, oid],
                        f[:, 3:] if st == int(SensorType.FORCE) else f[:, :3])
+        elif st in (int(SensorType.FRAMELINACC), int(SensorType.FRAMEANGACC)):
+            body = _obj_bodyid(m, ot, oid)
+            off = _obj_pos_mat(d, ot, oid)[0] - d.subtree_com[:, m.body_rootid[body]]
+            cv, ca = d.cvel[:, body], cacc[:, body]
+            w = cv[:, :3]
+            v_p = cv[:, 3:] + mmath.cross(w, off)
+            val = (ca[:, 3:] + mmath.cross(ca[:, :3], off) + mmath.cross(w, v_p)
+                   if st == int(SensorType.FRAMELINACC) else ca[:, :3])
+        elif st == int(SensorType.ACTUATORFRC):
+            val = d.actuator_force[:, oid:oid + 1]
+        elif st == int(SensorType.TOUCH):
+            val = _touch(m, d, oid, layout)[:, None]
+        elif st in (int(SensorType.JOINTLIMITFRC), int(SensorType.TENDONLIMITFRC)):
+            row = layout["lim_jnt" if st == int(SensorType.JOINTLIMITFRC)
+                         else "lim_ten"].get(oid)
+            f = d.efc_force_contact
+            val = (f[:, row:row + 1] if row is not None and f.shape[1] >= layout["nrow"]
+                   else f.new_zeros(f.shape[0], 1))
         else:
             continue
         vals.append((m.sensor_adr[i], val))

@@ -9,14 +9,16 @@ each level one gather/compute/scatter over all its bodies. All tensors are
 batch-first. `kinematics`, `com_pos` and `crb` take and return tensors (the
 compile side uses them at load time, core/constants.py); the stages take
 and return `Data`. Mocap bodies take their pose from `mocap_pos` /
-`mocap_quat` in the kinematics sweep. Fixed tendons (`tendon`: length,
-ten_J, velocity) feed the passive forces (springs with a deadband,
-damping), the tendon transmission and the tendon rows. `transmission`
-takes the JAX package's five groups (1-dof, ball and free joints,
-tendons, sites) and `actuation` its activation dynamics (integrator,
-filter, filterexact: act_dot), fixed and affine gains, no and affine
-biases and the force and joint-force clamps. Spatial tendons, muscles and
-fluid forces raise NotImplementedError.
+`mocap_quat` in the kinematics sweep. Tendons (`tendon`: length, ten_J,
+velocity; fixed ones by segment sums, spatial ones through ops/wrap.py in
+one pass over every segment and wrap) feed the passive forces (springs
+with a deadband, damping), the tendon transmission and the tendon rows.
+`passive` adds both fluid models where the model has a medium.
+`transmission` takes the JAX package's five groups (1-dof, ball and free
+joints, tendons, sites) and `actuation` its activation dynamics
+(integrator, filter, filterexact, muscle: act_dot), fixed, affine and
+muscle gains and biases (ops/muscle.py) and the force and joint-force
+clamps.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch.core.types import (
-    BiasType, Data, DisableBit, DynType, GainType, JointType, Model, TrnType, WrapType,
+    BiasType, Data, DisableBit, DynType, GainType, GeomType, JointType, Model, TrnType,
+    WrapType,
 )
-from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu
+from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, muscle
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 
 
@@ -412,12 +415,10 @@ def _spring_meta(jnt_type, jnt_qposadr, jnt_dofadr):
 
 
 def passive(m: Model, d: Data) -> Data:
-    """Joint damping, joint springs and the fixed tendons' springs (with
-    the deadband [lengthspring0, lengthspring1], -1 meaning length0) and
-    damping, mapped by ten_J (mj_passive without fluid, which raises)."""
-    if m.has_fluid:
-        raise NotImplementedError("passive: fluid forces are not ported to the "
-                                  "torch package")
+    """Joint damping, joint springs, the tendons' springs (with the
+    deadband [lengthspring0, lengthspring1], -1 meaning length0) and
+    damping mapped by ten_J, and the fluid forces where the model has a
+    medium (mj_passive)."""
     if m.nv == 0:
         return d
     if m.opt.disableflags & DisableBit.PASSIVE:
@@ -453,66 +454,327 @@ def passive(m: Model, d: Data) -> Data:
         displ = torch.where(L > high, high - L, torch.where(L < low, low - L, 0.0))
         frc = m.tendon_stiffness * displ - m.tendon_damping * d.ten_velocity
         qfrc = qfrc + torch.einsum("btv,bt->bv", d.ten_J, frc)
+    if m.has_fluid:
+        qfrc = qfrc + fluid_qfrc(m, d)
     return d.replace(qfrc_passive=qfrc)
 
 
-def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
-    """xfrc_applied ([force, torque] at each body's com, world frame) mapped
-    to joint space (mj_applyFT at xipos for every body): (B, nv)."""
+@functools.lru_cache(maxsize=128)
+def _fluid_meta(geom_fluid_active, geom_bodyid, geom_type, nbody):
+    """The ellipsoid model's geoms, their bodies and semiaxis rules (the
+    geom type), and the bodies the inertia-box model takes: every body but
+    the world and those with a fluid-active geom, whose geoms all go to the
+    ellipsoid model."""
+    act = np.asarray([g for g, a in enumerate(geom_fluid_active) if a], dtype=np.int64)
+    bodies = np.asarray(geom_bodyid, dtype=np.int64)[act]
+    box_live = np.arange(nbody) > 0
+    box_live[bodies] = False
+    return act, bodies, np.asarray(geom_type, dtype=np.int64)[act], box_live
+
+
+def fluid_qfrc(m: Model, d: Data) -> torch.Tensor:
+    """Fluid forces from opt.density, opt.viscosity and opt.wind mapped to
+    joint space (B, nv): the inertia-box model (mj_inertiaBoxFluidModel: the
+    body's equivalent box, a viscous sphere of its mean size and quadratic
+    drag on its faces, in the inertia frame, at the com) for every body
+    without a fluid-active geom, the ellipsoid model (_fluid_ellipsoid_xfrc)
+    for the rest."""
+    dtype, dev = d.qpos.dtype, d.qpos.device
+    act, _, _, box_live = _fluid_meta(m.geom_fluid_active, m.geom_bodyid, m.geom_type,
+                                      m.nbody)
+    mass = torch.clamp(m.body_mass, min=mmath.MINVAL).to(dtype)
+    I = m.body_inertia.to(dtype)                                      # (nbody, 3)
+    Isum = I.sum(1, keepdim=True)
+    box = torch.sqrt(torch.clamp(Isum - 2 * I, min=mmath.MINVAL) / mass[:, None] * 6.0) / 2.0
+    ref = d.subtree_com[:, mmath.static_tensor(m.body_rootid, dev, torch.int64)]
+    ang_w = d.cvel[..., :3]
+    lin_w = d.cvel[..., 3:] + mmath.cross(ang_w, d.xipos - ref)
+    wind = m.opt.wind.to(dtype)
+    ang = torch.einsum("bnij,bni->bnj", d.ximat, ang_w)
+    lin = torch.einsum("bnij,bni->bnj", d.ximat, lin_w - wind)
+    viscosity = m.opt.viscosity.to(dtype)
+    density = m.opt.density.to(dtype)
+    diam = box.mean(1) * 2.0
+    lfrc_ang = -(np.pi * diam[:, None] ** 3 * viscosity * ang)
+    lfrc_lin = -(3.0 * np.pi * diam[:, None] * viscosity * lin)
+    b0, b1, b2 = box[:, 0], box[:, 1], box[:, 2]
+    area = torch.stack([b1 * b2, b0 * b2, b0 * b1], 1)
+    lfrc_lin = lfrc_lin - 2.0 * density * area * torch.abs(lin) * lin
+    plate = torch.stack([b0 * (b1 ** 4 + b2 ** 4), b1 * (b0 ** 4 + b2 ** 4),
+                         b2 * (b0 ** 4 + b1 ** 4)], 1)
+    lfrc_ang = lfrc_ang - 0.5 * density * plate * torch.abs(ang) * ang
+    frc_w = torch.einsum("bnij,bnj->bni", d.ximat, lfrc_lin)
+    trq_w = torch.einsum("bnij,bnj->bni", d.ximat, lfrc_ang)
+    xfrc = torch.cat([frc_w, trq_w], -1) * mmath.static_tensor(box_live, dev, dtype)[:, None]
+    if act.size:
+        xfrc = xfrc + _fluid_ellipsoid_xfrc(m, d)
+    return body_frc_accumulate(m, d, xfrc)
+
+
+def _fluid_ellipsoid_xfrc(m: Model, d: Data) -> torch.Tensor:
+    """The ellipsoid model's forces per body (B, nbody, 6), [force, torque]
+    at the com in the world frame (mj_ellipsoidFluidModel: added mass,
+    Magnus and Kutta lift, viscous and quadratic drag of each fluid-active
+    geom's equivalent ellipsoid, from the 12 numbers core/mjcf packs)."""
+    dtype, dev = d.qpos.dtype, d.qpos.device
+    act_np, bid_np, gtype, _ = _fluid_meta(m.geom_fluid_active, m.geom_bodyid,
+                                           m.geom_type, m.nbody)
+    act = mmath.static_tensor(act_np, dev)
+    bidx = mmath.static_tensor(bid_np, dev)
+    root = mmath.static_tensor(np.asarray(m.body_rootid, dtype=np.int64)[bid_np], dev)
+    # equivalent-ellipsoid semiaxes: a capsule's include its caps
+    s = m.geom_size[act].to(dtype)
+
+    def is_(*kinds):
+        return mmath.static_tensor(np.isin(gtype, [int(k) for k in kinds]), dev)
+    round_ = is_(GeomType.SPHERE, GeomType.CAPSULE, GeomType.CYLINDER)
+    semi = torch.stack([
+        s[:, 0], torch.where(round_, s[:, 0], s[:, 1]),
+        torch.where(is_(GeomType.SPHERE), s[:, 0], torch.where(
+            is_(GeomType.CAPSULE), s[:, 1] + s[:, 0],
+            torch.where(is_(GeomType.CYLINDER), s[:, 1], s[:, 2])))], 1)
+    gf = m.geom_fluid[act].to(dtype)
+    blunt, slender, angd = gf[:, 1], gf[:, 2], gf[:, 3]
+    kutta, magnus = gf[:, 4], gf[:, 5]
+    vmass, vinertia = gf[:, 6:9], gf[:, 9:12]
+
+    ref = d.subtree_com[:, root]
+    R = d.geom_xmat[:, act]
+    p = d.geom_xpos[:, act]
+    ang_w = d.cvel[:, bidx, :3]
+    lin_w = d.cvel[:, bidx, 3:] + mmath.cross(ang_w, p - ref)
+    ang = torch.einsum("bgij,bgi->bgj", R, ang_w)
+    lin = torch.einsum("bgij,bgi->bgj", R, lin_w - m.opt.wind.to(dtype))
+    density = m.opt.density.to(dtype)
+    viscosity = m.opt.viscosity.to(dtype)
+    pi = np.pi
+
+    # added mass: the gyroscopic coupling of the virtual momenta
+    plin = density * vmass * lin
+    pang = density * vinertia * ang
+    f_l = mmath.cross(plin, ang)
+    t_l = mmath.cross(plin, lin) + mmath.cross(pang, ang)
+
+    vol = 4.0 / 3.0 * pi * torch.prod(semi, 1)
+    d_max = semi.max(1).values
+    d_min = semi.min(1).values
+    d_mid = semi.sum(1) - d_max - d_min
+    a_max = pi * d_max * d_mid
+    magnus_f = mmath.cross(ang, lin) * (magnus * density * vol)[..., None]
+    faces = torch.stack([semi[:, 1] * semi[:, 2], semi[:, 2] * semi[:, 0],
+                         semi[:, 0] * semi[:, 1]], 1)
+    proj_denom = (faces ** 4 * lin ** 2).sum(-1)
+    proj_num = (faces ** 2 * lin ** 2).sum(-1)
+    ratio = proj_denom / torch.clamp(proj_num, min=mmath.MINVAL)
+    a_proj = pi * torch.sqrt(torch.clamp(ratio, min=mmath.MINVAL ** 2))
+    norm_v = faces ** 2 * lin
+    lin_norm = mmath.norm_safe(lin)
+    cos_alpha = proj_num / torch.clamp(lin_norm * proj_denom, min=mmath.MINVAL)
+    kutta_circ = mmath.cross(norm_v, lin) * (kutta * density * cos_alpha * a_proj)[..., None]
+    kutta_f = mmath.cross(kutta_circ, lin)
+    eq_d = 2.0 / 3.0 * semi.sum(1)
+    i_max = 8.0 / 15.0 * pi * d_mid * d_max ** 4
+    ii = 8.0 / 15.0 * pi * semi * torch.stack(
+        [torch.maximum(semi[:, 1], semi[:, 2]), torch.maximum(semi[:, 2], semi[:, 0]),
+         torch.maximum(semi[:, 0], semi[:, 1])], 1) ** 4
+    mom_visc = ang * (angd[:, None] * ii + slender[:, None] * (i_max[:, None] - ii))
+    drag_lin = (viscosity * 3.0 * pi * eq_d
+                + density * lin_norm * (a_proj * blunt + slender * (a_max - a_proj)))
+    drag_ang = viscosity * pi * eq_d ** 3 + density * mmath.norm_safe(mom_visc)
+    t_l = t_l - drag_ang[..., None] * ang
+    f_l = f_l + magnus_f + kutta_f - drag_lin[..., None] * lin
+
+    f_w = torch.einsum("bgij,bgj->bgi", R, f_l)
+    t_w = torch.einsum("bgij,bgj->bgi", R, t_l) + mmath.cross(p - d.xipos[:, bidx], f_w)
+    return d.qpos.new_zeros(d.qpos.shape[0], m.nbody, 6).index_add(
+        1, bidx, torch.cat([f_w, t_w], -1))
+
+
+def body_frc_accumulate(m: Model, d: Data, xfrc: torch.Tensor) -> torch.Tensor:
+    """Per-body [force, torque] (B, nbody, 6) at each body's com, world
+    frame, mapped to joint space (mj_applyFT at xipos for every body):
+    (B, nv)."""
     dev = d.qpos.device
     rootid = mmath.static_tensor(m.body_rootid, dev, torch.int64)
-    xf = d.xfrc_applied
-    vec = torch.cat([xf[..., 3:], xf[..., :3]], -1)
+    vec = torch.cat([xfrc[..., 3:], xfrc[..., :3]], -1)
     fs = mmath.transform_force(vec, d.subtree_com[:, rootid], d.xipos)
     mask = mmath.static_tensor(body_dof_mask(m), dev, d.qpos.dtype)
     return ((d.cdof @ fs.transpose(-1, -2)) * mask).sum(-1)
 
 
+def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
+    """xfrc_applied ([force, torque] at each body's com, world frame) mapped
+    to joint space: (B, nv)."""
+    return body_frc_accumulate(m, d, d.xfrc_applied)
+
+
 @functools.lru_cache(maxsize=128)
-def _tendon_meta(tendon_adr, tendon_num, wrap_type, wrap_objid, jnt_qposadr,
-                 jnt_dofadr):
-    """(tendon, wrap entry, qpos address, dof address) of every joint entry
-    of the fixed tendons; a spatial tendon raises."""
-    rows = []
+def _tendon_meta(tendon_adr, tendon_num, wrap_type, wrap_objid, wrap_sidesite,
+                 wrap_divisor, jnt_qposadr, jnt_dofadr, site_bodyid, geom_bodyid, nsite):
+    """The tendons' static structure (the JAX package's _tendon_meta, as
+    index arrays). Fixed tendons: (tendon, wrap entry, qpos address, dof
+    address) of every joint entry. Spatial tendons: their paths walked once
+    (a pulley starts a branch with its divisor; a wrap geom sits between two
+    sites) into 'wrap' columns (tendon, geom, sidesite or -1, sphere or not,
+    the sites before and after, divisor) and 'seg' columns, one per straight
+    segment: its endpoints as indices into [sites, wrap tangent points t0,
+    wrap tangent points t1], their bodies, its tendon and divisor. A
+    spatial path that does not start and end at a site, a wrap geom not
+    between two sites, or joint entries mixed into a path raise
+    ValueError."""
+    fixed = []
+    wrap = {k: [] for k in ("ten", "geom", "side", "sphere", "prev", "next", "div")}
+    seg = {k: [] for k in ("a", "b", "abody", "bbody", "ten", "div")}
+    spatial = []
+    SITE, SPHERE, CYL = int(WrapType.SITE), int(WrapType.SPHERE), int(WrapType.CYLINDER)
     for t, (adr, num) in enumerate(zip(tendon_adr, tendon_num)):
+        kinds = [wrap_type[k] for k in range(adr, adr + num)]
+        if all(k == int(WrapType.JOINT) for k in kinds):
+            for k in range(adr, adr + num):
+                j = wrap_objid[k]
+                fixed.append((t, k, jnt_qposadr[j], jnt_dofadr[j]))
+            continue
+        path = []
         for k in range(adr, adr + num):
-            if wrap_type[k] != int(WrapType.JOINT):
-                raise NotImplementedError(
-                    f"tendon {t}: spatial tendons ({WrapType(wrap_type[k]).name.lower()} "
-                    f"wrap entries) are not ported to the torch package")
-            j = wrap_objid[k]
-            rows.append((t, k, jnt_qposadr[j], jnt_dofadr[j]))
-    return np.asarray(rows, dtype=np.int64).reshape(-1, 4)
+            kind = wrap_type[k]
+            if kind == SITE:
+                path.append(("site", wrap_objid[k]))
+            elif kind in (SPHERE, CYL):
+                path.append(("geom", wrap_objid[k], wrap_sidesite[k], kind == SPHERE))
+            elif kind == int(WrapType.PULLEY):
+                path.append(("pulley", wrap_divisor[k]))
+            else:
+                raise ValueError(f"tendon {t}: cannot mix joint wraps with a spatial path")
+        if not path or path[0][0] != "site" or path[-1][0] != "site":
+            raise ValueError(f"spatial tendon {t} must start and end at sites")
+        for i, op in enumerate(path):
+            if op[0] == "geom" and (path[i - 1][0] != "site" or i + 1 >= len(path)
+                                    or path[i + 1][0] != "site"):
+                raise ValueError(f"spatial tendon {t}: wrap geoms must be bracketed "
+                                 f"by sites")
+        spatial.append(t)
+
+        def add_seg(a, ab, b, bb, div):
+            for key, v in zip(seg, (a, b, ab, bb, t, div)):
+                seg[key].append(v)
+        i, prev, div = 0, None, 1.0
+        while i < len(path):
+            op = path[i]
+            if op[0] == "pulley":
+                div, prev = op[1], None
+                i += 1
+            elif op[0] == "site":
+                if prev is not None:
+                    add_seg(prev, site_bodyid[prev], op[1], site_bodyid[op[1]], div)
+                prev = op[1]
+                i += 1
+            else:
+                _, gid, side, sphere = op
+                nxt = path[i + 1][1]
+                w = len(wrap["ten"])
+                for key, v in zip(wrap, (t, gid, side, sphere, prev, nxt, div)):
+                    wrap[key].append(v)
+                gb = geom_bodyid[gid]
+                # t0 and t1 of wrap w sit at nsite + w and at nsite + nwrap + w;
+                # t1's index is fixed below, once nwrap is known
+                add_seg(prev, site_bodyid[prev], nsite + w, gb, div)
+                add_seg(-1 - w, gb, nxt, site_bodyid[nxt], div)
+                prev = nxt
+                i += 2
+    nw = len(wrap["ten"])
+    seg["a"] = [a if a >= 0 else nsite + nw + (-1 - a) for a in seg["a"]]
+    wrap = {k: np.asarray(v, dtype=np.float64 if k == "div" else
+                          (bool if k == "sphere" else np.int64)) for k, v in wrap.items()}
+    seg = {k: np.asarray(v, dtype=np.float64 if k == "div" else np.int64)
+           for k, v in seg.items()}
+    return np.asarray(fixed, dtype=np.int64).reshape(-1, 4), wrap, seg, tuple(spatial)
+
+
+def tendon_meta(m: Model):
+    return _tendon_meta(m.tendon_adr, m.tendon_num, m.wrap_type, m.wrap_objid,
+                        m.wrap_sidesite, m.wrap_divisor, m.jnt_qposadr, m.jnt_dofadr,
+                        m.site_bodyid, m.geom_bodyid, m.nsite)
 
 
 def check_tendons(m: Model) -> None:
-    """Raise NotImplementedError for tendons `tendon` cannot compute
-    (spatial ones)."""
-    _tendon_meta(m.tendon_adr, m.tendon_num, m.wrap_type, m.wrap_objid,
-                 m.jnt_qposadr, m.jnt_dofadr)
+    """Raise ValueError for a spatial tendon whose path is malformed
+    (_tendon_meta)."""
+    tendon_meta(m)
 
 
-def fixed_tendons(m: Model, qpos: torch.Tensor):
-    """Lengths (B, ntendon) and Jacobians ten_J (B, ntendon, nv) of the
-    fixed tendons at qpos (B, nq): length = sum coef qpos, ten_J the coefs
-    at the entries' dofs."""
-    B, dev = qpos.shape[0], qpos.device
-    seg, widx, qa, va = (mmath.static_tensor(c, dev) for c in _tendon_meta(
-        m.tendon_adr, m.tendon_num, m.wrap_type, m.wrap_objid, m.jnt_qposadr,
-        m.jnt_dofadr).T)
-    coef = m.wrap_prm[widx].to(qpos.dtype)
-    length = qpos.new_zeros(B, m.ntendon).index_add(1, seg, coef * qpos[:, qa])
-    ten_J = qpos.new_zeros(B, m.ntendon * m.nv).index_add(
-        1, seg * m.nv + va, coef.expand(B, -1)).view(B, m.ntendon, m.nv)
-    return length, ten_J
+def site_frames(m: Model, kin: Kinematics):
+    """Every site's world position (B, nsite, 3) and frame (B, nsite, 3, 3)."""
+    sb = mmath.static_tensor(m.site_bodyid, kin.xpos.device, torch.int64)
+    return (kin.xpos[:, sb] + torch.einsum("bsij,sj->bsi", kin.xmat[:, sb], m.site_pos),
+            kin.xmat[:, sb] @ mmath.quat_to_mat(m.site_quat))
+
+
+def _point_jac(m: Model, subtree_com, cdof, point, body):
+    """Translational Jacobians (B, K, nv, 3) of world points (B, K, 3) on
+    static bodies (K,) (mj_jac)."""
+    dev = point.device
+    mask = mmath.static_tensor(body_dof_mask(m)[:, body].T, dev, point.dtype)   # (K, nv)
+    root = mmath.static_tensor(np.asarray(m.body_rootid, dtype=np.int64)[body], dev)
+    off = point - subtree_com[:, root]
+    c = cdof[:, None]                                                          # (B, 1, nv, 6)
+    return (c[..., 3:] + mmath.cross(c[..., :3], off[:, :, None])) * mask[None, :, :, None]
+
+
+def tendons(m: Model, qpos, site_xpos, geom_xpos, geom_xmat, subtree_com, cdof):
+    """Lengths (B, ntendon) and Jacobians ten_J (B, ntendon, nv) of every
+    tendon (mj_tendon). Fixed tendons: sum coef qpos and the coefs at the
+    entries' dofs. Spatial tendons: every wrap of every env in one
+    wrap.wrap_geom call, then one pass over all straight segments, each
+    adding its length and u . (J(b) - J(a)) (u the unit segment, J the
+    endpoints' point Jacobians) divided by its branch's pulley divisor; a
+    wrap adds its arc, whose endpoints ride the wrap body and add nothing
+    to ten_J between them."""
+    from mujoco_ros_pkgs_tpu_torch.ops import wrap as wrap_mod
+
+    B, dev, dtype = qpos.shape[0], qpos.device, qpos.dtype
+    fixed, wrap, seg, spatial = tendon_meta(m)
+
+    def t(a):
+        return mmath.static_tensor(a, dev)
+    length = qpos.new_zeros(B, m.ntendon)
+    ten_J = qpos.new_zeros(B, m.ntendon, m.nv)
+    if len(fixed):
+        ten, widx, qa, va = (t(c) for c in fixed.T)
+        coef = m.wrap_prm[widx].to(dtype)
+        length = length.index_add(1, ten, coef * qpos[:, qa])
+        ten_J = ten_J.view(B, -1).index_add(1, ten * m.nv + va, coef.expand(B, -1)).view(
+            B, m.ntendon, m.nv)
+    if not spatial:
+        return length, ten_J
+    pts = [site_xpos]
+    if len(wrap["ten"]):
+        gid = t(wrap["geom"])
+        side = site_xpos[:, t(np.maximum(wrap["side"], 0))]
+        t0, t1, arc, _ = wrap_mod.wrap_geom(
+            site_xpos[:, t(wrap["prev"])], site_xpos[:, t(wrap["next"])],
+            geom_xpos[:, gid], geom_xmat[:, gid], m.geom_size[gid, 0].to(dtype),
+            t(wrap["sphere"]), side, t(wrap["side"] >= 0))
+        pts += [t0, t1]
+        length = length.index_add(1, t(wrap["ten"]), arc / t(wrap["div"]).to(dtype))
+    pts = torch.cat(pts, 1)
+    pa, pb = pts[:, t(seg["a"])], pts[:, t(seg["b"])]
+    diff = pb - pa
+    dist = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=mmath.MINVAL ** 2))
+    u = diff / dist[..., None]
+    div = t(seg["div"]).to(dtype)
+    ja = _point_jac(m, subtree_com, cdof, pa, seg["abody"])
+    jb = _point_jac(m, subtree_com, cdof, pb, seg["bbody"])
+    rows = torch.einsum("bkvi,bki->bkv", jb - ja, u) / div[:, None]
+    ten = t(seg["ten"])
+    return length.index_add(1, ten, dist / div), ten_J.index_add(1, ten, rows)
 
 
 def tendon(m: Model, d: Data) -> Data:
-    """mj_tendon of fixed tendons: ten_length, ten_J and ten_velocity =
-    ten_J qvel."""
+    """mj_tendon: ten_length, ten_J and ten_velocity = ten_J qvel."""
     if m.ntendon == 0:
         return d
-    length, ten_J = fixed_tendons(m, d.qpos)
+    length, ten_J = tendons(m, d.qpos, d.site_xpos, d.geom_xpos, d.geom_xmat,
+                            d.subtree_com, d.cdof)
     return d.replace(ten_length=length, ten_J=ten_J,
                      ten_velocity=torch.einsum("btv,bv->bt", ten_J, d.qvel))
 
@@ -594,16 +856,10 @@ def transmission(m: Model, d: Data) -> Data:
 
 
 def check_actuators(m: Model) -> None:
-    """Raise NotImplementedError for actuators `transmission` and
-    `actuation` cannot run: muscles (dynamics, gain or bias) and
+    """Raise NotImplementedError for actuators `transmission` cannot run:
     transmissions other than joints, tendons and sites."""
     _trn_meta(m.actuator_trntype, m.actuator_trnid, m.jnt_type, m.jnt_qposadr,
               m.jnt_dofadr)
-    for field, enum in (("dyntype", DynType), ("gaintype", GainType),
-                        ("biastype", BiasType)):
-        if any(v == int(enum.MUSCLE) for v in getattr(m, "actuator_" + field)):
-            raise NotImplementedError(f"actuation: {field} muscle is not ported to the "
-                                      f"torch package")
 
 
 @functools.lru_cache(maxsize=128)
@@ -619,14 +875,15 @@ def _act_clamp_meta(jnt_actfrclimited, jnt_dofadr):
 def actuation(m: Model, d: Data) -> Data:
     """Actuator forces (mj_fwdActuation): ctrl clamped to ctrlrange where
     ctrllimited (unless CLAMPCTRL is disabled); each activation's act_dot
-    (integrator: ctrl, filter and filterexact: (ctrl - act) / dynprm[0]),
-    the actuator's input its activation where it has one, else ctrl; force
-    = gain input + bias, gain fixed (gainprm[0]) or affine (gainprm[0] +
-    gainprm[1] length + gainprm[2] velocity), bias none or affine (biasprm
-    likewise), clamped to forcerange where forcelimited; qfrc_actuator =
-    moment^T force clamped to actuatorfrcrange at joints that limit it;
-    zeros under DisableBit.ACTUATION. What check_actuators refuses
-    raises."""
+    (integrator: ctrl, filter and filterexact: (ctrl - act) / dynprm[0],
+    muscle: ops/muscle.dynamics), the actuator's input its activation
+    where it has one, else ctrl; force = gain input + bias, gain fixed
+    (gainprm[0]), affine (gainprm[0] + gainprm[1] length + gainprm[2]
+    velocity) or muscle (ops/muscle.gain), bias none, affine (biasprm
+    likewise) or muscle (ops/muscle.bias), clamped to forcerange where
+    forcelimited; qfrc_actuator = moment^T force clamped to
+    actuatorfrcrange at joints that limit it; zeros under
+    DisableBit.ACTUATION. What check_actuators refuses raises."""
     if m.nu == 0:
         return d
     check_actuators(m)
@@ -653,6 +910,9 @@ def actuation(m: Model, d: Data) -> Data:
         inp = torch.where(mask(has), a_g, ctrl)
         ad = torch.where(mask(dyn == int(DynType.INTEGRATOR)), ctrl,
                          (ctrl - a_g) / torch.clamp(m.actuator_dynprm[:, 0], min=mmath.MINVAL))
+        if (dyn == int(DynType.MUSCLE)).any():
+            ad = torch.where(mask(dyn == int(DynType.MUSCLE)),
+                             muscle.dynamics(ctrl, a_g, m.actuator_dynprm), ad)
         act_dot = torch.zeros_like(d.act)
         act_dot[:, mask(adr[has])] = ad[:, mask(np.nonzero(has)[0])]
     L, V = d.actuator_length, d.actuator_velocity
@@ -661,10 +921,18 @@ def actuation(m: Model, d: Data) -> Data:
     if any(t == int(GainType.AFFINE) for t in m.actuator_gaintype):
         gain = torch.where(mask(np.array(m.actuator_gaintype) == int(GainType.FIXED)),
                            gp[:, 0], gp[:, 0] + gp[:, 1] * L + gp[:, 2] * V)
+    gaintype, biastype = np.array(m.actuator_gaintype), np.array(m.actuator_biastype)
+    if (gaintype == int(GainType.MUSCLE)).any():
+        gain = torch.where(mask(gaintype == int(GainType.MUSCLE)),
+                           muscle.gain(L, V, m.actuator_lengthrange, m.actuator_acc0, gp), gain)
     force = gain * inp
-    if any(t == int(BiasType.AFFINE) for t in m.actuator_biastype):
-        force = force + torch.where(mask(np.array(m.actuator_biastype) == int(BiasType.AFFINE)),
+    if (biastype == int(BiasType.AFFINE)).any():
+        force = force + torch.where(mask(biastype == int(BiasType.AFFINE)),
                                     bp[:, 0] + bp[:, 1] * L + bp[:, 2] * V, 0.0)
+    if (biastype == int(BiasType.MUSCLE)).any():
+        force = force + torch.where(mask(biastype == int(BiasType.MUSCLE)),
+                                    muscle.bias(L, m.actuator_lengthrange, m.actuator_acc0, bp),
+                                    0.0)
     if any(m.actuator_forcelimited):
         rng = m.actuator_forcerange
         force = torch.where(mask(np.array(m.actuator_forcelimited, dtype=bool)),
@@ -701,10 +969,8 @@ def fwd_position_smooth(m: Model, d: Data) -> Data:
                   geom_xmat=kin.geom_xmat, subtree_com=subtree_com,
                   cinert=cinert, cdof=cdof, qM=crb(m, cinert, cdof))
     if m.nsite:
-        sb = mmath.static_tensor(m.site_bodyid, d.qpos.device, torch.int64)
-        d = d.replace(site_xpos=kin.xpos[:, sb] + torch.einsum(
-            "bsij,sj->bsi", kin.xmat[:, sb], m.site_pos),
-            site_xmat=kin.xmat[:, sb] @ mmath.quat_to_mat(m.site_quat))
+        site_xpos, site_xmat = site_frames(m, kin)
+        d = d.replace(site_xpos=site_xpos, site_xmat=site_xmat)
     return transmission(m, tendon(m, d))
 
 

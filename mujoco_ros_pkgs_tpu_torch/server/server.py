@@ -30,8 +30,9 @@ The control plane mirrors the reference's services and Step action
   on the served model's float64 master copy, which is cast to the batch's
   device and dtype and planned anew (ops/forward.make_plan), so that the
   fused route's packed parameters follow it (an integrator or solver edit
-  moves a fused model to the general route and back). An edit the port
-  cannot step (fluid) fails and leaves model, plan and batch as they were;
+  moves a fused model to the general route and back, as a fluid medium
+  does). An edit the port cannot step fails and leaves model, plan and
+  batch as they were;
 - eval mode: every mutating call checks the admin hash (callbacks.cpp:
   213-223), and the constructor refuses eval mode without one;
 - the lock discipline: one lock guards the batch, the model and the
@@ -1164,9 +1165,9 @@ class MujocoServer:
         (pyramidal facets and elliptic blocks differ in rows). Every
         integrator and solver steps on the general route; the fused route
         (K3) takes Euler and Newton alone, so an edit away from them leaves
-        it and an edit back returns to it. An option the port cannot step
-        (fluid: density, viscosity, wind) fails and leaves the model as it
-        was."""
+        it and an edit back returns to it; so does a fluid medium (density,
+        viscosity, wind), which the fused route does not take. An edit the
+        port cannot step fails and leaves the model as it was."""
         err = self._check_hash(admin_hash)
         if err:
             return err

@@ -9,9 +9,9 @@ humanoid bench: `--world HUMANOID --nenv 1024 --con-topk 48`.
 
 `--world` names a world of models/worlds.py (BOXES, PENDULUM, PILE,
 SENSORS, ARM7), models/humanoid.py (HUMANOID) or tests/torch_problems.py
-(PANDA_PICK, TENDON_ACT). SENSORS is served with a
+(PANDA_PICK, TENDON_ACT, MUSCLE_ARM, SWIMMER). SENSORS is served with a
 SensorsPlugin and bench_config3's three noise models (bench.py:160-189),
-as BASELINE config 3 runs it; ARM7 as BASELINE config 4 runs it
+as BASELINE config 3 runs it, MUSCLE_ARM with a SensorsPlugin; ARM7 as BASELINE config 4 runs it
 (bench.py:192-206): the weld on, bench_config4's ctrl, with a
 MocapPlugin and a RosControlPlugin (POSITION_PID on j4-j6), the target
 0.59 m from the end effector, as chip_smoke.py's phase 20 serves it;
@@ -31,7 +31,9 @@ the same number under torch.profiler, and prints:
 - device time per step by kernel name (top 12), and the port's kernels;
 - host time per step of each stage of the general path (smooth position,
   collision, the three sensor stages, the velocity stage's com_vel,
-  passive and rne, actuation, smooth acceleration, efc rows, solve, Euler,
+  passive (inside it the fluid forces) and rne, actuation, smooth
+  acceleration, efc rows, solve, Euler or implicitfast (inside it the fluid
+  forces' d / d qvel),
   inside the position stage the tendons and the transmission,
   inside them the broadphase's top-k (`_topk_pairs`) and the active-contact
   top-k (`_deepest`),
@@ -83,6 +85,7 @@ STAGES = ((smooth, "fwd_position_smooth"), (smooth, "tendon"), (smooth, "transmi
           (sensor, "sensor_vel"), (smooth, "actuation"),
           (smooth, "fwd_acceleration_smooth"),
           (efc, "make_efc"), (solver, "solve"), (sensor, "sensor_acc"), (fwd, "euler"),
+          (fwd, "implicitfast"), (fwd, "fluid_jacobian"), (smooth, "fluid_qfrc"),
           (SensorsPlugin, "last_stage"), (MocapPlugin, "control"),
           (RosControlPlugin, "control"))
 
@@ -157,7 +160,7 @@ def main(argv=None) -> int:
     if not isinstance(xml, str):
         sys.exit(f"profile_torch_step: no world {args.world!r} in models/worlds.py, "
                  f"models/humanoid.py or tests/torch_problems.py")
-    plugins = {"SENSORS": [SensorsPlugin()],
+    plugins = {"SENSORS": [SensorsPlugin()], "MUSCLE_ARM": [SensorsPlugin()],
                "ARM7": [MocapPlugin(), RosControlPlugin({"joints": {
                    j: {"method": "POSITION_PID", "pid": [20.0, 1.0, 0.5, 5.0],
                        "effort_limit": 20.0} for j in ("j4", "j5", "j6")}})]}

@@ -37,7 +37,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.models import worlds as jworlds
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
@@ -53,6 +52,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _to_port
 from tests.torch_problems import arm7_states
+from tests.torch_jax import jax_load
 
 NENV = 4
 
@@ -94,7 +94,7 @@ _XML = {"arm7": (worlds.ARM7, jworlds.ARM7), "equalities": (EQUALITIES, EQUALITI
 def _models(name):
     """(JAX model, port model, jitted vmapped JAX step) of a world, float64."""
     xml, jxml = _XML[name]
-    jm = jmjcf.load_model_from_string(jxml)
+    jm = jax_load(jxml)
     return (jm, mjcf.load_model_from_string(xml),
             jax.jit(jax.vmap(lambda d: jfwd.step(jm, d))))
 
@@ -268,16 +268,19 @@ def test_equalities_step_matches_jax():
 _BODY = ('<body name="b"><joint name="j" type="hinge"/><geom type="sphere" size="0.1"/>'
          '<site name="s"/></body>')
 # "tendon_equality" and "general" keep the ids they had when they held a
-# tendon equality and a <general> with dynamics, which the port now
-# compiles; they hold a spatial tendon and a muscle gain, which still raise
+# tendon equality and a <general> with dynamics, and then a spatial tendon
+# and a muscle gain, which the port now compiles; they hold a spatial
+# tendon that does not start at a site and a muscle gain on a joint with no
+# range (no lengthrange can be computed), which raise in both packages
 _RAISES = {
-    "tendon_equality": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
-                        '<equality><tendon tendon1="t"/></equality>', "spatial"),
+    "tendon_equality": ('<tendon><spatial name="t"><pulley divisor="2"/><site site="s"/>'
+                        '</spatial></tendon><equality><tendon tendon1="t"/></equality>',
+                        "must start and end at sites"),
     "distance_equality": ('<equality><distance geom1="g" geom2="h"/></equality>',
                           "distance"),
     "unknown_body": ('<equality><weld body1="ghost"/></equality>', "ghost"),
     "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>',
-                "gaintype muscle"),
+                "joint has no range"),
     "muscle": ('<actuator><muscle joint="j"/></actuator>', "muscle"),
     "mocap_with_joint": ("", "mocap"),
 }
@@ -285,8 +288,9 @@ _RAISES = {
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_elements_raise(case):
-    """Spatial tendons, distance equalities, an unknown body, muscle gains,
-    muscles and a mocap body with a joint raise ValueError at compile,
+    """A spatial tendon that does not start at a site, distance
+    equalities, an unknown body, muscles whose lengthrange cannot be
+    computed and a mocap body with a joint raise ValueError at compile,
     naming what is wrong."""
     extra, match = _RAISES[case]
     body = _BODY.replace('name="b"', 'name="b" mocap="true"') if case.startswith(
@@ -294,3 +298,6 @@ def test_unported_elements_raise(case):
     xml = f"<mujoco><worldbody>{body}</worldbody>{extra}</mujoco>"
     with pytest.raises(ValueError, match=match):
         mjcf.load_model_from_string(xml)
+    if case in ("tendon_equality", "general"):
+        with pytest.raises(ValueError, match=match):
+            jax_load(xml)

@@ -47,7 +47,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
 from mujoco_ros_pkgs_tpu.ops import solver as jsolver
@@ -59,6 +58,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import collision, efc, smooth, solver, solver
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from tests.test_torch_general import _jax_batch, _states, _to_port
 from tests.torch_problems import BIN, arm7_states, bin_states
+from tests.torch_jax import jax_load
 
 NENV = 4
 _XML = {"pendulum": worlds.PENDULUM, "bin": BIN, "arm7": worlds.ARM7}
@@ -313,4 +313,4 @@ def test_float32_step_matches_jax(name):
 
 @functools.lru_cache(maxsize=None)
 def _jax_pendulum32():
-    return jmjcf.load_model_from_string(worlds.PENDULUM, dtype=jnp.float32)
+    return jax_load(worlds.PENDULUM, dtype=jnp.float32)

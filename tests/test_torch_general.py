@@ -28,7 +28,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
@@ -40,6 +39,7 @@ from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import collision, efc
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import smooth
+from tests.torch_jax import jax_load
 
 # joint damping and springs (passive forces, Euler's implicit damping solve)
 PENDULUM_DAMPED = (worlds.PENDULUM
@@ -112,7 +112,7 @@ def _close(name, got, want, tol):
 @functools.lru_cache(maxsize=None)
 def _models64(name):
     xml = _WORLDS.get(name) or worlds.PILE
-    return jmjcf.load_model_from_string(xml), mjcf.load_model_from_string(xml)
+    return jax_load(xml), mjcf.load_model_from_string(xml)
 
 
 @pytest.fixture(scope="module", params=sorted(_WORLDS))
@@ -214,7 +214,7 @@ def test_step_matches_jax(pinned_kernels, name):
     1e-5 / atol 1e-6, qvel and qacc rtol/atol 1e-4) and 5 steps (qpos atol
     1e-4), with the JAX package's Newton kernel pinned on its side."""
     xml = _WORLDS[name]
-    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    jm = jax_load(xml, dtype=jnp.float32)
     pm = mjcf.load_model_from_string(xml, dtype=torch.float32)
     qpos, qvel = _states(NENV, seed=3)
     jd = _jax_batch(jm, qpos, qvel, jnp.float32)

@@ -30,7 +30,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
 from mujoco_ros_pkgs_tpu.ops import hfield as jhfield
@@ -44,6 +43,7 @@ from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_convex import _rot
 from tests.test_torch_general import _jax_batch, _to_port
 from tests.torch_problems import MESH_PILE, TERRAIN, terrain_states
+from tests.torch_jax import jax_load
 
 NENV = 2
 NPOSE = 32
@@ -58,7 +58,7 @@ OTHERS = {"sphere": (GeomType.SPHERE, (0.09, 0.0, 0.0)),
 @functools.lru_cache(maxsize=None)
 def _models():
     """(JAX TERRAIN, the port's TERRAIN, the port's MESH_PILE for its hull)."""
-    return (jmjcf.load_model_from_string(TERRAIN), mjcf.load_model_from_string(TERRAIN),
+    return (jax_load(TERRAIN), mjcf.load_model_from_string(TERRAIN),
             mjcf.load_model_from_string(MESH_PILE))
 
 

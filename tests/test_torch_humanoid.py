@@ -33,7 +33,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.models.humanoid import HUMANOID as JHUMANOID
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
@@ -51,6 +50,7 @@ from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _states as pendulum_states
 from tests.test_torch_general import _to_port
 from tests.torch_problems import PENDULUM_LIMITED, humanoid_states as _states_of
+from tests.torch_jax import jax_load
 
 NENV = 4
 _XML = {"humanoid": HUMANOID, "pendulum": PENDULUM_LIMITED}
@@ -60,7 +60,7 @@ _XML = {"humanoid": HUMANOID, "pendulum": PENDULUM_LIMITED}
 def _models(name, dtype):
     """(JAX model, port model) of a world in float64 or float32."""
     jdt, pdt = {"f64": (None, None), "f32": (jnp.float32, torch.float32)}[dtype]
-    return (jmjcf.load_model_from_string(_XML[name], dtype=jdt),
+    return (jax_load(_XML[name], dtype=jdt),
             mjcf.load_model_from_string(_XML[name], dtype=pdt))
 
 
@@ -208,50 +208,62 @@ def test_limited_pendulum_step_float64():
 _RAISES = {
     # each case keeps the id it had when it held a feature the port now
     # runs (a servo on a ball joint, then a mesh geom, <general>, a fixed
-    # tendon, a ball joint's limit, then the implicitfast integrator) and
-    # holds one that still raises
-    "position": ("", ValueError, "fluidshape"),
-    "general": ('<actuator><general joint="j" gaintype="muscle"/></actuator>', ValueError,
-                "muscle"),
-    "tendon": ('<tendon><spatial name="t"><site site="s"/></spatial></tendon>'
-               '<actuator><motor tendon="t"/></actuator>', ValueError, "spatial"),
-    "ball_limit": ('<option density="1.2"/>', NotImplementedError, "fluid"),
+    # tendon, a ball joint's limit, then the implicitfast integrator, then
+    # a sphere's fluidshape, a muscle gain, a spatial tendon and a fluid
+    # medium) and holds one that still raises in both packages: fluidshape
+    # on a mesh, a muscle on a joint with no range, a spatial tendon that
+    # does not start at a site, gravcomp
+    "position": ('<asset><mesh name="m" vertex="0 0 0 0.1 0 0 0 0.1 0 0 0 0.1"/></asset>',
+                 "", ValueError, "fluidshape"),
+    "general": ("", '<actuator><general joint="j" gaintype="muscle"/></actuator>',
+                ValueError, "muscle"),
+    "tendon": ("", '<tendon><spatial name="t"><pulley divisor="2"/><site site="s"/>'
+                   '</spatial></tendon><actuator><motor tendon="t"/></actuator>',
+               ValueError, "spatial"),
+    "ball_limit": ('<option density="1.2"/>', "", ValueError, "gravcomp"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_unported_features_raise(case):
-    """Fluid shapes, muscle gains and spatial tendons raise ValueError at
-    compile; fluid (a density in <option>) NotImplementedError from
-    make_plan; each names what is missing."""
-    extra, exc, match = _RAISES[case]
+    """Fluidshape on a mesh, a muscle whose lengthrange cannot be
+    computed, a malformed spatial tendon and gravcomp raise ValueError at
+    compile in the port and in the JAX package (which compiles gravcomp but
+    never applies it: the port refuses it), each naming what is wrong."""
+    head, tail, exc, match = _RAISES[case]
     joint = {"ball_limit": '<joint name="j" type="ball" range="0 0.5"/>',
-             "position": '<joint name="j" type="ball"/><geom type="sphere" size="0.1" '
+             "position": '<joint name="j" type="ball"/><geom type="mesh" mesh="m" '
                          'fluidshape="ellipsoid"/>'}.get(
                  case, '<joint name="j" type="hinge"/>')
-    xml = (f'<mujoco>{extra if case == "ball_limit" else ""}<worldbody><body>{joint}'
+    body = '<body gravcomp="1">' if case == "ball_limit" else "<body>"
+    xml = (f'<mujoco>{head}<worldbody>{body}{joint}'
            f'<geom type="sphere" size="0.1"/><site name="s"/></body></worldbody>'
-           f'{"" if case == "ball_limit" else extra}</mujoco>')
+           f'{tail}</mujoco>')
     with pytest.raises(exc, match=match):
         fwd.make_plan(mjcf.load_model_from_string(xml))
+    if case != "ball_limit":
+        with pytest.raises(exc, match=match):
+            jax_load(xml)
 
 
 def test_jax_compiled_position_actuator_raises():
     """A model compiled elsewhere (the JAX package) with a <position>
     actuator converts and plans on the general route, and so do one whose
-    servo adds an activation (<intvelocity>: an integrator, na = 1) and
-    one with an affine gain (<damper>); one with a <muscle> converts, and
-    the port refuses to step it by name."""
+    servo adds an activation (<intvelocity>: an integrator, na = 1), one
+    with an affine gain (<damper>) and one with a <muscle> (which the port
+    refused to step when this test was written), its lengthrange and acc0
+    carried across."""
     def converted(act):
         xml = ('<mujoco><worldbody><body><joint name="j"/><geom type="sphere" '
                f'size="0.1"/></body></worldbody><actuator>{act}</actuator></mujoco>')
-        return model_from_numpy(*jax_model_to_numpy(jmjcf.load_model_from_string(xml)))
+        return model_from_numpy(*jax_model_to_numpy(jax_load(xml)))
     assert fwd.make_plan(converted('<position joint="j" kp="10"/>')) == fwd.GeneralPlan()
     m = converted('<intvelocity joint="j" kp="10"/>')
     assert m.na == 1 and fwd.make_plan(m) == fwd.GeneralPlan()
     assert fwd.make_plan(converted('<damper joint="j" kv="1"/>')) == fwd.GeneralPlan()
-    with pytest.raises(NotImplementedError, match="muscle"):
-        fwd.make_plan(converted('<muscle joint="j" lengthrange="0.5 1.5"/>'))
+    m = converted('<muscle joint="j" lengthrange="0.5 1.5"/>')
+    assert fwd.make_plan(m) == fwd.GeneralPlan()
+    assert m.actuator_lengthrange.tolist() == [[0.5, 1.5]] and float(m.actuator_acc0[0]) > 0
 
 
 def test_set_ctrl_and_humanoid_server():

@@ -43,7 +43,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
 from mujoco_ros_pkgs_tpu.ops import smooth as jsmooth
 from mujoco_ros_pkgs_tpu.ops import solver_tpu as jsolver_tpu
@@ -57,6 +56,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from tests.test_torch_general import _jax_batch, _states, _to_port
 from tests.torch_problems import (CROSS_TREE_TENDON, GYRO, GYRO_QVEL0, PANDA_PICK_IF,
                                   TWO_HINGE)
+from tests.torch_jax import jax_load
 
 NENV = 3
 _XML = {"two_hinge": TWO_HINGE, "gyro": GYRO, "pendulum": worlds.PENDULUM}
@@ -65,7 +65,7 @@ _XML = {"two_hinge": TWO_HINGE, "gyro": GYRO, "pendulum": worlds.PENDULUM}
 @functools.lru_cache(maxsize=None)
 def _models(name):
     """(JAX model, port model) of a world, float64."""
-    return jmjcf.load_model_from_string(_XML[name]), mjcf.load_model_from_string(_XML[name])
+    return jax_load(_XML[name]), mjcf.load_model_from_string(_XML[name])
 
 
 def _with(name, integrator):
@@ -268,8 +268,9 @@ def test_rk4_threads_a_stateful_hook():
 
 def test_make_plan_takes_every_integrator_and_solver():
     """make_plan: PENDULUM on the general route with each integrator and
-    each solver; BOXES on the fused route with Euler and Newton only;
-    fluid still raises NotImplementedError by name."""
+    each solver; BOXES on the fused route with Euler and Newton only; a
+    fluid medium (which raised when this test was written) on the general
+    route too."""
     base = mjcf.load_model_from_string(worlds.PENDULUM)
     boxes = mjcf.load_model_from_string(worlds.BOXES)
     assert isinstance(fwd.make_plan(boxes), step_tpu.Plan)
@@ -283,5 +284,4 @@ def test_make_plan_takes_every_integrator_and_solver():
             assert isinstance(fwd.make_plan(b), step_tpu.Plan) == fused, opt
     fluid = mjcf.load_model_from_string(
         worlds.PENDULUM.replace("<option ", '<option integrator="implicit" density="1.2" ', 1))
-    with pytest.raises(NotImplementedError, match="fluid"):
-        fwd.make_plan(fluid)
+    assert fluid.has_fluid and fwd.make_plan(fluid) == fwd.GeneralPlan()

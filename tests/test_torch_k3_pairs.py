@@ -28,7 +28,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
 from mujoco_ros_pkgs_tpu.ops import narrowphase_soa as jsoa
 from mujoco_ros_pkgs_tpu.ops import step_tpu as jstep_tpu
@@ -43,6 +42,7 @@ from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _jax_batch, _to_port
 from tests.test_torch_narrowphase import E, P, _components, _flat, _poses
 from tests.torch_problems import BOX_BIN, PEGS, box_bin_states, pegs_states
+from tests.torch_jax import jax_load
 
 # a free cylinder on a world box: the pair needs MPR (convex_pair)
 CYLINDER_ON_BOX = """
@@ -127,7 +127,7 @@ def test_compile_matches_jax(body):
                                        'size="0.05"'))
     for xml in xmls:
         assert_models_equal(mjcf.load_model_from_string(xml), model_from_numpy(
-            *jax_model_to_numpy(jmjcf.load_model_from_string(xml))))
+            *jax_model_to_numpy(jax_load(xml))))
 
 
 def test_supports_matches_jax():
@@ -143,7 +143,7 @@ def test_supports_matches_jax():
     for name, xml in xmls.items():
         pm = mjcf.load_model_from_string(xml)
         got[name] = step_tpu.supports(pm)
-        jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+        jm = jax_load(xml, dtype=jnp.float32)
         assert got[name] == jstep_tpu.supports(jm), name
     assert [n for n, v in got.items() if not v] == ["PENDULUM", "PILE", "cylinder on box"]
     pm = mjcf.load_model_from_string(CYLINDER_ON_BOX)
@@ -160,7 +160,7 @@ def test_box_bin_fused_step_matches_jax():
     the interpret compile grows with the box-box pairs: 23 s with none, 46
     s with one, and with all four it ran past 14 minutes and 11 GB on a
     CPU of this suite."""
-    jm = jmjcf.load_model_from_string(BIN_ONE_WALL, dtype=jnp.float32)
+    jm = jax_load(BIN_ONE_WALL, dtype=jnp.float32)
     jparams, _ = jstep_tpu._pack_params(jm)
     jstep = jax.jit(lambda q, v, w, p: jstep_tpu.step_batched(jm, q, v, w, p))
     pm = mjcf.load_model_from_string(BIN_ONE_WALL, dtype=torch.float32)
@@ -200,7 +200,7 @@ def test_pegs_general_step_matches_jax(body):
     qacc rtol / atol 1e-4 (tests/test_torch_general.py); 5 seeded envs,
     each against another target, in contact."""
     xml = PEGS[body]
-    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    jm = jax_load(xml, dtype=jnp.float32)
     pm = mjcf.load_model_from_string(xml, dtype=torch.float32)
     assert isinstance(fwd.make_plan(pm), step_tpu.Plan)
     qpos, qvel = pegs_states(pm, 5, seed=6)

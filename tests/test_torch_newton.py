@@ -28,7 +28,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
 from mujoco_ros_pkgs_tpu.ops import smooth as jsmooth
@@ -39,6 +38,7 @@ from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import efc, narrowphase, solver
 from tests.test_torch_general import _jax_batch, _states, _to_port
 from tests.torch_problems import BIN, CHAIN, bin_states, chain_states
+from tests.torch_jax import jax_load
 
 NENV = 4
 _PROBLEMS = {"pendulum": (worlds.PENDULUM, lambda n, s: _states(n, s, tilt=0.8)),
@@ -62,7 +62,7 @@ def solved(request):
     same state."""
     name = request.param
     xml = _PROBLEMS[name][0]
-    jm, pm = jmjcf.load_model_from_string(xml), mjcf.load_model_from_string(xml)
+    jm, pm = jax_load(xml), mjcf.load_model_from_string(xml)
 
     def rows(d):
         d = jsmooth.fwd_position_smooth(jm, d)

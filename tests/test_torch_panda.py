@@ -40,7 +40,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
 from mujoco_ros_pkgs_tpu.ops import efc as jefc
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
@@ -56,6 +55,7 @@ from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _to_port
 from tests.torch_problems import (PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF,
                                   panda_grasp, panda_states)
+from tests.torch_jax import jax_load
 
 NENV = 4
 
@@ -63,7 +63,7 @@ NENV = 4
 @functools.lru_cache(maxsize=None)
 def _models():
     """(JAX model, port model, jitted vmapped JAX step), float64."""
-    jm = jmjcf.load_model_from_string(PANDA_PICK)
+    jm = jax_load(PANDA_PICK)
     return (jm, mjcf.load_model_from_string(PANDA_PICK),
             jax.jit(jax.vmap(lambda d: jfwd.step(jm, d))))
 

@@ -20,7 +20,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import forward as jfwd
 
 from mujoco_ros_pkgs_tpu_torch.core import mjcf
@@ -30,6 +29,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from tests.test_torch_general import _jax_batch, _to_port
 from tests.test_torch_newton import _batch, _slots
 from tests.torch_problems import BIN, PILE17, pile_heap
+from tests.torch_jax import jax_load
 
 
 @pytest.mark.parametrize("name", ["bin", "pile"])
@@ -39,7 +39,7 @@ def test_step_matches_jax_float32(name):
     qvel and qacc rtol / atol 1e-4. PILE runs at 2 envs from the model's own
     start, dropped 0.6 s into the bin so that its bodies touch."""
     xml = BIN if name == "bin" else worlds.PILE
-    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    jm = jax_load(xml, dtype=jnp.float32)
     pm = mjcf.load_model_from_string(xml, dtype=torch.float32)
     assert fwd.make_plan(pm) == fwd.GeneralPlan()
     if name == "bin":
@@ -95,7 +95,7 @@ def test_nv102_steps_through_the_library_solve():
     float64 step of seeded heaps against jax.vmap(fwd.step) at rtol / atol
     1e-8; linalg_tpu.chol_solve against numpy's solve."""
     pm = mjcf.load_model_from_string(PILE17, con_topk=64)
-    jm = jmjcf.load_model_from_string(PILE17, con_topk=64)
+    jm = jax_load(PILE17, con_topk=64)
     assert pm.nv == 102 and fwd.make_plan(pm) == fwd.GeneralPlan()
     qpos, qvel = pile_heap(pm, 2, seed=7)
     jd0 = _jax_batch(jm, qpos, qvel, jnp.float64, seed=7)

@@ -39,7 +39,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.models import worlds as jworlds
 from mujoco_ros_pkgs_tpu.msgs import MocapState as JMocapState
 from mujoco_ros_pkgs_tpu.msgs import Pose as JPose
@@ -61,6 +60,7 @@ from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import (
 from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from tests.test_ros_control_urdf import ARM_URDF
 from tests.torch_problems import ARM7_CTRL
+from tests.torch_jax import jax_load
 
 NENV = 4
 # every control method, hard and soft limits, PID with an integral clamp
@@ -89,7 +89,7 @@ URDF = {"robot_description": ARM_URDF, "pid_gains": {"j4": [10.0, 1.0, 0.2, 1.0]
 @functools.lru_cache(maxsize=None)
 def _models():
     """(JAX ARM7, port ARM7), float64."""
-    return (jmjcf.load_model_from_string(jworlds.ARM7),
+    return (jax_load(jworlds.ARM7),
             mjcf.load_model_from_string(worlds.ARM7))
 
 

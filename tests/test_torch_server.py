@@ -77,11 +77,11 @@ def test_reload_bad_model_keeps_serving(srv):
     assert not res.success and res.status_message
     assert srv.get_loading_request_state().value == 0
     assert srv.get_body_state("box").pose.position[2] < 0.2
-    # a model the port cannot step yet fails cleanly as well (fluid; a ball
-    # joint's limit and the implicitfast integrator, which this case held
-    # before, step now)
-    res = srv.reload(worlds.PENDULUM.replace('<option ', '<option density="1.2" ', 1))
-    assert not res.success and "not ported" in res.status_message
+    # a model the port refuses fails cleanly as well (gravcomp; a ball
+    # joint's limit, the implicitfast integrator and a fluid medium, which
+    # this case held before, step now)
+    res = srv.reload(worlds.PENDULUM.replace('<body ', '<body gravcomp="1" ', 1))
+    assert not res.success and "gravcomp" in res.status_message
     assert srv.step(1).success
     # and a good one replaces the old
     assert srv.reload(worlds.BOXES.replace('pos="0 0 0.2"', 'pos="0 0 0.5"')).success

@@ -306,21 +306,24 @@ class _GeomWatcher(MujocoPlugin):
 
 
 def test_unported_edits_fail_and_leave_the_served_model():
-    """Fluid (density, viscosity), a geom type a geom cannot be set to (a
-    mesh needs its asset), or a model the general route cannot step fails
+    """A geom type a geom cannot be set to (a mesh needs its asset) fails
     with the served model, its float64 master, the plan and the batch
     untouched; a geom edit that succeeds tells the plugins
-    (on_geom_changed)."""
+    (on_geom_changed). Fluid (density, viscosity), which failed when this
+    test was written, now succeeds: it takes BOXES off the fused route,
+    and back when the medium is gone."""
     watcher = _GeomWatcher()
     srv = MujocoServer(worlds.BOXES, nenv=2, device="cpu", plugins=[watcher])
     before = (srv.m, srv._m64, srv._plan, srv.d)
-    for props in ({"density": 1.2}, {"viscosity": 0.1}):
-        res = srv.set_physics_properties(props)
-        assert not res.success and "NotImplementedError" in res.status_message, props
-        assert (srv.m, srv._m64, srv._plan, srv.d) == before
     mesh = msgs.GeomProperties(name="box", type=int(msgs.GeomTypeMsg.MESH))
     assert not srv.set_geom_properties(mesh, set_type=True).success
     assert (srv.m, srv._m64, srv._plan, srv.d) == before and watcher.changed == []
+    for props in ({"density": 1.2}, {"viscosity": 0.1}):
+        assert srv.set_physics_properties(props).success, props
+        assert srv._m64.has_fluid and not isinstance(srv._plan, type(before[2]))
+        assert srv.step(2).success
+    assert srv.set_physics_properties({"density": 0.0, "viscosity": 0.0}).success
+    assert not srv._m64.has_fluid and isinstance(srv._plan, type(before[2]))
     props = srv.get_geom_properties("box")
     props.friction_slide = 0.4
     assert srv.set_geom_properties(props, set_friction=True).success

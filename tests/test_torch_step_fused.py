@@ -18,7 +18,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.ops import solver_tpu as jsolver_tpu
 from mujoco_ros_pkgs_tpu.ops import step_tpu as jstep_tpu
 
@@ -26,6 +25,7 @@ from mujoco_ros_pkgs_tpu_torch.core import mjcf
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, solver_tpu, step_tpu
+from tests.torch_jax import jax_load
 
 BOXES_DAMPED = worlds.BOXES.replace(
     "<freejoint/>", '<joint type="free" damping="0.05" armature="0.01"/>')
@@ -68,7 +68,7 @@ def _states(nenv, seed, z0):
 @pytest.fixture(scope="module", params=sorted(_MODELS))
 def pair(request):
     xml = _MODELS[request.param]
-    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    jm = jax_load(xml, dtype=jnp.float32)
     jparams, _ = jstep_tpu._pack_params(jm)
     jstep = jax.jit(lambda q, v, w, p: jstep_tpu.step_batched(jm, q, v, w, p))
     pm = mjcf.load_model_from_string(xml, dtype=torch.float32)
@@ -298,7 +298,7 @@ def k3_x_against_jax(path="chip_smoke_out/k3_x_envs.npz"):
     for label in sorted({key.split("_")[0] for key in keys}):
         group = [key for key in keys if key.split("_")[0] == label]
         nbox = int(label[0])
-        jm = jmjcf.load_model_from_string(box_cluster(nbox), dtype=jnp.float32)
+        jm = jax_load(box_cluster(nbox), dtype=jnp.float32)
         params, _ = jstep_tpu._pack_params(jm)
         # every shape's envs in one batch: one compile per world
         q, v, w = (np.concatenate([saved[f"{key}_{name}"] for key in group])
@@ -346,7 +346,7 @@ def jax_x_over_all_envs(nbox, nenv):
     plan64 = fwd.make_plan(m64)
     x64 = step_tpu.step_batched_plain(m64, q.double(), v.double(), w.double(),
                                       plan64.params, plan64.idx)[2].numpy()
-    jm = jmjcf.load_model_from_string(xml, dtype=jnp.float32)
+    jm = jax_load(xml, dtype=jnp.float32)
     params, _ = jstep_tpu._pack_params(jm)
     _, _, jx = jax.jit(lambda q, v, w, p: jstep_tpu.step_batched(jm, q, v, w, p))(
         q.numpy(), v.numpy(), w.numpy(), params)

@@ -56,6 +56,7 @@ from mujoco_ros_pkgs_tpu_torch.server import checkpoint
 from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _to_port
 from tests.torch_problems import TENDON_ACT, tendon_act_states
+from tests.torch_jax import jax_load
 
 NENV = 6
 
@@ -224,30 +225,41 @@ def test_tendon_act_implicitfast_steps_match_jax(monkeypatch):
                        getattr(jd, field), tol)
 
 
+# the cases keep the ids they had when the port refused spatial tendons and
+# muscles: "spatial" now compiles; the muscles are ones whose lengthrange
+# cannot be computed (a hinge with no range, a tendon nothing bounds), which
+# both packages refuse
 _RAISES = {
     "spatial": ('<tendon><spatial name="s"><site site="a"/><site site="b"/></spatial>'
-                "</tendon>", "spatial"),
-    "muscle": ('<actuator><muscle joint="j"/></actuator>', "muscle"),
-    "general_muscle": ('<actuator><general joint="j" dyntype="muscle"/></actuator>',
-                       "muscle"),
+                "</tendon>", None),
+    "muscle": ('<actuator><muscle joint="j"/></actuator>', "joint has no range"),
+    "general_muscle": ('<tendon><spatial name="s"><site site="a"/><site site="b"/>'
+                       '</spatial></tendon><actuator><general tendon="s" dyntype="muscle" '
+                       'gaintype="muscle" biastype="muscle"/></actuator>',
+                       "nothing bounds the tendon"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_RAISES))
 def test_spatial_tendons_and_muscles_raise(case):
-    """A <spatial> tendon, a <muscle> and a <general> with muscle dynamics
-    raise ValueError at compile, naming what is missing; a JAX-compiled
-    spatial tendon converts, and make_plan refuses it by name."""
+    """A <spatial> tendon compiles as the JAX package compiles it (length0
+    and invweight0 included) and plans on the general route; a <muscle> on
+    a joint with no range and a <general> muscle on a tendon that nothing
+    bounds raise ValueError at compile in both packages, naming why."""
     extra, match = _RAISES[case]
     xml = ('<mujoco><worldbody><body><joint name="j"/><geom type="sphere" size="0.1"/>'
            '<site name="a"/><site name="b" pos="0 0 0.1"/></body></worldbody>'
            f"{extra}</mujoco>")
+    if match is None:
+        pm = mjcf.load_model_from_string(xml)
+        assert_models_equal(pm, model_from_numpy(*jax_model_to_numpy(
+            jax_load(xml))))
+        assert fwd.make_plan(pm) == fwd.GeneralPlan()
+        return
     with pytest.raises(ValueError, match=match):
         mjcf.load_model_from_string(xml)
-    if case == "spatial":
-        m = model_from_numpy(*jax_model_to_numpy(jmjcf.load_model_from_string(xml)))
-        with pytest.raises(NotImplementedError, match="spatial"):
-            fwd.make_plan(m)
+    with pytest.raises(ValueError, match=match):
+        jax_load(xml)
 
 
 def test_tendon_act_server_act_and_checkpoint(tmp_path):

@@ -37,7 +37,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mujoco_ros_pkgs_tpu.core import mjcf as jmjcf
 from mujoco_ros_pkgs_tpu.core.types import GeomType as JGeomType
 from mujoco_ros_pkgs_tpu.ops import broadphase as jbp
 from mujoco_ros_pkgs_tpu.ops import collision as jcollision
@@ -57,6 +56,7 @@ from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
 from tests.test_torch_general import _jax_batch, _to_port
 from tests.torch_problems import PILE17, pile_heap
+from tests.torch_jax import jax_load
 
 NENV = 3
 PAIR_K, CON_K = 24, 8
@@ -67,7 +67,7 @@ def pile():
     """PILE with pair_topk=24, con_topk=8 in both packages (float64), the
     JAX batch of seeded heaps after its position stage and collide, and its
     efc rows (one jit), and the port's rows of the same state."""
-    jm = jmjcf.load_model_from_string(worlds.PILE, pair_topk=PAIR_K, con_topk=CON_K)
+    jm = jax_load(worlds.PILE, pair_topk=PAIR_K, con_topk=CON_K)
     pm = mjcf.load_model_from_string(worlds.PILE, pair_topk=PAIR_K, con_topk=CON_K)
     qpos, qvel = pile_heap(pm, NENV, seed=11)
     jd0 = _jax_batch(jm, qpos, qvel, jnp.float64, seed=11)

@@ -1044,3 +1044,299 @@ def terrain_states(m, nenv: int, seed: int):
     clearance = (xpos[..., 2] - reach - z).min(1).values
     qpos[:, 2] -= clearance.numpy() + 0.02
     return qpos, qvel, ctrl
+
+
+# MUSCLE_ARM: a MyoSuite-class arm of seven muscles (BASELINE config 4's
+# batch, 2048 envs): a limited ball shoulder, a limited hinge elbow and
+# wrist, a fingertip that presses on a table. Six muscles pull spatial
+# tendons with sites on every link: over a sphere at the shoulder, round a
+# cylinder at the elbow with an outside sidesite (both sides of it), round
+# a sphere at the wrist with its sidesite inside, through a pulley that
+# branches one tendon in two, and along a limited tendon; the seventh acts
+# on the wrist joint. The probe computes the lengthrange of the wrist-joint
+# muscle and of the biceps (left out below); the rest are explicit. Euler
+# and Newton over at most 8 rows (4 limits, 4 rows of the fingertip's
+# pyramidal cone), so K2 takes the solve. Its sensors cover all 36 types.
+MUSCLE_ARM_TABLE_TOP = 0.42
+MUSCLE_ARM = f"""
+<mujoco model="muscle_arm">
+  <option timestep="0.002"/>
+  <default>
+    <geom contype="0" conaffinity="0"/>
+    <muscle ctrllimited="true" ctrlrange="0 1"/>
+  </default>
+  <worldbody>
+    <geom name="table" type="box" pos="0.45 0 {MUSCLE_ARM_TABLE_TOP - 0.02}" size="0.3 0.3 0.02"
+          contype="1" conaffinity="1"/>
+    <site name="s_torso_hi" pos="-0.04 0 0.95"/>
+    <site name="s_torso_front" pos="-0.03 0 0.86"/>
+    <site name="s_torso_lo" pos="-0.02 0 0.68"/>
+    <body name="upper" pos="0 0 0.8">
+      <joint name="shoulder" type="ball" range="0 70" damping="0.3"/>
+      <geom name="upper_arm" type="capsule" fromto="0 0 0 0.28 0 -0.1" size="0.03"/>
+      <geom name="shoulder_wrap" type="sphere" size="0.045" mass="0.01"/>
+      <geom name="elbow_wrap" type="cylinder" pos="0.28 0 -0.1" zaxis="0 1 0"
+            size="0.03 0.04" mass="0.01"/>
+      <site name="ss_shoulder" pos="0.02 0 0.07"/>
+      <site name="s_upper_front" pos="0.16 0 -0.02"/>
+      <site name="s_upper_mid" pos="0.12 0.02 -0.07"/>
+      <site name="s_upper_back" pos="0.18 0 -0.1"/>
+      <site name="ss_elbow_front" pos="0.3 0 -0.04"/>
+      <site name="ss_elbow_back" pos="0.25 0 -0.16"/>
+      <site name="imu_upper" pos="0.14 0 -0.05"/>
+      <body name="fore" pos="0.28 0 -0.1">
+        <joint name="elbow" type="hinge" axis="0 1 0" range="-5 125" damping="0.1"/>
+        <geom name="forearm" type="capsule" fromto="0 0 0 0.25 0 0" size="0.025"/>
+        <geom name="wrist_wrap" type="sphere" pos="0.25 0 0" size="0.02" mass="0.005"/>
+        <site name="s_fore_prox" pos="0.06 0 0.03"/>
+        <site name="s_fore_dist" pos="0.2 0 0.025"/>
+        <site name="s_fore_under" pos="0.14 0 -0.03"/>
+        <site name="ss_wrist_in" pos="0.252 0 -0.004"/>
+        <body name="hand" pos="0.25 0 0">
+          <joint name="wrist" type="hinge" axis="0 1 0" range="-60 60" damping="0.05"/>
+          <geom name="palm" type="box" pos="0.04 0 0" size="0.04 0.03 0.01"/>
+          <geom name="tip" type="sphere" pos="0.09 0 0" size="0.015" contype="1"
+                conaffinity="1"/>
+          <site name="s_hand_top" pos="0.04 0 0.02"/>
+          <site name="s_hand_bot" pos="0.04 0 -0.02"/>
+          <site name="fingertip" pos="0.09 0 0"/>
+          <site name="range" pos="0.05 0 -0.012" zaxis="0 0 -1"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="t_delt">
+      <site site="s_torso_front"/><geom geom="shoulder_wrap" sidesite="ss_shoulder"/>
+      <site site="s_upper_front"/>
+    </spatial>
+    <spatial name="t_biceps">
+      <site site="s_torso_hi"/><site site="s_upper_front"/>
+      <geom geom="elbow_wrap" sidesite="ss_elbow_front"/><site site="s_fore_prox"/>
+    </spatial>
+    <spatial name="t_triceps">
+      <site site="s_torso_lo"/><site site="s_upper_back"/>
+      <geom geom="elbow_wrap" sidesite="ss_elbow_back"/><site site="s_fore_under"/>
+    </spatial>
+    <spatial name="t_flexor">
+      <site site="s_fore_under"/><geom geom="wrist_wrap" sidesite="ss_wrist_in"/>
+      <site site="s_hand_bot"/>
+    </spatial>
+    <spatial name="t_extensor" limited="true" range="0.08 0.12">
+      <site site="s_fore_dist"/><site site="s_hand_top"/>
+    </spatial>
+    <spatial name="t_brach">
+      <site site="s_torso_lo"/><site site="s_upper_mid"/>
+      <pulley divisor="2"/>
+      <site site="s_upper_mid"/><site site="s_fore_prox"/>
+      <pulley divisor="2"/>
+      <site site="s_upper_mid"/><site site="s_fore_under"/>
+    </spatial>
+  </tendon>
+  <actuator>
+    <muscle name="delt" tendon="t_delt" lengthrange="0.1 0.3" force="60"/>
+    <muscle name="biceps" tendon="t_biceps" force="80" tausmooth="0.02"/>
+    <muscle name="triceps" tendon="t_triceps" lengthrange="0.15 0.45" force="80"/>
+    <muscle name="flexor" tendon="t_flexor" lengthrange="0.08 0.18" scale="300"/>
+    <muscle name="extensor" tendon="t_extensor" lengthrange="0.05 0.12" force="30"/>
+    <muscle name="brach" tendon="t_brach" lengthrange="0.2 0.45" force="50"/>
+    <muscle name="wrist_m" joint="wrist" gear="0.03" force="20"/>
+  </actuator>
+  <sensor>
+    <touch name="touch" site="fingertip"/>
+    <accelerometer name="acc" site="imu_upper"/>
+    <velocimeter name="vel" site="imu_upper"/>
+    <gyro name="gyro" site="imu_upper"/>
+    <force name="force" site="imu_upper"/>
+    <torque name="torque" site="imu_upper"/>
+    <magnetometer name="mag" site="fingertip"/>
+    <rangefinder name="range" site="range"/>
+    <jointpos name="elbow_pos" joint="elbow"/>
+    <jointvel name="elbow_vel" joint="elbow"/>
+    <tendonpos name="biceps_len" tendon="t_biceps"/>
+    <tendonvel name="biceps_vel" tendon="t_biceps"/>
+    <actuatorpos name="flexor_len" actuator="flexor"/>
+    <actuatorvel name="flexor_vel" actuator="flexor"/>
+    <actuatorfrc name="biceps_frc" actuator="biceps"/>
+    <actuatorfrc name="wrist_frc" actuator="wrist_m"/>
+    <ballquat name="shoulder_quat" joint="shoulder"/>
+    <ballangvel name="shoulder_angvel" joint="shoulder"/>
+    <jointlimitpos name="elbow_lim_pos" joint="elbow"/>
+    <jointlimitvel name="elbow_lim_vel" joint="elbow"/>
+    <jointlimitfrc name="elbow_lim_frc" joint="elbow"/>
+    <jointlimitfrc name="wrist_lim_frc" joint="wrist"/>
+    <tendonlimitpos name="ext_lim_pos" tendon="t_extensor"/>
+    <tendonlimitvel name="ext_lim_vel" tendon="t_extensor"/>
+    <tendonlimitfrc name="ext_lim_frc" tendon="t_extensor"/>
+    <framepos name="tip_pos" objtype="site" objname="fingertip"/>
+    <framepos name="tip_in_fore" objtype="site" objname="fingertip" reftype="body" refname="fore"/>
+    <framequat name="hand_quat" objtype="xbody" objname="hand"/>
+    <framexaxis name="hand_x" objtype="body" objname="hand"/>
+    <frameyaxis name="fore_y" objtype="geom" objname="forearm" reftype="site" refname="imu_upper"/>
+    <framezaxis name="range_z" objtype="site" objname="range"/>
+    <framelinvel name="tip_vel" objtype="site" objname="fingertip"/>
+    <framelinvel name="tip_vel_rel" objtype="site" objname="fingertip" reftype="xbody" refname="upper"/>
+    <frameangvel name="hand_angvel" objtype="body" objname="hand"/>
+    <frameangvel name="hand_angvel_rel" objtype="body" objname="hand" reftype="body" refname="fore"/>
+    <framelinacc name="tip_acc" objtype="site" objname="fingertip"/>
+    <frameangacc name="hand_angacc" objtype="xbody" objname="hand"/>
+    <subtreecom name="arm_com" body="upper"/>
+    <subtreelinvel name="fore_linvel" body="fore"/>
+    <subtreeangmom name="arm_angmom" body="upper"/>
+    <clock name="clock"/>
+  </sensor>
+</mujoco>
+"""
+MUSCLE_ARM_NENV = 2048
+
+# SWIMMER: dm_control suite's swimmer (suite/swimmer.xml, six links) in a
+# medium (BASELINE config 1's batch, 4096 envs): a planar head (two slides
+# and a hinge) and a chain of six links on motorised hinges, the head and
+# the first three links under the inertia-box model, the last three under
+# the ellipsoid model (fluidshape on their capsules), implicitfast. Contacts
+# are off, as in the suite; the joints' limits give 6 rows.
+SWIMMER_NLINK = 6
+
+
+def _swimmer() -> str:
+    def link(i: int) -> str:
+        fluid = ' fluidshape="ellipsoid" fluidcoef="0.5 0.25 1.5 1.0 1.0"' \
+            if i >= SWIMMER_NLINK // 2 else ""
+        inner = link(i + 1) if i + 1 < SWIMMER_NLINK else ""
+        return f"""
+      <body name="segment_{i}" pos="0 -0.1 0">
+        <joint name="joint_{i}" type="hinge" pos="0 0.05 0" axis="0 0 1" limited="true"
+               range="-100 100" solreflimit="0.05 1" solimplimit="0 0.8 0.1 0.5 2" armature="1e-6"/>
+        <geom name="inertial_{i}" type="box" size="0.001 0.05 0.01" mass="0.01"/>
+        <geom name="visual_{i}" type="capsule" size="0.01" fromto="0 0.05 0 0 -0.05 0"
+              mass="0"{fluid}/>
+        <site name="site_{i}"/>{inner}
+      </body>"""
+    motors = "\n".join(f'    <motor name="motor_{i}" joint="joint_{i}"/>'
+                       for i in range(SWIMMER_NLINK))
+    return f"""
+<mujoco model="swimmer">
+  <option timestep="0.002" density="3000" viscosity="0.0009" wind="0.02 -0.01 0"
+          integrator="implicitfast">
+    <flag contact="disable"/>
+  </option>
+  <default>
+    <motor gear="5e-4" ctrllimited="true" ctrlrange="-1 1"/>
+  </default>
+  <worldbody>
+    <geom name="ground" type="plane" size="2 2 0.1"/>
+    <body name="head" pos="0 0 0.05">
+      <joint name="rootx" type="slide" axis="1 0 0"/>
+      <joint name="rooty" type="slide" axis="0 1 0"/>
+      <joint name="rootz" type="hinge" axis="0 0 1"/>
+      <geom name="head_inertial" type="box" size="0.001 0.05 0.01" mass="0.01"/>
+      <geom name="head_visual" type="capsule" size="0.01" fromto="0 0.05 0 0 -0.05 0" mass="0"/>
+      <geom name="nose" type="sphere" pos="0 0.065 0" size="0.004" mass="0"/>
+      <site name="head"/>{link(0)}
+    </body>
+  </worldbody>
+  <actuator>
+{motors}
+  </actuator>
+  <sensor>
+    <framepos name="nose_pos" objtype="geom" objname="nose"/>
+    <framequat name="head_quat" objtype="xbody" objname="head"/>
+    <framexaxis name="head_x" objtype="xbody" objname="head"/>
+    <framezaxis name="tail_z" objtype="body" objname="segment_{SWIMMER_NLINK - 1}"/>
+    <framelinvel name="head_vel" objtype="site" objname="head"/>
+    <frameangvel name="head_angvel" objtype="site" objname="head"/>
+    <framelinacc name="head_acc" objtype="site" objname="head"/>
+    <frameangacc name="head_angacc" objtype="body" objname="head"/>
+    <velocimeter name="head_velocimeter" site="head"/>
+    <gyro name="head_gyro" site="head"/>
+    <accelerometer name="head_accel" site="head"/>
+    <subtreecom name="com" body="head"/>
+    <subtreelinvel name="com_vel" body="head"/>
+    <subtreeangmom name="angmom" body="head"/>
+    <jointpos name="joint_0_pos" joint="joint_0"/>
+    <jointvel name="joint_0_vel" joint="joint_0"/>
+    <actuatorfrc name="motor_0_frc" actuator="motor_0"/>
+    <jointlimitpos name="joint_5_lim" joint="joint_{SWIMMER_NLINK - 1}"/>
+    <clock name="clock"/>
+  </sensor>
+</mujoco>
+"""
+
+
+SWIMMER = _swimmer()
+SWIMMER_NENV = 4096
+
+
+def with_lengthranges(xml: str, ranges: dict) -> str:
+    """`xml` with lengthrange="lo hi" (full precision) written into each
+    <muscle> or <general> named in `ranges` ({name: (lo, hi)}) that has
+    none, so that a compile of the result runs no lengthrange probe."""
+    import re
+
+    def fill(match):
+        tag = match.group(0)
+        name = re.search(r'name="([^"]*)"', tag)
+        if name is None or "lengthrange=" in tag or name.group(1) not in ranges:
+            return tag
+        lo, hi = ranges[name.group(1)]
+        return tag.replace(f'name="{name.group(1)}"', f'name="{name.group(1)}" '
+                           f'lengthrange="{float(lo)!r} {float(hi)!r}"', 1)
+    return re.sub(r"<(muscle|general)\b[^>]*>", fill, xml)
+
+
+# the lengthranges the port's probe computes for MUSCLE_ARM's two automatic
+# muscles (float64 on the CPU; tests/test_torch_muscle.py holds the probe to
+# them) and MUSCLE_ARM with them written in, which compiles without a probe
+MUSCLE_ARM_PROBED = {"biceps": (0.31999426013797505, 0.5688555596012015),
+                     "wrist_m": (-0.03141592653589793, 0.03141592653589793)}
+MUSCLE_ARM_EXPLICIT = with_lengthranges(MUSCLE_ARM, MUSCLE_ARM_PROBED)
+
+
+def muscle_arm_states(m, nenv: int, seed: int):
+    """Seeded float64 MUSCLE_ARM states (qpos, qvel, act, ctrl): the
+    shoulder turned by up to 20 degrees about z, the elbow bent by 0-100
+    degrees (-12 to -6 in every eighth env: past its -5 limit) and the wrist by -30-30, then the shoulder pitched about y (by
+    bisection on the port's kinematics) until the fingertip's lowest point
+    is U(-4, 20) mm above the table (in contact in about a sixth of the
+    envs); small random velocities, activations U(0, 0.6), ctrl U(0, 1)."""
+    from mujoco_ros_pkgs_tpu_torch.ops import smooth
+    rng = np.random.default_rng(seed)
+    yaw = np.deg2rad(rng.uniform(-20, 20, nenv))
+    qpos = np.zeros((nenv, m.nq))
+    qpos[:, 4] = np.deg2rad(rng.uniform(0, 100, nenv))
+    qpos[::8, 4] = np.deg2rad(rng.uniform(-12, -6, len(qpos[::8])))   # past the limit
+    qpos[:, 5] = np.deg2rad(rng.uniform(-30, 30, nenv))
+    target = MUSCLE_ARM_TABLE_TOP + 0.015 + rng.uniform(-0.004, 0.02, nenv)
+    m64 = m.to("cpu", torch.float64)
+    tip = m.geom("tip")
+    lo, hi = np.full(nenv, np.deg2rad(-40.0)), np.full(nenv, np.deg2rad(50.0))
+    for _ in range(50):
+        pitch = 0.5 * (lo + hi)
+        # q = q_yaw(z) q_pitch(y)
+        cy, sy, cp, sp = np.cos(yaw / 2), np.sin(yaw / 2), np.cos(pitch / 2), np.sin(pitch / 2)
+        qpos[:, :4] = np.stack([cy * cp, -sy * sp, cy * sp, sy * cp], 1)
+        z = smooth.kinematics(m64, torch.from_numpy(qpos)).geom_xpos[:, tip, 2].numpy()
+        low = z < target             # pitched too far down: pitch less
+        hi = np.where(low, pitch, hi)
+        lo = np.where(low, lo, pitch)
+    qvel = 0.3 * rng.normal(size=(nenv, m.nv))
+    act = rng.uniform(0.0, 0.6, size=(nenv, m.na))
+    ctrl = rng.uniform(0.0, 1.0, size=(nenv, m.nu))
+    return qpos, qvel, act, ctrl
+
+
+def swimmer_states(m, nenv: int, seed: int):
+    """Seeded float64 SWIMMER states (qpos, qvel, ctrl): the head anywhere
+    within 0.5 m and at any heading, each link bent by U(-60, 60) degrees,
+    normal velocities (0.05 m/s of the head, 0.3 rad/s of its heading, 0.5
+    of each link: at several times these, implicitfast's M - h qD loses
+    definiteness in some envs, the ellipsoid model's added-mass terms
+    outgrowing a 10 g link) and ctrl U(-1, 1)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((nenv, m.nq))
+    qpos[:, :2] = rng.uniform(-0.5, 0.5, size=(nenv, 2))
+    qpos[:, 2] = rng.uniform(-np.pi, np.pi, nenv)
+    qpos[:, 3:] = np.deg2rad(rng.uniform(-60, 60, size=(nenv, m.nq - 3)))
+    qvel = rng.normal(size=(nenv, m.nv)) * np.r_[0.05, 0.05, 0.3, [0.5] * (m.nv - 3)]
+    ctrl = rng.uniform(-1.0, 1.0, size=(nenv, m.nu))
+    return qpos, qvel, ctrl
