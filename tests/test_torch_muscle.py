@@ -5,9 +5,9 @@
   curves, against the JAX package's ops/muscle.py, to 1e-12;
 - tests/test_muscle.py's worlds (a two-muscle elbow on a joint, a muscle on
   a spatial tendon): the compile (actuator_acc0 and the muscle
-  parameters among the fields) equals the JAX package's; and one batch of
-  seeded states steps 3 times as jax.vmap(fwd.step) does (qpos, qvel 1e-9,
-  act 1e-9, qacc 1e-6);
+  parameters among the fields) equals the JAX package's; and both in one
+  model, one batch of seeded states steps 3 times as jax.vmap(fwd.step)
+  does, one jit (qpos, qvel 1e-9, act 1e-9, qacc 1e-6);
 - core/lengthrange.py: the joint route (analytic) and the tendon route
   (the damped push probe, all (actuator, direction) pairs one batch) give
   the JAX package's ranges (1e-12 and 1e-9: 400 damped steps, each env's
@@ -123,20 +123,52 @@ def test_muscle_curves_match_jax():
            jmuscle.bias(*(jnp.asarray(a) for a in args)), 1e-12)
 
 
-@pytest.fixture(scope="module")
-def worlds():
-    return {name: (mjcf.load_model_from_string(xml), jax_load(xml))
-            for name, xml in (("joint", MUSCLE_JOINT), ("tendon", MUSCLE_TENDON))}
+# both worlds as one model (the tendon world's body renamed), so that one
+# jit of the JAX package's step steps them
+MUSCLE_BOTH = """
+<mujoco model="muscle_both">
+  <option timestep="0.002"/>
+  <worldbody>
+    <body name="arm" pos="0 0 1">
+      <joint name="elbow" type="hinge" axis="0 1 0" range="-1.2 1.2" damping="0.08"/>
+      <geom type="capsule" size="0.03 0.15" fromto="0 0 0 0.3 0 0"/>
+    </body>
+    <site name="anchor" pos="1 0 1"/>
+    <body name="arm2" pos="1 0 0.7">
+      <joint name="j" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom type="capsule" size="0.03 0.12" fromto="0 0 0 0 0 -0.24"/>
+      <site name="tip" pos="0.05 0 -0.1"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="tendon1"><site site="anchor"/><site site="tip"/></spatial>
+  </tendon>
+  <actuator>
+    <muscle name="flex" joint="elbow" gear="0.05" lengthrange="-0.06 0.06" force="120"/>
+    <muscle name="ext" joint="elbow" gear="-0.05" lengthrange="-0.06 0.06" scale="400"
+            tausmooth="0.05"/>
+    <muscle name="m" tendon="tendon1" lengthrange="0.25 0.45"/>
+  </actuator>
+</mujoco>
+"""
 
 
 @pytest.mark.parametrize("name", ["joint", "tendon"])
-def test_muscle_worlds_compile_and_step_as_jax(worlds, name):
+def test_muscle_worlds_compile_as_jax(name):
     """The compile (acc0, dyntype/gaintype/biastype muscle, the <muscle>
-    defaults) equals the JAX package's; 8 seeded envs step 3 times as
-    jax.vmap(fwd.step): qpos, qvel and act 1e-9, qacc 1e-6."""
-    pm, jm = worlds[name]
-    assert_models_equal(pm, model_from_numpy(*jax_model_to_numpy(jm)))
+    defaults) equals the JAX package's."""
+    xml = {"joint": MUSCLE_JOINT, "tendon": MUSCLE_TENDON}[name]
+    pm = mjcf.load_model_from_string(xml)
+    assert_models_equal(pm, model_from_numpy(*jax_model_to_numpy(jax_load(xml))))
     assert all(float(a) > 0 for a in pm.actuator_acc0)
+
+
+def test_muscle_worlds_step_as_jax():
+    """Both worlds in one model: 8 seeded envs step 3 times as
+    jax.vmap(fwd.step) (one jit): qpos, qvel, act and the muscles' forces
+    1e-9, qacc 1e-6."""
+    pm, jm = mjcf.load_model_from_string(MUSCLE_BOTH), jax_load(MUSCLE_BOTH)
+    assert_models_equal(pm, model_from_numpy(*jax_model_to_numpy(jm)))
     rng = np.random.default_rng(1)
     B = 8
     qpos = rng.uniform(-0.6, 0.6, size=(B, pm.nq))
@@ -155,9 +187,8 @@ def test_muscle_worlds_compile_and_step_as_jax(worlds, name):
         pd, jd = fwd.step(pm, pd, plan), jstep(jd)
         for field, tol in (("qpos", 1e-9), ("qvel", 1e-9), ("act", 1e-9), ("qacc", 1e-6),
                            ("actuator_force", 1e-9)):
-            _close(f"{name} {field} step {k}", getattr(pd, field).numpy(),
-                   getattr(jd, field), tol)
-    assert float(pd.actuator_force.abs().max()) > 0
+            _close(f"{field} step {k}", getattr(pd, field).numpy(), getattr(jd, field), tol)
+    assert bool((pd.actuator_force.abs() > 0).all(0).all())
 
 
 def test_lengthrange_joint_route_matches_jax():
