@@ -21,9 +21,9 @@ Phases (any failure raises; the exit code is then not 0):
      step keep them floating, a bad reload fails and the server keeps
      answering; the launch counts, zeroed before, must count these steps;
   5. fused step timing: env-steps/s of the kernel and of the plain path at
-     4096 and 65536 envs, 200 steps after warm-up, CUDA events; the Newton
-     trips of those states (mean, max); K3's device time per call from
-     CUDA-graph replay; K3 at every group width on BOXES and on one body
+     4096 and 65536 envs, 200 steps (the plain path's 20) after warm-up,
+     CUDA events; the Newton trips of those states (mean, max); K3's device
+     time per call from CUDA-graph replay; K3 at every group width on BOXES and on one body
      with 3 and 5 boxes at 4096 and 65536 envs, each held against the plain
      step first, and its solver x against the float64 plain step at a
      bound derived from float64 (held_against_f64); on 3 and 5 boxes the
@@ -59,8 +59,8 @@ Phases (any failure raises; the exit code is then not 0):
      rtol 1e-5 / atol 1e-6, qvel rtol/atol 1e-4, qacc rtol/atol 1e-3 after
      1 step; qpos atol 1e-4 after 5);
   9. PENDULUM main path: MujocoServer(PENDULUM, nenv=4096) on the default
-     device steps 1000 times (timed), everything stays finite, the free ball
-     settles on the ground, K1 and K2 each launch once per step; a damped
+     device steps GENERAL_STEPS times (timed), everything stays finite, the
+     free ball settles on the ground, K1 and K2 each launch once per step; a damped
      PENDULUM steps 10 times (K1 twice per step: the mass matrix and Euler's
      damping solve); the general step's ms/step from CUDA events, with the
      kernels and with their plain versions;
@@ -285,7 +285,9 @@ Phases (any failure raises; the exit code is then not 0):
      SWIMMER at SWIMMER_NENV (both fluid models, implicitfast): (b) the
      server from the model's start: its load's seconds and the probe's,
      P34_STEPS steps by the wall clock (env-steps/s), K1 2 and K2 1 a step,
-     K3 0, host syncs a step (5 steps), finite; (a) seeded states: K2 on the
+     K3 0, host syncs a step (5 steps), finite; (a) seeded states (SWIMMER's
+     links at swimmer_states' speeds, those of full-ctrl gaits), on the
+     server's compile: K2 on the
      world's rows against plain (1e-3, or held against float64 by
      held_stage), K1 on every solve of one step against plain (1e-4 /
      1e-5), one step with the kernels against plain (qpos, act rtol 1e-5 /
@@ -294,7 +296,8 @@ Phases (any failure raises; the exit code is then not 0):
      them, held against the float64 step by hold_field), every sensor
      finite, MUSCLE_ARM's touch 0 off contact and > 0 in most envs with the
      fingertip's contact active, its limit forces non-zero in some envs;
-     (c) save_xml, reload (no probe), one step bit for bit; then fwd.step
+     (c) save_xml (every muscle's lengthrange written as compiled), reload
+     (no probe), one step bit for bit; then fwd.step
      ms by CUDA events, K1 on the mass matrix and K2 on the rows timed
      (graph replay, one call at a time, plain, bound, cholesky +
      cholesky_solve); the phase's seconds.
@@ -324,13 +327,14 @@ import tempfile
 import threading
 import time
 import warnings
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
 
 from mujoco_ros_pkgs_tpu_torch import kernels
 from mujoco_ros_pkgs_tpu_torch.core import lengthrange, mjcf
-from mujoco_ros_pkgs_tpu_torch.core.types import GeomType
+from mujoco_ros_pkgs_tpu_torch.core.types import GainType, GeomType, IntegratorType
 from mujoco_ros_pkgs_tpu_torch.models import worlds
 from mujoco_ros_pkgs_tpu_torch.models.humanoid import HUMANOID
 from mujoco_ros_pkgs_tpu_torch.ops import broadphase, collision, efc, narrowphase
@@ -370,6 +374,9 @@ PENDULUM_DAMPED = (worlds.PENDULUM
                             'pos="0 0 0.6" axis="0 1 0" damping="0.1" stiffness="2"/>')
                    .replace('<freejoint/>', '<joint type="free" damping="0.01"/>'))
 NENV = 4096
+# the PENDULUM server's steps (phase 9): its ball rests by then (speed
+# 5.374e-7 on an H100 after 400 steps, 5.375e-7 after 1000)
+GENERAL_STEPS = 400
 # the PILE server's steps (phase 11), about 20 s of the card's time
 PILE_STEPS = 200
 # HUMANOID's batch (BASELINE's humanoid bench: bench.py NENV // 4), the steps
@@ -616,8 +623,9 @@ def timing(card):
 
     out = {}
     for nenv in (NENV, 65536):
-        for name, fn, warm in (("kernel", kernel, 20), ("plain", plain, 3)):
-            ms = time_steps(fn, *states(nenv, seed=1), nsteps=200, warmup=warm)
+        # the plain step takes some 250 ms: 20 of them time it
+        for name, fn, n, warm in (("kernel", kernel, 200, 20), ("plain", plain, 20, 2)):
+            ms = time_steps(fn, *states(nenv, seed=1), nsteps=n, warmup=warm)
             out[(name, nenv)] = ms
             print(f"[timing] {name} nenv={nenv}: {ms:.4f} ms/step, "
                   f"{nenv / ms * 1e3:.4g} env-steps/s ({card})", flush=True)
@@ -1188,12 +1196,13 @@ def general_main_path():
     assert srv.device.type == "cuda", f"the server's default device is {srv.device}"
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    assert srv.step(1000).success
+    assert srv.step(GENERAL_STEPS).success
     torch.cuda.synchronize()
     t_step = time.perf_counter() - t1
     launches = {"psd_solve": kernels.psd_solve.launches,
                 "newton_solve": kernels.newton_solve.launches}
-    assert launches == {"psd_solve": 1000, "newton_solve": 1000}, launches
+    assert launches == {"psd_solve": GENERAL_STEPS, "newton_solve": GENERAL_STEPS}, \
+        launches
     assert kernels.psd_solve.width == kernels.psd_width(srv.m.nv), kernels.psd_solve.width
     assert kernels.step_fused.launches == 0
     st = srv.get_batch_state()
@@ -1204,8 +1213,8 @@ def general_main_path():
     b = srv.get_body_state("ball", env_id=NENV - 1)
     z, speed = float(b.pose.position[2]), float(np.linalg.norm(b.twist.linear))
     zs = st["qpos"][:, 8]
-    print(f"[general main path] server step(1000) of PENDULUM x {NENV}: "
-          f"{t_step:.3f}s wall, {NENV * 1000 / t_step:.4g} env-steps/s; ball z "
+    print(f"[general main path] server step({GENERAL_STEPS}) of PENDULUM x {NENV}: "
+          f"{t_step:.3f}s wall, {NENV * GENERAL_STEPS / t_step:.4g} env-steps/s; ball z "
           f"env{NENV - 1}={z:.6f} speed={speed:.3e}, z over envs "
           f"min={zs.min():.6f} max={zs.max():.6f}; max |qvel|="
           f"{np.abs(st['qvel']).max():.3e}; launches {launches}, K1 at "
@@ -1213,7 +1222,7 @@ def general_main_path():
     # measured on an H100: z = 0.049633 (soft-contact penetration 3.7e-4)
     # and speed 5.4e-7; bounds keep a 4x and 100x margin
     assert abs(z - 0.05) < 1.5e-3, f"ball z={z} not settled near its radius 0.05"
-    assert speed < 1e-4, f"ball speed {speed} after 1000 steps"
+    assert speed < 1e-4, f"ball speed {speed} after {GENERAL_STEPS} steps"
 
     zero_counts()
     srv_d = MujocoServer(PENDULUM_DAMPED, nenv=NENV, unpause=False)
@@ -3972,8 +3981,10 @@ def p34_columns(m, stage):
             for k in range(m.sensor_dim[i])]
 
 
-def p34_vs_plain(label, xml, nenv):
-    """34a: seeded states with the kernels and with their plain versions:
+def p34_vs_plain(label, m64, nenv):
+    """34a, on the model the 34b server compiled (its float64 master, so the
+    lengthrange probe runs once, at the server's load): seeded states with
+    the kernels and with their plain versions:
     K2 on the world's own rows (phase 7's 1e-3, or, in envs past it, both
     held against the float64 plain solve: held_stage), K1 on every solve of
     one step (1e-4 / 1e-5, as phase 30a), one step (qpos, act rtol 1e-5 /
@@ -3982,11 +3993,18 @@ def p34_vs_plain(label, xml, nenv):
     the float64 step by hold_field where envs are past it) with K1 and K2
     as P34_LAUNCHES says; every sensor finite; MUSCLE_ARM's touch 0 where
     the fingertip's contact is inactive and > 0 in most envs where it is
-    active, its limit and tendon-limit forces non-zero in some envs."""
-    m = mjcf.load_model_from_string(xml, dtype=torch.float32).to("cuda")
+    active, its limit and tendon-limit forces non-zero in some envs.
+    SWIMMER's envs whose implicitfast matrix is indefinite (p34_indefinite,
+    ROADMAP C14: at most 1 in 100) are named, and there the K1 solves and
+    the step are held to nothing but the step's non-finite envs lie among
+    them."""
+    m = m64.to("cuda", torch.float32)
     plan = fwd.make_plan(m)
     assert plan == fwd.GeneralPlan() and not step_tpu.supports(m), label
     d = p34_data(label, m, nenv, seed=34)
+    c14 = p34_indefinite(m64, d)
+    keep = ~c14
+    assert int(c14.sum()) <= nenv // 100, f"{label}: C14 in {int(c14.sum())} envs"
     static, args = rows_problem(m, d, seed=34)
     got = solver_tpu.solve_batched(*static, **args)
     want = solver_tpu.solve_batched_plain(*static, **args)
@@ -3999,8 +4017,8 @@ def p34_vs_plain(label, xml, nenv):
     solves = captured_solves(m, d, plan)
     assert len(solves) == P34_LAUNCHES[0], len(solves)
     for k, (H, g) in enumerate(solves):
-        errs[f"k1_{k}"] = close(f"34a {label} K1 solve {k}", linalg_tpu.psd_solve(H, g),
-                                linalg_tpu.psd_solve_plain(H, g), 1e-4, 1e-5)
+        errs[f"k1_{k}"] = close(f"34a {label} K1 solve {k}", linalg_tpu.psd_solve(H, g)[keep],
+                                linalg_tpu.psd_solve_plain(H, g)[keep], 1e-4, 1e-5)
     zero_counts()
     dk = fwd.step(m, d, plan)
     torch.cuda.synchronize()
@@ -4014,9 +4032,8 @@ def p34_vs_plain(label, xml, nenv):
 
     def float64_step():
         if not x64:
-            m64 = mjcf.load_model_from_string(xml, dtype=torch.float64).to("cuda")
             with plain_versions():
-                x64["d"] = fwd.step(m64, data_as(d, torch.float64))
+                x64["d"] = fwd.step(m64.to("cuda"), data_as(d, torch.float64))
         return x64["d"]
     checks = [("qpos", slice(None), 1e-5, 1e-6), ("qvel", slice(None), 1e-4, 1e-4),
               ("qacc", slice(None), 1e-3, 1e-3)]
@@ -4028,16 +4045,21 @@ def p34_vs_plain(label, xml, nenv):
             checks.append(("sensordata", cols, tol, tol, stage))
     for field, cols, rtol, atol, *stage in checks:
         name = f"{field}_{stage[0]}" if stage else field
-        got_f, want_f = getattr(dk, field)[:, cols], getattr(dp, field)[:, cols]
+        got_f, want_f = getattr(dk, field)[keep][:, cols], getattr(dp, field)[keep][:, cols]
         if bool(((got_f - want_f).abs() > atol + rtol * want_f.abs()).any()):
             errs[name] = hold_field(f"{label} {name}", got_f, want_f,
-                                    getattr(float64_step(), field)[:, cols], rtol, atol,
+                                    getattr(float64_step(), field)[keep][:, cols], rtol, atol,
                                     tag="34a")
         else:
             errs[name] = float((got_f - want_f).abs().max())
-    assert all(bool(torch.isfinite(t).all()) for t in (dk.qpos, dk.qvel, dk.qacc,
-                                                       dk.sensordata))
+    finite = torch.stack([torch.isfinite(t).all(-1) for t in (dk.qpos, dk.qvel, dk.qacc,
+                                                               dk.sensordata)]).all(0)
+    assert bool((finite | c14).all()), f"{label}: non-finite envs outside C14's"
     note = ""
+    if bool(c14.any()):
+        note = (f"implicitfast's M - h qD indefinite (ROADMAP C14) in envs "
+                f"{torch.nonzero(c14).flatten().tolist()} of {nenv}, the step non-finite in "
+                f"{torch.nonzero(~finite).flatten().tolist()}: held to nothing there; ")
     if label == "MUSCLE_ARM":
         sd = dk.sensordata
         touch = sd[:, m.sensor_adr[m.sensor("touch")]]
@@ -4048,13 +4070,25 @@ def p34_vs_plain(label, xml, nenv):
         lim = {n: int((sd[:, m.sensor_adr[m.sensor(n)]] != 0).sum())
                for n in ("elbow_lim_frc", "ext_lim_frc")}
         assert all(v > 0 for v in lim.values()), lim
-        note = (f"touch > 0 in {pressing} of the {int(active.sum())} envs with the "
+        note += (f"touch > 0 in {pressing} of the {int(active.sum())} envs with the "
                 f"fingertip's contact active, 0 in all {int((~active).sum())} without; envs "
                 f"with a limit force {lim}; ")
     print(f"[34a {label} vs plain] nenv={nenv}: launches of one step (K1, K2, K3) "
           f"{launches}; {note}" + " ".join(f"{k}={v:.3e}" for k, v in errs.items()),
           flush=True)
     return m, plan, d, static, args, solves, max(errs.values())
+
+
+def p34_indefinite(m64, d):
+    """(B,) bool: the envs of d where implicitfast's M - h qD, built in
+    float64 by the plain versions, is not positive definite (ROADMAP C14:
+    there the JAX package's Cholesky gives NaN); none for other integrators."""
+    if int(m64.opt.integrator) != int(IntegratorType.IMPLICITFAST):
+        return torch.zeros(d.qpos.shape[0], dtype=torch.bool, device=d.qpos.device)
+    m64 = m64.to("cuda")
+    with plain_versions():
+        d64 = fwd.forward(m64, data_as(d, torch.float64))
+    return torch.linalg.eigvalsh(fwd.implicitfast_matrix(m64, d64)).min(-1).values <= 0
 
 
 def p34_server(label, xml, nenv):
@@ -4105,6 +4139,15 @@ def p34_save_xml(label, srv, tmp):
     bit, to the original model's."""
     path = os.path.join(tmp, f"{label}.xml")
     assert srv.save_xml(path).status_message == path
+    m64 = srv._m64
+    with open(path) as f:
+        written = {e.get("name"): e.get("lengthrange")
+                   for e in ET.fromstring(f.read()).find("actuator")}
+    muscles = [i for i in range(m64.nu) if m64.actuator_gaintype[i] == int(GainType.MUSCLE)]
+    for i in muscles:
+        lr = written[m64.actuator_names[i]]
+        assert lr is not None and [float(v) for v in lr.split()] == \
+            m64.actuator_lengthrange[i].tolist(), f"{label}: {m64.actuator_names[i]}'s lengthrange"
     with srv._lock:
         d0 = srv.d
     steps = []
@@ -4120,8 +4163,9 @@ def p34_save_xml(label, srv, tmp):
     fields = ("qpos", "qvel", "act", "qacc", "efc_force_contact", "sensordata", "time")
     differ = [f for f in fields if not torch.equal(getattr(steps[0], f), getattr(steps[1], f))]
     assert not differ, f"{label}: the reloaded model steps otherwise: {differ}"
-    print(f"[34c {label}] save_xml + reload (no probe): one step equal bit for bit "
-          f"({', '.join(fields)})", flush=True)
+    print(f"[34c {label}] save_xml: the {len(muscles)} muscles' lengthranges written as "
+          f"compiled; reload (no probe): one step equal bit for bit ({', '.join(fields)})",
+          flush=True)
 
 
 def p34_phase(card):
@@ -4132,7 +4176,7 @@ def p34_phase(card):
     k1_out, k2_out = {}, {}
     for label, (xml, nenv) in P34.items():
         srv, run = p34_server(label, xml, nenv)
-        m, plan, d, static, args, solves, err = p34_vs_plain(label, xml, nenv)
+        m, plan, d, static, args, solves, err = p34_vs_plain(label, srv._m64, nenv)
         with tempfile.TemporaryDirectory() as tmp:
             p34_save_xml(label, srv, tmp)
         del srv
@@ -4174,6 +4218,10 @@ def entry(name, source, replaces, launches, err, t, group, library_ms=None):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required")
+    start = time.perf_counter()
+
+    def elapsed(through):
+        print(f"[elapsed] {time.perf_counter() - start:.1f}s through {through}", flush=True)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -4201,14 +4249,19 @@ def main():
                kernel_vs_plain(BOXES_DAMPED, "boxes_damped"))
     launches3 = main_path()
     t3 = timing(card)
+    elapsed("phases 1-5")
     err1, t1 = k1_phase(card)
+    elapsed("K1")
     err2, t2 = k2_phase(card)
+    elapsed("K2")
     m, plan, d = general_vs_plain()
     launches12, _ = general_main_path()
     general_timing(card, m, plan, d)
+    elapsed("general")
     mp, planp, dp, err_pile = pile_vs_plain(card)
     launches_pile, _ = pile_main_path(tf32_default)
     tp = pile_timing(card, mp, planp, dp)
+    elapsed("PILE")
     t1["pile"] = {"launches": launches_pile, "steps": PILE_STEPS, "max_abs_err": err_pile,
                   "graph_ms_512": tp[("graph", 512)], "graph_ms_4096": tp[("graph", 4096)],
                   "bound_ms_512": tp[("bound", 512)][0],
@@ -4217,6 +4270,7 @@ def main():
     mh, planh, dh, err_h = humanoid_vs_plain(card)
     launches_h, t_h, trips_env, trips_batch = humanoid_main_path()
     th = humanoid_timing(card, mh, planh, dh)
+    elapsed("HUMANOID")
     n1, n4 = HUMANOID_NENV, 4 * HUMANOID_NENV
     t1["humanoid"] = {
         "launches": launches_h, "steps": HUMANOID_STEPS,
@@ -4232,6 +4286,7 @@ def main():
     ms_, plans_, ds_, err_s = sensors_vs_plain(card)
     launches_s, t_s = sensors_main_path()
     ts, ts1, ts2 = sensors_timing(card, ms_, plans_, ds_)
+    elapsed("SENSORS")
     sensors = {"nenv": SENSORS_NENV, "steps": SENSORS_STEPS,
                "env_steps_per_s": SENSORS_NENV * SENSORS_STEPS / t_s, **ts}
     t1["sensors"] = dict(sensors, launches=launches_s["psd_solve"], max_abs_err=err_s,
@@ -4245,6 +4300,7 @@ def main():
     ma, plana, da, err_a = arm7_vs_plain(card)
     launches_a, t_a, trips_env_a, trips_batch_a = arm7_main_path()
     ta = arm7_timing(card, ma, plana, da)
+    elapsed("ARM7")
     t1["arm7"] = {"nenv": ARM7_NENV, "steps": ARM7_STEPS, "launches": launches_a,
                   "launches_per_step": launches_a / ARM7_STEPS, "max_abs_err": err_a,
                   "env_steps_per_s": ARM7_NENV * ARM7_STEPS / t_a,
@@ -4298,6 +4354,7 @@ def main():
     compact["c7_worst_ratio"] = c7_margins(card)
     print(f"[compaction] phases 22-27 in {time.perf_counter() - t0c:.1f}s", flush=True)
     t1.update(compact)
+    elapsed("22-27")
 
     # phase 28: the server's control plane
     t0s = time.perf_counter()
@@ -4307,6 +4364,7 @@ def main():
         err3 = max(err3, boxes_edits(card))
         t1["arm7"]["checkpoint"] = arm7_checkpoint(card, tmp)
     print(f"[server] phase 28 in {time.perf_counter() - t0s:.1f}s", flush=True)
+    elapsed("28")
 
     # phase 29: K3's twelve pair primitives
     t0p = time.perf_counter()
@@ -4328,6 +4386,7 @@ def main():
     pegs = {label: e for label, e in errs_p.items() if label != "BIN"}
     pegs["active_envs"] = counts_p
     print(f"[29] phase 29 in {time.perf_counter() - t0p:.1f}s", flush=True)
+    elapsed("29")
 
     # phase 30: the rows, actuators and fixed tendons of real robot models
     t0r = time.perf_counter()
@@ -4346,15 +4405,20 @@ def main():
                   "bound_ms": tt["bound"][0], "bound_by": tt["bound"][1],
                   "newton_trips_mean": float(tt["trips"].mean())}
     print(f"[30] phase 30 in {time.perf_counter() - t0r:.1f}s", flush=True)
+    elapsed("30")
 
     # phase 31: the other integrators and solvers
     a8 = a8_phase(card, panda["held_envs"])
+    elapsed("31")
     # phase 32: mesh and height-field worlds
     p32 = p32_phase(card)
+    elapsed("32")
     # phase 33: the server's cameras
     p33 = p33_phase(card)
+    elapsed("33")
     # phase 34: spatial tendons, muscles, fluid and every sensor type
     p34_k1, p34_k2 = p34_phase(card)
+    elapsed("34")
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)

@@ -17,23 +17,21 @@ Counterpart of mujoco_ros_pkgs_tpu/core/lengthrange.py. A muscle without a
 - anything unbounded, or a probe that diverges or finds a degenerate
   range, raises ValueError naming the actuator, as the JAX package does.
 
-The probe prints its seconds to stderr and keeps them in LAST_PROBE_SECONDS;
-its results are kept for the process, so a reload of the same model does
-not probe again. The probe model also drops the sensors, which feed nothing
-back into the motion.
+The probe prints its seconds to stderr and keeps them in LAST_PROBE_SECONDS.
+The probe model also drops the sensors, which feed nothing back into the
+motion. core/mjcf_writer.py writes the computed ranges, so a saved model
+loads without a probe.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import sys
 import time
 
 import numpy as np
 import torch
 
-from mujoco_ros_pkgs_tpu_torch.core import types
 from mujoco_ros_pkgs_tpu_torch.core.types import (
     BiasType, DisableBit, GainType, JointType, Model, TrnType,
 )
@@ -61,22 +59,6 @@ def _probe_model(m: Model) -> Model:
     flags = (int(m.opt.disableflags) | DisableBit.CONTACT | DisableBit.GRAVITY
              | DisableBit.ACTUATION | DisableBit.PASSIVE | DisableBit.SENSOR)
     return dataclasses.replace(m, opt=dataclasses.replace(m.opt, disableflags=int(flags)))
-
-
-def _model_key(m: Model, acts) -> bytes:
-    """Everything of `m` the probe reads, as bytes (the probe's memo key)."""
-    parts = [repr(acts).encode()]
-    for obj, cls in ((m, Model), (m.opt, type(m.opt))):
-        for name in types.static_fields(cls):
-            parts.append(repr(getattr(obj, name)).encode())
-        for name in types.array_fields(cls):
-            parts.append(getattr(obj, name).detach().cpu().numpy().tobytes())
-    return hashlib.sha256(b"|".join(parts)).digest()
-
-
-# probe results of this process by _model_key: a reload of the same model
-# does not probe again
-_MEMO: dict = {}
 
 
 def _simulate_ranges(m: Model, acts) -> np.ndarray:
@@ -145,14 +127,11 @@ def apply_auto_lengthrange(m: Model) -> Model:
                 f"muscle actuator '{name}' needs an explicit lengthrange "
                 "(automatic computation supports joint/tendon transmission)")
     if probe:
-        key = _model_key(m, probe)
-        if key not in _MEMO:
-            t0 = time.perf_counter()
-            _MEMO[key] = _simulate_ranges(m, probe)
-            LAST_PROBE_SECONDS = time.perf_counter() - t0
-            print(f"lengthrange probe: {len(probe)} actuators, {2 * len(probe)} envs x "
-                  f"{_NSTEP} steps in {LAST_PROBE_SECONDS:.3f} s", file=sys.stderr)
-        lr[probe] = _MEMO[key]
+        t0 = time.perf_counter()
+        lr[probe] = _simulate_ranges(m, probe)
+        LAST_PROBE_SECONDS = time.perf_counter() - t0
+        print(f"lengthrange probe: {len(probe)} actuators, {2 * len(probe)} envs x "
+              f"{_NSTEP} steps in {LAST_PROBE_SECONDS:.3f} s", file=sys.stderr)
     for i in np.nonzero(need)[0]:
         name = m.actuator_names[i] if m.actuator_names else str(i)
         lo, hi = lr[i]

@@ -306,18 +306,23 @@ def qderiv_sparsity(m: Model, simple_truncate: bool) -> np.ndarray:
                                  m.dof_simple, m.nv, simple_truncate)
 
 
-def implicitfast(m: Model, d: Data) -> Data:
-    """mj_implicit's fast variant: solve (M - h qD) qacc = qfrc_smooth +
-    qfrc_constraint with qD = _qderiv_smooth masked by qderiv_sparsity
-    (simple dofs truncated), the matrix symmetrised; the solve is K1 up to
-    nv = 96 (linalg_tpu.solve)."""
+def implicitfast_matrix(m: Model, d: Data) -> torch.Tensor:
+    """implicitfast's (B, nv, nv) M - h qD: qD = _qderiv_smooth masked by
+    qderiv_sparsity (simple dofs truncated), the matrix symmetrised. The
+    ellipsoid fluid model's qD can make it indefinite (ROADMAP C14)."""
     dtype = d.qpos.dtype
-    h = m.opt.timestep.to(dtype)
     qD = _qderiv_smooth(m, d) * mmath.static_tensor(
         qderiv_sparsity(m, simple_truncate=True), d.qpos.device, dtype)
-    A = d.qM - h * qD
-    A = 0.5 * (A + A.mT)
-    return _advance(m, d, linalg_tpu.solve(A, d.qfrc_smooth + d.qfrc_constraint))
+    A = d.qM - m.opt.timestep.to(dtype) * qD
+    return 0.5 * (A + A.mT)
+
+
+def implicitfast(m: Model, d: Data) -> Data:
+    """mj_implicit's fast variant: solve implicitfast_matrix(m, d) qacc =
+    qfrc_smooth + qfrc_constraint; the solve is K1 up to nv = 96
+    (linalg_tpu.solve)."""
+    return _advance(m, d, linalg_tpu.solve(implicitfast_matrix(m, d),
+                                           d.qfrc_smooth + d.qfrc_constraint))
 
 
 def bias_jacobian(m: Model, d: Data) -> torch.Tensor:

@@ -492,10 +492,11 @@ _AXES = (int(SensorType.FRAMEXAXIS), int(SensorType.FRAMEYAXIS), int(SensorType.
 _RNE_POST_TYPES = (int(SensorType.ACCELEROMETER), int(SensorType.FORCE),
                    int(SensorType.TORQUE), int(SensorType.FRAMELINACC),
                    int(SensorType.FRAMEANGACC))
+# the types that read the solver's forces by its row layout
+_ROW_TYPES = (int(SensorType.TOUCH), int(SensorType.JOINTLIMITFRC),
+              int(SensorType.TENDONLIMITFRC))
 # the stage that computes each type, as the JAX package places them
-ACC_TYPES = frozenset(_RNE_POST_TYPES + (
-    int(SensorType.TOUCH), int(SensorType.ACTUATORFRC), int(SensorType.JOINTLIMITFRC),
-    int(SensorType.TENDONLIMITFRC)))
+ACC_TYPES = frozenset(_RNE_POST_TYPES + _ROW_TYPES + (int(SensorType.ACTUATORFRC),))
 VEL_TYPES = frozenset(int(t) for t in (
     SensorType.VELOCIMETER, SensorType.GYRO, SensorType.JOINTVEL, SensorType.BALLANGVEL,
     SensorType.TENDONVEL, SensorType.ACTUATORVEL, SensorType.FRAMELINVEL,
@@ -563,7 +564,9 @@ def sensor_acc(m: Model, d: Data) -> Data:
     cacc = cfrc_int = None
     if any(t in _RNE_POST_TYPES for t in m.sensor_type):
         cacc, cfrc_int = _rne_post(m, d)
-    layout = efc_mod.row_layout(m)
+    # the solver's row layout, for the sensors that read constraint forces
+    layout = (efc_mod.row_layout(m) if any(t in _ROW_TYPES for t in m.sensor_type)
+              else None)
     vals = []
     for i in range(m.nsensor):
         st, ot, oid = m.sensor_type[i], m.sensor_objtype[i], m.sensor_objid[i]

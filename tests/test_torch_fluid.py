@@ -16,6 +16,11 @@
   implicitfast (the fluid's d / d qvel masked by the simple-dof sparsity)
   and implicit equal the JAX package's forward and integrator (each jitted
   once): qpos and qvel to 1e-9, qacc to 1e-7;
+- SWIMMER at 5 rad/s links (ROADMAP C14): the JAX package's implicitfast
+  gives NaN in exactly the envs where the port's M - h qD is indefinite,
+  the port's step equals it elsewhere, and libmujoco steps them all; and
+  swimmer_states' speeds cover libmujoco's full-ctrl gaits, along which
+  M - h qD stays positive definite;
 - SWIMMER's save_xml: written, reloaded and stepped once, bit for bit.
 
 The JAX models load through tests/torch_jax.jax_load (set_constants under
@@ -42,7 +47,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import smooth
 
 from tests.test_torch_compile import assert_models_equal, jax_model_to_numpy
-from tests.torch_problems import SWIMMER, swimmer_states
+from tests.torch_problems import SWIMMER, swimmer_gait_states, swimmer_states
 from tests.torch_jax import jax_load
 
 # tests/test_fluid.py's worlds
@@ -146,7 +151,25 @@ def swimmer():
     pd = fwd.make_data(pm, NENV).replace(**{k: torch.from_numpy(v) for k, v in
                                             zip(names, (qpos, qvel, ctrl))})
     jforward = jax.jit(jax.vmap(lambda d: jfwd.forward(jm, d)))
-    return pm, jm, pd, jd, jforward
+    return pm, jm, pd, jd, jforward, {}
+
+
+def _jax_integrator(swimmer, integrator: str):
+    """The JAX package's integrator on SWIMMER with opt.integrator set to
+    `integrator`, vmapped and jitted once a module: (jm, the function)."""
+    _, jm, _, _, _, jints = swimmer
+    if integrator not in jints:
+        jm = jm.replace(opt=jm.opt.replace(integrator=int(IntegratorType[integrator])))
+        jints[integrator] = jm, jax.jit(jax.vmap(
+            {"EULER": lambda d: jfwd.euler(jm, d),
+             "IMPLICITFAST": lambda d: jfwd.implicitfast(jm, d),
+             "IMPLICIT": lambda d: jfwd.implicit(jm, d)}[integrator]))
+    return jints[integrator]
+
+
+def _port_data(pm, qpos, qvel, ctrl):
+    return fwd.make_data(pm, len(qpos)).replace(**{k: torch.from_numpy(v) for k, v in zip(
+        ("qpos", "qvel", "ctrl"), (qpos, qvel, ctrl))})
 
 
 def test_swimmer_compiles_as_jax(swimmer):
@@ -158,13 +181,10 @@ def test_swimmer_compiles_as_jax(swimmer):
 
 @pytest.mark.parametrize("integrator", ["EULER", "IMPLICITFAST", "IMPLICIT"])
 def test_swimmer_steps_match_jax(swimmer, integrator):
-    pm, jm, pd, jd, jforward = swimmer
+    pm, _, pd, jd, jforward, _ = swimmer
     it = int(IntegratorType[integrator])
     pm = dataclasses.replace(pm, opt=dataclasses.replace(pm.opt, integrator=it))
-    jm = jm.replace(opt=jm.opt.replace(integrator=it))
-    jint = jax.jit(jax.vmap({"EULER": lambda d: jfwd.euler(jm, d),
-                             "IMPLICITFAST": lambda d: jfwd.implicitfast(jm, d),
-                             "IMPLICIT": lambda d: jfwd.implicit(jm, d)}[integrator]))
+    _, jint = _jax_integrator(swimmer, integrator)
     plan = fwd.make_plan(pm)
     for k in range(NSTEP):
         jd = jforward(jd)
@@ -176,10 +196,65 @@ def test_swimmer_steps_match_jax(swimmer, integrator):
     assert float(pd.qfrc_passive.abs().max()) > 0 and bool(torch.isfinite(pd.qpos).all())
 
 
+def test_swimmer_fast_links_lose_definiteness_as_jax(swimmer):
+    """ROADMAP C14: at links of 5 rad/s (swimmer_states' link_speed; a 99th
+    percentile of 13 rad/s, past the 5.6 that libmujoco's gaits peak at)
+    implicitfast's M - h qD is indefinite in some envs. Of 512 seeded envs,
+    8 indefinite and 8 definite ones step once in both packages: the JAX
+    package's Cholesky gives NaN in exactly the 8 indefinite envs, and its
+    qpos and qvel equal the port's in the others (1e-9), so the two build
+    the same matrix; libmujoco steps all 16 to finite values (its LDL^T
+    takes no square root, and its qDeriv is its own)."""
+    import mujoco
+
+    pm, _, _, _, jforward, _ = swimmer
+    states = swimmer_states(pm, 512, seed=5, link_speed=5.0)
+    A = fwd.implicitfast_matrix(pm, fwd.forward(pm, _port_data(pm, *states)))
+    indefinite = (torch.linalg.eigvalsh(A).min(-1).values <= 0).numpy()
+    assert indefinite.sum() >= 8 and (~indefinite).sum() >= 8
+    pick = np.r_[np.nonzero(indefinite)[0][:8], np.nonzero(~indefinite)[0][:8]]
+    assert len(pick) == NENV
+    qpos, qvel, ctrl = (x[pick] for x in states)
+    d0 = jfwd.make_data(swimmer[1])
+    jd = jax.vmap(lambda *a: d0.replace(qpos=a[0], qvel=a[1], ctrl=a[2]))(
+        *(jnp.asarray(x) for x in (qpos, qvel, ctrl)))
+    jd = jforward(jd)
+    jd = _jax_integrator(swimmer, "IMPLICITFAST")[1](jd.replace(qacc_warmstart=jd.qacc))
+    jnan = np.isnan(np.asarray(jd.qvel)).any(-1)
+    assert jnan.tolist() == [True] * 8 + [False] * 8
+    pd = fwd.step(pm, _port_data(pm, qpos, qvel, ctrl))
+    for field in ("qpos", "qvel"):
+        _close(f"definite envs' {field}", getattr(pd, field)[8:].numpy(),
+               np.asarray(getattr(jd, field))[8:], 1e-9)
+    mm = mujoco.MjModel.from_xml_string(SWIMMER)
+    md = mujoco.MjData(mm)
+    for k in range(NENV):
+        mujoco.mj_resetData(mm, md)
+        md.qpos[:], md.qvel[:], md.ctrl[:] = qpos[k], qvel[k], ctrl[k]
+        mujoco.mj_step(mm, md)
+        assert np.isfinite(md.qvel).all(), f"libmujoco env {k}"
+
+
+def test_swimmer_states_cover_libmujoco_gaits():
+    """swimmer_states' link speeds cover those of users' swimming:
+    libmujoco's SWIMMER from rest under SWIMMER_GAITS (0.5 and 1.5 Hz
+    bang-bang, a 1 Hz sine; 8 s each) has its link speeds' 99th percentile
+    and peak below the seeded states', and at every 10th state it visits
+    the port's implicitfast matrix M - h qD is positive definite (ROADMAP
+    C14 shows only at speeds uncorrelated from link to link)."""
+    speeds, visited = swimmer_gait_states()
+    pm = mjcf.load_model_from_string(SWIMMER)
+    seeded = np.abs(swimmer_states(pm, 4096, seed=2)[1][:, 3:])
+    assert 2.0 < np.percentile(speeds, 99) <= np.percentile(seeded, 99)
+    assert 4.0 < speeds.max() <= seeded.max()
+    A = fwd.implicitfast_matrix(pm, fwd.forward(pm, _port_data(pm, *visited)))
+    assert bool((torch.linalg.eigvalsh(A).min(-1).values > 0).all())
+
+
 def test_swimmer_save_xml_round_trip(swimmer):
     """save_xml of SWIMMER (the medium, fluidshape and fluidcoef, motors,
     limits) reloads to the same model, and one step is bit for bit."""
-    pm, _, pd, _, _ = swimmer
+    pm, _, pd, *_ = swimmer
     m2 = mjcf.load_model_from_string(mjcf_writer.model_to_xml(pm))
     assert_models_equal(m2, pm, tol=0.0)
     a, b = fwd.step(pm, pd), fwd.step(m2, pd)

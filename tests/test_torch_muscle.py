@@ -21,6 +21,8 @@ The JAX models load through tests/torch_jax.jax_load (set_constants under
 one jit).
 """
 
+import xml.etree.ElementTree as ET
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,7 @@ from mujoco_ros_pkgs_tpu.ops import muscle as jmuscle
 
 from mujoco_ros_pkgs_tpu_torch.core import lengthrange, mjcf, mjcf_writer
 from mujoco_ros_pkgs_tpu_torch.core.convert import model_from_numpy
+from mujoco_ros_pkgs_tpu_torch.core.types import GainType
 from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import muscle
 
@@ -260,13 +263,23 @@ def test_muscle_arm_probe(arm):
 
 def test_muscle_arm_save_xml_round_trip(arm):
     """save_xml of MUSCLE_ARM (spatial tendons with sidesites and pulleys,
-    muscles as <general> with their lengthranges, all 36 sensor types)
-    reloads to the same model with no probe, and one step from seeded
-    states is bit for bit the original's."""
+    muscles as <general> with their lengthranges, all 36 sensor types):
+    every muscle of the XML carries the model's lengthrange, probed ones
+    among them, the XML reloads to the same model with no probe, and one
+    step from seeded states is bit for bit the original's."""
     xml = mjcf_writer.model_to_xml(arm)
-    seconds = lengthrange.LAST_PROBE_SECONDS
+    written = {e.get("name"): e.get("lengthrange")
+               for e in ET.fromstring(xml).find("actuator")}
+    muscles = np.nonzero(np.asarray(arm.actuator_gaintype) == int(GainType.MUSCLE))[0]
+    assert set(MUSCLE_ARM_PROBED) <= {arm.actuator_names[i] for i in muscles}
+    for i in muscles:
+        name = arm.actuator_names[i]
+        assert written[name] is not None, name
+        assert [float(v) for v in written[name].split()] == \
+            arm.actuator_lengthrange[i].tolist(), name
+    lengthrange.LAST_PROBE_SECONDS = 0.0
     m2 = mjcf.load_model_from_string(xml)
-    assert lengthrange.LAST_PROBE_SECONDS == seconds
+    assert lengthrange.LAST_PROBE_SECONDS == 0.0
     assert_models_equal(m2, arm, tol=0.0)
     qpos, qvel, act, ctrl = muscle_arm_states(arm, 4, seed=9)
     d = fwd.make_data(arm, 4).replace(**{k: torch.from_numpy(v) for k, v in zip(

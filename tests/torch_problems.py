@@ -1267,6 +1267,34 @@ SWIMMER = _swimmer()
 SWIMMER_NENV = 4096
 
 
+# full-ctrl travelling waves along SWIMMER's links, as a swimming policy
+# drives them: (Hz, bang-bang or sine)
+SWIMMER_GAITS = ((0.5, True), (1.0, False), (1.5, True))
+
+
+def swimmer_gait_states(nstep: int = 4000, every: int = 10):
+    """libmujoco's SWIMMER (the `mujoco` package, CPU) from rest under each
+    of SWIMMER_GAITS for nstep steps: (the links' speeds at every step
+    (len(SWIMMER_GAITS) nstep, 6), and qpos, qvel, ctrl of every `every`th
+    step)."""
+    import mujoco
+
+    mm = mujoco.MjModel.from_xml_string(SWIMMER)
+    md = mujoco.MjData(mm)
+    wave = -2 * np.pi * np.arange(mm.nu) / mm.nu
+    speeds, visited = [], []
+    for freq, bang in SWIMMER_GAITS:
+        mujoco.mj_resetData(mm, md)
+        for k in range(nstep):
+            u = np.sin(2 * np.pi * freq * k * mm.opt.timestep + wave)
+            md.ctrl[:] = np.sign(u) if bang else u
+            mujoco.mj_step(mm, md)
+            speeds.append(np.abs(md.qvel[3:]))
+            if k % every == 0:
+                visited.append((md.qpos.copy(), md.qvel.copy(), md.ctrl.copy()))
+    return np.asarray(speeds), tuple(np.array(x) for x in zip(*visited))
+
+
 def with_lengthranges(xml: str, ranges: dict) -> str:
     """`xml` with lengthrange="lo hi" (full precision) written into each
     <muscle> or <general> named in `ranges` ({name: (lo, hi)}) that has
@@ -1325,18 +1353,24 @@ def muscle_arm_states(m, nenv: int, seed: int):
     return qpos, qvel, act, ctrl
 
 
-def swimmer_states(m, nenv: int, seed: int):
+def swimmer_states(m, nenv: int, seed: int, link_speed: float = 2.0):
     """Seeded float64 SWIMMER states (qpos, qvel, ctrl): the head anywhere
     within 0.5 m and at any heading, each link bent by U(-60, 60) degrees,
-    normal velocities (0.05 m/s of the head, 0.3 rad/s of its heading, 0.5
-    of each link: at several times these, implicitfast's M - h qD loses
-    definiteness in some envs, the ellipsoid model's added-mass terms
-    outgrowing a 10 g link) and ctrl U(-1, 1)."""
+    normal velocities (0.04 m/s of the head, 0.8 rad/s of its heading,
+    `link_speed` rad/s of each link) and ctrl U(-1, 1). At the default the
+    links' speeds have a higher 99th percentile (5.2 rad/s) and peak than
+    libmujoco's swimmer reaches under SWIMMER_GAITS
+    (tests/test_torch_fluid.py::test_swimmer_states_cover_libmujoco_gaits).
+    Unlike a gait's, these speeds are uncorrelated from link to link, and
+    in about 1 env in 1000 they make implicitfast's M - h qD indefinite, in
+    the JAX package as in the port (ROADMAP C14;
+    scripts/swimmer_definiteness.py counts them)."""
     rng = np.random.default_rng(seed)
     qpos = np.zeros((nenv, m.nq))
     qpos[:, :2] = rng.uniform(-0.5, 0.5, size=(nenv, 2))
     qpos[:, 2] = rng.uniform(-np.pi, np.pi, nenv)
     qpos[:, 3:] = np.deg2rad(rng.uniform(-60, 60, size=(nenv, m.nq - 3)))
-    qvel = rng.normal(size=(nenv, m.nv)) * np.r_[0.05, 0.05, 0.3, [0.5] * (m.nv - 3)]
+    qvel = rng.normal(size=(nenv, m.nv)) * np.r_[0.04, 0.04, 0.8,
+                                                 [link_speed] * (m.nv - 3)]
     ctrl = rng.uniform(-1.0, 1.0, size=(nenv, m.nu))
     return qpos, qvel, ctrl
