@@ -301,13 +301,38 @@ Phases (any failure raises; the exit code is then not 0):
      ms by CUDA events, K1 on the mass matrix and K2 on the rows timed
      (graph replay, one call at a time, plain, bound, cholesky +
      cholesky_solve); the phase's seconds.
+ 35. BASELINE config 5 over two ranks (parallel/multihost.py): this
+     process, having built the kernels, starts `chip_smoke.py --p35-rank
+     R PORT DIR` twice (ranks 0 and 1, gloo over 127.0.0.1, both on cuda:0,
+     P35_TIMEOUT_S for each rank and each collective; a rank that fails or
+     hangs fails the phase); each rank: (a) BOXES at NENV as 2 x 2048,
+     phase 3's seeded states set from global env ids (make_global_batch),
+     shardmap_step_fn 2 calls of 5 steps with the consumer; (b) a
+     distributed server of SENSORS_MOTOR (SENSORS with a motor on the arm)
+     at SENSORS_NENV, the sensors plugin, control noise, process 0 running
+     tests/torch_multihost_worker.sensors_sequence (a Step action of 24,
+     set_body_state, set_ctrl, step 8, get_body_state, sensor_outputs,
+     reset, step 4) and rank 1 serve_follower, every normal draw kept;
+     (c) a distributed server of PILE5 with con_topk 64 at PILE_NENV,
+     P35_PILE_STEPS steps (the batch after 1 and 5, the rest timed to the
+     gathered batch). Then here: the ranks' gathered states identical; (a)
+     K3 10 launches a rank, the consumer within 1e-9 of the gathered
+     state's float64 mean, the union against one process's K3 step after
+     5 steps (qpos atol 1e-4, envs equal bit for bit counted); (b) K1 and
+     K2 once a step on each rank, every draw and ctrl equal to one
+     process's server's after the same calls bit for bit, the final qpos
+     within 1e-4; (c) K1 at least once a step on each rank, K2 and K3 0,
+     the union against one process's server after 1 step (qpos 1e-5 /
+     1e-6, qvel 1e-4) and 5 (qpos 1e-4), envs equal bit for bit, the two
+     ranks' env-steps/s together beside one process's; the phase's seconds.
 Prints a JSON line of kernel results (`ms`: one call at a time, CUDA
 events over back-to-back calls; `graph_ms`: CUDA-graph replays of 20 calls,
 the device time alone; `group`: the width the main path runs; K1's `pile`,
 `humanoid`, `sensors`, `arm7`, `panda`, `a8` (phase 31's paths a-e),
-`p32` (phase 32's worlds), `p33` (phase 33's servers with cameras) and
-`p34` (phase 34's worlds) objects and K2's `sensors`, `tendon_act`,
-`a8_pendulum_rk4` and `p34` objects:
+`p32` (phase 32's worlds), `p33` (phase 33's servers with cameras),
+`p34` (phase 34's worlds) and `p35` (phase 35's SENSORS_MOTOR and PILE5
+ranks) objects, K2's `sensors`, `tendon_act`, `a8_pendulum_rk4`, `p34` and
+`p35` objects and K3's `bin`, `pegs` and `p35` objects:
 their runs on those worlds' main paths; `arm7` also holds phase 28's loop, CLI
 and checkpoint figures, with the loop's K1 launches), then the card line, then {"ok": true, "device":
 {...}} as the last line. The width
@@ -321,6 +346,7 @@ import dataclasses
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -343,6 +369,7 @@ from mujoco_ros_pkgs_tpu_torch.ops import forward as fwd
 from mujoco_ros_pkgs_tpu_torch.ops import linalg_tpu, sensor, sensor_impl, smooth, solver
 from mujoco_ros_pkgs_tpu_torch.ops import solver_tpu, step_tpu
 from mujoco_ros_pkgs_tpu_torch.msgs import MocapState, Pose, SensorNoiseModel
+from mujoco_ros_pkgs_tpu_torch.parallel import multihost
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.ros_control import RosControlPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
@@ -359,11 +386,14 @@ from tests.torch_problems import (ARM7_CTRL, BOX_BIN, BOXES_DAMPED, DEFAULT_FRIC
                                   TERRAIN, TERRAIN_CAM,
                                   TERRAIN_CAM_CONFIG, TERRAIN_NENV,
                                   PANDA_CLOSED, PANDA_OPEN, PANDA_PICK, PANDA_PICK_IF, PEGS,
-                                  PENDULUM_LIMITED, PILE17, SENSORS_NOISE, SENSORS_POS_VEL,
+                                  PENDULUM_LIMITED, PILE17, SENSORS_MOTOR, SENSORS_NOISE,
+                                  SENSORS_POS_VEL,
                                   TENDON_ACT, arm7_states, box_bin_states, box_cluster,
                                   humanoid_states, panda_states, pegs_states, pile_heap,
                                   mesh_pile_heap, random_problem, sensors_states,
                                   solve_cost, tendon_act_states, terrain_states)
+
+from tests import torch_multihost_worker as mhw
 
 torch.set_num_threads(_THREADS)     # tests.torch_problems caps it for the CPU suite
 
@@ -377,18 +407,18 @@ NENV = 4096
 # the PENDULUM server's steps (phase 9): its ball rests by then (speed
 # 5.374e-7 on an H100 after 400 steps, 5.375e-7 after 1000)
 GENERAL_STEPS = 400
-# the PILE server's steps (phase 11), about 20 s of the card's time
-PILE_STEPS = 200
+# the PILE server's steps (phase 11), about 10 s of the card's time
+PILE_STEPS = 100
 # HUMANOID's batch (BASELINE's humanoid bench: bench.py NENV // 4), the steps
 # that settle its seeded states (the feet reach the floor after some 50) and
 # the server's steps (phase 14)
 HUMANOID_NENV = 1024
 HUMANOID_SETTLE = 80
-HUMANOID_STEPS = 100
+HUMANOID_STEPS = 50
 # SENSORS (BASELINE config 3, which bench.py:160-189 runs at NENV // 2 envs
 # with tests/torch_problems.SENSORS_NOISE) and its server's steps (phase 17)
 SENSORS_NENV = 2048
-SENSORS_STEPS = 200
+SENSORS_STEPS = 100
 # ARM7 (BASELINE config 4, which bench.py:192-206 runs at NENV // 2 envs with
 # the weld on) and its server's steps (phase 20)
 ARM7_NENV = 2048
@@ -402,14 +432,14 @@ PILE_NENV = 512
 # the nv = 102 world's batch and the steps that settle its heaps (phase 26)
 WIDE_NENV = 256
 WIDE_SETTLE = 60
-COMPACT_STEPS = 60
-SETTLE_STEPS = 100
+COMPACT_STEPS = 30
+SETTLE_STEPS = 60
 HUMANOID_CON_TOPK = 48
 # the seeds of ROADMAP C7's K1 float64 margins (phase 27)
 C7_SEEDS = (1, 2, 3, 4, 6)
 # the server's control plane (phase 28): the CLI's steps, the physics loop's
 # seconds unbound and paced, a checkpoint's continuation
-CLI_STEPS = 150
+CLI_STEPS = 80
 LOOP_SECONDS = 6
 CKPT_STEPS = 50
 # K3's pair primitives (phase 29): BOX_BIN's server batch (BASELINE config
@@ -3215,7 +3245,7 @@ HUMANOID_IMPLICIT = with_option(HUMANOID, integrator="implicit")
 HUMANOID_CG = with_option(HUMANOID, solver="CG")
 SENSORS_PGS = with_option(worlds.SENSORS, solver="PGS")
 # the server's steps of each path (PANDA_PICK_IF as phase 30b)
-A8_STEPS = {"b": 30, "c": 20, "d": 20, "e": 5}
+A8_STEPS = {"b": 15, "c": 10, "d": 10, "e": 3}
 # a PGS server step past this many seconds cuts path e's server to 2 steps
 PGS_STEP_LIMIT_S = 10.0
 
@@ -3951,7 +3981,7 @@ def p33_phase(card):
 
 # phase 34: the physics tail and every sensor type (world, nenv); the
 # servers' steps by the wall clock
-P34_STEPS = 30
+P34_STEPS = 20
 P34 = {"MUSCLE_ARM": (MUSCLE_ARM, MUSCLE_ARM_NENV), "SWIMMER": (SWIMMER, SWIMMER_NENV)}
 P34_NOISE = (SensorNoiseModel("shoulder_quat", [0.0] * 3, [0.02] * 3, 0x7),
              SensorNoiseModel("touch", [0.0], [0.1], 0x1))
@@ -4206,6 +4236,262 @@ def p34_phase(card):
     return k1_out, k2_out
 
 
+# phase 35: two ranks over gloo on one card (BASELINE config 5's sharded
+# run): BOXES at NENV as 2 x 2048 (K3), SENSORS_MOTOR with the sensors plugin
+# and control noise at SENSORS_NENV (K1, K2), PILE5 with con_topk 64 at
+# PILE_NENV as 2 x 256 (K1 at n 72) for P35_PILE_STEPS server steps; a rank
+# lives P35_TIMEOUT_S at most, and every collective waits that long at most
+P35_PILE_STEPS = 60
+P35_TIMEOUT_S = 300.0
+P35_FIELDS = ("qpos", "qvel", "ctrl", "time")
+
+
+def p35_boxes_init(device):
+    """Phase 3's seeded BOXES states of NENV envs, each env's rows set from
+    its global id."""
+    qpos, qvel, _ = states(NENV, seed=0, device=device)
+
+    def init(d, idx):
+        i = torch.as_tensor(idx, device=device)
+        return d.replace(qpos=qpos[i].clone(), qvel=qvel[i].clone())
+    return init
+
+
+def p35_sensors_server(**kw):
+    return MujocoServer(SENSORS_MOTOR, nenv=SENSORS_NENV, plugins=[SensorsPlugin()],
+                        ctrl_noise_std=0.2, ctrl_noise_rate=0.05, seed=5, **kw)
+
+
+def p35_pile_run(srv):
+    """PILE5's server run of phase 35c: step 1, the batch, step 4, the batch,
+    the rest of P35_PILE_STEPS timed to the gathered batch (which waits for
+    every rank); returns (batch after 1, after 5, wall of the rest)."""
+    assert srv.step(1).success
+    one = srv.get_batch_state()
+    assert srv.step(4).success
+    five = srv.get_batch_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert srv.step(P35_PILE_STEPS - 5).success
+    srv.get_batch_state()
+    return one, five, time.perf_counter() - t0
+
+
+def p35_rank(rank, port, out):
+    """One rank of phase 35 (`chip_smoke.py --p35-rank RANK PORT OUT`): joins
+    a group of two over gloo, steps its half of each world on its card and
+    writes what it gathered and counted to OUT/p35_RANK.npz and .json."""
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, timeout_s=P35_TIMEOUT_S)
+    res, arrays = {}, {}
+    # (a) BOXES through shardmap_step_fn with the consumer: K3
+    mesh = multihost.make_host_env_mesh(device="cuda")
+    dev = mesh.local_devices[0]
+    m = mjcf.load_model_from_string(worlds.BOXES, dtype=torch.float32).to(dev)
+    d = multihost.make_global_batch(m, NENV, mesh, init_fn=p35_boxes_init(dev))
+    step = multihost.shardmap_step_fn(m, mesh, nsub=5)
+    zero_counts()
+    for call in (1, 2):
+        d, consumed = step(d)
+        arrays[f"a{call}_consumed"] = consumed.cpu().numpy()
+        for f in ("qpos", "qvel", "time"):
+            arrays[f"a{call}_{f}"] = multihost.gather_to_host(getattr(d, f))
+    res["a"] = {"device": str(dev), "rows": list(multihost.local_rows(NENV)),
+                "launches": {k.__name__: k.launches for k in KERNELS}}
+    # (b) SENSORS_MOTOR's service sequence, process 0 originating: K1, K2
+    plain = mhw.rng.randn
+    draws = mhw.recording_draws()
+    try:
+        zero_counts()
+        srv = p35_sensors_server(distributed=True)
+        if rank == 0:
+            res["b_seq"] = mhw.sensors_sequence(srv)
+            srv.shutdown()
+        else:
+            srv.serve_follower()
+    finally:
+        mhw.rng.randn = plain
+    res["b"] = {"launches": {k.__name__: k.launches for k in KERNELS}, "ndraws": len(draws)}
+    ps = srv.pstates[0]
+    for f in P35_FIELDS:
+        arrays[f"b_{f}"] = srv._np(getattr(srv.d, f))
+    arrays["b_noisy"], arrays["b_gt"] = srv._np(ps["noisy"]), srv._np(ps["gt"])
+    arrays["b_generator"] = srv._generator.get_state().numpy()
+    arrays.update({f"b_draw_{k}": t.cpu().numpy() for k, t in enumerate(draws)})
+    # (c) PILE5 with con_topk 64: K1 at n 72
+    zero_counts()
+    srv = MujocoServer(PILE5, nenv=PILE_NENV, con_topk=64, distributed=True)
+    if rank == 0:
+        one, five, wall = p35_pile_run(srv)
+        arrays.update(c1_qpos=one["qpos"], c1_qvel=one["qvel"], c5_qpos=five["qpos"])
+        res["c_wall"] = wall
+        srv.shutdown()
+    else:
+        srv.serve_follower()
+    res["c"] = {"launches": {k.__name__: k.launches for k in KERNELS}}
+    arrays["c_qpos"] = srv._np(srv.d.qpos)
+    np.savez(os.path.join(out, f"p35_{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"p35_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+    print(f"[35 rank {rank}] done", flush=True)
+
+
+def p35_spawn(tmp):
+    """Both ranks started together (after this process built the kernels),
+    each waited for P35_TIMEOUT_S at most: a rank that fails or hangs fails
+    the phase."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p35-rank",
+                               str(r), str(port), tmp], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(2)]
+    deadline = time.monotonic() + P35_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"phase 35 rank {r} exited {p.returncode}:\n{out[-6000:]}"
+    return ([dict(np.load(os.path.join(tmp, f"p35_{r}.npz"))) for r in range(2)],
+            [json.load(open(os.path.join(tmp, f"p35_{r}.json"))) for r in range(2)])
+
+
+def p35_same(label, arrays, keys):
+    """Both ranks gathered the same arrays, bit for bit."""
+    for k in keys:
+        assert np.array_equal(arrays[0][k], arrays[1][k]), f"35{label}: ranks differ in {k}"
+
+
+def p35_equal_envs(a, b):
+    """Envs (rows) equal bit for bit."""
+    return int((a == b).reshape(len(a), -1).all(axis=1).sum())
+
+
+def p35_phase(card):
+    """Phase 35: BASELINE config 5 over two ranks on one card (see the
+    docstring's list); returns the kernels' launches and the numbers for
+    the kernels line."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays, res = p35_spawn(tmp)
+    t_ranks = time.perf_counter() - t0
+    out = {"ranks_s": t_ranks}
+    for r in range(2):
+        print(f"[35] rank {r}: launches a {res[r]['a']['launches']} b {res[r]['b']['launches']} "
+              f"c {res[r]['c']['launches']}", flush=True)
+
+    # (a) BOXES: ranks identical, the consumer their mean, the union against
+    # one process's K3 step of the same NENV envs at phase 3's tolerances
+    p35_same("a", arrays, [f"a{c}_{f}" for c in (1, 2)
+                           for f in ("qpos", "qvel", "time", "consumed")])
+    k3 = [r["a"]["launches"]["step_fused"] for r in res]
+    assert k3 == [10, 10], f"35a: K3 launches per rank {k3}, not 10"
+    m = mjcf.load_model_from_string(worlds.BOXES, dtype=torch.float32).to("cuda")
+    d = fwd.make_data(m, NENV)
+    d = p35_boxes_init("cuda")(d, np.arange(NENV))
+    plan = fwd.make_plan(m)
+    for _ in range(5):
+        d = fwd.step(m, d, plan)
+    err_a = close("35a union vs one process, qpos 5 steps", torch.from_numpy(arrays[0]["a1_qpos"]),
+                  d.qpos.cpu(), 0.0, 1e-4)
+    err_v = float(np.abs(arrays[0]["a1_qvel"] - d.qvel.cpu().numpy()).max())
+    eq_a = p35_equal_envs(arrays[0]["a1_qpos"], d.qpos.cpu().numpy())
+    cons_err = 0.0
+    for c in (1, 2):
+        g = arrays[0]
+        want = np.concatenate([g[f"a{c}_qpos"].astype(np.float64).mean(0),
+                               [g[f"a{c}_time"].astype(np.float64).mean()]])
+        cons_err = max(cons_err, float(np.abs(g[f"a{c}_consumed"] - want).max()))
+    assert cons_err < 1e-9, f"35a: consumer off the gathered mean by {cons_err}"
+    print(f"[35a BOXES 2 x {NENV // 2}] shardmap_step_fn 2 calls of 5 steps: ranks identical, "
+          f"K3 10 launches a rank, consumer within {cons_err:.2e} of the gathered mean "
+          f"(float64); union vs one process's K3 after 5 steps: qpos {err_a:.3e}, qvel "
+          f"{err_v:.3e}, {eq_a} of {NENV} envs equal bit for bit ({card})", flush=True)
+    out["a"] = {"launches_per_rank": k3, "max_abs_err": err_a, "qvel_err": err_v,
+                "equal_envs": eq_a, "consumer_err": cons_err}
+
+    # (b) SENSORS_MOTOR: ranks identical, every draw one process's, the
+    # state held against one process's server
+    p35_same("b", arrays, [f"b_{f}" for f in (*P35_FIELDS, "noisy", "gt", "generator")])
+    steps_b = 24 + 8 + 4
+    for r in range(2):
+        lb = res[r]["b"]["launches"]
+        assert lb["psd_solve"] == steps_b and lb["newton_solve"] == steps_b \
+            and lb["step_fused"] == 0, f"35b rank {r}: launches {lb} over {steps_b} steps"
+    plain = mhw.rng.randn
+    draws = mhw.recording_draws()
+    try:
+        srv = p35_sensors_server()
+        seq = mhw.sensors_sequence(srv)
+    finally:
+        mhw.rng.randn = plain
+    assert res[0]["b"]["ndraws"] == res[1]["b"]["ndraws"] == len(draws), \
+        f"35b: draws {res[0]['b']['ndraws']} / {res[1]['b']['ndraws']}, one process {len(draws)}"
+    for k, want in enumerate(draws):
+        got = np.concatenate([arrays[r][f"b_draw_{k}"] for r in range(2)])
+        assert np.array_equal(got, want.cpu().numpy()), f"35b: draw {k} differs"
+    assert np.array_equal(arrays[0]["b_ctrl"], srv.d.ctrl.cpu().numpy()), "35b: ctrl differs"
+    assert np.array_equal(arrays[0]["b_generator"], srv._generator.get_state().numpy())
+    err_b = close("35b final qpos vs one process", torch.from_numpy(arrays[0]["b_qpos"]),
+                  srv.d.qpos.cpu(), 0.0, 1e-4)
+    errs_b = {f: float(np.abs(arrays[0][f"b_{f}"] - getattr(srv.d, f).cpu().numpy()).max())
+              for f in ("qvel", "time")}
+    eq_b = p35_equal_envs(arrays[0]["b_qpos"], srv.d.qpos.cpu().numpy())
+    print(f"[35b SENSORS_MOTOR 2 x {SENSORS_NENV // 2}] sensors plugin, 3 noise models, control "
+          f"noise; Step action, set_body_state, set_ctrl, step, get_body_state, sensor_outputs, "
+          f"reset, step ({steps_b} steps) originated by process 0: ranks identical, K1 and K2 "
+          f"{steps_b} launches a rank; {len(draws)} draws and ctrl equal one process's bit for "
+          f"bit; final qpos {err_b:.3e}, qvel {errs_b['qvel']:.3e}, {eq_b} of {SENSORS_NENV} "
+          f"envs equal bit for bit ({card})", flush=True)
+    out["b"] = {"launches_per_rank": steps_b, "steps": steps_b, "max_abs_err": err_b,
+                "draws": len(draws), "equal_envs": eq_b, **errs_b,
+                "body_pos_err": float(np.abs(np.subtract(res[0]["b_seq"]["body_pos"],
+                                                         seq["body_pos"])).max())}
+
+    # (c) PILE5 con_topk 64: ranks identical, the union against one
+    # process's server after 1 and 5 steps, the rates side by side
+    p35_same("c", arrays, ["c_qpos"])
+    k1 = [r["c"]["launches"]["psd_solve"] for r in res]
+    other = [r["c"]["launches"][k] for r in res for k in ("newton_solve", "step_fused")]
+    assert min(k1) >= P35_PILE_STEPS and not any(other), f"35c launches {res}"
+    zero_counts()
+    srv = MujocoServer(PILE5, nenv=PILE_NENV, con_topk=64)
+    one, five, wall1 = p35_pile_run(srv)
+    k1_single = kernels.psd_solve.launches
+    errs_c = {"qpos_1": close("35c qpos 1 step", torch.from_numpy(arrays[0]["c1_qpos"]),
+                              torch.from_numpy(one["qpos"]), 1e-5, 1e-6),
+              "qvel_1": close("35c qvel 1 step", torch.from_numpy(arrays[0]["c1_qvel"]),
+                              torch.from_numpy(one["qvel"]), 1e-4, 1e-4),
+              "qpos_5": close("35c qpos 5 steps", torch.from_numpy(arrays[0]["c5_qpos"]),
+                              torch.from_numpy(five["qpos"]), 0.0, 1e-4)}
+    eq_c = {n: p35_equal_envs(arrays[0][f"c{n}_qpos"], s["qpos"])
+            for n, s in ((1, one), (5, five))}
+    timed = P35_PILE_STEPS - 5
+    rate2, rate1 = PILE_NENV * timed / res[0]["c_wall"], PILE_NENV * timed / wall1
+    print(f"[35c PILE5 con_topk=64, 2 x {PILE_NENV // 2}] {P35_PILE_STEPS} server steps: "
+          f"K1 per step rank 0 {k1[0] / P35_PILE_STEPS:.3f}, rank 1 {k1[1] / P35_PILE_STEPS:.3f} "
+          f"(one process {k1_single / P35_PILE_STEPS:.3f}); union vs one process: "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs_c.items())
+          + f"; envs equal bit for bit after 1 step {eq_c[1]}, after 5 {eq_c[5]} of {PILE_NENV}; "
+          f"steps 6-{P35_PILE_STEPS}: two ranks {rate2:.4g} env-steps/s together, one process "
+          f"{rate1:.4g} ({card})", flush=True)
+    out["c"] = {"k1_per_step": [n / P35_PILE_STEPS for n in k1],
+                "k1_per_step_single": k1_single / P35_PILE_STEPS,
+                "env_steps_per_s_two_ranks": rate2, "env_steps_per_s_one_process": rate1,
+                "equal_envs_1": eq_c[1], "equal_envs_5": eq_c[5], **errs_c}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[35] phase 35 in {out['phase_s']:.1f}s (ranks {t_ranks:.1f}s)", flush=True)
+    return out
+
+
 def entry(name, source, replaces, launches, err, t, group, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"mujoco_ros_pkgs_tpu_torch/csrc/{source}",
@@ -4419,6 +4705,9 @@ def main():
     # phase 34: spatial tendons, muscles, fluid and every sensor type
     p34_k1, p34_k2 = p34_phase(card)
     elapsed("34")
+    # phase 35: two ranks on the card
+    p35 = p35_phase(card)
+    elapsed("35")
 
     if t3["saved"]:
         os.makedirs("chip_smoke_out", exist_ok=True)
@@ -4429,15 +4718,16 @@ def main():
         dict(entry("step_fused", "step_fused.cu", "mujoco_ros_pkgs_tpu/ops/step_tpu.py:510",
                    launches3, err3, {"ms": t3[("kernel", NENV)], "graph_ms": t3["graph_ms"],
                                      "plain_ms": t3[("plain", NENV)], "bound": t3["bound"]},
-                   t3["group"]), bin=bin_run, pegs=pegs),
+                   t3["group"]), bin=bin_run, pegs=pegs, p35=p35["a"]),
         dict(entry("psd_solve", "linalg.cu", "mujoco_ros_pkgs_tpu/ops/linalg_tpu.py:113",
                    launches12["psd_solve"], err1, t1, t1["group"], t1["library_ms"]),
              **{k: t1[k] for k in ("pile", "humanoid", "sensors", "arm7", *compact)},
              panda=panda, a8={k: v for k, v in a8.items() if k != "f_boxes_edits"},
-             a8_boxes_launches=a8["f_boxes_edits"], p32=p32, p33=p33, p34=p34_k1),
+             a8_boxes_launches=a8["f_boxes_edits"], p32=p32, p33=p33, p34=p34_k1,
+             p35={"sensors": p35["b"], "pile": p35["c"], "phase_s": p35["phase_s"]}),
         dict(entry("newton_solve", "solver.cu", "mujoco_ros_pkgs_tpu/ops/solver_tpu.py:470",
                    launches12["newton_solve"], err2, t2, t2["group"]),
-             sensors=t2["sensors"], tendon_act=tendon_act, p34=p34_k2,
+             sensors=t2["sensors"], tendon_act=tendon_act, p34=p34_k2, p35=p35["b"],
              a8_pendulum_rk4={k: a8["b_pendulum_rk4"][k] for k in (
                  "k2_per_step", "env_steps_per_s", "step_ms")})]}))
     print(card)
@@ -4447,4 +4737,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--p35-rank"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: a phase 35 rank needs a CUDA card")
+        p35_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

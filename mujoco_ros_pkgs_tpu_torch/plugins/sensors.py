@@ -17,7 +17,9 @@ The state holds, per env, the per-dim noise parameters and the last
 outputs, tensors (nenv, nsensordata). `load` must run before the hook (the
 registry calls it). The draw is split from its use:
 `last_stage` draws N(0, 1) from the server's torch.Generator on the batch's
-device and hands it to `apply_noise`, a pure function of its inputs.
+device (utils/rng.randn: the global batch's draw, cut to the rank's rows,
+where the batch is split over ranks) and hands it to `apply_noise`, a pure
+function of its inputs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mujoco_ros_pkgs_tpu_torch.core.types import Data, Model, SensorType
 from mujoco_ros_pkgs_tpu_torch.msgs import SensorNoiseModel
 from mujoco_ros_pkgs_tpu_torch.ops import math as mmath
 from mujoco_ros_pkgs_tpu_torch.plugins.base import MujocoPlugin
+from mujoco_ros_pkgs_tpu_torch.utils import rng
 
 _QUAT_TYPES = (int(SensorType.FRAMEQUAT), int(SensorType.BALLQUAT))
 
@@ -133,8 +136,7 @@ class SensorsPlugin(MujocoPlugin):
     def last_stage(self, m: Model, d: Data, ps: Any,
                    generator: torch.Generator) -> Tuple[Data, Any]:
         gt = d.sensordata * self._scale.to(d.sensordata.dtype)
-        normal = torch.randn(gt.shape, generator=generator, dtype=gt.dtype,
-                             device=gt.device)
+        normal = rng.randn(gt.shape, generator, gt.dtype, gt.device)
         noisy = apply_noise(gt, normal, ps["mean"], ps["std"], ps["enabled"],
                             self._quat_adr)
         return d, dict(ps, noisy=noisy, gt=gt)

@@ -1,15 +1,19 @@
 """Checkpoint / resume of a server's batched state.
 
-Counterpart of mujoco_ros_pkgs_tpu/server/checkpoint.py, in its numpy
-format: <path>.json, a manifest (model name, nenv, sim time, one spec per
-array: field, dtype, shape), and <path>.bin, a "PYFB" blob (the array
-bytes, each after its length as 8 little-endian bytes). The arrays are the
-integrated state of _STATE_FIELDS, then the state of the server's
-generator (the port's counterpart of the JAX batch's per-env keys, so that
-a resumed run draws the same plugin and control noise), then the plugins'
-states. The actuators' activations (`act`) are integrated state and are
-stored, as the JAX checkpoint stores them. A blob of the JAX package's
-native codec is refused.
+Counterpart of mujoco_ros_pkgs_tpu/server/checkpoint.py: <path>.json, a
+manifest (model name, nenv, sim time, one spec per array: field, dtype,
+shape), and <path>.bin, a blob of the native state codec (native/: the
+`MTPU` header and a CRC32 over the arrays' bytes, each after its length).
+`load` reads those and the numpy "PYFB" blobs that earlier versions wrote
+(the array bytes, each after its length as 8 little-endian bytes); any
+other blob, or one whose CRC32 does not check, raises ValueError. The
+arrays are the integrated state of _STATE_FIELDS, then the state of the
+server's generator (the port's counterpart of the JAX batch's per-env keys,
+so that a resumed run draws the same plugin and control noise), then the
+plugins' states. The actuators' activations (`act`) are integrated state
+and are stored, as the JAX checkpoint stores them. A server whose batch is
+split over several ranks (distributed=True) has no checkpoint: save and
+load raise.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from mujoco_ros_pkgs_tpu_torch import native
+from mujoco_ros_pkgs_tpu_torch.parallel import multihost
 
 _STATE_FIELDS = ("time", "qpos", "qvel", "act", "ctrl", "qfrc_applied", "xfrc_applied",
                  "eq_active", "mocap_pos", "mocap_quat", "qacc_warmstart")
@@ -46,18 +53,12 @@ def _flatten(server) -> Tuple[List[np.ndarray], List[dict]]:
     return arrays, specs
 
 
-def _pack(arrays: List[np.ndarray]) -> bytes:
-    out = bytearray(_MAGIC)
-    for a in arrays:
-        b = a.tobytes()
-        out += len(b).to_bytes(8, "little") + b
-    return bytes(out)
-
-
 def _unpack(blob: bytes, specs: List[dict]) -> List[np.ndarray]:
+    if blob[:4] == native.MAGIC:
+        return native.unpack(blob, specs)
     if blob[:4] != _MAGIC:
-        raise ValueError("checkpoint blob is not in the numpy format (PYFB); the "
-                         "native state codec's blobs are not supported by the port")
+        raise ValueError("checkpoint blob is neither the native state codec's (MTPU) "
+                         "nor the numpy format's (PYFB)")
     arrays, off = [], 4
     for s in specs:
         n = int.from_bytes(blob[off:off + 8], "little")
@@ -68,9 +69,16 @@ def _unpack(blob: bytes, specs: List[dict]) -> List[np.ndarray]:
     return arrays
 
 
+def _single_rank(server) -> None:
+    if server._dist and multihost.process_count() > 1:
+        raise ValueError("checkpoints are not supported while the batch is split over "
+                         f"{multihost.process_count()} ranks")
+
+
 def save(server, path: str) -> None:
     """Write the server's batch, generator and plugin states to path.json and
     path.bin (under the server's lock: a consistent snapshot)."""
+    _single_rank(server)
     with server._lock:
         arrays, specs = _flatten(server)
         manifest = {"model": server.m.name, "nenv": server.nenv,
@@ -78,13 +86,14 @@ def save(server, path: str) -> None:
     with open(path + ".json", "w") as f:
         json.dump(manifest, f)
     with open(path + ".bin", "wb") as f:
-        f.write(_pack(arrays))
+        f.write(native.pack(arrays))
 
 
 def load(server, path: str) -> None:
     """Restore a checkpoint of the same model and nenv into the server: the
     integrated state, the generator and the plugins' states (ValueError on
     a mismatch, before anything changes)."""
+    _single_rank(server)
     with open(path + ".json") as f:
         manifest = json.load(f)
     if manifest["nenv"] != server.nenv:

@@ -5,7 +5,9 @@ Usage:
         --nenv 4096 --num-steps 1000 [--device cpu] [--config plugins.json] \
         [--realtime 0.5] [--ctrl-noise-std 0.05 --ctrl-noise-rate 0.1] \
         [--eval-mode --admin-hash H] [--pair-topk 24] [--con-topk 64] \
-        [--png-dir frames/] [--watch-port 8080 [--watch-host 127.0.0.1]]
+        [--png-dir frames/] [--watch-port 8080 [--watch-host 127.0.0.1]] \
+        [--f32] [--profile-dir DIR] \
+        [--distributed --coordinator 127.0.0.1:PORT --num-processes N --process-id K]
 
 Counterpart of mujoco_ros_pkgs_tpu/server/launch.py for what the port
 serves: loads the model (waiting for the file with --wait-for-model),
@@ -20,6 +22,21 @@ address is printed), starts the physics-loop thread and prints
 `sim_time=` lines to stderr about once a second and at the end. Exits 0
 when --num-steps steps are done or on SIGINT, 1 when the physics loop died
 (`FATAL: physics loop died`), 2 when the model fails to load.
+
+The batch is float64 on the CPU (as the JAX package's server) and float32
+on the card, whose kernels take float32 only; --f32 asks for float32 on any
+device, and the launcher says which on stderr. --profile-dir writes a
+torch.profiler trace of the run (CPU and, on the card, CUDA activity) as
+DIR/trace.json, a Chrome trace (chrome://tracing, Perfetto).
+
+--distributed runs one process of a distributed server
+(parallel/multihost.py): every process is started with the same arguments
+and its own --process-id (or the MRT_COORDINATOR, MRT_NUM_PROCESSES and
+MRT_PROCESS_ID variables); the batch of --nenv envs is split by process,
+process 0 serves as above and originates every step and service, the
+others replay them (`serve_follower`) and exit 0 when process 0 shuts the
+server down. --mesh-hosts N splits a single process's batch into N host
+rows, each stepped on its own.
 """
 
 from __future__ import annotations
@@ -84,6 +101,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--con-topk", type=int, default=0,
                     help="active-contact compaction: the solver takes only the "
                          "K deepest contact slots of a cone group (0 = off)")
+    ap.add_argument("--f32", action="store_true",
+                    help="float32 on any device (default: float64 on the CPU, float32 "
+                         "on the card)")
+    ap.add_argument("--profile-dir", default="",
+                    help="write a torch.profiler trace of the run to DIR/trace.json "
+                         "(the reference's profile:=true hook, "
+                         "launch_server.launch:93-95)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="split the batch over the processes of a torch.distributed "
+                         "group (parallel/multihost.py); process 0 originates every "
+                         "service, the others replay them")
+    ap.add_argument("--coordinator", default="",
+                    help="the group's rendezvous host:port (also MRT_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=0,
+                    help="processes in the distributed run (also MRT_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=-1,
+                    help="this process's rank; 0 originates (also MRT_PROCESS_ID)")
+    ap.add_argument("--mesh-hosts", type=int, default=0,
+                    help="in one process, split the batch into N host rows, each "
+                         "stepped on its own (testing without a second process)")
     ap.add_argument("--verbose", action="store_true", help="log at INFO")
     ap.add_argument("--log-level", default="",
                     help="per-subsystem log levels, e.g. 'server=debug' or a bare "
@@ -136,8 +173,19 @@ def main(argv=None) -> int:
             log_mod.configure(default_level=args.log_level)
     else:
         log_mod.configure(default_level="INFO" if args.verbose else "WARNING")
+    import torch
+    from mujoco_ros_pkgs_tpu_torch.parallel import multihost
     from mujoco_ros_pkgs_tpu_torch.server import MujocoServer
 
+    if args.distributed:
+        multihost.initialize(coordinator_address=args.coordinator or None,
+                             num_processes=args.num_processes or None,
+                             process_id=args.process_id if args.process_id >= 0 else None)
+    on_card = torch.device(args.device).type == "cuda"
+    dtype = torch.float32 if args.f32 or on_card else torch.float64
+    print(f"dtype {str(dtype).replace('torch.', '')} on {args.device}"
+          + ("" if args.f32 or not on_card else " (the card's kernels take float32 only)"),
+          file=sys.stderr, flush=True)
     cfg = load_config(args.config)
     model = args.modelfile
     if args.wait_for_model > 0 and not args.model_string:
@@ -160,10 +208,25 @@ def main(argv=None) -> int:
             initial_joint_velocities=cfg.get("initial_joint_velocities", {}),
             plugins=make_plugins(cfg), ctrl_noise_std=args.ctrl_noise_std,
             ctrl_noise_rate=args.ctrl_noise_rate,
-            pair_topk=args.pair_topk, con_topk=args.con_topk, cam_config=cam_config)
+            pair_topk=args.pair_topk, con_topk=args.con_topk, cam_config=cam_config,
+            dtype=dtype, distributed=args.distributed, mesh_hosts=args.mesh_hosts or None)
     except (ValueError, NotImplementedError, SyntaxError, OSError) as exc:
         print(f"FATAL: model failed to load: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 2
+    try:
+        if srv._multi and multihost.process_index() != 0:
+            srv.serve_follower()      # until process 0 shuts the server down
+            return 0
+        return _serve(args, srv)
+    finally:
+        multihost.shutdown()
+
+
+def _serve(args, srv) -> int:
+    """Process 0's (or a single process's) run: the loop until --num-steps
+    or SIGINT, the sim_time lines, the profile; a distributed server is shut
+    down at the end, which ends the followers' replay."""
+    import torch
     stop = {"flag": False}
 
     def sigint(_sig, _frm):   # main.cpp:52-56 sets exit_request
@@ -180,6 +243,16 @@ def main(argv=None) -> int:
               f"slowdown={sim / max(time.perf_counter() - wall0, 1e-9):.2f}x "
               f"paused={srv.paused}", file=sys.stderr, flush=True)
 
+    profiler = None
+    if args.profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if srv.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        # the physics loop's thread is the one to see
+        profiler = torch.profiler.profile(
+            activities=activities,
+            experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))
+        profiler.start()
     if args.watch_port >= 0:
         res = srv.start_watch(port=args.watch_port, host=args.watch_host)
         print("live view: " + (f"http://{args.watch_host}:{res.status_message}/"
@@ -197,6 +270,14 @@ def main(argv=None) -> int:
     if srv._watch is not None:
         srv.stop_watch()
     report()
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace.json")
+        profiler.export_chrome_trace(trace)
+        print(f"profile: {trace}", file=sys.stderr, flush=True)
+    if srv._multi:
+        srv.shutdown()      # originated: ends the followers' replay
     if srv.physics_error is not None:
         print(f"FATAL: physics loop died: {srv.physics_error!r}", file=sys.stderr)
         return 1

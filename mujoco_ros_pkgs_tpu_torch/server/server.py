@@ -59,8 +59,26 @@ Cameras and the viewer's deliverables without a window:
   control page with picking and drag perturbation; `start_watch`,
   `stop_watch`) and `save_xml` (core/mjcf_writer.py).
 
-Not ported yet: `save_mjb` (libmujoco's compiler), the distributed plane
-and `serve_follower`, the native state codec.
+The distributed plane (`distributed=True`; parallel/multihost.py): one
+server process per rank over torch.distributed, the batch of `nenv` envs
+split by rank, each rank stepping its rows on its own device (`cuda:{rank %
+count}`) through the same kernels. `self.nenv` is the global count and env
+ids index the global batch; `self.d` and `self.pstates` hold the rank's
+rows. Process 0 originates every service that reads or writes the batch
+(`_originate`: the service's name and arguments broadcast before it runs)
+and the steps themselves in units of `_run_chunk`; every other rank runs
+`serve_follower`, replaying each op on its rows, so all ranks hold one
+global state. A read of one env is answered by the rank that holds it
+(`multihost.from_owner`), of the batch by all_gather. The noise draws are
+the global batch's, cut to the rank's rows (utils/rng.py), so that they do
+not depend on the rank count. In a distributed run a chunk is not cut by a
+waiting service or a pause (a follower replays whole units; a live
+stream's next frame cuts it before it is originated),
+the paused loop runs no forward pass (as the JAX server), and checkpoints
+and the watch are refused. `mesh_hosts` splits a single process's batch
+into that many host rows, each stepped on its own as a rank would.
+
+Not ported yet: `save_mjb` (libmujoco's compiler).
 """
 
 from __future__ import annotations
@@ -91,9 +109,11 @@ from mujoco_ros_pkgs_tpu_torch.plugins.base import MujocoPlugin, PluginRegistry
 from mujoco_ros_pkgs_tpu_torch.plugins.mocap import MocapPlugin
 from mujoco_ros_pkgs_tpu_torch.plugins.sensors import SensorsPlugin
 from mujoco_ros_pkgs_tpu_torch.ops import smooth
+from mujoco_ros_pkgs_tpu_torch.parallel import mesh as mesh_mod
+from mujoco_ros_pkgs_tpu_torch.parallel import multihost
 from mujoco_ros_pkgs_tpu_torch.render import camera as rcam
 from mujoco_ros_pkgs_tpu_torch.render.offscreen import OffscreenRenderManager
-from mujoco_ros_pkgs_tpu_torch.utils import png
+from mujoco_ros_pkgs_tpu_torch.utils import png, rng
 from mujoco_ros_pkgs_tpu_torch.utils.log import get_logger
 
 # operational status (get_loading_request_state, callbacks.cpp:72-87)
@@ -102,6 +122,7 @@ STATUS_LOADING = 1
 
 CHUNK = 64          # substeps of `step` and of the unbound physics loop per chunk
 ACTION_CHUNK = 16   # substeps of the Step action per feedback
+HEARTBEAT_S = 1.0   # a paused distributed loop originates a no-op this often
 # geom types a geom may be set to: the primitives (a mesh or a height field
 # needs its asset)
 SETTABLE_GEOM_TYPES = (GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
@@ -130,19 +151,22 @@ class _ServerLock:
         self._is_owned = self._lock._is_owned
         self._count = threading.Lock()
         self._waiting = 0
+        self.depth = 0      # the owner's nesting (read and written by the owner)
 
     def acquire(self):
-        if self._lock.acquire(blocking=False):
-            return True
-        with self._count:
-            self._waiting += 1
-        try:
-            return self._lock.acquire()
-        finally:
+        if not self._lock.acquire(blocking=False):
             with self._count:
-                self._waiting -= 1
+                self._waiting += 1
+            try:
+                self._lock.acquire()
+            finally:
+                with self._count:
+                    self._waiting -= 1
+        self.depth += 1
+        return True
 
     def release(self):
+        self.depth -= 1
         self._lock.release()
 
     __enter__ = acquire
@@ -189,6 +213,13 @@ class MujocoServer:
         {stream_type, frequency, width, height, use_segid, env_ids,
         png_dir}} (render/offscreen.py; the reference's
         cam_config/<name>/...).
+      distributed: split the batch over the ranks of the process group
+        (parallel/multihost.initialize, from the MRT_* variables where the
+        group is not joined yet): this process steps its rows on its rank's
+        device; process 0 originates, the others call `serve_follower`.
+      mesh_hosts: in one process, the batch in this many host rows, each
+        stepped on its own (distributed only; a multi-process run has a
+        row a rank).
     """
 
     # attributes whose writes need the lock while the physics thread runs
@@ -201,13 +232,30 @@ class MujocoServer:
                  initial_joint_velocities: Optional[dict] = None,
                  plugins: Sequence[MujocoPlugin] = (), ctrl_noise_std: float = 0.0,
                  ctrl_noise_rate: float = 0.0, seed: int = 0, pair_topk: int = 0,
-                 con_topk: int = 0, cam_config: Optional[dict] = None):
+                 con_topk: int = 0, cam_config: Optional[dict] = None,
+                 distributed: bool = False, mesh_hosts: Optional[int] = None):
         if eval_mode and not admin_hash:
             # mujoco_env.cpp:92-105: eval mode requires an admin hash
             raise AdminHashError("eval mode requires an admin hash")
         self.nenv = int(nenv)
         if self.nenv < 1:
             raise ValueError(f"nenv must be >= 1, got {nenv}")
+        self._dist = bool(distributed)
+        self._following = False
+        self.mesh = None
+        self._rows = (0, self.nenv)
+        if self._dist:
+            multihost.initialize()
+            device = multihost.rank_device(device)
+            self.mesh = multihost.make_host_env_mesh(
+                n_hosts=mesh_hosts, device=device,
+                devices=[device] * (mesh_hosts or 1) if multihost.process_count() == 1
+                else None)
+            if self.nenv % self.mesh.size:
+                raise ValueError(f"nenv={self.nenv} not divisible by the mesh's "
+                                 f"{self.mesh.size} shards")
+            self._rows = multihost.local_rows(self.nenv)
+        self._nlocal = self._rows[1] - self._rows[0]
         self.device = torch.device(device)
         self.dtype = dtype
         if self.device.type == "cuda" and dtype != torch.float32:
@@ -240,8 +288,12 @@ class MujocoServer:
         self._watch = None
         self._watch_meta = None
         self._seed = int(seed)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(self._seed)
+        if self._dist:
+            self._generator = multihost.env_rng(self._seed, self.nenv, *self._rows,
+                                                device=self.device)
+        else:
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(self._seed)
         self._lock = _ServerLock()
         self._log = get_logger("server")
         self._status = STATUS_LOADING
@@ -283,17 +335,24 @@ class MujocoServer:
         self._m64, self.m, self._plan = m64, m, plan
         self._dt = float(m64.opt.timestep)
         self._model_source = source
-        self.d = fwd.make_data(m, self.nenv)
+        self.d = self._make_batch(m)
         self._apply_initial_joint_states()
         self.registry = PluginRegistry()
         for p in self._plugins:
             self.registry.register(p, m, self.d)
-        self.pstates = self.registry.init_states(m, self.nenv)
+        self.pstates = self.registry.init_states(m, self._nlocal)
         self._hooks = (self.registry.control_hook(), self.registry.passive_hook(),
                        self.registry.last_stage_hook())
         # the camera streams, and each camera's optical frame: z forward, x
         # right, y down (REP-103), as offscreen_camera.cpp:95-120 registers it
         self.render_manager = OffscreenRenderManager(m, self._cam_config) if m.ncam else None
+        if self.render_manager is not None and self._dist:
+            # process 0 renders its own rows
+            far = [e for st in self.render_manager.streams.values() for e in st.env_ids
+                   if e >= self._nlocal]
+            if far:
+                raise ValueError(f"camera streams of a distributed server render process "
+                                 f"0's envs [0, {self._nlocal}), not {far}")
         for name in m.cam_names:
             self.register_static_transform(f"{name}_link", f"{name}_optical_frame",
                                            quat=(0.5, -0.5, 0.5, -0.5))
@@ -326,6 +385,84 @@ class MujocoServer:
                 arr[:, adr_of[j]:adr_of[j] + len(v)] = torch.as_tensor(v, dtype=arr.dtype)
             self.d = self.d.replace(**{field: arr})
 
+    # ------------------------------------------------------------------
+    # the rank's rows (no collective in one process)
+    # ------------------------------------------------------------------
+
+    @property
+    def _multi(self) -> bool:
+        """A distributed server whose batch is split over several processes."""
+        return self._dist and multihost.process_count() > 1
+
+    def _make_batch(self, m: Model):
+        """A fresh batch of this process's rows (make_data)."""
+        return fwd.make_data(m, self._nlocal)
+
+    def _np(self, t: torch.Tensor) -> np.ndarray:
+        """The global batch of a batched tensor as numpy (all_gather of the
+        ranks' rows)."""
+        return multihost.gather_to_host(t) if self._multi else t.detach().cpu().numpy()
+
+    def _at(self, env_id: int, fn):
+        """fn(env_id's index in its rank's rows) evaluated on the rank that
+        holds the env and handed to every rank (CPU values only)."""
+        if self._multi:
+            return multihost.from_owner(fn, env_id, self.nenv)
+        return fn(env_id)
+
+    def _any(self, flag) -> bool:
+        """True where the flag holds on any rank."""
+        return multihost.any_(bool(flag)) if self._multi else bool(flag)
+
+    # ------------------------------------------------------------------
+    # the distributed control plane: process 0 originates
+    # ------------------------------------------------------------------
+
+    def _originate(self, name: str, *args, **kw):
+        """On process 0 of a distributed server: broadcast (service, args) so
+        that every follower replays the same op (serve_follower) where this
+        one runs it; reads of the batch are originated too, since their
+        gathers are collectives every rank joins. Call with the lock held,
+        so that the broadcast order is the order the ops run in; a service
+        called from inside another (the lock held twice) is part of that
+        one's op and is not broadcast. A no-op in one process and while
+        following."""
+        if not self._multi or self._following or self._lock.depth > 1:
+            return
+        if multihost.process_index() != 0:
+            raise RuntimeError(f"{name}: a distributed server's services originate on "
+                               f"process 0, not {multihost.process_index()}")
+        multihost.broadcast_obj((name, args, kw))
+
+    def serve_follower(self):
+        """A follower's loop (processes other than 0 of a distributed
+        server): run every op process 0 originates, on this process's rows,
+        until shutdown. An op that raises here raised on process 0 too (the
+        ops are deterministic) and is logged; a failed collective (a rank
+        gone or past the group's timeout) ends the loop by raising. Process
+        0 must originate something (a chunk, a service, the paused physics
+        loop's heartbeat) within the group's timeout."""
+        if not self._multi or multihost.process_index() == 0:
+            raise RuntimeError("serve_follower runs on a distributed server's processes "
+                               "other than 0")
+        self._following = True
+        try:
+            while not self._exit_request:
+                name, args, kw = multihost.broadcast_obj(None)
+                try:
+                    getattr(self, name)(*args, **kw)
+                except torch.distributed.DistError:
+                    raise
+                except Exception:   # noqa: BLE001 - process 0 raised it too
+                    self._log.error("replayed %s raised", name, exc_info=True)
+        finally:
+            self._following = False
+
+    def _heartbeat(self):
+        """An originated no-op: a paused loop's sign of life to the followers."""
+        with self._lock:
+            self._originate("_heartbeat")
+
     def reload(self, model: str = "", admin_hash: str = "") -> ServiceResult:
         """Reload the current or a new model, with the server's pair_topk and
         con_topk; on failure the old model keeps serving
@@ -335,6 +472,7 @@ class MujocoServer:
             return err
         source = model or self._model_source
         with self._lock:
+            self._originate("reload", model, admin_hash)
             self._status = STATUS_LOADING
             try:
                 compiled = self._compile(source)
@@ -359,6 +497,7 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
+            self._originate("load_initial_joint_states", positions, velocities, admin_hash)
             try:
                 for name in (*positions, *velocities):
                     self.m.joint(name)
@@ -386,20 +525,25 @@ class MujocoServer:
         step with the plugins' control and passive hooks inside, their last
         stage after it. With a wrench applied, a model on the fused route
         steps on the general route (the fused kernel reads no applied
-        force)."""
+        force). With mesh_hosts, the step runs on each host row's share of
+        the batch on its own (multihost.shardmap_hooked_step)."""
         m, plan, d, ps = self.m, self._plan, self.d, self.pstates
         control, passive, last = self._hooks
         if self.ctrl_noise_std > 0 and m.nu:
             rate, scale = self.ctrl_noise_coefficients()
-            noise = torch.randn(d.ctrl.shape, generator=self._generator,
-                                dtype=d.ctrl.dtype, device=d.ctrl.device)
+            noise = rng.randn(d.ctrl.shape, self._generator, d.ctrl.dtype, d.ctrl.device)
             d = d.replace(ctrl=rate * d.ctrl + scale * noise)
         if self._applied and isinstance(plan, step_tpu.Plan):
             plan = fwd.GeneralPlan()
-        if control or passive:
-            d, ps = fwd.step(m, d, plan, control, passive, hstate=ps)
+
+        def one_batch(d, ps):
+            if control or passive:
+                return fwd.step(m, d, plan, control, passive, hstate=ps)
+            return fwd.step(m, d, plan), ps
+        if self.mesh is not None and len(self.mesh.local_devices) > 1:
+            d, ps = multihost.shardmap_hooked_step(self.mesh, 1, one_batch)(d, ps)
         else:
-            d = fwd.step(m, d, plan)
+            d, ps = one_batch(d, ps)
         if last:
             d, ps = last(m, d, ps, self._generator)
         # the caller holds the lock: no need for __setattr__'s check
@@ -408,7 +552,12 @@ class MujocoServer:
     def _run(self, nsteps: int, until: Optional[Callable[[], bool]] = None) -> int:
         """Up to nsteps steps of the batch under the lock, handed to a
         waiting service between two steps (it waits for one step at most),
-        stopping early once until() holds; returns the steps taken."""
+        stopping early once until() holds; returns the steps taken. A
+        distributed server runs all nsteps as one originated unit
+        (_run_chunk): a follower replays whole units, so nothing may come
+        between two of their steps."""
+        if self._dist:
+            return self._run_chunk(nsteps)
         lock, k = self._lock, 0
         with lock:
             while k < nsteps and not (until is not None and until()):
@@ -419,6 +568,15 @@ class MujocoServer:
                     lock.yield_to_waiters()
                     lock.acquire()
         return k
+
+    def _run_chunk(self, nsteps: int) -> int:
+        """nsteps steps of the batch under the lock, originated: the unit of
+        a distributed server's stepping, which every rank runs whole."""
+        with self._lock:
+            self._originate("_run_chunk", nsteps)
+            for _ in range(nsteps):
+                self._substep()
+        return nsteps
 
     def step(self, nsteps: int = 1) -> StepResult:
         """Step the paused batch nsteps times (callbacks.cpp:94-129), in
@@ -555,16 +713,22 @@ class MujocoServer:
         stops at num_steps."""
         cpu_start = _time.perf_counter()
         sim_start = self.sim_time
+        beat = _time.perf_counter()
         while not self._exit_request and self.num_steps_until_exit != 0:
             if self.paused or self._speed_changed:
                 self._speed_changed = False
                 cpu_start = _time.perf_counter()
                 sim_start = self.sim_time
                 if self.paused:
-                    if self._needs_forward:
+                    if self._needs_forward and not self._dist:
                         with self._lock:
                             self._forward_batch()
                             self._needs_forward = False
+                    if self._multi and _time.perf_counter() - beat > HEARTBEAT_S:
+                        # the followers wait for the next op within the
+                        # group's timeout
+                        beat = _time.perf_counter()
+                        self._heartbeat()
                     _time.sleep(0.001)
                     continue
             chunk = CHUNK if self.realtime_factor < 0 else 1
@@ -610,6 +774,7 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
+            self._originate("set_pause", paused, admin_hash)
             self.paused = bool(paused)
         return ServiceResult(True, "")
 
@@ -620,12 +785,14 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
+            self._originate("set_speed", factor, admin_hash)
             self.realtime_factor = float(factor) if factor > 0 else -1.0
             self._speed_changed = True
         return ServiceResult(True, "")
 
     def shutdown(self) -> ServiceResult:
         with self._lock:
+            self._originate("shutdown")
             self._exit_request = True
         self.stop_physics_loop()
         return ServiceResult(True, "")
@@ -640,11 +807,12 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
-            self.d = fwd.make_data(self.m, self.nenv)
+            self._originate("reset", admin_hash)
+            self.d = self._make_batch(self.m)
             self._stale_kinematics = True
             self._apply_initial_joint_states()
             self.registry.reset_all(self.m, self.d)
-            self.pstates = self.registry.init_states(self.m, self.nenv)
+            self.pstates = self.registry.init_states(self.m, self._nlocal)
             self._generator.manual_seed(self._seed)
             self._applied = False
         return ServiceResult(True, "")
@@ -655,6 +823,7 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
+            self._originate("set_float", name, value, admin_hash)
             self._float_params[name] = float(value)
         return ServiceResult(True, "")
 
@@ -666,10 +835,14 @@ class MujocoServer:
     # ------------------------------------------------------------------
 
     def _envs(self, env_id: Optional[int]):
-        """The batch index of env_id (None: every env), or None if out of range."""
+        """The index of env_id in this process's rows (None: every env; an
+        empty slice where another rank holds it), or None if out of range."""
         if env_id is None:
             return slice(None)
-        return env_id if 0 <= env_id < self.nenv else None
+        if not 0 <= env_id < self.nenv:
+            return None
+        lo, hi = self._rows
+        return env_id - lo if lo <= env_id < hi else slice(0, 0)
 
     def set_ctrl(self, values, env_id: Optional[int] = None,
                  admin_hash: str = "") -> ServiceResult:
@@ -686,6 +859,7 @@ class MujocoServer:
         if envs is None:
             return ServiceResult(False, f"bad env_id {env_id}")
         with self._lock:
+            self._originate("set_ctrl", vals.tolist(), env_id, admin_hash)
             ctrl = self.d.ctrl
             ctrl[envs] = torch.as_tensor(vals, dtype=ctrl.dtype).to(ctrl.device)
         return ServiceResult(True, "")
@@ -704,6 +878,7 @@ class MujocoServer:
         if envs is None:
             return ServiceResult(False, f"bad env_id {env_id}")
         with self._lock:
+            self._originate("set_qpos", vals.tolist(), env_id, zero_qvel, admin_hash)
             qpos, qvel = self.d.qpos.clone(), self.d.qvel.clone()
             qpos[envs] = torch.as_tensor(vals, dtype=qpos.dtype).to(qpos.device)
             if zero_qvel:
@@ -727,11 +902,12 @@ class MujocoServer:
         if not 0 <= key < m.nkey:
             return ServiceResult(False, f"keyframe index {key} out of range")
         with self._lock:
+            self._originate("load_keyframe", key, admin_hash)
             d = self.d
 
             def bcast(row, *shape):
                 t = row.reshape(shape).to(d.qpos.device, d.qpos.dtype)
-                return t.expand((self.nenv,) + shape).clone()
+                return t.expand((self._nlocal,) + shape).clone()
             upd = dict(time=bcast(m.key_time[key]), qpos=bcast(m.key_qpos[key], m.nq),
                        qvel=bcast(m.key_qvel[key], m.nv))
             if m.na:
@@ -758,29 +934,38 @@ class MujocoServer:
         if self._envs(env_id) is None:
             return ServiceResult(False, f"bad env_id {env_id}")
         with self._lock:
-            d, upd = self.d, {}
+            self._originate("save_keyframe", key, env_id, admin_hash)
+            d, upd = self._env_slice(env_id), {}
             fields = [("time", d.time), ("qpos", d.qpos), ("qvel", d.qvel)]
             fields += [("act", d.act)] if m.na else []
             fields += [("ctrl", d.ctrl)] if m.nu else []
             fields += [("mpos", d.mocap_pos), ("mquat", d.mocap_quat)] if m.nmocap else []
             for name, batched in fields:
                 arr = getattr(m, "key_" + name).clone()
-                arr[key] = batched[env_id].reshape(arr[key].shape).to("cpu", arr.dtype)
+                arr[key] = batched[0].reshape(arr[key].shape).to("cpu", arr.dtype)
                 upd["key_" + name] = arr
             res = self._edit_model(dataclasses.replace(m, **upd))
         return res or ServiceResult(True, "")
 
     def _env_slice(self, env_id: int):
         """The batch's state of one env, as a batch of one (every tensor of
-        Data and its contact set, sliced). Call under the lock."""
-        e = slice(env_id, env_id + 1)
+        Data and its contact set, sliced). Call under the lock; on a
+        distributed server, from an originated service: the env comes from
+        the rank that holds it."""
 
-        def cut(obj):
-            return obj.replace(**{f.name: getattr(obj, f.name)[e]
-                                  for f in dataclasses.fields(obj)
-                                  if torch.is_tensor(getattr(obj, f.name))})
-        d = cut(self.d)
-        return d.replace(contact=cut(d.contact))
+        def cut(i):
+            e = slice(i, i + 1)
+
+            def sliced(obj):
+                return obj.replace(**{f.name: getattr(obj, f.name)[e]
+                                      for f in dataclasses.fields(obj)
+                                      if torch.is_tensor(getattr(obj, f.name))})
+            d = sliced(self.d)
+            return d.replace(contact=sliced(d.contact))
+        if not self._multi:
+            return cut(env_id)
+        d1 = self._at(env_id, lambda i: mesh_mod.concat_batch([cut(i)], "cpu"))
+        return mesh_mod.concat_batch([d1], self.device)
 
     def _derived(self, d):
         """d with the kinematics and body velocities the cameras and the
@@ -800,7 +985,7 @@ class MujocoServer:
         if not 0 <= env_id < self.nenv:
             raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
         with self._lock:
-            if fresh and self._needs_forward:
+            if fresh and self._needs_forward and not self._dist:
                 self._forward_batch()
                 self._needs_forward = False
             return self.m, self._derived(self._env_slice(env_id))
@@ -818,8 +1003,9 @@ class MujocoServer:
         if not 0 <= env_id < self.nenv:
             raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
         with self._lock:
+            self._originate("get_solver_stats", env_id)
             m, d1 = self.m, self._env_slice(env_id)
-            sim_time = float(self.d.time[env_id])
+            sim_time = float(d1.time[0])
         dist = d1.contact.dist[0].double().cpu().numpy()
         incm = d1.contact.includemargin[0].double().cpu().numpy()
         fc = d1.efc_force_contact[0].double().cpu().numpy()
@@ -843,11 +1029,11 @@ class MujocoServer:
         return stats
 
     def get_batch_state(self) -> dict:
-        """numpy snapshot of the batch (qpos, qvel, time)."""
+        """numpy snapshot of the (global) batch: qpos, qvel, time."""
         with self._lock:
-            return dict(qpos=self.d.qpos.cpu().numpy(),
-                        qvel=self.d.qvel.cpu().numpy(),
-                        time=self.d.time.cpu().numpy())
+            self._originate("get_batch_state")
+            return dict(qpos=self._np(self.d.qpos), qvel=self._np(self.d.qvel),
+                        time=self._np(self.d.time))
 
     def _free_jnt_of_body(self, b: int) -> Optional[int]:
         if self.m.body_jntnum[b] == 1:
@@ -869,8 +1055,9 @@ class MujocoServer:
         if j is not None:
             qadr, vadr = m.jnt_qposadr[j], m.jnt_dofadr[j]
             with self._lock:
-                qpos = self.d.qpos[env_id].double().cpu()
-                qvel = self.d.qvel[env_id].double().cpu()
+                self._originate("get_body_state", name, env_id)
+                qpos, qvel = self._at(env_id, lambda i: (self.d.qpos[i].double().cpu(),
+                                                         self.d.qvel[i].double().cpu()))
             st.pose = Pose(qpos[qadr:qadr + 3].numpy().copy(),
                            qpos[qadr + 3:qadr + 7].numpy().copy())
             # free-joint angular velocity is body-local; report it in world
@@ -898,6 +1085,7 @@ class MujocoServer:
         if envs is None:
             return ServiceResult(False, f"bad env_id {state.env_id}")
         with self._lock:
+            self._originate("set_body_state", state, set_pose, set_twist, set_mass, admin_hash)
             m = self.m
             if set_pose or set_twist:
                 j = self._free_jnt_of_body(b)
@@ -924,7 +1112,7 @@ class MujocoServer:
                     qpos[envs, qadr + 3:qadr + 7] = quat.to(qpos)
                 if set_twist:
                     # world angular velocity -> the free joint's body-local dofs
-                    q = qpos[env0, qadr + 3:qadr + 7].double().cpu()
+                    q = self._at(env0, lambda i: qpos[i, qadr + 3:qadr + 7].double().cpu())
                     w = torch.as_tensor(np.asarray(state.twist.angular, np.float64))
                     w_local = mmath.rot_vec_quat(w, mmath.quat_conj(q))
                     lin = torch.as_tensor(np.asarray(state.twist.linear, np.float64))
@@ -958,10 +1146,13 @@ class MujocoServer:
             return ServiceResult(False, f"bad env_id {env_id}")
         wrench = np.concatenate([np.asarray(force, np.float64), np.asarray(torque, np.float64)])
         with self._lock:
+            self._originate("apply_body_wrench", name, tuple(force), tuple(torque), env_id,
+                            admin_hash)
             xf = self.d.xfrc_applied.clone()
             xf[envs, b] = torch.as_tensor(wrench, dtype=xf.dtype).to(xf.device)
             self.d = self.d.replace(xfrc_applied=xf)
-            self._applied = bool((xf != 0).any() or (self.d.qfrc_applied != 0).any())
+            # every rank takes the route one process would
+            self._applied = self._any((xf != 0).any() or (self.d.qfrc_applied != 0).any())
         return ServiceResult(True, "")
 
     def clear_body_wrenches(self, admin_hash: str = "") -> ServiceResult:
@@ -969,8 +1160,9 @@ class MujocoServer:
         if err:
             return err
         with self._lock:
+            self._originate("clear_body_wrenches", admin_hash)
             self.d = self.d.replace(xfrc_applied=torch.zeros_like(self.d.xfrc_applied))
-            self._applied = bool((self.d.qfrc_applied != 0).any())
+            self._applied = self._any((self.d.qfrc_applied != 0).any())
         return ServiceResult(True, "")
 
     # ------------------------------------------------------------------
@@ -1014,7 +1206,11 @@ class MujocoServer:
         """The world pose (pos, wxyz quat; float64 numpy) of every camera's
         `<cam>_link` frame in env env_id (the frames the reference
         broadcasts, offscreen_camera.cpp:95-120)."""
-        m, d1 = self._view(env_id)
+        if not 0 <= env_id < self.nenv:
+            raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
+        with self._lock:
+            self._originate("camera_frames", env_id)
+            m, d1 = self._view(env_id)
         out = {}
         for c, name in enumerate(m.cam_names):
             pos, rot = rcam.cam_pose(m, d1, c)
@@ -1039,11 +1235,11 @@ class MujocoServer:
             return ServiceResult(False, f"{type(exc).__name__}: {exc}")
         d = self.d
         if rebuild_contact:
-            d = d.replace(contact=narrowphase.empty_contact(m, self.nenv, d.qpos.dtype,
+            d = d.replace(contact=narrowphase.empty_contact(m, self._nlocal, d.qpos.dtype,
                                                             d.qpos.device))
         nefc = max(efc.row_layout(m)["nrow"], 1)
         if rebuild_rows or d.efc_force_contact.shape[1] != nefc:
-            d = d.replace(efc_force_contact=d.qpos.new_zeros(self.nenv, nefc))
+            d = d.replace(efc_force_contact=d.qpos.new_zeros(self._nlocal, nefc))
         self._m64, self.m, self._plan, self.d = m64, m, plan, d
         self._dt = float(m64.opt.timestep)
         self._needs_forward = True
@@ -1058,6 +1254,7 @@ class MujocoServer:
             return err
         g = torch.as_tensor(np.asarray(gravity, dtype=np.float64).reshape(3))
         with self._lock:
+            self._originate("set_gravity", g.tolist(), admin_hash)
             m64 = self._m64
             res = self._edit_model(dataclasses.replace(
                 m64, opt=dataclasses.replace(m64.opt, gravity=g)))
@@ -1087,6 +1284,8 @@ class MujocoServer:
         except ValueError:
             return ServiceResult(False, f"geom '{props.name}' not found")
         with self._lock:
+            self._originate("set_geom_properties", props, set_type, set_mass, set_friction,
+                            set_size, admin_hash)
             m = self._m64
             upd = {}
             if set_friction:
@@ -1176,6 +1375,7 @@ class MujocoServer:
         if unknown:
             return ServiceResult(False, f"unknown option fields: {unknown}")
         with self._lock:
+            self._originate("set_physics_properties", dict(props), admin_hash)
             o = self._m64.opt
             upd = {}
             try:
@@ -1208,12 +1408,15 @@ class MujocoServer:
                                      ) -> EqualityConstraintParameters:
         """GetEqualityConstraintParameters: the model's parameters of the
         named equality and its activity in env env_id."""
+        if not 0 <= env_id < self.nenv:
+            raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
         m = self._m64
         e = m.eq_names.index(name)
         data, solref, solimp = (t[e].numpy().copy() for t in (m.eq_data, m.eq_solref,
                                                                m.eq_solimp))
         with self._lock:
-            active = bool(self.d.eq_active[env_id, e])
+            self._originate("get_eq_constraint_parameters", name, env_id)
+            active = self._at(env_id, lambda i: bool(self.d.eq_active[i, e]))
         p = EqualityConstraintParameters(
             name=name, type=m.eq_type[e], active=active,
             solverParameters=SolverParameters(
@@ -1251,6 +1454,7 @@ class MujocoServer:
             return ServiceResult(False, f"bad env_id {p.env_id}")
         e = m.eq_names.index(p.name)
         with self._lock:
+            self._originate("set_eq_constraint_parameters", p, admin_hash)
             data, solref, solimp = (t.numpy().copy() for t in (m.eq_data, m.eq_solref,
                                                                 m.eq_solimp))
             sp = p.solverParameters
@@ -1297,9 +1501,15 @@ class MujocoServer:
         i, p = self._plugin_of(MocapPlugin)
         if p is None:
             return ServiceResult(False, "no mocap plugin loaded")
-        if self._envs(state.env_id) is None:
+        envs = self._envs(state.env_id)
+        if envs is None:
             return ServiceResult(False, f"bad env_id {state.env_id}")
         with self._lock:
+            self._originate("set_mocap_state", state, admin_hash)
+            if envs == slice(0, 0):     # another rank holds the env
+                return p.validate(state)
+            if state.env_id is not None:
+                state = dataclasses.replace(state, env_id=envs)
             states = list(self.pstates)
             states[i], res = p.set_state(states[i], state)
             self.pstates = tuple(states)
@@ -1316,10 +1526,11 @@ class MujocoServer:
         if p is None:
             return ServiceResult(False, "no sensors plugin loaded")
         with self._lock:
+            self._originate("register_noise_models", models, admin_hash)
             rejected = p.register_noise_models(models)
             ps = dict(self.pstates[i])
             for key, arr in zip(("mean", "std", "enabled"), p.noise_arrays(self.m)):
-                ps[key] = arr.expand(self.nenv, -1).clone()
+                ps[key] = arr.expand(self._nlocal, -1).clone()
             states = list(self.pstates)
             states[i] = ps
             self.pstates = tuple(states)
@@ -1334,11 +1545,13 @@ class MujocoServer:
             return None, None
         if not 0 <= env_id < self.nenv:
             raise IndexError(f"env_id {env_id} out of range [0, {self.nenv})")
+        withheld = p.eval_mode or self.eval_mode
         with self._lock:
+            self._originate("sensor_outputs", env_id)
             ps = self.pstates[i]
-            noisy = ps["noisy"][env_id].cpu().numpy()
-            gt = None if (p.eval_mode or self.eval_mode) else ps["gt"][env_id].cpu().numpy()
-        return noisy, gt
+            return self._at(env_id, lambda k: (
+                ps["noisy"][k].cpu().numpy(),
+                None if withheld else ps["gt"][k].cpu().numpy()))
 
     # ------------------------------------------------------------------
     # the viewer's deliverables without a window (viewer.h:86-324):
@@ -1365,7 +1578,10 @@ class MujocoServer:
             return err
         if not 0 <= env_id < self.nenv:
             return ServiceResult(False, f"bad env_id {env_id}")
-        m, d1 = self._view(env_id)
+        with self._lock:
+            # a follower renders too, and writes nothing
+            self._originate("screenshot", cam_name, "", env_id, width, height)
+            m, d1 = self._view(env_id)
         rgb, _, _ = rcam.render(m, d1, cid, width, height)
         if path:
             try:
@@ -1383,6 +1599,9 @@ class MujocoServer:
         http://host:port/. Binds the loopback address unless told otherwise
         (the viewer's window is local)."""
         from mujoco_ros_pkgs_tpu_torch.server.watch import WatchServer
+        if self._multi:
+            return ServiceResult(False, "the watch is not served while the batch is split "
+                                        "over ranks")
         if self._watch is not None:
             return ServiceResult(False, f"watch already at :{self._watch.port}")
         cid, err = self._camera(cam_name)

@@ -136,7 +136,11 @@ def test_port_imports_no_jax():
             "mujoco_ros_pkgs_tpu_torch.render.camera, "
             "mujoco_ros_pkgs_tpu_torch.render.offscreen, "
             "mujoco_ros_pkgs_tpu_torch.server.watch, "
-            "mujoco_ros_pkgs_tpu_torch.core.mjcf_writer; "
+            "mujoco_ros_pkgs_tpu_torch.core.mjcf_writer, "
+            "mujoco_ros_pkgs_tpu_torch.parallel.mesh, "
+            "mujoco_ros_pkgs_tpu_torch.parallel.multihost, "
+            "mujoco_ros_pkgs_tpu_torch.native, "
+            "mujoco_ros_pkgs_tpu_torch.utils.rng; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mujoco_ros_pkgs_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

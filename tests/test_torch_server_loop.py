@@ -281,7 +281,8 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_checkpoint_mismatch_and_native_blob(tmp_path):
     """Another model or nenv is refused with ValueError before anything
-    changes, and so is a blob of the native codec."""
+    changes, and so is a blob of neither the native codec's format nor the
+    numpy one's."""
     srv = MujocoServer(SLIDER, nenv=2, device="cpu")
     path = str(tmp_path / "ck")
     checkpoint.save(srv, path)

@@ -226,6 +226,12 @@ SENSORS_NOISE = (SensorNoiseModel("acc", [0.0] * 3, [0.01] * 3, 0x7),
                  SensorNoiseModel("range", [0.0], [0.002], 0x1))
 # SENSORS' sensors of the position and velocity stages
 SENSORS_POS_VEL = ("vel", "gyr", "mag", "range", "ajp", "ajv", "probe_pos", "probe_quat")
+# SENSORS with a motor on the arm's hinge: config 3's scene with a ctrl for
+# the server's control noise to act on (SENSORS itself has no actuator)
+SENSORS_MOTOR = worlds.SENSORS.replace("  <sensor>", """  <actuator>
+    <motor name="am" joint="aj" gear="2" ctrllimited="true" ctrlrange="-1 1"/>
+  </actuator>
+  <sensor>""")
 
 
 def sensors_states(nenv: int, seed: int):
